@@ -36,3 +36,10 @@ def tmp_project(tmp_path):
     from wise_tpu.project import WiseProject
 
     return WiseProject(tmp_path / "proj", create_project=True)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (skips without a CUDA device)",
+    )

@@ -1,0 +1,115 @@
+"""CLIP configurations, without JAX.
+
+The fields and registry entries of wise_tpu/models/clip/model.py
+(``CLIPConfig``, ``CLIP_CONFIGS``) with ``dtype`` as a name ("float32" or
+"bfloat16") in place of a jnp dtype. The port builds the OpenCLIP towers
+(class-token vision, causal argmax-pooled text); the other families of the
+reference registry wait for the port of their towers (ROADMAP Queue A 8).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPConfig:
+    embed_dim: int = 512
+    # vision
+    image_size: int = 224
+    patch_size: int = 32
+    vision_width: int = 768
+    vision_layers: int = 12
+    vision_heads: int = 12
+    # text
+    context_length: int = 77
+    vocab_size: int = 49408
+    text_width: int = 512
+    text_heads: int = 8
+    text_layers: int = 12
+    quick_gelu: bool = False
+    #: activation override: "" (use quick_gelu), "gelu", "quick_gelu",
+    #: "gelu_tanh"
+    act: str = ""
+    text_proj_bias: bool = False
+    text_tower: str = "clip"
+    hf_proj_type: str = "linear"
+    vision_pool: str = "cls"
+    text_causal: bool = True
+    text_pool: str = "argmax"
+    remat: bool = False
+    attn_softmax_f32: bool = True
+    #: TPU attention-middle kernel; the port's block kernels cover its use
+    fused_attention: bool = False
+    #: run residual blocks through the CUDA block kernels (ops/block.py)
+    fused_block: bool = False
+    #: the port always embeds patches as patchify + one GEMM
+    patch_embed_matmul: bool = False
+    #: the last layer computes only the pooled row (cls / EOT)
+    pool_last_block: bool = False
+    #: carry the vision residual stream in ``dtype`` instead of f32
+    bf16_stream: bool = False
+    dtype: str = "float32"
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return {"float32": torch.float32, "bfloat16": torch.bfloat16}[
+            self.dtype]
+
+    @property
+    def act_name(self) -> str:
+        if self.act:
+            return self.act
+        return "quick_gelu" if self.quick_gelu else "gelu"
+
+
+CLIP_CONFIGS = {
+    "ViT-B-32": CLIPConfig(),
+    "ViT-B-16": CLIPConfig(patch_size=16),
+    "ViT-L-14": CLIPConfig(
+        embed_dim=768, patch_size=14, vision_width=1024, vision_layers=24,
+        vision_heads=16, text_width=768, text_heads=12, text_layers=12,
+    ),
+    "ViT-H-14": CLIPConfig(
+        embed_dim=1024, patch_size=14, vision_width=1280, vision_layers=32,
+        vision_heads=16, text_width=1024, text_heads=16, text_layers=24,
+    ),
+    "ViT-Test-Tiny": CLIPConfig(
+        embed_dim=32, image_size=32, patch_size=16, vision_width=64,
+        vision_layers=2, vision_heads=4, context_length=16,
+        vocab_size=1024, text_width=32, text_heads=4, text_layers=2,
+    ),
+    "ViT-B-32-quickgelu": CLIPConfig(quick_gelu=True),
+    "ViT-B-16-quickgelu": CLIPConfig(patch_size=16, quick_gelu=True),
+}
+
+
+def get_clip_config(model_name: str) -> CLIPConfig:
+    if model_name in CLIP_CONFIGS:
+        return CLIP_CONFIGS[model_name]
+    raise ValueError(
+        f"unknown CLIP model {model_name}; the port knows "
+        f"{sorted(CLIP_CONFIGS)} (other families: ROADMAP Queue A item 8)"
+    )
+
+
+def production_clip_config(model_name: str) -> CLIPConfig:
+    """The extractor's inference config, read from the same environment
+    variables as wise_tpu's: bf16 activations by default
+    (WISE_CLIP_DTYPE=float32 to override), the block kernels for bf16 towers
+    (WISE_FUSED_BLOCK=0 to disable), the pooled last layer
+    (WISE_POOL_LAST=0) and the f32 vision stream (WISE_BF16_STREAM=1 for
+    bf16)."""
+    cfg = get_clip_config(model_name)
+    dtype = os.environ.get("WISE_CLIP_DTYPE", "bfloat16")
+    bf16 = dtype == "bfloat16"
+    return dataclasses.replace(
+        cfg,
+        dtype="bfloat16" if bf16 else "float32",
+        fused_block=bf16 and os.environ.get("WISE_FUSED_BLOCK", "1") != "0",
+        pool_last_block=os.environ.get("WISE_POOL_LAST", "1") != "0",
+        bf16_stream=os.environ.get("WISE_BF16_STREAM", "0") == "1",
+    )

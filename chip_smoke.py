@@ -1,18 +1,25 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's ViT-B/32 serve path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serve paths once on one NVIDIA GPU: OpenCLIP
+ViT-B/32 (video frames) and CLAP 2023 (audio segments).
 
-    python3 chip_smoke.py                  # env, kernels, slice
+    python3 chip_smoke.py                  # env, kernels, both slices
     python3 chip_smoke.py --phase kernels  # env and kernels only
+    python3 chip_smoke.py --phase profile  # env and the audio breakdown
 
 Phases, one line each; any failure exits non-zero:
 
 1. env: the card's name and power limit (nvidia-smi), torch and CUDA
-   versions, and the kernel build (nvcc, sm_90a) from wise_tpu_torch/csrc.
-2. kernels: each block kernel against its plain PyTorch version on the card,
-   at the serve path's shapes and working dtypes, compared on the block's
+   versions, and the kernel build (nvcc, sm_90a, one process per source)
+   from wise_tpu_torch/csrc.
+2. kernels: each kernel against its plain PyTorch version on the card, at
+   the serve paths' shapes and working dtypes, compared on the op's
    increment over its residual input: max abs error (must be <= 5% of the
    plain increment's max abs), minimum per-token cosine (must be >= 0.999),
-   and ms per call of both. Two planted faults must fail the same check.
+   and ms per call of both. Planted faults must fail the same check. The
+   CLIP block kernels at the vision, CLIP text and CLAP caption shapes; the
+   Swin kernels at HTSAT's four stages at batch 64, with the relative-bias
+   table at std 1 and the planted faults zeroed logits, the shift mask
+   dropped (shifted blocks) and the relative bias dropped.
 3. slice: a WiseProject built from seeded synthetic 224x224 uint8 frames,
    embedded by the port's OpenClipExtractor (ViT-B-32, production config,
    random weights) in batches of 256, written through the feature store and
@@ -20,9 +27,20 @@ Phases, one line each; any failure exits non-zero:
    localhost, and queried with text over HTTP. Checks the responses, that
    every block kernel launched during the run, and the served top-10 ids
    against a plain-PyTorch run of the same queries.
+4. audio: the same for 1,024 seeded synthetic 4 s segments at 48 kHz,
+   embedded by the port's ClapExtractor (microsoft/clap/2023, production
+   config: HTSAT + GPT2 at full width and depth, random weights) in the
+   pipeline's audio batches of 32, searched with ``search_in=audio``. Then
+   one 64-segment batch through the HTSAT path of WISE_FUSED_SWIN_BLOCK=0,
+   which must launch the window-attention kernel at every stage and agree
+   with the block-kernel embeddings (cosine >= 0.999).
 
 The line before the last is the kernels' JSON summary; the last is
 {"ok": true, "device": {...}}. Needs one CUDA card; imports no JAX.
+
+``--phase profile`` runs the env phase, then breaks one 64-segment audio
+batch on the kernel path down on ``[profile]`` lines (see phase_profile);
+it checks nothing and prints no summary.
 """
 
 from __future__ import annotations
@@ -47,13 +65,34 @@ QUERIES = ["a dog running on the beach", "people cooking in a kitchen",
            "a red car at night", "snow on the mountains", "a cat asleep",
            "children playing football", "a city street in the rain",
            "fireworks over a river"]
-KERNEL_SOURCE = "wise_tpu_torch/csrc/block_kernels.cu"
-REPLACES = {
-    "fused_attn_block": "wise_tpu/ops/block.py:466",
-    "fused_mlp_block": "wise_tpu/ops/block.py:916",
-    "fused_attn_block_pooled": "wise_tpu/ops/block.py:634",
-    "fused_attn_block_pooled_dyn": "wise_tpu/ops/block.py:811",
+AUDIO_ID = "microsoft/clap/2023/four-datasets"
+SEGMENTS = 1024  # synthetic 4 s segments at 48 kHz ingested by the audio phase
+AUDIO_QUERIES = ["a dog barking", "rain on a window", "a violin solo",
+                 "people talking in a cafe", "a car engine starting",
+                 "birds singing at dawn", "applause in a hall",
+                 "a door slamming"]
+#: wrapper -> (source, TPU kernel it replaces)
+KERNELS = {
+    "fused_attn_block": ("wise_tpu_torch/csrc/block_kernels.cu",
+                         "wise_tpu/ops/block.py:466"),
+    "fused_mlp_block": ("wise_tpu_torch/csrc/block_kernels.cu",
+                        "wise_tpu/ops/block.py:916"),
+    "fused_attn_block_pooled": ("wise_tpu_torch/csrc/block_kernels.cu",
+                                "wise_tpu/ops/block.py:634"),
+    "fused_attn_block_pooled_dyn": ("wise_tpu_torch/csrc/block_kernels.cu",
+                                    "wise_tpu/ops/block.py:811"),
+    "fused_swin_block": ("wise_tpu_torch/csrc/swin_kernels.cu",
+                         "wise_tpu/ops/swin_block.py:227"),
+    "fused_window_attention": ("wise_tpu_torch/csrc/swin_kernels.cu",
+                               "wise_tpu/ops/swin_attention.py:129"),
 }
+#: HTSAT's window batches at batch 64: (tag, windows N, C, heads, n_win of
+#: the shift mask or None); L = 64 tokens (window 8) throughout
+SWIN_STAGES = [("stage0", 4096, 96, 4, None),
+               ("stage0-shifted", 4096, 96, 4, 64),
+               ("stage1-shifted", 1024, 192, 8, 16),
+               ("stage2-shifted", 256, 384, 16, 4),
+               ("stage3", 64, 768, 32, None)]
 
 
 class PhaseError(RuntimeError):
@@ -131,99 +170,189 @@ def _zero_q(w, d):
     return (wqkv, bqkv, *w[2:])
 
 
-def phase_kernels(torch):
-    """Each kernel against its plain version at the serve path's shapes:
-    vision layers (B=256 bucket, SP=50, D=768, f32 stream), text layers
-    (B=8, SP=77, D=512, bf16 stream, causal). Each comparison is on the
-    block's increment over its residual input (ops.block.
-    increment_agreement), and must reject two planted faults: the kernel
-    with its logits zeroed (for the MLP: its activation dropped), and a
-    block that returns its residual input."""
+def _check_row(torch, results, name, tag, key, x, kernel, plain, base,
+               faults):
+    """Hold ``kernel()`` against ``plain()`` on their increment over
+    ``base`` (ops.block.increment_agreement); every zero-argument callable
+    in ``faults`` (a planted fault) must fail the same check. Times both
+    with CUDA events and appends the row to ``results``."""
+    from wise_tpu_torch.ops.block import increment_agreement
+
+    with torch.inference_mode():
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise PhaseError(f"{name}[{tag}]: {tuple(got.shape)} {got.dtype} "
+                             f"vs {tuple(want.shape)} {want.dtype}")
+        check = increment_agreement(got, want, base)
+        planted = {k: increment_agreement(f(), want, base)
+                   for k, f in faults.items()}
+        ms = _cuda_ms(torch, kernel, 20)
+        plain_ms = _cuda_ms(torch, plain, 20)
+    caught = not any(c["ok"] for c in planted.values())
+    ok = check["ok"] and caught
+    say("kernels", name=f"{name}[{tag}]",
+        shape="x".join(map(str, x.shape)), dtype=str(x.dtype)[6:],
+        max_abs_err=f"{check['max_abs_err']:.6g}",
+        err_bound=f"{check['err_bound']:.6g}",
+        min_cos=f"{check['min_cos']:.6f}",
+        planted_min_cos=",".join(f"{k}:{c['min_cos']:.4f}"
+                                 for k, c in planted.items()),
+        planted="FAIL(expected)" if caught else "PASSED(wrong)",
+        ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        status="ok" if ok else "FAIL")
+    results.append(dict(name=name, tag=tag, key=key,
+                        max_abs_err=check["max_abs_err"], ms=ms,
+                        plain_ms=plain_ms, ok=ok))
+
+
+#: the block kernels' serve shapes: CLIP vision (B=256 bucket, f32 stream),
+#: CLIP text and the CLAP caption tower (B=8, SP=77, bf16 stream, causal)
+BLOCK_SHAPES = {
+    "vision": dict(b=256, sp=50, d=768, heads=12, f32=True, causal=False,
+                   act="gelu", seeds=(1, 11, 3)),
+    "text": dict(b=8, sp=77, d=512, heads=8, f32=False, causal=True,
+                 act="gelu", seeds=(2, 12, 4)),
+    "caption": dict(b=8, sp=77, d=768, heads=12, f32=False, causal=True,
+                    act="gelu_tanh", seeds=(5, 15, 6)),
+}
+
+
+def _block_rows(torch, results, tag, s):
+    """The attention and MLP blocks at one shape, and its pooled block
+    (static row 0 for vision, per-example rows for the causal towers).
+    Planted faults: the kernel with its logits zeroed (for the MLP: its
+    activation dropped), and a block that returns its residual input."""
     from wise_tpu_torch.ops import block as K
 
-    f32, bf = torch.float32, torch.bfloat16
-    vis = dict(b=256, sp=50, d=768, heads=12, dtype=f32)
-    txt = dict(b=8, sp=77, d=512, heads=8, dtype=bf)
-    rows = torch.tensor([3, 76, 0, 40, 11, 76, 25, 7], dtype=torch.int32,
-                        device="cuda")
+    b, sp, d, h, causal = s["b"], s["sp"], s["d"], s["heads"], s["causal"]
+    dtype = torch.float32 if s["f32"] else torch.bfloat16
+    seed_attn, seed_mlp, seed_pool = s["seeds"]
+    kw = dict(heads=h, n_valid=sp, causal=causal)
+
+    x, ln, w = _block_inputs(torch, b, sp, d, dtype, seed_attn)
+
+    def attn(w=w):
+        return K.fused_attn_block(x, *ln, *w, **kw)
+
+    _check_row(torch, results, "fused_attn_block", tag,
+               ("fused_attn_block", sp, d), x, attn,
+               lambda: K.plain_attn_block(x, *ln, *w, **kw), x,
+               {"faulted_kernel": lambda: attn(_zero_q(w, d)),
+                "block_skipped": lambda: x})
+    x, ln, w = _block_inputs(torch, b, sp, d, dtype, seed_mlp, mlp=True)
+    _check_row(torch, results, "fused_mlp_block", tag,
+               ("fused_mlp_block", sp, d), x,
+               lambda: K.fused_mlp_block(x, *ln, *w, act=s["act"]),
+               lambda: K.plain_mlp_block(x, *ln, *w, act=s["act"]), x,
+               {"faulted_kernel": lambda: K.fused_mlp_block(x, *ln, *w,
+                                                            act="none"),
+                "block_skipped": lambda: x})
+
+    x, ln, w = _block_inputs(torch, b, sp, d, dtype, seed_pool)
+    if causal:
+        name = "fused_attn_block_pooled_dyn"
+        rows = torch.tensor([3, 76, 0, 40, 11, 76, 25, 7], dtype=torch.int32,
+                            device="cuda")
+        base = x[torch.arange(b, device="cuda"), rows.long()]
+
+        def pooled(w=w):
+            return K.fused_attn_block_pooled_dyn(x, rows, *ln, *w, **kw)
+
+        def plain():
+            return K.plain_attn_block_pooled_dyn(x, rows, *ln, *w, **kw)
+    else:
+        name, base = "fused_attn_block_pooled", x[:, 0]
+
+        def pooled(w=w):
+            return K.fused_attn_block_pooled(x, *ln, *w, pool_row=0, **kw)
+
+        def plain():
+            return K.plain_attn_block_pooled(x, *ln, *w, pool_row=0, **kw)
+
+    _check_row(torch, results, name, tag, (name, sp, d), x, pooled, plain,
+               base, {"faulted_kernel": lambda: pooled(_zero_q(w, d)),
+                      "block_skipped": lambda: base})
+
+
+def _swin_inputs(torch, n, c, heads, n_win, seed):
+    """A window batch (N, 64, C) bf16 ~ N(0, 1); kernels at 1/sqrt(fan_in),
+    biases and LayerNorm offsets N(0, 0.02); the relative-bias table at
+    std 1 (at 0.02 a kernel that dropped it would still pass); the shift
+    mask of a res x res map (n_win windows) or None."""
+    from wise_tpu_torch.models.clap.model import (relative_position_index,
+                                                  shift_attn_mask)
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    bf, ff, window, l = torch.bfloat16, 4 * c, 8, 64
+
+    def r(*shape, scale=0.02):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    x = r(n, l, c, scale=1.0).to(bf)
+    table = r((2 * window - 1) ** 2, heads, scale=1.0)
+    idx = torch.from_numpy(relative_position_index(window).reshape(-1))
+    bias = table[idx.cuda()].reshape(l, l, heads).permute(2, 0, 1)
+    mask = None
+    if n_win:
+        res = window * math.isqrt(n_win)
+        mask = torch.from_numpy(shift_attn_mask(res, res, window,
+                                                window // 2)).cuda()
+    attn = (r(c, 3 * c, scale=c ** -0.5).to(bf), r(3 * c).to(bf),
+            r(c, c, scale=c ** -0.5).to(bf), r(c).to(bf))
+    ln = (1.0 + r(c), r(c), 1.0 + r(c), r(c))
+    mlp = (r(c, ff, scale=c ** -0.5).to(bf), r(ff).to(bf),
+           r(ff, c, scale=ff ** -0.5).to(bf), r(c).to(bf))
+    return x, attn, bias.contiguous(), mask, ln, mlp
+
+
+def _swin_rows(torch, results):
+    """Both Swin kernels at HTSAT's window batches (batch 64). Planted
+    faults: zeroed logits (q weights, relative bias and mask all zero:
+    uniform attention), the relative bias dropped, and on shifted blocks
+    the shift mask dropped. The window attention has no residual: its
+    increment is its whole output."""
+    from wise_tpu_torch.ops import swin_attention as SA
+    from wise_tpu_torch.ops import swin_block as SB
+
+    for i, (tag, n, c, heads, n_win) in enumerate(SWIN_STAGES):
+        x, attn, bias, mask, ln, mlp = _swin_inputs(torch, n, c, heads,
+                                                    n_win, 20 + i)
+        no_bias = torch.zeros_like(bias)
+        for name, kernel_fn, plain_fn, base in (
+                ("fused_window_attention", SA.fused_window_attention,
+                 SA.plain_window_attention, torch.zeros((), device="cuda")),
+                ("fused_swin_block", SB.fused_swin_block,
+                 SB.plain_swin_block, x)):
+            block = name == "fused_swin_block"
+
+            def call(fn, attn=attn, bias=bias, mask=mask, block=block):
+                if block:
+                    return fn(x, *ln[:2], *attn, bias, mask, *ln[2:], *mlp,
+                              heads=heads)
+                return fn(x, *attn, bias, mask, heads=heads)
+
+            faults = {
+                "logits_zeroed": lambda k=kernel_fn: call(
+                    k, _zero_q(attn, c), no_bias, None),
+                "bias_dropped": lambda k=kernel_fn: call(k, bias=no_bias)}
+            if mask is not None:
+                faults["mask_dropped"] = lambda k=kernel_fn: call(k,
+                                                                  mask=None)
+            _check_row(torch, results, name, tag,
+                       (name, 64, c, n_win is not None), x,
+                       lambda k=kernel_fn: call(k),
+                       lambda p=plain_fn: call(p), base, faults)
+
+
+def phase_kernels(torch):
+    """Each kernel against its plain version at the serve paths' shapes
+    (BLOCK_SHAPES, SWIN_STAGES), on the op's increment over its residual
+    input, with planted faults that must fail the same check."""
     results = []
-
-    def case(name, tag, shape, seed, kernel, plain, base, fault, mlp=False):
-        x, ln, w = _block_inputs(torch, shape["b"], shape["sp"], shape["d"],
-                                 shape["dtype"], seed, mlp)
-        with torch.inference_mode():
-            got = kernel(x, ln, w)
-            want = plain(x, ln, w)
-            torch.cuda.synchronize()
-            if got.shape != want.shape or got.dtype != want.dtype:
-                raise PhaseError(f"{name}[{tag}]: {tuple(got.shape)} "
-                                 f"{got.dtype} vs {tuple(want.shape)} "
-                                 f"{want.dtype}")
-            check = K.increment_agreement(got, want, base(x))
-            planted = {
-                "faulted_kernel": K.increment_agreement(
-                    fault(x, ln, w), want, base(x)),
-                "block_skipped": K.increment_agreement(base(x), want,
-                                                       base(x)),
-            }
-            ms = _cuda_ms(torch, lambda: kernel(x, ln, w), 20)
-            plain_ms = _cuda_ms(torch, lambda: plain(x, ln, w), 20)
-        caught = not any(c["ok"] for c in planted.values())
-        ok = check["ok"] and caught
-        say("kernels", name=f"{name}[{tag}]",
-            shape="x".join(map(str, x.shape)), dtype=str(x.dtype)[6:],
-            max_abs_err=f"{check['max_abs_err']:.6g}",
-            err_bound=f"{check['err_bound']:.6g}",
-            min_cos=f"{check['min_cos']:.6f}",
-            planted_min_cos=",".join(f"{k}:{c['min_cos']:.4f}"
-                                     for k, c in planted.items()),
-            planted="FAIL(expected)" if caught else "PASSED(wrong)",
-            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-            status="ok" if ok else "FAIL")
-        results.append(dict(name=name, tag=tag, key=(name, shape["sp"],
-                                                     shape["d"]),
-                            max_abs_err=check["max_abs_err"], ms=ms,
-                            plain_ms=plain_ms, ok=ok))
-
-    for tag, s, causal, seed in (("vision", vis, False, 1),
-                                 ("text", txt, True, 2)):
-        h, sp, d = s["heads"], s["sp"], s["d"]
-
-        def attn(x, ln, w, h=h, sp=sp, c=causal):
-            return K.fused_attn_block(x, *ln, *w, heads=h, n_valid=sp,
-                                      causal=c)
-
-        case("fused_attn_block", tag, s, seed, attn,
-             lambda x, ln, w, h=h, sp=sp, c=causal: K.plain_attn_block(
-                 x, *ln, *w, heads=h, n_valid=sp, causal=c),
-             lambda x: x,
-             lambda x, ln, w, attn=attn, d=d: attn(x, ln, _zero_q(w, d)))
-        case("fused_mlp_block", tag, s, seed + 10,
-             lambda x, ln, w: K.fused_mlp_block(x, *ln, *w, act="gelu"),
-             lambda x, ln, w: K.plain_mlp_block(x, *ln, *w, act="gelu"),
-             lambda x: x,
-             lambda x, ln, w: K.fused_mlp_block(x, *ln, *w, act="none"),
-             mlp=True)
-
-    def pooled(x, ln, w):
-        return K.fused_attn_block_pooled(x, *ln, *w, heads=12, n_valid=50,
-                                         pool_row=0)
-
-    case("fused_attn_block_pooled", "vision", vis, 3, pooled,
-         lambda x, ln, w: K.plain_attn_block_pooled(
-             x, *ln, *w, heads=12, n_valid=50, pool_row=0),
-         lambda x: x[:, 0],
-         lambda x, ln, w: pooled(x, ln, _zero_q(w, 768)))
-
-    def dyn(x, ln, w):
-        return K.fused_attn_block_pooled_dyn(x, rows, *ln, *w, heads=8,
-                                             n_valid=77, causal=True)
-
-    case("fused_attn_block_pooled_dyn", "text", txt, 4, dyn,
-         lambda x, ln, w: K.plain_attn_block_pooled_dyn(
-             x, rows, *ln, *w, heads=8, n_valid=77, causal=True),
-         lambda x: x[torch.arange(8, device="cuda"), rows.long()],
-         lambda x, ln, w: dyn(x, ln, _zero_q(w, 512)))
+    for tag, shape in BLOCK_SHAPES.items():
+        _block_rows(torch, results, tag, shape)
+    _swin_rows(torch, results)
     bad = [f"{r['name']}[{r['tag']}]" for r in results if not r["ok"]]
     if bad:
         raise PhaseError(f"kernels disagree with their plain versions, or "
@@ -244,15 +373,20 @@ def _frames(seed: int, n: int, size: int):
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
-def _ingest(project_dir: Path, extractor, model_id: str, clips):
-    """Register one VIDEO media row per clip and embed its frames through
-    the extract driver's batched embedder, feature store and DB writes."""
+def _ingest(project_dir: Path, extractor, model_id: str, clips,
+            audio: bool = False):
+    """Register one media row per clip and embed it through the extract
+    pipeline's batched embedder, feature store and DB writes: a clip is a
+    (frames, 224, 224, 3) uint8 VIDEO at 2 fps, in batches of 256, or with
+    ``audio`` an (n, 192000) float32 AUDIO file of n 4 s segments at
+    48 kHz, in the pipeline's audio batches of 256 // 8 = 32."""
     import numpy as np
     from wise_tpu_torch._host import config, data_models as dm, db, project
     from wise_tpu_torch._host import repository, store
     from wise_tpu_torch.pipeline.extract import (BatchedEmbedder,
                                                  ExtractionStats)
 
+    modality = "audio" if audio else "video"
     cfg = config.WiseConfig()
     proj = project.WiseProject(project_dir, create_project=True)
     proj.save_config(cfg)
@@ -261,25 +395,38 @@ def _ingest(project_dir: Path, extractor, model_id: str, clips):
         location=str(project_dir / "media"),
         type=dm.SourceCollectionType.DIR))
     fstore = store.FeatureStoreFactory.create_store(
-        cfg.store.store_type, "video", proj.create_features_dir(model_id))
+        cfg.store.store_type, modality, proj.create_features_dir(model_id))
     fstore.enable_write(cfg.store.shard_maxcount, cfg.store.shard_maxsize)
     stats = ExtractionStats()
-    embedder = BatchedEmbedder(extractor, fstore, conn, dm.ModalityType.VIDEO,
-                               256, stats, "num_video_vectors")
+    embedder = BatchedEmbedder(
+        extractor, fstore, conn, dm.ModalityType(modality),
+        256 // 8 if audio else 256, stats, f"num_{modality}_vectors")
+    seg_s = cfg.audio.segment_length
     t0 = time.perf_counter()
-    for i, frames in enumerate(clips):
-        size = frames.shape[1]
+    for i, clip in enumerate(clips):
+        if audio:
+            meta = dict(path=f"clip{i:03d}.wav", media_type=dm.MediaType.AUDIO,
+                        format="wav", width=0, height=0,
+                        duration=seg_s * len(clip))
+        else:
+            meta = dict(path=f"clip{i:03d}.mp4", media_type=dm.MediaType.VIDEO,
+                        format="mp4", width=clip.shape[2],
+                        height=clip.shape[1], num_frames=len(clip),
+                        duration=len(clip) / 2)
         media = repository.MediaRepo().create(conn, dm.MediaMetadata(
-            source_collection_id=sc.id, path=f"clip{i:03d}.mp4",
-            media_type=dm.MediaType.VIDEO, format="mp4", width=size,
-            height=size, num_frames=len(frames), duration=len(frames) / 2))
-        embedder.add_frames(media.id, frames,
-                            np.arange(len(frames), dtype=np.float64) / 2)
+            source_collection_id=sc.id, **meta))
+        if audio:
+            for j, seg in enumerate(clip):
+                embedder.add_segment(media.id, seg, seg_s * j, seg_s * (j + 1))
+        else:
+            embedder.add_frames(media.id, clip,
+                                np.arange(len(clip), dtype=np.float64) / 2)
     embedder.finish()
     fstore.close()
     conn.commit()
     conn.close()
-    return stats.frames_embedded, time.perf_counter() - t0
+    n = stats.audio_segments_embedded if audio else stats.frames_embedded
+    return n, time.perf_counter() - t0
 
 
 def _get_json(url: str):
@@ -289,11 +436,11 @@ def _get_json(url: str):
         return json.loads(r.read())
 
 
-def _served_top(resp, k: int):
+def _served_top(resp, k: int, media: str = "video"):
     """(vector ids, distances) of a /search response, best first."""
-    vr = resp.get("video_results") or {}
+    vr = resp.get(f"{media}_results") or {}
     wins = vr.get("unmerged_windows")
-    if not isinstance(wins, list) or len(wins) != k or not vr.get("videos"):
+    if not isinstance(wins, list) or len(wins) != k or not vr.get(f"{media}s"):
         raise PhaseError(f"malformed search response: {str(resp)[:300]}")
     pairs = [(int(w["vector_id"]), float(w["distance"])) for w in wins]
     if not all(math.isfinite(d) and -1.01 <= d <= 1.01 for _, d in pairs):
@@ -320,12 +467,68 @@ def _check_against_plain(served_ids, served_d, plain_scores, ids, k, tol):
         raise PhaseError(f"served distances {served_d} vs plain {got}")
 
 
+def _serve_queries(project_dir: Path, config, queries, k: int,
+                   media: str = "video"):
+    """Serve the project over REST on localhost (coalescing on) and send a
+    warm-up, every query three times in turn, and a burst of every query at
+    once. Returns ({query: (ids, distances)}, sequential latencies in s);
+    the burst must return what the sequential requests did."""
+    from wise_tpu_torch.api.server import create_server
+
+    config.serve.coalesce = True
+    server = create_server(project_dir, "127.0.0.1", 0, config=config)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = (f"http://127.0.0.1:{server.server_address[1]}/"
+            f"{project_dir.name}/search?search_in={media}&end={k}&q=")
+    served, lat, burst = {}, [], {}
+
+    def fetch(q, out):
+        out[q] = _served_top(_get_json(base + urllib.parse.quote(q)), k,
+                             media)
+
+    try:
+        _get_json(base + "warm")
+        for _ in range(3):
+            for q in queries:
+                t0 = time.perf_counter()
+                fetch(q, served)
+                lat.append(time.perf_counter() - t0)
+        workers = [threading.Thread(target=fetch, args=(q, burst))
+                   for q in queries]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+    if set(burst) != set(queries):
+        raise PhaseError("concurrent requests failed")
+    for q in queries:
+        if burst[q][0] != served[q][0]:
+            raise PhaseError(f"{q!r}: concurrent and sequential top-{k} "
+                             f"differ: {burst[q][0]} vs {served[q][0]}")
+    return served, lat
+
+
+def _vector_ids(project_dir: Path):
+    import numpy as np
+    from wise_tpu_torch._host import db, project
+
+    conn = db.connect(project.WiseProject(project_dir).db_path, readonly=True)
+    ids = np.array([r[0] for r in conn.execute(
+        "SELECT id FROM vectors ORDER BY id")])
+    conn.close()
+    return ids
+
+
 def phase_slice(torch, card, model_id=MODEL_ID, size=224, k=10):
     """Ingest -> IndexFlatIP -> REST on the port; returns the launch counts
     of the main path's run, keyed by (wrapper, SP, D)."""
     import numpy as np
-    from wise_tpu_torch._host import db, project
-    from wise_tpu_torch.api.server import create_server
+    from wise_tpu_torch._host import project
     from wise_tpu_torch.cli import create_index
     from wise_tpu_torch.models.clip.extractor import OpenClipExtractor
     from wise_tpu_torch.ops import block as K
@@ -349,47 +552,11 @@ def phase_slice(torch, card, model_id=MODEL_ID, size=224, k=10):
         if create_index.main(["--project-dir", str(project_dir)]) != 0:
             raise PhaseError("create-index failed")
         config = project.WiseProject(project_dir).load_config()
-        config.serve.coalesce = True
-        server = create_server(project_dir, "127.0.0.1", 0, config=config)
-        thread = threading.Thread(target=server.serve_forever, daemon=True)
-        thread.start()
-        base = (f"http://127.0.0.1:{server.server_address[1]}/"
-                f"{project_dir.name}/search?end={k}&q=")
-        served, lat = {}, []
-        try:
-            _get_json(base + "warm")
-            for _ in range(3):
-                for q in QUERIES:
-                    t0 = time.perf_counter()
-                    resp = _get_json(base + urllib.parse.quote(q))
-                    lat.append(time.perf_counter() - t0)
-                    served[q] = _served_top(resp, k)
-            burst = {}
-
-            def fetch(q):
-                burst[q] = _served_top(_get_json(base + urllib.parse.quote(q)),
-                                       k)
-
-            workers = [threading.Thread(target=fetch, args=(q,))
-                       for q in QUERIES]
-            for w in workers:
-                w.start()
-            for w in workers:
-                w.join()
-            if set(burst) != set(QUERIES):
-                raise PhaseError("concurrent requests failed")
-        finally:
-            server.shutdown()
-            server.server_close()
-            thread.join()
+        served, lat = _serve_queries(project_dir, config, QUERIES, k)
         launches = dict(K.LAUNCHES_BY_SHAPE)
         if not all(K.LAUNCHES.values()):
             raise PhaseError(f"a kernel did not launch on the path: "
                              f"{K.LAUNCHES}")
-        for q in QUERIES:
-            if burst[q][0] != served[q][0]:
-                raise PhaseError(f"{q!r}: concurrent and sequential top-{k} "
-                                 f"differ: {burst[q][0]} vs {served[q][0]}")
 
         # the same frames and queries through the plain PyTorch path
         os.environ["WISE_FUSED_BLOCK"] = "0"
@@ -397,11 +564,7 @@ def phase_slice(torch, card, model_id=MODEL_ID, size=224, k=10):
             plain = OpenClipExtractor(model_id)
         finally:
             del os.environ["WISE_FUSED_BLOCK"]
-        conn = db.connect(project.WiseProject(project_dir).db_path,
-                          readonly=True)
-        ids = np.array([r[0] for r in conn.execute(
-            "SELECT id FROM vectors ORDER BY id")])
-        conn.close()
+        ids = _vector_ids(project_dir)
         vecs = np.concatenate([
             np.concatenate([plain.extract_image_features(c[i:i + 256])
                             for i in range(0, len(c), 256)])
@@ -446,6 +609,254 @@ def phase_slice(torch, card, model_id=MODEL_ID, size=224, k=10):
     return launches
 
 
+def _segments(torch, n: int, seed: int, chunk: int = 128):
+    """n seeded synthetic 4 s segments at 48 kHz, (n, 192000) float32 on
+    the host, made on the card: three tones of log-uniform pitch (80 Hz to
+    8 kHz), random level and phase, under a slow amplitude envelope, plus
+    noise."""
+    import numpy as np
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    t = torch.arange(192_000, device="cuda") / 48_000.0
+    out = []
+    for i in range(0, n, chunk):
+        m = min(chunk, n - i)
+
+        def r(*shape):
+            return torch.rand(*shape, 1, generator=g, device="cuda")
+
+        tones = (0.05 + 0.25 * r(m, 3)) * torch.sin(
+            2 * math.pi * (80.0 * 100.0 ** r(m, 3) * t + r(m, 3)))
+        env = 0.6 + 0.4 * torch.sin(2 * math.pi * (0.25 + 2 * r(m)) * t)
+        sig = tones.sum(1) * env + 0.02 * torch.randn(
+            m, t.numel(), generator=g, device="cuda")
+        out.append(sig.float().cpu().numpy())
+    return np.concatenate(out)
+
+
+def _window_attention_run(torch, extractor, x):
+    """One batch through the HTSAT path of WISE_FUSED_SWIN_BLOCK=0 (f32
+    stream blocks around the window-attention kernel) on the extractor's
+    weights: (launches by (wrapper, L, C), min embedding cosine against the
+    extractor's block-kernel path)."""
+    from wise_tpu_torch.models.clap.config import production_clap_config
+    from wise_tpu_torch.models.clap.model import CLAP
+    from wise_tpu_torch.ops import swin_attention as SA
+
+    os.environ["WISE_FUSED_SWIN_BLOCK"] = "0"
+    try:
+        cfg = production_clap_config(extractor.version)
+    finally:
+        del os.environ["WISE_FUSED_SWIN_BLOCK"]
+    with torch.device(extractor.device):
+        model = CLAP(cfg)
+    model.load_state_dict(extractor.model.state_dict())
+    model.to(extractor.device).eval()
+    with torch.inference_mode():
+        mel = extractor.log_mel(x)
+        want = extractor.model.encode_audio(mel)
+        SA.reset_launches()
+        got = model.encode_audio(mel)
+        torch.cuda.synchronize()
+        launches = dict(SA.LAUNCHES_BY_SHAPE)
+        cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+    return launches, cos.min().item()
+
+
+def phase_audio(torch, card, k=10):
+    """Audio ingest -> IndexFlatIP -> REST ``search_in=audio`` on the port's
+    CLAP; returns the launch counts of the paths' runs, keyed by (wrapper,
+    L, C) and (wrapper, SP, D)."""
+    import numpy as np
+    from wise_tpu_torch._host import project
+    from wise_tpu_torch.cli import create_index
+    from wise_tpu_torch.models.clap.extractor import ClapExtractor
+    from wise_tpu_torch.models.clap.model import SwinBlock
+    from wise_tpu_torch.ops import block as K
+    from wise_tpu_torch.ops import swin_block as SB
+
+    segs = _segments(torch, SEGMENTS, seed=7)
+    clips = [segs[i:i + 16] for i in range(0, SEGMENTS, 16)]  # 64 s files
+    with tempfile.TemporaryDirectory(prefix="wise_smoke_audio_") as tmp:
+        project_dir = Path(tmp) / "proj"
+        extractor = ClapExtractor(AUDIO_ID)
+        c = extractor.config
+        # (L, C, masked) of every HTSAT block: each stage, and its shifted
+        # blocks apart (stage 3's one window never shifts)
+        swin_keys = sorted({(blk.window ** 2, blk.norm1.scale.shape[0],
+                             blk.shift > 0)
+                            for blk in extractor.model.audio_encoder.modules()
+                            if isinstance(blk, SwinBlock)})
+        with torch.inference_mode():  # first use: cuBLAS, kernel library
+            extractor.extract_audio_features(segs[:32])
+            extractor.extract_text_features(["warm up"])
+
+        K.reset_launches()
+        SB.reset_launches()
+        n, ingest_s = _ingest(project_dir, extractor, AUDIO_ID, clips,
+                              audio=True)
+        if n != SEGMENTS:
+            raise PhaseError(f"embedded {n} of {SEGMENTS} segments")
+        if create_index.main(["--project-dir", str(project_dir)]) != 0:
+            raise PhaseError("create-index failed")
+        config = project.WiseProject(project_dir).load_config()
+        served, lat = _serve_queries(project_dir, config, AUDIO_QUERIES, k,
+                                     media="audio")
+        launches = {**K.LAUNCHES_BY_SHAPE, **SB.LAUNCHES_BY_SHAPE}
+        path = [("fused_swin_block", *key) for key in swin_keys] + [
+            (name, c.context_length, c.text_width)
+            for name in ("fused_attn_block", "fused_mlp_block",
+                         "fused_attn_block_pooled_dyn")]
+        idle = [key for key in path if not launches.get(key)]
+        if idle:
+            raise PhaseError(f"not launched on the audio path: {idle}")
+
+        # the same segments and queries through the plain PyTorch path
+        os.environ["WISE_FUSED_BLOCK"] = "0"
+        try:
+            plain = ClapExtractor(AUDIO_ID)
+        finally:
+            del os.environ["WISE_FUSED_BLOCK"]
+        ids = _vector_ids(project_dir)
+        vecs = np.concatenate([plain.extract_audio_features(segs[i:i + 64])
+                               for i in range(0, SEGMENTS, 64)])
+        prefix = config.search.audio_query_prefix
+        for q in AUDIO_QUERIES:
+            qv = plain.extract_text_features([f"{prefix} {q}".strip()])[0]
+            _check_against_plain(*served[q], vecs @ qv, ids, k, 1e-3)
+
+        batch = torch.from_numpy(segs[:64]).to(extractor.device)
+        window, cos = _window_attention_run(torch, extractor, batch)
+        missing = [key for key in swin_keys
+                   if not window.get(("fused_window_attention", *key))]
+        if missing or cos < 0.999:
+            raise PhaseError(
+                f"WISE_FUSED_SWIN_BLOCK=0: window attention idle at (L, C, "
+                f"masked) {missing}, or embeddings off the block path (min cos "
+                f"{cos:.6f} < 0.999)")
+        launches.update(window)
+        rates = {name: _audio_rates(torch, fe, segs[:64])
+                 for name, fe in (("kernels", extractor), ("plain", plain))}
+
+    say("slice", card=repr(card), media="audio", segments=n,
+        ingest_s=f"{ingest_s:.3f}", segments_per_s=f"{n / ingest_s:.1f}",
+        requests=len(lat) + 1 + len(AUDIO_QUERIES),
+        query_p50_ms=f"{1e3 * float(np.median(lat)):.3f}",
+        launches=json.dumps({_launch_name(key): v for key, v
+                             in sorted(launches.items())},
+                            separators=(",", ":")),
+        vs_plain="ok")
+    say("slice", card=repr(card), media="audio",
+        path="WISE_FUSED_SWIN_BLOCK=0", batch=len(batch),
+        window_attention_launches=json.dumps(
+            {_launch_name(key): v for key, v in sorted(window.items())},
+            separators=(",", ":")),
+        min_cos_vs_block_path=f"{cos:.6f}")
+    for name, (sps, ms) in rates.items():
+        say("slice", card=repr(card), media="audio", path=name,
+            batch=len(batch), extractor_segments_per_s=f"{sps:.1f}",
+            device_ms_per_batch=f"{ms:.3f}",
+            device_segments_per_s=f"{1e3 * len(batch) / ms:.1f}")
+    return launches
+
+
+def _launch_name(key) -> str:
+    """A launch counter's key as text: (wrapper, SP, D) of the block
+    kernels, (wrapper, L, C, masked) of the Swin kernels."""
+    name, a, b, *masked = key
+    if masked:
+        return f"{name}[L={a},C={b}{',masked' if masked[0] else ''}]"
+    return f"{name}[SP={a},D={b}]"
+
+
+def phase_profile(torch, card, batch: int = 64, reps: int = 5):
+    """Where one audio batch's time goes on the kernel path, one run: device
+    ms (CUDA events, mean of ``reps`` calls) of the whole batch at 64 and at
+    32 segments, of the log-mel, the HTSAT tower, each of its modules (on
+    the input the tower gives it) and the projection; one caption's text
+    embed; the extractor's host-to-host ms on a 32-segment ingest batch
+    (median); and the device ms per CUDA kernel over three batches
+    (torch.profiler, kernels only: each kernel's self device time)."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from wise_tpu_torch.models.clap.extractor import ClapExtractor
+
+    segs = _segments(torch, batch, seed=7)
+    fe = ClapExtractor(AUDIO_ID)
+    enc = fe.model.audio_encoder
+    x = torch.from_numpy(segs).to(fe.device)
+
+    def cuda_ms(fn):
+        return _cuda_ms(torch, fn, reps)
+
+    with torch.inference_mode():
+        fe.extract_audio_features(segs[:32])  # first use
+        fe.extract_text_features(["warm up"])
+        mel = fe.log_mel(x)
+        feats = enc(mel)
+        ms = dict(
+            batch=cuda_ms(lambda: fe.encode_waveforms(x)),
+            half_batch=cuda_ms(lambda: fe.encode_waveforms(x[:batch // 2])),
+            log_mel=cuda_ms(lambda: fe.log_mel(x)),
+            htsat=cuda_ms(lambda: enc(mel)),
+            projection=cuda_ms(lambda: fe.model.audio_projection(feats)),
+            text_embed_1=cuda_ms(
+                lambda: fe.extract_text_features_dispatch(["a dog barking"])))
+        modules = {"embed": cuda_ms(lambda: enc.embed(mel))}
+        h = enc.embed(mel)
+        for names in enc.stages:
+            for name in names:
+                mod = getattr(enc, name)
+                modules[name] = cuda_ms(lambda m=mod, h=h: m(h))
+                h = mod(h)
+        modules["norm_pool"] = cuda_ms(lambda: enc.norm(h).mean(dim=1))
+    host = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fe.extract_audio_features(segs[:32])
+        host.append(time.perf_counter() - t0)
+
+    with torch.inference_mode():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fe.encode_waveforms(x)
+            torch.cuda.synchronize()
+    kernels = sorted(
+        ((e.self_device_time_total / 3e3, e.count / 3, e.key)
+         for e in prof.key_averages()
+         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+        reverse=True)
+
+    say("profile", card=repr(card), batch=batch,
+        **{f"{k}_ms": f"{v:.4f}" for k, v in ms.items()},
+        extract_32_host_ms=f"{1e3 * float(np.median(host)):.4f}")
+    say("profile", htsat_module_ms=json.dumps(
+        {k: round(v, 4) for k, v in modules.items()}, separators=(",", ":")))
+    say("profile", kernel_ms_per_batch=(f"{sum(k[0] for k in kernels):.4f}"
+                                        if kernels else "not measured"),
+        kernels=len(kernels))
+    for k_ms, n, key in kernels[:16]:
+        say("profile", ms=f"{k_ms:.4f}", launches=f"{n:g}", kernel=key[:100])
+
+
+def _audio_rates(torch, extractor, segs, reps: int = 5):
+    """(segments/s of extract_audio_features on one batch, host to host;
+    device ms of resample + log-mel + audio tower + projection on that
+    batch, CUDA events)."""
+    extractor.extract_audio_features(segs)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        extractor.extract_audio_features(segs)
+    sps = reps * len(segs) / (time.perf_counter() - t0)
+    x = torch.from_numpy(segs).to(extractor.device)
+    with torch.inference_mode():
+        ms = _cuda_ms(torch, lambda: extractor.encode_waveforms(x), reps)
+    return sps, ms
+
+
 def _encode_rates(torch, extractor, frames, reps: int = 5):
     """(frames/s of extract_image_features on one batch, host to host;
     device ms of preprocess + image tower on that batch, CUDA events)."""
@@ -467,7 +878,8 @@ def _encode_rates(torch, extractor, frames, reps: int = 5):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", choices=["all", "kernels"], default="all")
+    ap.add_argument("--phase", choices=["all", "kernels", "profile"],
+                    default="all")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print nvcc -Xptxas -v (registers, shared memory)")
     args = ap.parse_args(argv)
@@ -488,10 +900,14 @@ def main(argv=None) -> int:
 
     try:
         card = phase_env(torch, args.verbose_build)
+        if args.phase == "profile":
+            phase_profile(torch, card)
+            return 0
         kernels = phase_kernels(torch)
         if args.phase == "kernels":
             return 0
         launches = phase_slice(torch, card)
+        launches.update(phase_audio(torch, card))
         idle = [f"{r['name']}[{r['tag']}]" for r in kernels
                 if not launches.get(r["key"])]
         if idle:
@@ -504,7 +920,7 @@ def main(argv=None) -> int:
     print(card)
     print(json.dumps({"kernels": [
         {"name": f"{r['name']}[{r['tag']}]", "route": "cuda",
-         "source": KERNEL_SOURCE, "replaces": REPLACES[r["name"]],
+         "source": KERNELS[r["name"]][0], "replaces": KERNELS[r["name"]][1],
          "launches": launches[r["key"]],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"]}

@@ -127,3 +127,130 @@ def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
                            n_valid=N_VALID)
     with pytest.raises(ValueError, match="n_valid"):
         K.fused_attn_block(x, *ln, *w, heads=HEADS, n_valid=SP + 1)
+
+
+# ---------------------------------------------------------------------------
+# Swin kernels (wise_tpu_torch/csrc/swin_kernels.cu): window attention and the
+# whole Swin block, on window batches with the relative-position bias and
+# the shift mask, held to their plain versions by the same increment check
+# (the window attention's increment is its whole output)
+# ---------------------------------------------------------------------------
+
+from wise_tpu_torch.models.clap.model import (  # noqa: E402
+    relative_position_index, shift_attn_mask)
+from wise_tpu_torch.ops import swin_attention as SA  # noqa: E402
+from wise_tpu_torch.ops import swin_block as SB  # noqa: E402
+
+#: (window, C, heads, res, batch): a tiny one, and HTSAT stage 0 (head_dim
+#: 24, 64 windows an example) and stage 3 (one window, 32 heads)
+SWIN_SHAPES = {"tiny": (4, 32, 2, 8, 2), "stage0": (8, 96, 4, 64, 2),
+               "stage3": (8, 768, 32, 8, 4)}
+
+
+def _swin_inputs(shape, masked, device, seed=70):
+    """x ~ N(0, 1) in bf16; kernels at 1/sqrt(fan_in); the relative-bias
+    table at std 1, so that dropping it shows."""
+    window, c, heads, res, b = SWIN_SHAPES[shape]
+    g = torch.Generator().manual_seed(seed)
+    l, n_win, ff = window * window, (res // window) ** 2, 4 * c
+
+    def w(*s, std=0.02):
+        return (std * torch.randn(s, generator=g)).to(device)
+
+    x = torch.randn((b * n_win, l, c), generator=g).to(device, torch.bfloat16)
+    table = w((2 * window - 1) ** 2, heads, std=1.0)
+    idx = torch.from_numpy(relative_position_index(window).reshape(-1))
+    bias = table[idx.to(device)].reshape(l, l, heads).permute(2, 0, 1)
+    mask = (torch.from_numpy(shift_attn_mask(res, res, window, window // 2))
+            .to(device) if masked else None)
+    bf = torch.bfloat16
+    attn = [w(c, 3 * c, std=c ** -0.5).to(bf), w(3 * c).to(bf),
+            w(c, c, std=c ** -0.5).to(bf), w(c).to(bf)]
+    ln = [1.0 + w(c), w(c), 1.0 + w(c), w(c)]
+    mlp = [w(c, ff, std=c ** -0.5).to(bf), w(ff).to(bf),
+           w(ff, c, std=ff ** -0.5).to(bf), w(c).to(bf)]
+    return x, attn, bias.contiguous(), mask, ln, mlp, heads
+
+
+def _swin_call(block, x, attn, bias, mask, ln, mlp, heads, fused=True):
+    if block:
+        fn = SB.fused_swin_block if fused else SB.plain_swin_block
+        return fn(x, *ln[:2], *attn, bias, mask, *ln[2:], *mlp, heads=heads)
+    fn = SA.fused_window_attention if fused else SA.plain_window_attention
+    return fn(x, *attn, bias, mask, heads=heads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,masked", [
+    ("tiny", False), ("tiny", True), ("stage0", False), ("stage0", True),
+    ("stage3", False)])   # stage 3: one window, no shifted block
+@pytest.mark.parametrize("block", [False, True], ids=["attention", "block"])
+def test_swin_kernel_matches_plain_on_card(cuda, block, shape, masked):
+    x, attn, bias, mask, ln, mlp, heads = _swin_inputs(shape, masked, cuda)
+    mod, name = (SB, "fused_swin_block") if block else \
+        (SA, "fused_window_attention")
+    mod.reset_launches()
+    got = _swin_call(block, x, attn, bias, mask, ln, mlp, heads)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES_BY_SHAPE == {(name, x.shape[1], x.shape[2], masked): 1}
+    want = _swin_call(block, x, attn, bias, mask, ln, mlp, heads, False)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    check = K.increment_agreement(got, want, x if block else torch.zeros(
+        (), device=cuda))
+    assert check["ok"], check
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["logits_zeroed", "mask_dropped",
+                                   "bias_dropped"])
+@pytest.mark.parametrize("block", [False, True], ids=["attention", "block"])
+def test_swin_planted_fault_fails_the_check(cuda, block, fault):
+    x, attn, bias, mask, ln, mlp, heads = _swin_inputs("stage0", True, cuda)
+    want = _swin_call(block, x, attn, bias, mask, ln, mlp, heads, False)
+    c = x.shape[2]
+    if fault == "logits_zeroed":
+        wqkv, bqkv = attn[0].clone(), attn[1].clone()
+        wqkv[:, :c], bqkv[:c] = 0, 0
+        attn, bias, mask = [wqkv, bqkv, *attn[2:]], torch.zeros_like(bias), \
+            None
+    elif fault == "mask_dropped":
+        mask = None
+    else:
+        bias = torch.zeros_like(bias)
+    bad = _swin_call(block, x, attn, bias, mask, ln, mlp, heads)
+    base = x if block else torch.zeros((), device=cuda)
+    assert not K.increment_agreement(bad, want, base)["ok"]
+
+
+@pytest.mark.cuda
+def test_swin_wrappers_reject_what_they_do_not_take(cuda):
+    x, attn, bias, mask, ln, mlp, heads = _swin_inputs("stage0", True, cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        SA.fused_window_attention(x.float(), *attn, bias, mask, heads=heads)
+    with pytest.raises(ValueError, match="outside the kernel's shapes"):
+        SA.fused_window_attention(x, *attn, bias[:2], mask, heads=2)
+    with pytest.raises(ValueError, match="multiple of the mask"):
+        SB.fused_swin_block(x[:-1].contiguous(), *ln[:2], *attn, bias, mask,
+                            *ln[2:], *mlp, heads=heads)
+    wfc, bfc, wproj = (mlp[0][:, :100].contiguous(), mlp[1][:100].contiguous(),
+                       mlp[2][:100].contiguous())
+    with pytest.raises(ValueError, match="hidden width"):
+        SB.fused_swin_block(x, *ln[:2], *attn, bias, mask, *ln[2:], wfc, bfc,
+                            wproj, mlp[3], heads=heads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("swin_block", [True, False])
+def test_swin_model_raises_outside_the_kernels_shapes(cuda, swin_block):
+    """A CLAP block whose windows the kernels do not take (window 12: 144
+    tokens) reaches the wrapper on the card and raises: no plain fallback."""
+    import dataclasses
+
+    from wise_tpu_torch.models.clap import config as TC
+    from wise_tpu_torch.models.clap import model as TM
+
+    cfg = dataclasses.replace(TC.CLAPConfig(), dtype="bfloat16",
+                              fused_block=True, fused_swin_block=swin_block)
+    blk = TM.SwinBlock(32, 2, 12, 6, (24, 24), 4.0, cfg).to(cuda)
+    with pytest.raises(ValueError, match="outside the kernel's shapes"):
+        blk(torch.randn(2, 24 * 24, 32, device=cuda))

@@ -3,10 +3,12 @@
 Project layout, the SQLite DB, feature stores, media IO, the ``.widx``
 format, temporal merge and hydration, the REST handler, the coalescer and
 the CLI argument surfaces are framework-free in wise_tpu and are reused as
-they are. Two numpy-only modules sit in a package whose ``__init__`` imports
-the JAX towers (``wise_tpu/models/clip/__init__.py``), so they are loaded by
-file path: the CLIP tokenizer and the OpenCLIP checkpoint reader. The
-drivers that reach a JAX factory through a module global are reused through
+they are. Four numpy-only modules sit in packages whose ``__init__`` imports
+the JAX towers (``wise_tpu/models/clip/__init__.py``,
+``models/clap/__init__.py``), so they are loaded by file path: the CLIP
+tokenizer, the OpenCLIP checkpoint reader, the CLAP caption tokenizer and
+the msclap checkpoint converter. The pipeline, engine and CLI functions
+that reach a JAX factory through a module global are reused through
 ``rebind``.
 """
 
@@ -36,11 +38,20 @@ def _load_by_path(name: str, relpath: str):
 
 
 #: wise_tpu/models/clip/tokenizer.py (BPETokenizer, HashTokenizer)
-clip_tokenizer = _load_by_path("wise_tpu_torch._clip_tokenizer",
+clip_tokenizer = _load_by_path("wise_tpu_torch._ref.clip.tokenizer",
                                "models/clip/tokenizer.py")
 #: wise_tpu/models/clip/convert.py (open_clip state dict -> parameter tree)
-clip_convert = _load_by_path("wise_tpu_torch._clip_convert",
+clip_convert = _load_by_path("wise_tpu_torch._ref.clip.convert",
                              "models/clip/convert.py")
+#: wise_tpu/models/clap/tokenizer.py (get_caption_tokenizer). Its hash
+#: fallback runs ``from ..clip.tokenizer import HashTokenizer`` when called;
+#: loaded under ``wise_tpu_torch._ref.clap``, that import resolves to the
+#: CLIP tokenizer loaded above (already in sys.modules), not to wise_tpu.
+clap_tokenizer = _load_by_path("wise_tpu_torch._ref.clap.tokenizer",
+                               "models/clap/tokenizer.py")
+#: wise_tpu/models/clap/convert.py (msclap state dict -> parameter tree)
+clap_convert = _load_by_path("wise_tpu_torch._ref.clap.convert",
+                             "models/clap/convert.py")
 
 
 def rebind(fn, **names):

@@ -40,15 +40,19 @@ class LayerNorm(nn.Module):
 
 
 class Dense(nn.Module):
-    """flax Dense: kernel (in, out), bias (out,), in the compute dtype."""
+    """flax Dense: kernel (in, out), bias (out,) unless ``bias=False``, in
+    the compute dtype."""
 
-    def __init__(self, din: int, dout: int, dtype: torch.dtype):
+    def __init__(self, din: int, dout: int, dtype: torch.dtype,
+                 bias: bool = True):
         super().__init__()
         self.kernel = nn.Parameter(torch.zeros(din, dout, dtype=dtype))
-        self.bias = nn.Parameter(torch.zeros(dout, dtype=dtype))
+        self.bias = (nn.Parameter(torch.zeros(dout, dtype=dtype)) if bias
+                     else None)
 
     def forward(self, x):
-        return x.to(self.kernel.dtype) @ self.kernel + self.bias
+        y = x.to(self.kernel.dtype) @ self.kernel
+        return y if self.bias is None else y + self.bias
 
 
 class Attention(nn.Module):

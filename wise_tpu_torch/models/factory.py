@@ -3,7 +3,8 @@ ids, routed to the port's extractors.
 
 - ``mlfoundations/open_clip/<model>/<pretrained>`` -> PyTorch/CUDA OpenCLIP
 - ``wise/random_features/<dim>/<label>``           -> wise_tpu's numpy fake
-- ``microsoft/clap/<version>/<variant>``           -> not ported yet
+- ``microsoft/clap/<version>/<variant>``           -> PyTorch/CUDA CLAP
+  (version 2023; 2022 raises, ROADMAP Queue A item 10)
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ def FeatureExtractorFactory(id: str):
 
         return OpenClipExtractor(id)
     if id.startswith("microsoft/clap/"):
-        raise NotImplementedError(
-            f"{id}: the CLAP towers are not ported to PyTorch yet "
-            "(ROADMAP Queue A item 9)")
+        from .clap.extractor import ClapExtractor
+
+        return ClapExtractor(id)
     raise ValueError(f"Unknown feature extractor id {id}")

@@ -18,41 +18,24 @@ version; on a CUDA tensor it launches its kernel chain
 from __future__ import annotations
 
 import math
-import threading
 
 import torch
 
-from .build import check, load_library
+from .build import LaunchCounter, check, load_library
 
 EPS = 1e-5
 HEAD_DIM = 64
 MAX_SEQ = 128
 ACTS = {"none": 0, "gelu": 1, "quick_gelu": 2, "gelu_tanh": 3}
 
+_launches = LaunchCounter("fused_attn_block", "fused_mlp_block",
+                          "fused_attn_block_pooled",
+                          "fused_attn_block_pooled_dyn")
 #: kernel launches per wrapper since the last reset_launches()
-LAUNCHES = {
-    "fused_attn_block": 0,
-    "fused_mlp_block": 0,
-    "fused_attn_block_pooled": 0,
-    "fused_attn_block_pooled_dyn": 0,
-}
+LAUNCHES = _launches.counts
 #: the same launches keyed by (wrapper, SP, D) of x: one tower's count
-LAUNCHES_BY_SHAPE: dict[tuple[str, int, int], int] = {}
-_launch_lock = threading.Lock()  # request threads may launch concurrently
-
-
-def reset_launches() -> None:
-    with _launch_lock:
-        for name in LAUNCHES:
-            LAUNCHES[name] = 0
-        LAUNCHES_BY_SHAPE.clear()
-
-
-def _counted(name: str, sp: int, d: int) -> None:
-    with _launch_lock:
-        LAUNCHES[name] += 1
-        key = (name, sp, d)
-        LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
+LAUNCHES_BY_SHAPE = _launches.by_shape
+reset_launches = _launches.reset
 
 
 def supports_fused_block(seq: int, width: int, heads: int) -> bool:
@@ -265,7 +248,7 @@ def fused_attn_block(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, heads: int,
         *_ptrs(x), _is_f32(x), *_ptrs(ln_scale, ln_bias, wqkv, bqkv, wo, bo,
                                      out, y, qkv, att),
         b, sp, d, heads, int(n_valid), int(causal), _stream(x)), name)
-    _counted(name, sp, d)
+    _launches.add(name, sp, d)
     return out
 
 
@@ -296,7 +279,7 @@ def fused_mlp_block(x, ln_scale, ln_bias, wfc, bfc, wproj, bproj,
         *_ptrs(x), _is_f32(x), *_ptrs(ln_scale, ln_bias, wfc, bfc, wproj,
                                      bproj, out, y, h),
         m, d, f, ACTS[act], _stream(x)), name)
-    _counted(name, sp, d)
+    _launches.add(name, sp, d)
     return out
 
 
@@ -316,7 +299,7 @@ def _pooled_launch(name, x, rows, pool_row, ln_scale, ln_bias, wqkv, bqkv, wo,
         None if rows is None else rows.data_ptr(), int(pool_row),
         *_ptrs(out, y, kv, q, att), b, sp, d, heads, int(n_valid),
         int(causal), _stream(x)), name)
-    _counted(name, sp, d)
+    _launches.add(name, sp, d)
     return out
 
 

@@ -1,11 +1,13 @@
 """Build and bind the port's CUDA kernels.
 
 At first use the sources in ``wise_tpu_torch/csrc/*.cu`` compile with
-``nvcc`` for ``sm_90a`` into one shared library with a plain C interface,
-cached under ``build/kernels/`` at the root of the checkout and keyed by a
-hash of the sources and flags. The library is loaded with ``ctypes``: every
-pointer and the stream pass as ``c_void_p``; every entry point returns the
-``cudaError_t`` of its launches, and :func:`check` raises on a non-zero one.
+``nvcc`` for ``sm_90a``, one process per source, all started together, and
+link into one shared library with a plain C interface, cached under
+``build/kernels/`` at the root of the checkout and keyed by a hash of the
+sources (headers included) and flags. The library is loaded with ``ctypes``:
+every pointer and the stream pass as ``c_void_p``; every entry point returns
+the ``cudaError_t`` of its launches, and :func:`check` raises on a non-zero
+one. :class:`LaunchCounter` counts the launches each wrapper makes.
 
 There is no fallback: a CUDA machine without ``nvcc`` raises.
 """
@@ -25,11 +27,11 @@ _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-#: C entry point -> argument types (csrc/block_kernels.cu)
+#: C entry point -> argument types (csrc/block_kernels.cu, swin_kernels.cu)
 SIGNATURES = {
     "wt_attn_block": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _P],
@@ -37,6 +39,10 @@ SIGNATURES = {
                      _I, _I, _I, _I, _P],
     "wt_attn_block_pooled": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                              _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "wt_window_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
+                            _I, _I, _I, _I, _P],
+    "wt_swin_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                      _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -70,6 +76,19 @@ def library_path() -> Path:
     return BUILD_DIR / f"wise_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; raise with the output of any failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(c)}\n{out}")
+    return "".join(outs)
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the kernels unless the cached library matches the sources."""
     global build_seconds
@@ -77,17 +96,22 @@ def build(verbose: bool = False) -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    nvcc, tag = find_nvcc(), f"{so.stem}.{os.getpid()}"
+    srcs = [s for s in _sources() if s.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in srcs]
+    ptxas = ["-Xptxas", "-v"] if verbose else []
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", str(o), str(s)]
+                        for s, o in zip(srcs, objs)])
+        tmp = BUILD_DIR / f"{tag}.tmp"
+        _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
     if verbose:
-        print(proc.stdout + proc.stderr)
+        print(log)
     os.replace(tmp, so)  # atomic: a concurrent process never loads a partial file
     return so
 
@@ -108,3 +132,26 @@ def load_library() -> ctypes.CDLL:
 def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} failed: cudaError_t {err}")
+
+
+class LaunchCounter:
+    """Kernel launches since the last :meth:`reset`, per wrapper (``counts``)
+    and per (wrapper, *shape) (``by_shape``). Request threads may launch
+    concurrently, so updates take a lock; both dicts keep their identity."""
+
+    def __init__(self, *names: str):
+        self.counts = dict.fromkeys(names, 0)
+        self.by_shape: dict = {}
+        self._lock = threading.Lock()
+
+    def add(self, name: str, *shape: int) -> None:
+        with self._lock:
+            self.counts[name] += 1
+            key = (name, *shape)
+            self.by_shape[key] = self.by_shape.get(key, 0) + 1
+
+    def reset(self) -> None:
+        with self._lock:
+            for name in self.counts:
+                self.counts[name] = 0
+            self.by_shape.clear()

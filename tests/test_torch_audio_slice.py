@@ -100,6 +100,7 @@ def env(tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("WISE_CHECKPOINT_DIR", str(root / "ckpts"))
         mp.setenv("WISE_CLAP_DTYPE", "float32")
+        mp.setenv("WISE_TORCH_DEVICE", "cpu")
         _register_tiny(mp)
         yield root
 
@@ -194,8 +195,8 @@ def test_extractors_match_jax(env):
 
 def test_port_audio_path_never_imports_jax(env):
     """audio extract -> index -> search CLI -> REST ``search_in=audio``
-    through the port in a fresh interpreter: jax and flax stay out of
-    sys.modules, through the caption tokenizer's hash fallback too."""
+    through the port in a fresh interpreter: jax, flax and the JAX package
+    stay out of sys.modules, through the caption tokenizer's hash fallback too."""
     script = textwrap.dedent(f"""
         import dataclasses, json, sys
         from wise_tpu_torch.models.clap import config as TC
@@ -213,13 +214,16 @@ def test_port_audio_path_never_imports_jax(env):
         from test_torch_audio_slice import _rest
         ids, _ = _rest(create_server, proj, "rain")
         assert len(ids) == 5
-        print(json.dumps({{m: m in sys.modules for m in ("jax", "flax")}}))
+        print(json.dumps({{m: any(k == m or k.startswith(m + ".")
+                                       for k in sys.modules)
+                          for m in ("jax", "flax", "wise_tpu")}}))
     """)
     run = subprocess.run(
         [sys.executable, "-c", script], capture_output=True, text=True,
         cwd=ROOT, timeout=300,
-        env={**os.environ, "PYTHONPATH": str(ROOT)},
+        env={**os.environ, "PYTHONPATH": str(ROOT),
+             "WISE_TORCH_DEVICE": "cpu"},
     )
     assert run.returncode == 0, run.stderr[-3000:]
     assert json.loads(run.stdout.strip().splitlines()[-1]) == {
-        "jax": False, "flax": False}
+        "jax": False, "flax": False, "wise_tpu": False}

@@ -195,5 +195,7 @@ def test_cpu_wrappers_launch_no_kernel():
 def test_supports_fused_block_gate():
     assert K.supports_fused_block(50, 768, 12)     # ViT-B/32 vision
     assert K.supports_fused_block(77, 512, 8)      # CLIP text
-    assert not K.supports_fused_block(257, 1024, 16)  # ViT-L/14: 257 tokens
-    assert not K.supports_fused_block(257, 1280, 16)  # head_dim 80
+    assert K.supports_fused_block(257, 1024, 16)   # ViT-L/14: 257 tokens
+    assert K.supports_fused_block(257, 1280, 16)   # ViT-H/14: head_dim 80
+    assert not K.supports_fused_block(577, 1024, 16)  # ViT-L/14 at 336 px
+    assert not K.supports_fused_block(50, 576, 8)     # head_dim 72

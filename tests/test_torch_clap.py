@@ -260,6 +260,7 @@ def test_factory_routes_clap_2023_to_the_port(monkeypatch, tmp_path):
     """The production id at full width builds the port's extractor (seeded
     random weights, no JAX); CLAP 2022 raises, naming its ROADMAP item."""
     monkeypatch.setenv("WISE_CHECKPOINT_DIR", str(tmp_path))
+    monkeypatch.setenv("WISE_TORCH_DEVICE", "cpu")
     from wise_tpu_torch.models.clap.extractor import ClapExtractor
     from wise_tpu_torch.models.factory import FeatureExtractorFactory
 
@@ -281,9 +282,9 @@ def test_hash_ids_outside_a_tiny_vocabulary_raise():
     """ROADMAP Queue C 5: under a 3,000-token vocabulary the hash tokenizer
     emits ids outside it; the JAX towers' gather clamps them silently, the
     port's embedding lookup raises."""
-    from wise_tpu_torch._host import clip_tokenizer
+    from wise_tpu_torch.models.clip.tokenizer import HashTokenizer
 
-    tokens = clip_tokenizer.HashTokenizer(vocab_size=128, context_length=12)(
+    tokens = HashTokenizer(vocab_size=128, context_length=12)(
         ["a dog barking"])
     assert ((tokens < 0) | (tokens >= 128)).any()
     tm = TM.CLAP(dataclasses.replace(TC.CLAPConfig(), **TINY))

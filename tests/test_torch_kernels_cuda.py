@@ -254,3 +254,156 @@ def test_swin_model_raises_outside_the_kernels_shapes(cuda, swin_block):
     blk = TM.SwinBlock(32, 2, 12, 6, (24, 24), 4.0, cfg).to(cuda)
     with pytest.raises(ValueError, match="outside the kernel's shapes"):
         blk(torch.randn(2, 24 * 24, 32, device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# The wide shapes (ViT-H/14's traits): head_dim 80, sequences over one
+# 64-row query tile up to the 272-key limit, and the split MLP pair
+# ---------------------------------------------------------------------------
+
+#: (B, SP, n_valid, D, heads)
+WIDE_SHAPES = {
+    "vit_h": (3, 257, 257, 320, 4),      # head_dim 80, 257 tokens
+    "masked": (2, 257, 250, 160, 2),     # keys masked inside the last tile
+    "longest": (2, 272, 272, 160, 2),    # K and V fill the shared memory
+    "tile+1": (2, 65, 65, 128, 2),       # one row into a second query tile
+    "vit_b16": (2, 197, 197, 128, 2),    # head_dim 64 over 128 tokens
+    "one": (2, 1, 1, 160, 2),
+}
+
+
+def _wide_inputs(shape, seed, device, stream, mlp=False):
+    b, sp, _, d, _ = WIDE_SHAPES[shape]
+    g = torch.Generator().manual_seed(seed)
+
+    def w(*s, std=0.02):
+        return (std * torch.randn(s, generator=g)).to(device)
+
+    x = torch.randn((b, sp, d), generator=g).to(device, stream)
+    ln = [1.0 + w(d), w(d)]
+    f = 4 * d if mlp else d
+    first = (d, 4 * d) if mlp else (d, 3 * d)
+    ws = (w(*first, std=d ** -0.5), w(first[1]), w(f, d, std=f ** -0.5),
+          w(d))
+    return x, ln, [t.to(torch.bfloat16) for t in ws]
+
+
+def _wide_call(shape, kind, causal, x, ln, w, fused=True):
+    """(output, wrapper name, residual base) at a wide shape; the pooled
+    kinds take the last valid row (static) or rows spread over the
+    sequence (dyn)."""
+    b, sp, n_valid, _, heads = WIDE_SHAPES[shape]
+    kw = dict(heads=heads, n_valid=n_valid, causal=causal)
+    if kind == "attn":
+        fn = K.fused_attn_block if fused else K.plain_attn_block
+        return fn(x, *ln, *w, **kw), "fused_attn_block", x
+    if kind == "pooled":
+        fn = K.fused_attn_block_pooled if fused else K.plain_attn_block_pooled
+        return (fn(x, *ln, *w, pool_row=n_valid - 1, **kw),
+                "fused_attn_block_pooled", x[:, n_valid - 1])
+    rows = torch.tensor([(7 * i * sp) // (3 * b) % sp for i in range(b)],
+                        dtype=torch.int32, device=x.device)
+    fn = (K.fused_attn_block_pooled_dyn if fused
+          else K.plain_attn_block_pooled_dyn)
+    return (fn(x, rows, *ln, *w, **kw), "fused_attn_block_pooled_dyn",
+            x[torch.arange(b, device=x.device), rows.long()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("kind", ["attn", "pooled", "dyn"])
+@pytest.mark.parametrize("shape", list(WIDE_SHAPES))
+def test_wide_attention_matches_plain_on_card(cuda, shape, kind, causal,
+                                              stream):
+    x, ln, w = _wide_inputs(shape, 90, cuda, stream)
+    K.reset_launches()
+    got, name, base = _wide_call(shape, kind, causal, x, ln, w)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES_BY_SHAPE == {(name, x.shape[1], x.shape[2]): 1}
+    want = _wide_call(shape, kind, causal, x, ln, w, fused=False)[0]
+    assert got.dtype == want.dtype and got.shape == want.shape
+    check = K.increment_agreement(got, want, base)
+    assert check["ok"], check
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["gelu", "quick_gelu", "gelu_tanh"])
+@pytest.mark.parametrize("stream", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ["vit_h", "tile+1"])
+def test_mlp_split_matches_plain_on_card(cuda, shape, stream, act):
+    """The pair, and each half on its own: h is bf16 in device memory."""
+    x, ln, w = _wide_inputs(shape, 91, cuda, stream, mlp=True)
+    sp, d = x.shape[1:]
+    K.reset_launches()
+    got = K.fused_mlp_split(x, *ln, *w, act=act)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES_BY_SHAPE == {("fused_mlp_split", sp, d): 1,
+                                   ("fused_mlp_fc", sp, d): 1,
+                                   ("fused_mlp_proj", sp, d): 1}
+    want = K.plain_mlp_split(x, *ln, *w, act=act)
+    assert got.dtype == want.dtype == stream and got.shape == want.shape
+    check = K.increment_agreement(got, want, x)
+    assert check["ok"], check
+
+    h = K.fused_mlp_fc(x, *ln, *w[:2], act=act)
+    want_h = K.plain_mlp_fc(x, *ln, *w[:2], act=act)
+    assert h.dtype == torch.bfloat16 and h.shape == (*x.shape[:2], 4 * d)
+    check = K.increment_agreement(h, want_h, torch.zeros((), device=cuda))
+    assert check["ok"], check
+    out = K.fused_mlp_proj(want_h, *w[2:], x)
+    check = K.increment_agreement(out, want, x)
+    assert check["ok"], check
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["scale_of_hd64", "tile_dropped",
+                                   "h_not_activated"])
+def test_wide_planted_fault_fails_the_check(cuda, fault):
+    if fault == "h_not_activated":
+        x, ln, w = _wide_inputs("vit_h", 92, cuda, torch.float32, mlp=True)
+        want = K.plain_mlp_split(x, *ln, *w, act="gelu")
+        bad = K.fused_mlp_split(x, *ln, *w, act="none")
+    else:
+        x, ln, w = _wide_inputs("vit_h", 92, cuda, torch.float32)
+        d, heads = x.shape[2], WIDE_SHAPES["vit_h"][4]
+        w[0][:, :d] *= 3.0   # a sharper softmax: the scale matters more
+        want = _wide_call("vit_h", "attn", False, x, ln, w, fused=False)[0]
+        if fault == "tile_dropped":
+            bad = _wide_call("vit_h", "attn", False, x, ln, w)[0].clone()
+            bad[:, 64:128] = x[:, 64:128]
+        else:
+            s = 0.125 * (d // heads) ** 0.5
+            wq, bq = w[0].clone(), w[1].clone()
+            wq[:, :d] *= s
+            bq[:d] *= s
+            bad = _wide_call("vit_h", "attn", False, x, ln,
+                             [wq, bq, *w[2:]])[0]
+    assert not K.increment_agreement(bad, want, x)["ok"]
+
+
+@pytest.mark.cuda
+def test_wide_wrappers_reject_what_they_do_not_take(cuda):
+    g = torch.Generator().manual_seed(93)
+
+    def attn_args(sp, d):
+        x = torch.randn((1, sp, d), generator=g).to(cuda)
+        bf = dict(dtype=torch.bfloat16, device=cuda)
+        return (x, torch.ones(d, device=cuda), torch.zeros(d, device=cuda),
+                torch.zeros((d, 3 * d), **bf), torch.zeros(3 * d, **bf),
+                torch.zeros((d, d), **bf), torch.zeros(d, **bf))
+
+    with pytest.raises(ValueError, match="head_dim"):   # head_dim 72
+        K.fused_attn_block(*attn_args(16, 288), heads=4, n_valid=16)
+    with pytest.raises(ValueError, match="sequence"):   # over K/V's room
+        K.fused_attn_block(*attn_args(273, 160), heads=2, n_valid=273)
+    with pytest.raises(ValueError, match="sequence"):
+        K.fused_attn_block_pooled(*attn_args(273, 160), heads=2, n_valid=273)
+    x, ln, w = _wide_inputs("tile+1", 94, cuda, torch.float32, mlp=True)
+    h = K.fused_mlp_fc(x, *ln, *w[:2])
+    with pytest.raises(ValueError, match="dtype"):      # h must be bf16
+        K.fused_mlp_proj(h.float(), *w[2:], x)
+    with pytest.raises(ValueError, match="shape"):
+        K.fused_mlp_proj(h[:, :-1].contiguous(), *w[2:], x)
+    with pytest.raises(ValueError, match="activation"):
+        K.fused_mlp_fc(x, *ln, *w[:2], act="relu")

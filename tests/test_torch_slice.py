@@ -55,6 +55,7 @@ def env(tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("WISE_CHECKPOINT_DIR", str(root / "ckpts"))
         mp.setenv("WISE_CLIP_DTYPE", "float32")
+        mp.setenv("WISE_TORCH_DEVICE", "cpu")
         yield root
 
 
@@ -128,7 +129,7 @@ def test_rest_matches_jax(drives, query):
 
 def test_port_path_never_imports_jax(env):
     """extract -> index -> search -> REST through the port in a fresh
-    interpreter: jax and flax stay out of sys.modules."""
+    interpreter: jax, flax and the JAX package stay out of sys.modules."""
     script = textwrap.dedent(f"""
         import json, sys
         from wise_tpu_torch.cli import create_index, extract_features, search
@@ -144,13 +145,16 @@ def test_port_path_never_imports_jax(env):
         from test_torch_slice import _rest
         ids, _ = _rest(create_server, proj, "red")
         assert len(ids) == 5
-        print(json.dumps({{m: m in sys.modules for m in ("jax", "flax")}}))
+        print(json.dumps({{m: any(k == m or k.startswith(m + ".")
+                                       for k in sys.modules)
+                          for m in ("jax", "flax", "wise_tpu")}}))
     """)
     run = subprocess.run(
         [sys.executable, "-c", script], capture_output=True, text=True,
         cwd=ROOT, timeout=300,
-        env={**os.environ, "PYTHONPATH": str(ROOT)},
+        env={**os.environ, "PYTHONPATH": str(ROOT),
+             "WISE_TORCH_DEVICE": "cpu"},
     )
     assert run.returncode == 0, run.stderr[-3000:]
     assert json.loads(run.stdout.strip().splitlines()[-1]) == {
-        "jax": False, "flax": False}
+        "jax": False, "flax": False, "wise_tpu": False}

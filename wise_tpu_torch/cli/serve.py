@@ -1,16 +1,33 @@
-"""serve CLI (wise_tpu/cli/serve.py): the REST API and frontend on the
-port's search engine."""
+"""serve CLI (reference: serve.py:21-58).
+
+Copy of ``wise_tpu/cli/serve.py``, with its imports bound to wise_tpu_torch.
+"""
 
 from __future__ import annotations
 
+import argparse
 import logging
 import sys
 from pathlib import Path
 
-from wise_tpu.cli import serve as _ref
-from wise_tpu.project import WiseProject
 
-build_parser = _ref.build_parser
+def build_parser():
+    p = argparse.ArgumentParser(
+        prog="serve", description="Serve the WISE REST API + frontend."
+    )
+    p.add_argument("project_dir", type=str)
+    p.add_argument("--hostname", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=9670)
+    p.add_argument("--index-type", default="IndexFlatIP",
+                   choices=["IndexFlatIP", "IndexIVFFlat", "IndexIVFPQ"])
+    p.add_argument("--storage-dtype", default=None,
+                   choices=["float32", "bfloat16"],
+                   help="HBM dtype for the resident index (bfloat16 halves scan bandwidth)")
+    p.add_argument("--query-blocklist", type=str, default=None,
+                   help="file with one blocked query per line")
+    p.add_argument("--frontend-dir", type=str, default=None,
+                   help="prebuilt frontend bundle to mount at /{project}/")
+    return p
 
 
 def main(argv=None) -> int:
@@ -20,8 +37,10 @@ def main(argv=None) -> int:
         format="%(asctime)s: %(name)s - %(levelname)s - %(message)s",
     )
     from ..api.server import serve
+    from ..project import WiseProject
 
-    config = WiseProject(args.project_dir).load_config().apply_env_overrides()
+    project = WiseProject(args.project_dir)
+    config = project.load_config().apply_env_overrides()
     if args.storage_dtype:
         config.index.storage_dtype = args.storage_dtype
     if args.frontend_dir is None:
@@ -29,12 +48,20 @@ def main(argv=None) -> int:
         if (bundled / "index.html").exists():
             args.frontend_dir = str(bundled)
     if args.query_blocklist:
-        text = Path(args.query_blocklist).read_text()
-        config.search.query_blocklist = tuple(
-            line.strip() for line in text.splitlines() if line.strip())
-    serve(args.project_dir, hostname=args.hostname, port=args.port,
-          config=config, frontend_dir=args.frontend_dir,
-          index_type=args.index_type)
+        blocked = [
+            line.strip()
+            for line in Path(args.query_blocklist).read_text().splitlines()
+            if line.strip()
+        ]
+        config.search.query_blocklist = tuple(blocked)
+    serve(
+        args.project_dir,
+        hostname=args.hostname,
+        port=args.port,
+        config=config,
+        frontend_dir=args.frontend_dir,
+        index_type=args.index_type,
+    )
     return 0
 
 

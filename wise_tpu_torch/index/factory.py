@@ -1,9 +1,9 @@
 """SearchIndex factory (wise_tpu/index/factory.py) on the port's feature
-index; the metadata (FTS5) index is wise_tpu's, which runs on SQLite."""
+index and the metadata (FTS5) index on SQLite."""
 
 from __future__ import annotations
 
-from wise_tpu.index.fts_index import SqliteSearchIndex
+from .fts_index import SqliteSearchIndex
 
 from .feature_index import FeatureSearchIndex
 

@@ -22,14 +22,14 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..._host import clap_tokenizer
 from ...ops.mel import log_mel_spectrogram
 from ...ops.resample import resample_linear
-from ..clip.extractor import default_device
+from ...utils.device import default_device
 from ..feature_extractor import BucketPolicy, DeviceArray, FeatureExtractor
 from .config import production_clap_config
 from .convert import load_checkpoint
 from .model import CLAP, init_random_
+from .tokenizer import get_caption_tokenizer
 
 logger = logging.getLogger(__name__)
 
@@ -83,7 +83,7 @@ class ClapExtractor(FeatureExtractor):
         self.model = model.to(self.device).eval().requires_grad_(False)
         # GPT2 byte-level BPE from a staged vocab.json + merges.txt, else the
         # deterministic hash tokenizer
-        self.tokenizer = clap_tokenizer.get_caption_tokenizer(
+        self.tokenizer = get_caption_tokenizer(
             ckpt_dir if ckpt_dir.exists() else None,
             vocab_size=c.vocab_size, context_length=c.context_length,
             kind="gpt2")

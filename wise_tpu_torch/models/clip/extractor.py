@@ -20,11 +20,12 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..._host import clip_tokenizer
+from ...utils.device import default_device
 from ..feature_extractor import BucketPolicy, DeviceArray, FeatureExtractor
 from .config import production_clip_config
 from .convert import load_checkpoint
 from .model import CLIP, init_random_
+from .tokenizer import get_tokenizer
 from .preprocess import preprocess_images, preprocess_images_gemm
 
 logger = logging.getLogger(__name__)
@@ -46,10 +47,6 @@ def _find_checkpoint(d: Path) -> Optional[Path]:
         if hits:
             return hits[0]
     return None
-
-
-def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
 class OpenClipExtractor(FeatureExtractor):
@@ -85,7 +82,7 @@ class OpenClipExtractor(FeatureExtractor):
         self.model = model.to(self.device).eval().requires_grad_(False)
 
         bpe = ckpt_dir / "bpe_simple_vocab_16e6.txt.gz"
-        self.tokenizer = clip_tokenizer.get_tokenizer(
+        self.tokenizer = get_tokenizer(
             bpe if bpe.exists() else None,
             vocab_size=self.config.vocab_size,
             context_length=self.config.context_length,

@@ -13,7 +13,10 @@ GEMMs, an f32 vision residual stream after ``ln_pre`` (bf16 with
 pooled row (cls / EOT argmax), the last layer's MLP as plain (B, D) ops.
 Residual blocks go through ops/block.py, whose wrappers launch the CUDA
 kernels on CUDA tensors when ``fused_block`` is set and the shape is one the
-kernels take (head_dim 64, at most 128 tokens).
+kernels take (``ops.block.supports_fused_block``: head_dim 64 or 80, at most
+272 tokens, which covers ViT-B/32, B/16, L/14 and H/14 at 224 px and their
+text towers). The MLP takes ``fused_mlp_block`` up to width 768 and the
+``fused_mlp_split`` pair above (``ops.block.mlp_choice``).
 """
 
 from __future__ import annotations
@@ -86,7 +89,12 @@ class ResidualAttentionBlock(nn.Module):
     def forward(self, x, n_valid: int, causal: bool = False):
         fused = self._kernels(x.shape[1])
         attn = K.fused_attn_block if fused else K.plain_attn_block
-        mlp = K.fused_mlp_block if fused else K.plain_mlp_block
+        if not fused:
+            mlp = K.plain_mlp_block
+        elif K.mlp_choice(x.shape[1], self.width) == "split":
+            mlp = K.fused_mlp_split
+        else:
+            mlp = K.fused_mlp_block
         x = attn(x, *self._attn_params(), heads=self.heads, n_valid=n_valid,
                  causal=causal)
         return mlp(x, self.ln_2.scale, self.ln_2.bias, self.mlp_fc.kernel,

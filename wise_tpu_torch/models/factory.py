@@ -2,7 +2,7 @@
 ids, routed to the port's extractors.
 
 - ``mlfoundations/open_clip/<model>/<pretrained>`` -> PyTorch/CUDA OpenCLIP
-- ``wise/random_features/<dim>/<label>``           -> wise_tpu's numpy fake
+- ``wise/random_features/<dim>/<label>``           -> the numpy fake (random_features.py)
 - ``microsoft/clap/<version>/<variant>``           -> PyTorch/CUDA CLAP
   (version 2023; 2022 raises, ROADMAP Queue A item 10)
 """
@@ -13,7 +13,7 @@ import re
 
 
 def FeatureExtractorFactory(id: str):
-    from wise_tpu.models.random_features import RandomFeatures
+    from .random_features import RandomFeatures
 
     m = re.fullmatch(r"__RANDOM_(\d+)__", id)
     if m:

@@ -13,6 +13,8 @@ version; on a CUDA tensor it launches its kernel chain
 | fused_mlp_block               | fused_mlp_block (block.py:916)              |
 | fused_attn_block_pooled       | fused_attn_block_pooled (block.py:634)      |
 | fused_attn_block_pooled_dyn   | fused_attn_block_pooled_dyn (block.py:811)  |
+| fused_mlp_split (fused_mlp_fc | fused_mlp_split (block.py:1209: _fc_kernel  |
+|   then fused_mlp_proj)        |   block.py:1129, _proj_kernel block.py:1158)|
 """
 
 from __future__ import annotations
@@ -24,13 +26,20 @@ import torch
 from .build import LaunchCounter, check, load_library
 
 EPS = 1e-5
-HEAD_DIM = 64
-MAX_SEQ = 128
+#: head dims the attention kernels are instantiated for (csrc/block_kernels.cu)
+HEAD_DIMS = (64, 80)
+#: longest sequence: K and V of one head stay resident in a block's shared
+#: memory (272 keys of head_dim 80 with a 64-row query tile fill 209 KB of
+#: Hopper's 227 KB)
+MAX_SEQ = 272
+#: widest tower that takes the single MLP wrapper; above it the split pair
+SINGLE_MLP_MAX_WIDTH = 768
 ACTS = {"none": 0, "gelu": 1, "quick_gelu": 2, "gelu_tanh": 3}
 
 _launches = LaunchCounter("fused_attn_block", "fused_mlp_block",
                           "fused_attn_block_pooled",
-                          "fused_attn_block_pooled_dyn")
+                          "fused_attn_block_pooled_dyn", "fused_mlp_split",
+                          "fused_mlp_fc", "fused_mlp_proj")
 #: kernel launches per wrapper since the last reset_launches()
 LAUNCHES = _launches.counts
 #: the same launches keyed by (wrapper, SP, D) of x: one tower's count
@@ -39,9 +48,19 @@ reset_launches = _launches.reset
 
 
 def supports_fused_block(seq: int, width: int, heads: int) -> bool:
-    """Static gate: the kernels take head_dim 64 and sequences up to 128."""
-    return (width % heads == 0 and width // heads == HEAD_DIM
-            and 1 <= seq <= MAX_SEQ)
+    """Static gate: the kernels take head_dim 64 or 80 and sequences up to
+    MAX_SEQ."""
+    return (heads >= 1 and width % heads == 0
+            and width // heads in HEAD_DIMS and 1 <= seq <= MAX_SEQ)
+
+
+def mlp_choice(seq: int, width: int) -> str:
+    """Which MLP wrapper a tower of this width takes: "single"
+    (fused_mlp_block) up to width 768, "split" (fused_mlp_split) above. It
+    is what the reference's calibration gives every published shape
+    (wise_tpu/ops/block.py:103-114), where the split exists because both
+    weights do not fit VMEM; ``seq`` does not enter here."""
+    return "single" if width <= SINGLE_MLP_MAX_WIDTH else "split"
 
 
 # ---------------------------------------------------------------------------
@@ -105,10 +124,24 @@ def plain_attn_block(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads: int,
 
 
 def plain_mlp_block(x, ln_s, ln_b, wfc, bfc, wproj, bproj, act: str = "gelu"):
+    return plain_mlp_split(x, ln_s, ln_b, wfc, bfc, wproj, bproj, act)
+
+
+def plain_mlp_fc(x, ln_s, ln_b, wfc, bfc, act: str = "gelu"):
+    """h = act(fc(LN(x))) in the weight dtype, (B, SP, F)."""
     dt = wfc.dtype
     y = layer_norm_f32(x, ln_s, ln_b).to(dt)
-    h = activation((y @ wfc + bfc).float(), act).to(dt)
+    return activation((y @ wfc + bfc).float(), act).to(dt)
+
+
+def plain_mlp_proj(h, wproj, bproj, x):
+    """x + (proj(h) + b) in x's dtype."""
     return x + (h @ wproj + bproj).to(x.dtype)
+
+
+def plain_mlp_split(x, ln_s, ln_b, wfc, bfc, wproj, bproj, act: str = "gelu"):
+    return plain_mlp_proj(plain_mlp_fc(x, ln_s, ln_b, wfc, bfc, act), wproj,
+                          bproj, x)
 
 
 def plain_attn_block_pooled_dyn(x, rows, ln_s, ln_b, wqkv, bqkv, wo, bo,
@@ -200,7 +233,7 @@ def _check_x(x, name: str):
     b, sp, d = x.shape
     _require(b >= 1 and 1 <= sp <= MAX_SEQ,
              f"{name}: batch {b} / sequence {sp} outside [1, {MAX_SEQ}]")
-    _require(d % HEAD_DIM == 0, f"{name}: width {d} not a multiple of 64")
+    _require(d % 32 == 0, f"{name}: width {d} not a multiple of 32")
     return b, sp, d
 
 
@@ -214,8 +247,8 @@ def _check_param(t, shape, dtype, device, name):
 
 def _check_attn(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads, n_valid, name):
     b, sp, d = _check_x(x, name)
-    _require(heads >= 1 and d == heads * HEAD_DIM,
-             f"{name}: head_dim {d // max(heads, 1)} != {HEAD_DIM}")
+    _require(heads >= 1 and d % heads == 0 and d // heads in HEAD_DIMS,
+             f"{name}: head_dim {d / max(heads, 1):g} not in {HEAD_DIMS}")
     _require(1 <= n_valid <= sp, f"{name}: n_valid {n_valid} not in [1, {sp}]")
     dev, bf = x.device, torch.bfloat16
     _check_param(ln_s, (d,), torch.float32, dev, f"{name} ln_scale")
@@ -252,13 +285,7 @@ def fused_attn_block(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, heads: int,
     return out
 
 
-def fused_mlp_block(x, ln_scale, ln_bias, wfc, bfc, wproj, bproj,
-                    act: str = "gelu"):
-    """x (B, SP, D) -> x + proj(act(fc(LN(x))))."""
-    if not x.is_cuda:
-        return plain_mlp_block(x, ln_scale, ln_bias, wfc, bfc, wproj, bproj,
-                               act)
-    name = "fused_mlp_block"
+def _check_mlp(x, ln_scale, ln_bias, wfc, bfc, act, name):
     _require(act in ACTS, f"{name}: unknown activation {act!r}")
     b, sp, d = _check_x(x, name)
     f = wfc.shape[-1]
@@ -268,18 +295,84 @@ def fused_mlp_block(x, ln_scale, ln_bias, wfc, bfc, wproj, bproj,
     _check_param(ln_bias, (d,), torch.float32, dev, f"{name} ln_bias")
     _check_param(wfc, (d, f), bf, dev, f"{name} wfc")
     _check_param(bfc, (f,), bf, dev, f"{name} bfc")
-    _check_param(wproj, (f, d), bf, dev, f"{name} wproj")
-    _check_param(bproj, (d,), bf, dev, f"{name} bproj")
+    return b, sp, d, f
+
+
+def _check_proj(wproj, bproj, d, f, dev, name):
+    _check_param(wproj, (f, d), torch.bfloat16, dev, f"{name} wproj")
+    _check_param(bproj, (d,), torch.bfloat16, dev, f"{name} bproj")
+
+
+def fused_mlp_block(x, ln_scale, ln_bias, wfc, bfc, wproj, bproj,
+                    act: str = "gelu"):
+    """x (B, SP, D) -> x + proj(act(fc(LN(x))))."""
+    if not x.is_cuda:
+        return plain_mlp_block(x, ln_scale, ln_bias, wfc, bfc, wproj, bproj,
+                               act)
+    name = "fused_mlp_block"
+    b, sp, d, f = _check_mlp(x, ln_scale, ln_bias, wfc, bfc, act, name)
+    _check_proj(wproj, bproj, d, f, x.device, name)
     lib = load_library()
     m = b * sp
-    y = torch.empty((m, d), dtype=bf, device=dev)
-    h = torch.empty((m, f), dtype=bf, device=dev)
+    y = torch.empty((m, d), dtype=torch.bfloat16, device=x.device)
+    h = torch.empty((m, f), dtype=torch.bfloat16, device=x.device)
     out = torch.empty_like(x)
     check(lib.wt_mlp_block(
         *_ptrs(x), _is_f32(x), *_ptrs(ln_scale, ln_bias, wfc, bfc, wproj,
                                      bproj, out, y, h),
         m, d, f, ACTS[act], _stream(x)), name)
     _launches.add(name, sp, d)
+    return out
+
+
+def fused_mlp_fc(x, ln_scale, ln_bias, wfc, bfc, act: str = "gelu"):
+    """The first half of the split MLP: x (B, SP, D) -> h = act(fc(LN(x)))
+    as (B, SP, F) bf16 in device memory; h rounds once, after the
+    activation."""
+    if not x.is_cuda:
+        return plain_mlp_fc(x, ln_scale, ln_bias, wfc, bfc, act)
+    name = "fused_mlp_fc"
+    b, sp, d, f = _check_mlp(x, ln_scale, ln_bias, wfc, bfc, act, name)
+    lib = load_library()
+    y = torch.empty((b * sp, d), dtype=torch.bfloat16, device=x.device)
+    h = torch.empty((b, sp, f), dtype=torch.bfloat16, device=x.device)
+    check(lib.wt_mlp_fc(
+        *_ptrs(x), _is_f32(x), *_ptrs(ln_scale, ln_bias, wfc, bfc, h, y),
+        b * sp, d, f, ACTS[act], _stream(x)), name)
+    _launches.add(name, sp, d)
+    return h
+
+
+def fused_mlp_proj(h, wproj, bproj, x):
+    """The second half: h (B, SP, F) bf16, x (B, SP, D) ->
+    x + (proj(h) + b) in x's dtype."""
+    if not x.is_cuda:
+        return plain_mlp_proj(h, wproj, bproj, x)
+    name = "fused_mlp_proj"
+    b, sp, d = _check_x(x, name)
+    f = wproj.shape[0]
+    _require(f % 32 == 0, f"{name}: hidden width {f} not a multiple of 32")
+    _check_param(h, (b, sp, f), torch.bfloat16, x.device, f"{name} h")
+    _check_proj(wproj, bproj, d, f, x.device, name)
+    lib = load_library()
+    out = torch.empty_like(x)
+    check(lib.wt_mlp_proj(
+        *_ptrs(h, wproj, bproj, x), _is_f32(x), *_ptrs(out), b * sp, d, f,
+        _stream(x)), name)
+    _launches.add(name, sp, d)
+    return out
+
+
+def fused_mlp_split(x, ln_scale, ln_bias, wfc, bfc, wproj, bproj,
+                    act: str = "gelu"):
+    """x (B, SP, D) -> x + proj(act(fc(LN(x)))) as the two-kernel pair:
+    fused_mlp_fc writes h, fused_mlp_proj reads it back."""
+    if not x.is_cuda:
+        return plain_mlp_split(x, ln_scale, ln_bias, wfc, bfc, wproj, bproj,
+                               act)
+    h = fused_mlp_fc(x, ln_scale, ln_bias, wfc, bfc, act)
+    out = fused_mlp_proj(h, wproj, bproj, x)
+    _launches.add("fused_mlp_split", x.shape[1], x.shape[2])
     return out
 
 

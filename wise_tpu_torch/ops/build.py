@@ -37,6 +37,8 @@ SIGNATURES = {
                       _I, _I, _I, _I, _I, _I, _P],
     "wt_mlp_block": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _P],
+    "wt_mlp_fc": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "wt_mlp_proj": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _P],
     "wt_attn_block_pooled": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                              _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "wt_window_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,

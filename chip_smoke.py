@@ -357,7 +357,7 @@ def _block_rows(torch, results, tag, s):
 
     x, ln, w = _block_inputs(torch, b, sp, d, dtype, seed_mlp, mlp=True)
     act, f = s["act"], 4 * d
-    if K.mlp_choice(sp, d) == "single":
+    if K.mlp_choice(d) == "single":
         _check_row(torch, results, "fused_mlp_block", tag,
                    ("fused_mlp_block", sp, d), x,
                    lambda: K.fused_mlp_block(x, *ln, *w, act=act),
@@ -705,6 +705,21 @@ def _plain_twin(torch, extractor):
     return twin
 
 
+def _block_launches():
+    """The block wrappers' launch counts by (wrapper, SP, D). The split MLP
+    pair launches nothing of its own (its halves count themselves), so its
+    count at a shape is derived here: the lesser of its halves' counts."""
+    from wise_tpu_torch.ops.block import LAUNCHES_BY_SHAPE
+
+    counts = dict(LAUNCHES_BY_SHAPE)
+    for (name, *shape), n in LAUNCHES_BY_SHAPE.items():
+        if name == "fused_mlp_fc":
+            pair = min(n, counts.get(("fused_mlp_proj", *shape), 0))
+            if pair:
+                counts[("fused_mlp_split", *shape)] = pair
+    return counts
+
+
 def _tower_keys(config):
     """(vision keys, text keys) of the launch counters a CLIP config's
     towers reach: (wrapper, tokens, width) of the attention block, the MLP
@@ -712,7 +727,7 @@ def _tower_keys(config):
     from wise_tpu_torch.ops.block import mlp_choice
 
     def keys(sp, d, pooled):
-        mlp = ("fused_mlp_block" if mlp_choice(sp, d) == "single"
+        mlp = ("fused_mlp_block" if mlp_choice(d) == "single"
                else "fused_mlp_split")
         return [("fused_attn_block", sp, d), (mlp, sp, d), (pooled, sp, d)]
 
@@ -759,7 +774,8 @@ def phase_slice(torch, card, model_id=MODEL_ID, n_frames=FRAMES,
         layers = extractor.config.vision_layers
         want = dict(zip(vision, [len(clips) * (layers - 1)] * 2
                         + [len(clips)]))
-        got = {key: K.LAUNCHES_BY_SHAPE.get(key, 0) for key in vision}
+        launches = _block_launches()
+        got = {key: launches.get(key, 0) for key in vision}
         if got != want:
             raise PhaseError(f"{phase}: ingest launched {got}, expected "
                              f"{want}")
@@ -767,7 +783,7 @@ def phase_slice(torch, card, model_id=MODEL_ID, n_frames=FRAMES,
             raise PhaseError("create-index failed")
         config = project.WiseProject(project_dir).load_config()
         served, lat = _serve_queries(project_dir, config, QUERIES, k)
-        launches = dict(K.LAUNCHES_BY_SHAPE)
+        launches = _block_launches()
         idle = [key for key in vision + text if not launches.get(key)]
         if idle:
             raise PhaseError(f"{phase}: not launched on the path: {idle}")
@@ -779,7 +795,7 @@ def phase_slice(torch, card, model_id=MODEL_ID, n_frames=FRAMES,
             np.concatenate([plain.extract_image_features(c[i:i + 256])
                             for i in range(0, len(c), 256)])
             for c in clips])
-        if K.LAUNCHES_BY_SHAPE != launches:
+        if _block_launches() != launches:
             raise PhaseError(f"{phase}: the plain run launched kernels")
         prefix = config.search.query_prefix
         for q in QUERIES:
@@ -841,7 +857,7 @@ def phase_families(torch, card, batch: int = 64):
         extractor = OpenClipExtractor(model_id)
         K.reset_launches()
         got = torch.from_numpy(extractor.extract_image_features(frames))
-        counts = dict(K.LAUNCHES_BY_SHAPE)
+        counts = _block_launches()
         vision, _ = _tower_keys(extractor.config)
         idle = [key for key in vision if not counts.get(key)]
         if idle:

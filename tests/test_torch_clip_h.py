@@ -135,7 +135,8 @@ def test_vit_h_14_builds_at_full_width_on_meta(monkeypatch):
     assert {k: tuple(v.shape) for k, v in flat.items()} == shapes
     assert sum(int(np.prod(s)) for s in shapes.values()) == 986_109_441
 
-    blk = tm.visual.transformer.resblocks[0]
-    assert blk._kernels(257) and K.mlp_choice(257, blk.width) == "split"
-    tblk = tm.text.transformer.resblocks[0]
-    assert tblk._kernels(77) and K.mlp_choice(77, tblk.width) == "split"
+    for blk, seq in ((tm.visual.transformer.resblocks[0], 257),
+                     (tm.text.transformer.resblocks[0], 77)):
+        assert blk.fused_block
+        assert K.supports_fused_block(seq, blk.width, blk.heads)
+        assert K.mlp_choice(blk.width) == "split"

@@ -338,8 +338,7 @@ def test_mlp_split_matches_plain_on_card(cuda, shape, stream, act):
     K.reset_launches()
     got = K.fused_mlp_split(x, *ln, *w, act=act)
     torch.cuda.synchronize()
-    assert K.LAUNCHES_BY_SHAPE == {("fused_mlp_split", sp, d): 1,
-                                   ("fused_mlp_fc", sp, d): 1,
+    assert K.LAUNCHES_BY_SHAPE == {("fused_mlp_fc", sp, d): 1,
                                    ("fused_mlp_proj", sp, d): 1}
     want = K.plain_mlp_split(x, *ln, *w, act=act)
     assert got.dtype == want.dtype == stream and got.shape == want.shape
@@ -407,3 +406,28 @@ def test_wide_wrappers_reject_what_they_do_not_take(cuda):
         K.fused_mlp_proj(h[:, :-1].contiguous(), *w[2:], x)
     with pytest.raises(ValueError, match="activation"):
         K.fused_mlp_fc(x, *ln, *w[:2], act="relu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,heads,seq,match", [
+    (288, 4, 16, "head_dim"),     # head_dim 72
+    (128, 2, 273, "sequence"),    # one key over the resident K and V
+])
+def test_clip_model_raises_outside_the_kernels_shapes(cuda, width, heads, seq,
+                                                      match):
+    """A CLIP block of a shape the kernels do not take reaches the wrapper
+    on the card and raises, whole and pooled: no plain fallback."""
+    from wise_tpu_torch.models.clip import model as TM
+
+    blk = TM.ResidualAttentionBlock(width, heads, "gelu", torch.bfloat16,
+                                    fused_block=True).to(cuda)
+    x = torch.randn(2, seq, width, device=cuda)
+    K.reset_launches()
+    with pytest.raises(ValueError, match=match):
+        blk(x, n_valid=seq)
+    with pytest.raises(ValueError, match=match):
+        blk.pooled(x, n_valid=seq, pool_row=0)
+    rows = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match=match):
+        blk.pooled(x, n_valid=seq, rows=rows)
+    assert not any(K.LAUNCHES.values())

@@ -11,12 +11,14 @@ Numerics follow the reference's production path: f32 LayerNorms, bf16
 GEMMs, an f32 vision residual stream after ``ln_pre`` (bf16 with
 ``bf16_stream``), a bf16 text stream, the last layer computed only at the
 pooled row (cls / EOT argmax), the last layer's MLP as plain (B, D) ops.
-Residual blocks go through ops/block.py, whose wrappers launch the CUDA
-kernels on CUDA tensors when ``fused_block`` is set and the shape is one the
-kernels take (``ops.block.supports_fused_block``: head_dim 64 or 80, at most
-272 tokens, which covers ViT-B/32, B/16, L/14 and H/14 at 224 px and their
-text towers). The MLP takes ``fused_mlp_block`` up to width 768 and the
-``fused_mlp_split`` pair above (``ops.block.mlp_choice``).
+Residual blocks go through ops/block.py. With ``fused_block`` set (and
+bf16 GEMMs) every block calls the kernel wrappers, which launch the CUDA
+kernels on CUDA tensors and compute their plain versions on CPU tensors.
+The kernels take head_dim 64 or 80 and at most 272 tokens
+(``ops.block.supports_fused_block``), which covers ViT-B/32, B/16, L/14 and
+H/14 at 224 px and their text towers; any other tower raises on the card
+unless ``fused_block`` is off. The MLP takes ``fused_mlp_block`` up to width
+768 and the ``fused_mlp_split`` pair above (``ops.block.mlp_choice``).
 """
 
 from __future__ import annotations
@@ -82,16 +84,12 @@ class ResidualAttentionBlock(nn.Module):
         return (self.ln_1.scale, self.ln_1.bias, a.in_proj.kernel,
                 a.in_proj.bias, a.out_proj.kernel, a.out_proj.bias)
 
-    def _kernels(self, seq: int) -> bool:
-        return self.fused_block and K.supports_fused_block(
-            seq, self.width, self.heads)
-
     def forward(self, x, n_valid: int, causal: bool = False):
-        fused = self._kernels(x.shape[1])
+        fused = self.fused_block
         attn = K.fused_attn_block if fused else K.plain_attn_block
         if not fused:
             mlp = K.plain_mlp_block
-        elif K.mlp_choice(x.shape[1], self.width) == "split":
+        elif K.mlp_choice(self.width) == "split":
             mlp = K.fused_mlp_split
         else:
             mlp = K.fused_mlp_block
@@ -105,7 +103,7 @@ class ResidualAttentionBlock(nn.Module):
                pool_row: int | None = None, rows=None):
         """The last layer at one row per example, (B, D): ``rows`` (B,)
         int32 per example (text EOT), else the static ``pool_row``."""
-        fused = self._kernels(x.shape[1])
+        fused = self.fused_block
         if rows is not None:
             fn = (K.fused_attn_block_pooled_dyn if fused
                   else K.plain_attn_block_pooled_dyn)

@@ -32,14 +32,12 @@ HEAD_DIMS = (64, 80)
 #: memory (272 keys of head_dim 80 with a 64-row query tile fill 209 KB of
 #: Hopper's 227 KB)
 MAX_SEQ = 272
-#: widest tower that takes the single MLP wrapper; above it the split pair
-SINGLE_MLP_MAX_WIDTH = 768
 ACTS = {"none": 0, "gelu": 1, "quick_gelu": 2, "gelu_tanh": 3}
 
 _launches = LaunchCounter("fused_attn_block", "fused_mlp_block",
                           "fused_attn_block_pooled",
-                          "fused_attn_block_pooled_dyn", "fused_mlp_split",
-                          "fused_mlp_fc", "fused_mlp_proj")
+                          "fused_attn_block_pooled_dyn", "fused_mlp_fc",
+                          "fused_mlp_proj")
 #: kernel launches per wrapper since the last reset_launches()
 LAUNCHES = _launches.counts
 #: the same launches keyed by (wrapper, SP, D) of x: one tower's count
@@ -48,19 +46,21 @@ reset_launches = _launches.reset
 
 
 def supports_fused_block(seq: int, width: int, heads: int) -> bool:
-    """Static gate: the kernels take head_dim 64 or 80 and sequences up to
-    MAX_SEQ."""
+    """Whether the kernels take the shape: head_dim 64 or 80 and sequences
+    up to MAX_SEQ. A predicate for callers that want to ask first; the
+    wrappers check for themselves and raise on the card."""
     return (heads >= 1 and width % heads == 0
             and width // heads in HEAD_DIMS and 1 <= seq <= MAX_SEQ)
 
 
-def mlp_choice(seq: int, width: int) -> str:
+def mlp_choice(width: int) -> str:
     """Which MLP wrapper a tower of this width takes: "single"
-    (fused_mlp_block) up to width 768, "split" (fused_mlp_split) above. It
-    is what the reference's calibration gives every published shape
+    (fused_mlp_block) up to width 768, "split" (fused_mlp_split) above. The
+    rule only mirrors the reference's calibration table
     (wise_tpu/ops/block.py:103-114), where the split exists because both
-    weights do not fit VMEM; ``seq`` does not enter here."""
-    return "single" if width <= SINGLE_MLP_MAX_WIDTH else "split"
+    weights do not fit VMEM. Here both wrappers run the same LayerNorm and
+    GEMM chain and differ in who owns h, so the choice costs nothing."""
+    return "single" if width <= 768 else "split"
 
 
 # ---------------------------------------------------------------------------
@@ -366,14 +366,13 @@ def fused_mlp_proj(h, wproj, bproj, x):
 def fused_mlp_split(x, ln_scale, ln_bias, wfc, bfc, wproj, bproj,
                     act: str = "gelu"):
     """x (B, SP, D) -> x + proj(act(fc(LN(x)))) as the two-kernel pair:
-    fused_mlp_fc writes h, fused_mlp_proj reads it back."""
+    fused_mlp_fc writes h, fused_mlp_proj reads it back. The pair launches
+    nothing of its own, so it has no count: each half counts itself."""
     if not x.is_cuda:
         return plain_mlp_split(x, ln_scale, ln_bias, wfc, bfc, wproj, bproj,
                                act)
     h = fused_mlp_fc(x, ln_scale, ln_bias, wfc, bfc, act)
-    out = fused_mlp_proj(h, wproj, bproj, x)
-    _launches.add("fused_mlp_split", x.shape[1], x.shape[2])
-    return out
+    return fused_mlp_proj(h, wproj, bproj, x)
 
 
 def _pooled_launch(name, x, rows, pool_row, ln_scale, ln_bias, wqkv, bqkv, wo,

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serve paths once on one NVIDIA GPU: OpenCLIP
-ViT-B/32 and ViT-H/14 (video frames, with one batch of ViT-L/14 and ViT-B/16)
-and CLAP 2023 (audio segments).
+ViT-B/32, ViT-H/14 and the default backbone xlm-roberta-large-ViT-H-14 (video
+frames, with one batch of ViT-L/14 and ViT-B/16), CLAP 2023 (audio segments),
+and the production configuration with WISE_FUSED_BLOCK=0.
 
     python3 chip_smoke.py                  # env, kernels, every slice
     python3 chip_smoke.py --phase kernels  # env and kernels only
     python3 chip_smoke.py --phase vit_h    # env and the ViT-H/14 slice only
+    python3 chip_smoke.py --phase xlmr     # env and the default backbone only
+    python3 chip_smoke.py --phase hybrid   # env and WISE_FUSED_BLOCK=0 only
     python3 chip_smoke.py --phase profile  # env and the audio breakdown
 
 Phases, one line each; any failure exits non-zero:
@@ -27,7 +30,17 @@ Phases, one line each; any failure exits non-zero:
    (``bound_ms``: the larger of its operations over 989 TFLOP/s and its
    bytes over 3.35 TB/s, from the shapes). The Swin kernels at HTSAT's four stages at batch 64, with the relative-bias
    table at std 1 and the planted faults zeroed logits, the shift mask
-   dropped (shifted blocks) and the relative bias dropped.
+   dropped (shifted blocks) and the relative bias dropped. The post-LN
+   blocks (attention block, MLP as "single" and as the split pair, each
+   half) at the XLM-R shape 64 x 1024 at batch 8 and 256, and
+   fused_short_attention at ViT-B/32's vision and text shapes and at 64 x 257
+   tokens of width 1024 and 1280, with ``F.scaled_dot_product_attention``
+   timed beside it (``library_ms``): these have no residual under their
+   output and are held on the whole output (cosine >= 0.999, max abs error
+   <= 5% of the output's max abs); planted there: the residual sum rounded
+   to bf16 before the LayerNorm, the key mask dropped, half the softmax
+   scale, the LayerNorm's scale and bias left out, h not activated, the
+   causal mask dropped.
 3. slice: a WiseProject built from seeded synthetic 224x224 uint8 frames,
    embedded by the port's OpenClipExtractor (ViT-B-32, production config,
    random weights) in batches of 256, written through the feature store and
@@ -48,18 +61,32 @@ Phases, one line each; any failure exits non-zero:
    the plain-PyTorch path (cosine >= 0.999), kernels launched at their
    shapes.
 6. vit_h: phase 3 for OpenCLIP ViT-H/14 (vision 257 tokens x 1280, head_dim
-   80, 32 layers; text 77 x 1024, 24 layers; 1024-d joint space) on 1,024
+   80, 32 layers; text 77 x 1024, 24 layers; 1024-d joint space) on 512
    frames in batches of 256; the launch counts of the ingest must equal
    batches x (layers - 1) for the attention block and the split MLP, and
-   batches for the pooled block.
+   batches for the pooled block. One 64-frame batch also runs the path of
+   WISE_FUSED_BLOCK=0 (as does each tower of phase 5).
+7. xlmr: phase 3 for the reference's default backbone,
+   xlm-roberta-large-ViT-H-14 (ViT-H/14's vision tower; the XLM-R large text
+   tower: 64 tokens x 1024, 24 post-LN layers, 250,002-token vocabulary,
+   the "mlp" projection head), 1,024 frames; a text batch must launch 24
+   post-LN attention blocks and 24 MLP pairs. The 8 queries also run with
+   the MLP as the "single" variant, against the split path (cosine >=
+   0.9999).
+8. hybrid: the production configuration with WISE_FUSED_BLOCK=0 (block
+   kernels off, the attention middle a kernel) for ViT-B/32: one 256-frame
+   batch and the 8 queries against the fully plain twin (min embedding
+   cosine >= 0.9995); fused_short_attention must launch once for every
+   non-pooled layer.
 
 The line before the last is the kernels' JSON summary; the last is
 {"ok": true, "device": {...}}. Needs one CUDA card; imports no JAX.
 
 ``--phase profile`` runs the env phase, then breaks one 64-segment audio
-batch and one 256-frame ViT-H/14 batch on the kernel path down on
-``[profile]`` lines (see phase_profile, profile_vit_h); it checks nothing
-and prints no summary.
+batch, one 256-frame ViT-H/14 batch and one text embed of the default
+backbone on the kernel path down on ``[profile]`` lines (see phase_profile,
+profile_vit_h, profile_xlmr_text); it checks nothing and prints no
+summary.
 """
 
 from __future__ import annotations
@@ -81,7 +108,12 @@ ROOT = Path(__file__).resolve().parent
 FRAMES = 4096  # synthetic 224x224 frames ingested by the slice phase
 MODEL_ID = "mlfoundations/open_clip/ViT-B-32/laion2b_s34b_b79k"
 VIT_H_ID = "mlfoundations/open_clip/ViT-H-14/laion2b_s32b_b79k"
-VIT_H_FRAMES = 1024
+#: two batches of 256: the xlmr phase runs the same vision tower on 1,024
+VIT_H_FRAMES = 512
+#: the reference's default backbone: ViT-H/14 vision, XLM-R large text
+XLMR_ID = ("mlfoundations/open_clip/xlm-roberta-large-ViT-H-14/"
+           "frozen_laion5b_s13b_b90k")
+XLMR_FRAMES = 1024
 #: further towers the extended attention kernels open: one batch each
 FAMILY_IDS = ["mlfoundations/open_clip/ViT-L-14/laion2b_s32b_b82k",
               "mlfoundations/open_clip/ViT-B-16/laion2b_s34b_b88k"]
@@ -115,6 +147,18 @@ KERNELS = {
                          "wise_tpu/ops/swin_block.py:227"),
     "fused_window_attention": ("wise_tpu_torch/csrc/swin_kernels.cu",
                                "wise_tpu/ops/swin_attention.py:129"),
+    "fused_postln_attn_block": ("wise_tpu_torch/csrc/postln_kernels.cu",
+                                "wise_tpu/ops/postln_block.py:184"),
+    "fused_postln_mlp_block": ("wise_tpu_torch/csrc/postln_kernels.cu",
+                               "wise_tpu/ops/postln_block.py:277"),
+    "fused_postln_mlp_split": ("wise_tpu_torch/csrc/postln_kernels.cu",
+                               "wise_tpu/ops/postln_block.py:277"),
+    "fused_postln_fc": ("wise_tpu_torch/csrc/postln_kernels.cu",
+                        "wise_tpu/ops/postln_block.py:257"),
+    "fused_postln_proj": ("wise_tpu_torch/csrc/postln_kernels.cu",
+                          "wise_tpu/ops/postln_block.py:265"),
+    "fused_short_attention": ("wise_tpu_torch/csrc/block_kernels.cu",
+                              "wise_tpu/ops/attention.py:125"),
 }
 #: HTSAT's window batches at batch 64: (tag, windows N, C, heads, n_win of
 #: the shift mask or None); L = 64 tokens (window 8) throughout
@@ -147,6 +191,14 @@ def card_line() -> str:
     if out.returncode != 0:
         raise PhaseError(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def _timed(phase: str, fn, *args, **kwargs):
+    """Run one phase and print the seconds it took."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    say("time", name=phase, seconds=f"{time.perf_counter() - t0:.1f}")
+    return out
 
 
 def phase_env(torch, verbose_build: bool) -> str:
@@ -213,16 +265,33 @@ def _bound(ops: float, nbytes: float):
 
 
 def _check_row(torch, results, name, tag, key, x, kernel, plain, base,
-               faults, work):
+               faults, work, library=None):
     """Hold ``kernel()`` against ``plain()`` on their increment over
-    ``base`` (ops.block.increment_agreement); every zero-argument callable
-    in ``faults`` (a planted fault) must fail the same check. Times both
-    with CUDA events and appends the row to ``results``. ``work`` is the
-    call's (operations, bytes): each input read once, each output written
-    once. None of these wrappers has a single PyTorch library call that
-    computes the same function (each is a LayerNorm, GEMMs with epilogues
-    and an attention, or a half of that), so ``library_ms`` is None."""
-    from wise_tpu_torch.ops.block import increment_agreement
+    ``base`` (ops.block.increment_agreement), or with ``base`` None on the
+    whole output (ops.block.output_agreement: a post-LN block, the attention
+    middle). Every zero-argument callable in ``faults`` (a planted fault)
+    must fail the same check: it returns the faulty output, held against
+    ``plain()``, or (faulty output, reference, kernel output) on inputs of
+    its own, where the kernel's output must pass and the faulty one fail.
+    Times both with CUDA events and appends the row to ``results``. ``work``
+    is the call's (operations, bytes): each input read once, each output
+    written once. ``library`` is the one PyTorch call that computes the same
+    function, where there is one (timed as ``library_ms``, used nowhere in
+    the port); a residual block, or a half of one, has none."""
+    from wise_tpu_torch.ops.block import (increment_agreement,
+                                          output_agreement)
+
+    def agree(got, want):
+        if base is None:
+            return output_agreement(got, want)
+        return increment_agreement(got, want, base)
+
+    def plant(fault, want):
+        out = fault()
+        if not isinstance(out, tuple):
+            return agree(out, want)
+        bad, ref, good = out
+        return dict(agree(bad, ref), control_ok=agree(good, ref)["ok"])
 
     with torch.inference_mode():
         got, want = kernel(), plain()
@@ -230,12 +299,13 @@ def _check_row(torch, results, name, tag, key, x, kernel, plain, base,
         if got.shape != want.shape or got.dtype != want.dtype:
             raise PhaseError(f"{name}[{tag}]: {tuple(got.shape)} {got.dtype} "
                              f"vs {tuple(want.shape)} {want.dtype}")
-        check = increment_agreement(got, want, base)
-        planted = {k: increment_agreement(f(), want, base)
-                   for k, f in faults.items()}
+        check = agree(got, want)
+        planted = {k: plant(f, want) for k, f in faults.items()}
         ms = _cuda_ms(torch, kernel, 20)
         plain_ms = _cuda_ms(torch, plain, 20)
-    caught = not any(c["ok"] for c in planted.values())
+        library_ms = _cuda_ms(torch, library, 20) if library else None
+    caught = not any(c["ok"] or not c.get("control_ok", True)
+                     for c in planted.values())
     ok = check["ok"] and caught
     bound_ms, bound_by = _bound(*work)
     say("kernels", name=f"{name}[{tag}]",
@@ -248,11 +318,12 @@ def _check_row(torch, results, name, tag, key, x, kernel, plain, base,
         planted="FAIL(expected)" if caught else "PASSED(wrong)",
         ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
         bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+        library_ms="none" if library_ms is None else f"{library_ms:.4f}",
         status="ok" if ok else "FAIL")
     results.append(dict(name=name, tag=tag, key=key,
                         max_abs_err=check["max_abs_err"], ms=ms,
                         plain_ms=plain_ms, bound_ms=bound_ms,
-                        bound_by=bound_by, library_ms=None, ok=ok))
+                        bound_by=bound_by, library_ms=library_ms, ok=ok))
 
 
 #: the block kernels' serve shapes. ViT-B/32: vision (B=256 bucket, f32
@@ -509,14 +580,217 @@ def _swin_rows(torch, results):
                        (ops, nbytes))
 
 
+#: the XLM-R tower's shape (64 tokens x 1024, 16 heads, F = 4096) at a
+#: served query batch and at the batch the reference calibrated its kernels
+POSTLN_SHAPES = {"query": dict(b=8, seeds=(41, 42)),
+                 "ingest": dict(b=256, seeds=(43, 44))}
+POSTLN_SP, POSTLN_D, POSTLN_HEADS = 64, 1024, 16
+#: fused_short_attention's shapes: (B, SP, D, heads, causal) of ViT-B/32's
+#: vision and text towers, ViT-L/14's and ViT-H/14's (head_dim 80) vision
+SHORT_ATTN_SHAPES = {"vit_b32": (256, 50, 768, 12, False),
+                     "text": (8, 77, 512, 8, True),
+                     "vit_l": (64, 257, 1024, 16, False),
+                     "vit_h": (64, 257, 1280, 16, False)}
+
+
+def _postln_inputs(torch, b, seed, mlp=False):
+    """x (b, 64, 1024) bf16 ~ N(0, 1), kernels at 1/sqrt(fan_in), biases
+    N(0, 0.02); the closing LayerNorm's scale 1 + N(0, 0.25) and bias
+    N(0, 0.25), so that a kernel that left them out would show; km masks a
+    different tail of each example (1 to 64 tokens kept)."""
+    sp, d = POSTLN_SP, POSTLN_D
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*shape, scale=0.02):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    f = 4 * d if mlp else d
+    first = (d, 4 * d) if mlp else (d, 3 * d)
+    x = r(b, sp, d, scale=1.0).to(torch.bfloat16)
+    ln = (1.0 + r(d, scale=0.25), r(d, scale=0.25))
+    w = tuple(t.to(torch.bfloat16) for t in (
+        r(*first, scale=d ** -0.5), r(first[1]), r(f, d, scale=f ** -0.5),
+        r(d)))
+    kept = torch.randint(1, sp + 1, (b,), generator=g, device="cuda")
+    km = torch.zeros(b, 1, sp, device="cuda").masked_fill(
+        torch.arange(sp, device="cuda")[None, None, :] >= kept[:, None, None],
+        -math.inf)
+    return x, km, ln, w
+
+
+def _postln_work(b, half=None, attn=False):
+    """(operations, bytes) of a post-LN block on x (b, 64, 1024) bf16: the
+    attention block (every key computed, km added), the MLP, or one half of
+    the split pair ("fc": x in, h out; "proj": h and x in, out)."""
+    sp, d, f = POSTLN_SP, POSTLN_D, 4 * POSTLN_D
+    m = b * sp
+    if attn:
+        return (8 * m * d * d + 4 * m * sp * d,
+                2 * m * d * 2 + (4 * d * d + 4 * d) * 2 + _LN_BYTES * d
+                + 4 * b * sp)
+    if half == "fc":
+        return 2 * m * d * f, m * d * 2 + (d * f + f) * 2 + m * f * 2
+    if half == "proj":
+        return (2 * m * d * f,
+                m * f * 2 + (d * f + d) * 2 + 2 * m * d * 2 + _LN_BYTES * d)
+    return (4 * m * d * f,
+            2 * m * d * 2 + (2 * d * f + f + d) * 2 + _LN_BYTES * d)
+
+
+def _postln_rows(torch, results, tag, s):
+    """The post-LN attention block, the MLP as "single" and as the split
+    pair, and each half, at one batch of the XLM-R shape, on their whole
+    outputs. Planted faults: the residual sum rounded to bf16 before the
+    LayerNorm (on inputs whose closing bias carries a common offset of 200,
+    which the LayerNorm takes out: the f32 sum keeps the signal under it,
+    a bf16 sum loses it), the key mask dropped, the softmax at half its
+    scale, the LayerNorm's scale and bias replaced by ones and zeros, h not
+    activated."""
+    from wise_tpu_torch.ops import postln_block as P
+    from wise_tpu_torch.ops.block import layer_norm_f32
+
+    b, (seed_attn, seed_mlp) = s["b"], s["seeds"]
+    sp, d, heads = POSTLN_SP, POSTLN_D, POSTLN_HEADS
+    bf = torch.bfloat16
+    ident = (torch.ones(d, device="cuda"), torch.zeros(d, device="cuda"))
+
+    def offset(bias):
+        return (bias.float() + 200.0).to(bf)
+
+    def sum_rounded(h, w, bias, x, ln):
+        """LN over the sum rounded to bf16 first: the planted fault."""
+        res = x.float() + (h @ w).float() + bias.float()
+        return layer_norm_f32(res.to(bf), *ln).to(bf)
+
+    x, km, ln, w = _postln_inputs(torch, b, seed_attn)
+
+    def attn(w=w, km=km, ln=ln):
+        return P.fused_postln_attn_block(x, km, *ln, *w, heads)
+
+    def attn_sum_rounded():
+        w2 = (*w[:3], offset(w[3]))
+        att = P.plain_postln_attention(x, km, *w[:2], heads)
+        return (sum_rounded(att, w[2], w2[3], x, ln),
+                P.plain_postln_attn_block(x, km, *ln, *w2, heads), attn(w2))
+
+    half_q = (w[0].clone(), w[1].clone(), *w[2:])
+    half_q[0][:, :d] *= 0.5
+    half_q[1][:d] *= 0.5
+    _check_row(torch, results, "fused_postln_attn_block", tag,
+               ("fused_postln_attn_block", sp, d), x, attn,
+               lambda: P.plain_postln_attn_block(x, km, *ln, *w, heads), None,
+               {"sum_rounded_bf16": attn_sum_rounded,
+                "mask_dropped": lambda: attn(km=torch.zeros_like(km)),
+                "half_scale": lambda: attn(half_q),
+                "ln_identity": lambda: attn(ln=ident)},
+               _postln_work(b, attn=True))
+
+    x, _, ln, w = _postln_inputs(torch, b, seed_mlp, mlp=True)
+    fc, proj = w[:2], w[2:]
+    proj2 = (proj[0], offset(proj[1]))
+
+    def mlp_sum_rounded(kernel):
+        h = P.plain_postln_fc(x, *fc)
+        return (sum_rounded(h, *proj2, x, ln),
+                P.plain_postln_mlp_block(x, *ln, *fc, *proj2), kernel())
+
+    for name, variant, key in (
+            ("fused_postln_mlp_block", "single", "fused_postln_mlp_block"),
+            ("fused_postln_mlp_split", "split", "fused_postln_mlp_split")):
+
+        def mlp(ln=ln, proj=proj, act="gelu", variant=variant):
+            return P.fused_postln_mlp_block(x, *ln, *fc, *proj, act,
+                                            variant=variant)
+
+        _check_row(torch, results, name, tag, (key, sp, d), x, mlp,
+                   lambda: P.plain_postln_mlp_block(x, *ln, *w), None,
+                   {"sum_rounded_bf16": lambda m=mlp: mlp_sum_rounded(
+                       lambda: m(proj=proj2)),
+                    "ln_identity": lambda m=mlp: m(ln=ident),
+                    "h_not_activated": lambda m=mlp: m(act="none")},
+                   _postln_work(b))
+    _check_row(torch, results, "fused_postln_fc", tag,
+               ("fused_postln_fc", sp, d), x,
+               lambda: P.fused_postln_fc(x, *fc),
+               lambda: P.plain_postln_fc(x, *fc), None,
+               {"h_not_activated": lambda: P.fused_postln_fc(x, *fc, "none")},
+               _postln_work(b, "fc"))
+    with torch.inference_mode():
+        hid = P.plain_postln_fc(x, *fc)
+        raw = P.plain_postln_fc(x, *fc, "none")
+    _check_row(torch, results, "fused_postln_proj", tag,
+               ("fused_postln_proj", sp, d), x,
+               lambda: P.fused_postln_proj(hid, *proj, x, *ln),
+               lambda: P.plain_postln_proj(hid, *proj, x, *ln), None,
+               {"sum_rounded_bf16": lambda: (
+                   sum_rounded(hid, *proj2, x, ln),
+                   P.plain_postln_proj(hid, *proj2, x, *ln),
+                   P.fused_postln_proj(hid, *proj2, x, *ln)),
+                "ln_identity": lambda: P.fused_postln_proj(hid, *proj, x,
+                                                           *ident),
+                "h_not_activated": lambda: P.fused_postln_proj(raw, *proj, x,
+                                                               *ln)},
+               _postln_work(b, "proj"))
+
+
+def _short_attention_rows(torch, results):
+    """fused_short_attention at SHORT_ATTN_SHAPES on its whole output, q, k
+    and v being the three column ranges of one packed (B, SP, 3D) bf16
+    in-projection ~ N(0, 1), as the model hands them over. Planted faults:
+    the softmax at half its scale, the key mask dropped (n_valid = SP where
+    the reference masks the last 7 keys), the causal mask dropped. The
+    library call that computes the same function is
+    ``F.scaled_dot_product_attention`` on the same q, k and v as (B, H, SP,
+    hd) views."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from wise_tpu_torch.ops import attention as A
+
+    for i, (tag, (b, sp, d, heads, causal)) in enumerate(
+            SHORT_ATTN_SHAPES.items()):
+        g = torch.Generator(device="cuda").manual_seed(50 + i)
+        qkv = torch.randn(b, sp, 3 * d, generator=g, device="cuda").to(
+            torch.bfloat16)
+        q, k, v = qkv.split(d, dim=-1)
+        hd = d // heads
+        q4, k4, v4 = (t.reshape(b, sp, heads, hd).transpose(1, 2)
+                      for t in (q, k, v))
+
+        def call(fn, n_valid=sp, causal=causal, scale=None):
+            return fn(q, k, v, heads, n_valid, causal, scale)
+
+        faults = {
+            "half_scale": lambda: call(A.fused_short_attention,
+                                       scale=0.5 / math.sqrt(hd)),
+            "mask_dropped": lambda: (
+                call(A.fused_short_attention),
+                call(A.plain_short_attention, n_valid=sp - 7),
+                call(A.fused_short_attention, n_valid=sp - 7))}
+        if causal:
+            faults["causal_dropped"] = lambda: call(A.fused_short_attention,
+                                                    causal=False)
+        keys = (sp + 1) / 2 if causal else sp
+        _check_row(torch, results, "fused_short_attention", tag,
+                   ("fused_short_attention", sp, d), q,
+                   lambda: call(A.fused_short_attention),
+                   lambda: call(A.plain_short_attention), None, faults,
+                   (4 * b * sp * keys * d, 4 * b * sp * d * 2),
+                   library=lambda: sdpa(q4, k4, v4, is_causal=causal))
+        del qkv
+
+
 def phase_kernels(torch):
     """Each kernel against its plain version at the serve paths' shapes
-    (BLOCK_SHAPES, SWIN_STAGES), on the op's increment over its residual
-    input, with planted faults that must fail the same check."""
+    (BLOCK_SHAPES, SWIN_STAGES, POSTLN_SHAPES, SHORT_ATTN_SHAPES), on the
+    op's increment over its residual input (on the whole output where it
+    has none), with planted faults that must fail the same check."""
     results = []
     for tag, shape in BLOCK_SHAPES.items():
         _block_rows(torch, results, tag, shape)
     _swin_rows(torch, results)
+    for tag, shape in POSTLN_SHAPES.items():
+        _postln_rows(torch, results, tag, shape)
+    _short_attention_rows(torch, results)
     bad = [f"{r['name']}[{r['tag']}]" for r in results if not r["ok"]]
     if bad:
         raise PhaseError(f"kernels disagree with their plain versions, or "
@@ -688,16 +962,21 @@ def _vector_ids(project_dir: Path):
     return ids
 
 
-def _plain_twin(torch, extractor):
-    """The extractor on the plain PyTorch path (``fused_block`` off) with
-    the same weights: a shallow copy around a second model on the card."""
+def _twin(torch, extractor, fused_block=False, fused_attention=False):
+    """The extractor on another path with the same weights: a shallow copy
+    around a second model on the card. Both switches off is the plain
+    PyTorch path (with ``fused_block`` alone off, the attention middle would
+    still be a kernel); ``fused_attention`` alone on is the path of
+    WISE_FUSED_BLOCK=0."""
     import copy
     import dataclasses
 
     from wise_tpu_torch.models.clip.model import CLIP
 
     with torch.device(extractor.device):
-        model = CLIP(dataclasses.replace(extractor.config, fused_block=False))
+        model = CLIP(dataclasses.replace(
+            extractor.config, fused_block=fused_block,
+            fused_attention=fused_attention))
     model.load_state_dict(extractor.model.state_dict())
     twin = copy.copy(extractor)
     twin.config = model.config
@@ -705,26 +984,49 @@ def _plain_twin(torch, extractor):
     return twin
 
 
-def _block_launches():
-    """The block wrappers' launch counts by (wrapper, SP, D). The split MLP
-    pair launches nothing of its own (its halves count themselves), so its
-    count at a shape is derived here: the lesser of its halves' counts."""
-    from wise_tpu_torch.ops.block import LAUNCHES_BY_SHAPE
+#: the two-kernel MLP pairs: (pair, first half, second half). A pair launches
+#: nothing of its own, so its count is derived from its halves'
+SPLIT_PAIRS = [("fused_mlp_split", "fused_mlp_fc", "fused_mlp_proj"),
+               ("fused_postln_mlp_split", "fused_postln_fc",
+                "fused_postln_proj")]
 
-    counts = dict(LAUNCHES_BY_SHAPE)
-    for (name, *shape), n in LAUNCHES_BY_SHAPE.items():
-        if name == "fused_mlp_fc":
-            pair = min(n, counts.get(("fused_mlp_proj", *shape), 0))
-            if pair:
-                counts[("fused_mlp_split", *shape)] = pair
+
+def _launch_modules():
+    from wise_tpu_torch.ops import attention, block, postln_block
+
+    return block, postln_block, attention
+
+
+def _reset_launches():
+    for mod in _launch_modules():
+        mod.reset_launches()
+
+
+def _block_launches():
+    """The block, post-LN and attention wrappers' launch counts by (wrapper,
+    SP, D). A split MLP pair launches nothing of its own (its halves count
+    themselves), so its count at a shape is derived here: the lesser of its
+    halves' counts."""
+    counts = {}
+    for mod in _launch_modules():
+        counts.update(mod.LAUNCHES_BY_SHAPE)
+    for pair, first, second in SPLIT_PAIRS:
+        for (name, *shape), n in list(counts.items()):
+            if name == first:
+                both = min(n, counts.get((second, *shape), 0))
+                if both:
+                    counts[(pair, *shape)] = both
     return counts
 
 
 def _tower_keys(config):
     """(vision keys, text keys) of the launch counters a CLIP config's
     towers reach: (wrapper, tokens, width) of the attention block, the MLP
-    wrapper its width takes, and the pooled last layer."""
+    wrapper its width takes, and the pooled last layer; for the XLM-R text
+    tower the post-LN attention block and the MLP variant its width takes
+    (every layer runs whole: the tower pools by a mean)."""
     from wise_tpu_torch.ops.block import mlp_choice
+    from wise_tpu_torch.ops.postln_block import postln_mlp_choice
 
     def keys(sp, d, pooled):
         mlp = ("fused_mlp_block" if mlp_choice(d) == "single"
@@ -733,22 +1035,116 @@ def _tower_keys(config):
 
     c = config
     n_tok = (c.image_size // c.patch_size) ** 2 + 1
-    return (keys(n_tok, c.vision_width, "fused_attn_block_pooled"),
-            keys(c.context_length, c.text_width,
-                 "fused_attn_block_pooled_dyn"))
+    vision = keys(n_tok, c.vision_width, "fused_attn_block_pooled")
+    if c.text_tower == "hf_xlm_roberta":
+        mlp = ("fused_postln_mlp_block"
+               if postln_mlp_choice(c.text_width) == "single"
+               else "fused_postln_mlp_split")
+        return vision, [("fused_postln_attn_block", c.context_length,
+                         c.text_width), (mlp, c.context_length, c.text_width)]
+    return vision, keys(c.context_length, c.text_width,
+                        "fused_attn_block_pooled_dyn")
+
+
+def _check_text_launches(phase, config, text, launches):
+    """The text tower's counts over the served requests, held to each other
+    by what the code implies: a CLIP text batch launches layers - 1
+    attention blocks and MLPs and one pooled last layer; an XLM-R batch
+    launches every layer's attention block and MLP pair."""
+    got = [launches.get(key, 0) for key in text]
+    layers = config.text_layers
+    if config.text_tower == "hf_xlm_roberta":
+        ok = got[0] == got[1] and got[0] > 0 and got[0] % layers == 0
+        batches = got[0] // layers
+    else:
+        batches = got[2]
+        ok = batches > 0 and got[0] == got[1] == batches * (layers - 1)
+    if not ok:
+        raise PhaseError(f"{phase}: text launches {dict(zip(text, got))} do "
+                         f"not fit {layers} layers a batch")
+    return batches
+
+
+def _hybrid_batch(torch, extractor, plain, frames, queries=()):
+    """``frames`` (and ``queries``) through the extractor's twin with
+    ``fused_block`` off and ``fused_attention`` on, the path of
+    WISE_FUSED_BLOCK=0: every non-pooled layer must launch
+    fused_short_attention once a batch and no block kernel, and the
+    embeddings must agree with the plain twin's (min cosine >= 0.9995).
+    Returns (launches by (wrapper, SP, D), min cosine, device ms of the
+    image batch on the hybrid path)."""
+    from wise_tpu_torch.ops import attention as A
+
+    c = extractor.config
+    hybrid = _twin(torch, extractor, fused_attention=True)
+    A.reset_launches()
+    before = _block_launches()
+    got = [hybrid.extract_image_features(frames)]
+    n_tok = (c.image_size // c.patch_size) ** 2 + 1
+    expect = {("fused_short_attention", n_tok, c.vision_width):
+              c.vision_layers - int(c.pool_last_block)}
+    if queries:
+        got.append(hybrid.extract_text_features(list(queries)))
+        expect[("fused_short_attention", c.context_length, c.text_width)] = (
+            c.text_layers - int(c.pool_last_block))
+    counts = dict(A.LAUNCHES_BY_SHAPE)
+    if counts != expect or _block_launches() != {**before, **counts}:
+        raise PhaseError(f"hybrid: launched {counts}, expected {expect} and "
+                         f"no other kernel")
+    want = [plain.extract_image_features(frames)]
+    if queries:
+        want.append(plain.extract_text_features(list(queries)))
+    cos = min(torch.nn.functional.cosine_similarity(
+        torch.from_numpy(g), torch.from_numpy(w), dim=-1).min().item()
+        for g, w in zip(got, want))
+    if not cos >= 0.9995:
+        raise PhaseError(f"hybrid: embeddings off the plain path (min cos "
+                         f"{cos:.6f} < 0.9995)")
+    return counts, cos, _encode_rates(torch, hybrid, frames)[1]
+
+
+def _single_variant_run(torch, extractor, queries):
+    """The queries through the extractor's XLM-R tower with the MLP as the
+    "single" variant (one call a layer on scratch of its own) on the same
+    weights: (launches by (wrapper, SP, D), min cosine of the un-normalised
+    embeddings against the tower's own split path)."""
+    import dataclasses
+
+    from wise_tpu_torch.models.clip.hf_text import XLMRobertaTextTower
+    from wise_tpu_torch.ops import postln_block as P
+
+    text = extractor.model.text
+    with torch.device(extractor.device):
+        single = XLMRobertaTextTower(dataclasses.replace(
+            text.config, mlp_variant="single"))
+    single.load_state_dict(text.state_dict())
+    single.eval().requires_grad_(False)
+    tokens = torch.from_numpy(extractor.tokenizer(list(queries))).long().to(
+        extractor.device)
+    with torch.inference_mode():
+        want = text(tokens)
+        P.reset_launches()
+        got = single(tokens)
+        torch.cuda.synchronize()
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+    return dict(P.LAUNCHES_BY_SHAPE), cos.min().item()
 
 
 def phase_slice(torch, card, model_id=MODEL_ID, n_frames=FRAMES,
-                phase="slice", topk_1m=True, size=224, k=10):
+                phase="slice", topk_1m=True, size=224, k=10,
+                hybrid_frames=0):
     """Ingest -> IndexFlatIP -> REST on the port; returns the launch counts
     of the main path's run, keyed by (wrapper, SP, D). The vision tower's
     counts must be exact: batches x (layers - 1) for the attention block and
-    the MLP, batches for the pooled last layer."""
+    the MLP, batches for the pooled last layer; the text tower's must fit
+    its layer count (_check_text_launches). With ``hybrid_frames`` that many
+    frames also go through the path of WISE_FUSED_BLOCK=0 (_hybrid_batch);
+    an XLM-R text tower also embeds the queries with its MLP as the
+    "single" variant (_single_variant_run)."""
     import numpy as np
     from wise_tpu_torch import project
     from wise_tpu_torch.cli import create_index
     from wise_tpu_torch.models.clip.extractor import OpenClipExtractor
-    from wise_tpu_torch.ops import block as K
     from wise_tpu_torch.ops.topk import flat_topk
 
     clip_len = 256
@@ -764,7 +1160,7 @@ def phase_slice(torch, card, model_id=MODEL_ID, n_frames=FRAMES,
             extractor.extract_image_features(clips[0][:8])
             extractor.extract_text_features(["warm up"])
 
-        K.reset_launches()
+        _reset_launches()
         torch.cuda.reset_peak_memory_stats()
         n, ingest_s = _ingest(project_dir, extractor, model_id, clips)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -787,9 +1183,11 @@ def phase_slice(torch, card, model_id=MODEL_ID, n_frames=FRAMES,
         idle = [key for key in vision + text if not launches.get(key)]
         if idle:
             raise PhaseError(f"{phase}: not launched on the path: {idle}")
+        text_batches = _check_text_launches(phase, extractor.config, text,
+                                            launches)
 
         # the same frames and queries through the plain PyTorch path
-        plain = _plain_twin(torch, extractor)
+        plain = _twin(torch, extractor)
         ids = _vector_ids(project_dir)
         vecs = np.concatenate([
             np.concatenate([plain.extract_image_features(c[i:i + 256])
@@ -803,7 +1201,31 @@ def phase_slice(torch, card, model_id=MODEL_ID, n_frames=FRAMES,
             scores = (torch.from_numpy(vecs) @ torch.from_numpy(qv)).numpy()
             _check_against_plain(*served[q], scores, ids, k, 1e-3)
 
-        fields = {}
+        fields, extra = {}, []
+        if extractor.config.text_tower == "hf_xlm_roberta":
+            single, cos = _single_variant_run(torch, extractor, QUERIES)
+            c = extractor.config
+            key = ("fused_postln_mlp_block", c.context_length, c.text_width)
+            if single.get(key) != c.text_layers or cos < 0.9999:
+                raise PhaseError(
+                    f"{phase}: the single MLP variant launched {single}, "
+                    f"expected {c.text_layers} at {key[1:]}, or is off the "
+                    f"split path (min cos {cos:.6f} < 0.9999)")
+            launches[key] = single[key]
+            extra.append(dict(path="mlp_variant=single", queries=len(QUERIES),
+                              launches=single[key],
+                              min_cos_vs_split=f"{cos:.6f}"))
+        if hybrid_frames:
+            frames = clips[0][:hybrid_frames]
+            counts, cos, ms = _hybrid_batch(torch, extractor, plain, frames)
+            launches.update(counts)
+            extra.append(dict(
+                path="WISE_FUSED_BLOCK=0", batch=len(frames),
+                launches=json.dumps({_launch_name(key): v for key, v
+                                     in sorted(counts.items())},
+                                    separators=(",", ":")),
+                min_cos_vs_plain=f"{cos:.6f}",
+                device_ms_per_batch=f"{ms:.3f}"))
         if topk_1m:
             # text embed + exact flat top-k p50 on a device-resident 1M x
             # 512 database (flat_topk called directly: no index, HTTP or
@@ -830,11 +1252,14 @@ def phase_slice(torch, card, model_id=MODEL_ID, n_frames=FRAMES,
         extractor_build_s=f"{build_s:.3f}", ingest_s=f"{ingest_s:.3f}",
         frames_per_s=f"{n / ingest_s:.1f}",
         ingest_peak_device_gb=f"{peak_gb:.3f}", requests=len(lat) + 9,
+        text_batches=text_batches,
         query_p50_ms=f"{1e3 * float(np.median(lat)):.3f}", **fields,
         launches=json.dumps({_launch_name(key): c for key, c
                              in sorted(launches.items())},
                             separators=(",", ":")),
         vs_plain="ok")
+    for line in extra:
+        say(phase, card=repr(card), **line)
     for name, (fps, tower_ms) in rates.items():
         say(phase, card=repr(card), path=name, batch=len(clips[0]),
             extractor_frames_per_s=f"{fps:.1f}",
@@ -849,28 +1274,32 @@ def phase_families(torch, card, batch: int = 64):
     embeddings against the plain path, every vision kernel launched.
     Returns the launch counts keyed by (wrapper, SP, D)."""
     from wise_tpu_torch.models.clip.extractor import OpenClipExtractor
-    from wise_tpu_torch.ops import block as K
 
     frames = _frames(99, batch, 224)
     launches = {}
     for model_id in FAMILY_IDS:
         extractor = OpenClipExtractor(model_id)
-        K.reset_launches()
+        _reset_launches()
         got = torch.from_numpy(extractor.extract_image_features(frames))
         counts = _block_launches()
         vision, _ = _tower_keys(extractor.config)
         idle = [key for key in vision if not counts.get(key)]
         if idle:
             raise PhaseError(f"families: not launched: {idle}")
-        plain = _plain_twin(torch, extractor)
+        plain = _twin(torch, extractor)
         want = torch.from_numpy(plain.extract_image_features(frames))
         cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+        hybrid, hybrid_cos, hybrid_ms = _hybrid_batch(torch, extractor, plain,
+                                                      frames)
+        counts.update(hybrid)
         ms = _encode_rates(torch, extractor, frames)[1]
         plain_ms = _encode_rates(torch, plain, frames)[1]
         say("families", card=repr(card), model=model_id.split("/")[2],
             batch=batch, min_cos_vs_plain=f"{cos.min().item():.6f}",
             device_ms_per_batch=f"{ms:.3f}",
             plain_device_ms_per_batch=f"{plain_ms:.3f}",
+            hybrid_device_ms_per_batch=f"{hybrid_ms:.3f}",
+            hybrid_min_cos_vs_plain=f"{hybrid_cos:.6f}",
             launches=json.dumps({_launch_name(key): c for key, c
                                  in sorted(counts.items())},
                                 separators=(",", ":")))
@@ -882,6 +1311,31 @@ def phase_families(torch, card, batch: int = 64):
         del extractor, plain
         torch.cuda.empty_cache()
     return launches
+
+
+def phase_hybrid(torch, card, batch: int = 256):
+    """The production configuration with WISE_FUSED_BLOCK=0 for ViT-B/32:
+    one 256-frame batch and the 8 queries through an extractor with
+    ``fused_block`` off and ``fused_attention`` on, against the fully plain
+    twin; fused_short_attention must launch once for every non-pooled layer
+    of each tower. Returns the launch counts keyed by (wrapper, SP, D)."""
+    from wise_tpu_torch.models.clip.extractor import OpenClipExtractor
+
+    extractor = OpenClipExtractor(MODEL_ID)
+    plain = _twin(torch, extractor)
+    frames = _frames(0, batch, 224)
+    counts, cos, ms = _hybrid_batch(torch, extractor, plain, frames, QUERIES)
+    kernel_ms = _encode_rates(torch, extractor, frames)[1]
+    plain_ms = _encode_rates(torch, plain, frames)[1]
+    say("hybrid", card=repr(card), model=MODEL_ID.split("/")[2], batch=batch,
+        queries=len(QUERIES), min_cos_vs_plain=f"{cos:.6f}",
+        device_ms_per_batch=f"{ms:.3f}",
+        block_kernels_device_ms_per_batch=f"{kernel_ms:.3f}",
+        plain_device_ms_per_batch=f"{plain_ms:.3f}",
+        launches=json.dumps({_launch_name(key): v for key, v
+                             in sorted(counts.items())},
+                            separators=(",", ":")))
+    return counts
 
 
 def _segments(torch, n: int, seed: int, chunk: int = 128):
@@ -950,6 +1404,9 @@ def phase_audio(torch, card, k=10):
     from wise_tpu_torch.ops import block as K
     from wise_tpu_torch.ops import swin_block as SB
 
+    #: the environment of the fully plain path: with WISE_FUSED_BLOCK=0 alone
+    #: a CLIP tower's attention middle would still be a kernel
+    plain_env = {"WISE_FUSED_BLOCK": "0", "WISE_FUSED_ATTN": "0"}
     segs = _segments(torch, SEGMENTS, seed=7)
     clips = [segs[i:i + 16] for i in range(0, SEGMENTS, 16)]  # 64 s files
     with tempfile.TemporaryDirectory(prefix="wise_smoke_audio_") as tmp:
@@ -987,11 +1444,12 @@ def phase_audio(torch, card, k=10):
             raise PhaseError(f"not launched on the audio path: {idle}")
 
         # the same segments and queries through the plain PyTorch path
-        os.environ["WISE_FUSED_BLOCK"] = "0"
+        os.environ.update(plain_env)
         try:
             plain = ClapExtractor(AUDIO_ID)
         finally:
-            del os.environ["WISE_FUSED_BLOCK"]
+            for name in plain_env:
+                del os.environ[name]
         ids = _vector_ids(project_dir)
         vecs = np.concatenate([plain.extract_audio_features(segs[i:i + 64])
                                for i in range(0, SEGMENTS, 64)])
@@ -1103,6 +1561,42 @@ def profile_vit_h(torch, card, batch: int = 256):
     _say_kernels(_device_kernels(torch, tower, 2), model="ViT-H-14")
 
 
+def profile_xlmr_text(torch, card, reps: int = 5):
+    """Where a text query's time goes for the default backbone on the
+    kernel path: device ms (CUDA events, mean of ``reps`` calls) of one text
+    embed at 8 queries and at 1, on the kernel path and on the plain twin;
+    the extractor's host-to-host ms for one query (median); and the device
+    ms per CUDA kernel of the 8-query embed (torch.profiler)."""
+    import numpy as np
+
+    from wise_tpu_torch.models.clip.extractor import OpenClipExtractor
+
+    fe = OpenClipExtractor(XLMR_ID)
+    plain = _twin(torch, fe)
+
+    def embed(extractor, n):
+        return lambda: extractor.extract_text_features_dispatch(QUERIES[:n])
+
+    with torch.inference_mode():
+        for extractor in (fe, plain):  # first use
+            extractor.extract_text_features(QUERIES)
+            extractor.extract_text_features(QUERIES[:1])
+        ms = {f"{name}_text_embed_{n}": _cuda_ms(torch, embed(extractor, n),
+                                                 reps)
+              for name, extractor in (("kernels", fe), ("plain", plain))
+              for n in (8, 1)}
+    host = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fe.extract_text_features(QUERIES[:1])
+        host.append(time.perf_counter() - t0)
+    say("profile", card=repr(card), model=XLMR_ID.split("/")[2],
+        **{f"{k}_ms": f"{v:.4f}" for k, v in ms.items()},
+        extract_text_1_host_ms=f"{1e3 * float(np.median(host)):.4f}")
+    _say_kernels(_device_kernels(torch, embed(fe, 8)),
+                 model=XLMR_ID.split("/")[2], path="text_embed_8")
+
+
 def phase_profile(torch, card, batch: int = 64, reps: int = 5):
     """Where one audio batch's time goes on the kernel path, one run: device
     ms (CUDA events, mean of ``reps`` calls) of the whole batch at 64 and at
@@ -1196,8 +1690,8 @@ def _encode_rates(torch, extractor, frames, reps: int = 5):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", choices=["all", "kernels", "vit_h", "profile"],
-                    default="all")
+    ap.add_argument("--phase", choices=["all", "kernels", "vit_h", "xlmr",
+                                        "hybrid", "profile"], default="all")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print nvcc -Xptxas -v (registers, shared memory)")
     args = ap.parse_args(argv)
@@ -1221,19 +1715,32 @@ def main(argv=None) -> int:
         if args.phase == "profile":
             phase_profile(torch, card)
             profile_vit_h(torch, card)
+            profile_xlmr_text(torch, card)
             return 0
         if args.phase == "vit_h":
             phase_slice(torch, card, VIT_H_ID, VIT_H_FRAMES, "vit_h",
+                        topk_1m=False, hybrid_frames=64)
+            return 0
+        if args.phase == "xlmr":
+            phase_slice(torch, card, XLMR_ID, XLMR_FRAMES, "xlmr",
                         topk_1m=False)
             return 0
-        kernels = phase_kernels(torch)
+        if args.phase == "hybrid":
+            phase_hybrid(torch, card)
+            return 0
+        kernels = _timed("kernels", phase_kernels, torch)
         if args.phase == "kernels":
             return 0
-        launches = phase_slice(torch, card)
-        launches.update(phase_audio(torch, card))
-        launches.update(phase_families(torch, card))
-        launches.update(phase_slice(torch, card, VIT_H_ID, VIT_H_FRAMES,
-                                    "vit_h", topk_1m=False))
+        launches = _timed("slice", phase_slice, torch, card)
+        launches.update(_timed("audio", phase_audio, torch, card))
+        launches.update(_timed("families", phase_families, torch, card))
+        launches.update(_timed(
+            "vit_h", phase_slice, torch, card, VIT_H_ID, VIT_H_FRAMES,
+            "vit_h", topk_1m=False, hybrid_frames=64))
+        launches.update(_timed(
+            "xlmr", phase_slice, torch, card, XLMR_ID, XLMR_FRAMES, "xlmr",
+            topk_1m=False))
+        launches.update(_timed("hybrid", phase_hybrid, torch, card))
         idle = [f"{r['name']}[{r['tag']}]" for r in kernels
                 if not launches.get(r["key"])]
         if idle:

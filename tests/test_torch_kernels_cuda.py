@@ -1,5 +1,6 @@
-"""The CUDA block kernels (wise_tpu_torch/csrc/block_kernels.cu) against
-their plain PyTorch versions, on the card.
+"""The CUDA kernels (wise_tpu_torch/csrc/*.cu: the pre-LN blocks, the Swin
+blocks, the post-LN blocks, the attention middle) against their plain PyTorch
+versions, on the card.
 
 Every test here needs a CUDA device and nvcc, carries the ``cuda`` marker
 and skips without one. The file imports no JAX, so it also runs on a GPU
@@ -431,3 +432,286 @@ def test_clip_model_raises_outside_the_kernels_shapes(cuda, width, heads, seq,
     with pytest.raises(ValueError, match=match):
         blk.pooled(x, n_valid=seq, rows=rows)
     assert not any(K.LAUNCHES.values())
+
+
+# ---------------------------------------------------------------------------
+# The post-LN blocks (wise_tpu_torch/csrc/postln_kernels.cu) and the
+# attention middle (wt_short_attention in block_kernels.cu). Their outputs
+# have no residual stream under them (a LayerNorm's output; the attention
+# alone), so they are held on the whole output (ops.block.output_agreement:
+# per-token cosine >= 0.999, max abs error <= 5% of the plain output's max)
+# ---------------------------------------------------------------------------
+
+from wise_tpu_torch.ops import attention as A  # noqa: E402
+from wise_tpu_torch.ops import postln_block as P  # noqa: E402
+
+#: (B, SP, D, heads): head_dim 64, head_dim 80, XLM-R's 64 tokens, one
+#: token over a query tile
+POSTLN_SHAPES = {"tiny": (4, 16, 128, 2), "hd80": (3, 24, 160, 2),
+                 "xlmr": (2, 64, 256, 4), "tile+1": (2, 65, 128, 2)}
+
+
+def _postln_inputs(shape, seed, device, mlp=False):
+    """x bf16 ~ N(0, 1); kernels at 1/sqrt(fan_in); the closing LayerNorm's
+    scale 1 + N(0, 0.25) and bias N(0, 0.25); km keeps a different number
+    of tokens (at least one) of each example."""
+    b, sp, d, _ = POSTLN_SHAPES[shape]
+    g = torch.Generator().manual_seed(seed)
+
+    def w(*s, std=0.02):
+        return (std * torch.randn(s, generator=g)).to(device)
+
+    bf = torch.bfloat16
+    x = torch.randn((b, sp, d), generator=g).to(device, bf)
+    ln = [1.0 + w(d, std=0.25), w(d, std=0.25)]
+    f = 4 * d if mlp else d
+    first = (d, 4 * d) if mlp else (d, 3 * d)
+    ws = [t.to(bf) for t in (w(*first, std=d ** -0.5), w(first[1]),
+                             w(f, d, std=f ** -0.5), w(d))]
+    kept = torch.tensor([1 + (5 * i + sp - 1) % sp for i in range(b)])
+    km = torch.zeros(b, 1, sp).masked_fill(
+        torch.arange(sp)[None, None, :] >= kept[:, None, None],
+        float("-inf")).to(device)
+    return x, km, ln, ws
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(POSTLN_SHAPES))
+def test_postln_attention_block_matches_plain_on_card(cuda, shape):
+    x, km, ln, w = _postln_inputs(shape, 100, cuda)
+    heads = POSTLN_SHAPES[shape][3]
+    P.reset_launches()
+    got = P.fused_postln_attn_block(x, km, *ln, *w, heads)
+    torch.cuda.synchronize()
+    assert P.LAUNCHES_BY_SHAPE == {
+        ("fused_postln_attn_block", x.shape[1], x.shape[2]): 1}
+    want = P.plain_postln_attn_block(x, km, *ln, *w, heads)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert got.shape == want.shape
+    check = K.output_agreement(got, want)
+    assert check["ok"], check
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["single", "split"])
+@pytest.mark.parametrize("shape", list(POSTLN_SHAPES))
+def test_postln_mlp_block_matches_plain_on_card(cuda, shape, variant):
+    """Both variants, and for the pair each half on its own."""
+    x, _, ln, w = _postln_inputs(shape, 101, cuda, mlp=True)
+    sp, d = x.shape[1:]
+    P.reset_launches()
+    got = P.fused_postln_mlp_block(x, *ln, *w, "gelu", variant=variant)
+    torch.cuda.synchronize()
+    assert P.LAUNCHES_BY_SHAPE == (
+        {("fused_postln_mlp_block", sp, d): 1} if variant == "single" else
+        {("fused_postln_fc", sp, d): 1, ("fused_postln_proj", sp, d): 1})
+    want = P.plain_postln_mlp_block(x, *ln, *w, "gelu")
+    assert got.dtype == want.dtype and got.shape == want.shape
+    check = K.output_agreement(got, want)
+    assert check["ok"], check
+    if variant == "split":
+        h = P.fused_postln_fc(x, *w[:2], "gelu")
+        want_h = P.plain_postln_fc(x, *w[:2], "gelu")
+        assert h.dtype == torch.bfloat16 and h.shape == (*x.shape[:2], 4 * d)
+        check = K.output_agreement(h, want_h)
+        assert check["ok"], check
+        out = P.fused_postln_proj(want_h, *w[2:], x, *ln)
+        check = K.output_agreement(out, want)
+        assert check["ok"], check
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["sum_rounded_bf16", "mask_dropped",
+                                   "half_scale", "ln_identity"])
+def test_postln_planted_fault_fails_the_check(cuda, fault):
+    """The faults a post-LN kernel could have must fail the check the
+    kernels pass. The bf16-sum fault is planted on inputs whose out-proj
+    bias carries a common offset of 200, which the LayerNorm takes out: an
+    f32 sum keeps the signal under it (the kernel passes), a bf16 sum
+    does not."""
+    x, km, ln, w = _postln_inputs("xlmr", 102, cuda)
+    d, heads = x.shape[2], POSTLN_SHAPES["xlmr"][3]
+    if fault == "sum_rounded_bf16":
+        w[3] = (w[3].float() + 200.0).to(torch.bfloat16)
+        want = P.plain_postln_attn_block(x, km, *ln, *w, heads)
+        good = P.fused_postln_attn_block(x, km, *ln, *w, heads)
+        assert K.output_agreement(good, want)["ok"]
+        att = P.plain_postln_attention(x, km, *w[:2], heads)
+        res = x.float() + (att @ w[2]).float() + w[3].float()
+        bad = K.layer_norm_f32(res.to(torch.bfloat16), *ln).to(torch.bfloat16)
+    else:
+        want = P.plain_postln_attn_block(x, km, *ln, *w, heads)
+        if fault == "mask_dropped":
+            km = torch.zeros_like(km)
+        elif fault == "half_scale":
+            w[0][:, :d] *= 0.5
+            w[1][:d] *= 0.5
+        else:
+            ln = [torch.ones_like(ln[0]), torch.zeros_like(ln[1])]
+        bad = P.fused_postln_attn_block(x, km, *ln, *w, heads)
+    assert not K.output_agreement(bad, want)["ok"]
+
+
+@pytest.mark.cuda
+def test_postln_wrappers_reject_what_they_do_not_take(cuda):
+    x, km, ln, w = _postln_inputs("tiny", 103, cuda)
+    heads = POSTLN_SHAPES["tiny"][3]
+    P.reset_launches()
+    with pytest.raises(ValueError, match="dtype"):       # an f32 stream
+        P.fused_postln_attn_block(x.float(), km, *ln, *w, heads)
+    with pytest.raises(ValueError, match="head_dim"):    # head_dim 32
+        P.fused_postln_attn_block(x, km, *ln, *w, 4)
+    with pytest.raises(ValueError, match="km"):          # (B, SP), not (B, 1, SP)
+        P.fused_postln_attn_block(x, km[:, 0], *ln, *w, heads)
+    with pytest.raises(ValueError, match="contiguous"):
+        P.fused_postln_attn_block(x.transpose(0, 1), km, *ln, *w, heads)
+    long = torch.zeros(1, 273, 128, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="sequence"):
+        P.fused_postln_attn_block(long, torch.zeros(1, 1, 273, device=cuda),
+                                  *ln, *w, heads)
+    x, _, ln, w = _postln_inputs("tiny", 104, cuda, mlp=True)
+    with pytest.raises(ValueError, match="variant"):
+        P.fused_postln_mlp_block(x, *ln, *w, variant="both")
+    with pytest.raises(ValueError, match="activation"):
+        P.fused_postln_fc(x, *w[:2], "relu")
+    with pytest.raises(ValueError, match="dtype"):       # f32 weights
+        P.fused_postln_mlp_block(x, *ln, *[t.float() for t in w],
+                                 variant="single")
+    h = P.plain_postln_fc(x, *w[:2])
+    with pytest.raises(ValueError, match="dtype"):       # h must be bf16
+        P.fused_postln_proj(h.float(), *w[2:], x, *ln)
+    with pytest.raises(ValueError, match="shape"):
+        P.fused_postln_proj(h[:, :-1].contiguous(), *w[2:], x, *ln)
+    assert not any(P.LAUNCHES.values())
+
+
+#: (B, SP, D, heads, n_valid, causal, scale)
+SHORT_CASES = {
+    "n_valid": (8, 16, 128, 2, 13, False, None),
+    "causal": (8, 16, 128, 2, 16, True, None),
+    "head_dim_80": (3, 24, 160, 2, 24, False, None),
+    "scale": (8, 16, 128, 2, 16, False, 0.2),
+    "vit_b32": (4, 50, 768, 12, 50, False, None),
+    "text": (2, 77, 512, 8, 77, True, None),
+    "vit_h": (2, 257, 320, 4, 257, False, None),
+    "longest": (2, 272, 160, 2, 270, True, None),
+    "one": (2, 1, 128, 2, 1, False, None),
+}
+
+
+def _short_qkv(case, device, packed):
+    b, sp, d = SHORT_CASES[case][:3]
+    g = torch.Generator().manual_seed(110)
+    qkv = torch.randn((b, sp, 3 * d), generator=g).to(device, torch.bfloat16)
+    views = qkv.split(d, dim=-1)
+    return views if packed else [v.contiguous() for v in views]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "separate"])
+@pytest.mark.parametrize("case", list(SHORT_CASES))
+def test_short_attention_matches_plain_on_card(cuda, case, packed):
+    """q, k and v as the column ranges of a packed in-projection (row stride
+    3D) and as three tensors of their own (row stride D)."""
+    _, sp, d, heads, n_valid, causal, scale = SHORT_CASES[case]
+    q, k, v = _short_qkv(case, cuda, packed)
+    A.reset_launches()
+    got = A.fused_short_attention(q, k, v, heads, n_valid, causal, scale)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES_BY_SHAPE == {("fused_short_attention", sp, d): 1}
+    want = A.plain_short_attention(q, k, v, heads, n_valid, causal, scale)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert got.shape == want.shape and got.is_contiguous()
+    check = K.output_agreement(got, want)
+    assert check["ok"], check
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["half_scale", "mask_dropped",
+                                   "causal_dropped"])
+def test_short_attention_planted_fault_fails_the_check(cuda, fault):
+    _, sp, d, heads, _, _, _ = SHORT_CASES["text"]
+    q, k, v = _short_qkv("text", cuda, packed=True)
+    want = A.plain_short_attention(q, k, v, heads, sp - 7, True)
+    assert K.output_agreement(
+        A.fused_short_attention(q, k, v, heads, sp - 7, True), want)["ok"]
+    bad = A.fused_short_attention(
+        q, k, v, heads, sp if fault == "mask_dropped" else sp - 7,
+        fault != "causal_dropped",
+        0.5 / (d // heads) ** 0.5 if fault == "half_scale" else None)
+    assert not K.output_agreement(bad, want)["ok"]
+
+
+@pytest.mark.cuda
+def test_short_attention_rejects_what_it_does_not_take(cuda):
+    def qkv(b, sp, d, dtype=torch.bfloat16):
+        return [torch.zeros(b, sp, d, dtype=dtype, device=cuda)
+                for _ in range(3)]
+
+    A.reset_launches()
+    with pytest.raises(ValueError, match="head_dim"):    # head_dim 72
+        A.fused_short_attention(*qkv(1, 16, 288), 4, 16)
+    with pytest.raises(ValueError, match="sequence"):    # over K/V's room
+        A.fused_short_attention(*qkv(1, 273, 128), 2, 273)
+    with pytest.raises(ValueError, match="bfloat16"):
+        A.fused_short_attention(*qkv(1, 16, 128, torch.float32), 2, 16)
+    with pytest.raises(ValueError, match="n_valid"):
+        A.fused_short_attention(*qkv(1, 16, 128), 2, 17)
+    q, k, v = qkv(2, 16, 128)
+    with pytest.raises(ValueError, match="strided"):     # rows not unit-stride
+        A.fused_short_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                                k, v, 2, 16)
+    with pytest.raises(ValueError, match="bfloat16"):    # k of another shape
+        A.fused_short_attention(q, k[:, :8], v, 2, 16)
+    assert A.LAUNCHES == {"fused_short_attention": 0}
+
+
+@pytest.mark.cuda
+def test_hybrid_and_postln_layers_raise_outside_the_kernels_shapes(cuda):
+    """With ``fused_block`` off and ``fused_attention`` on, a CLIP block of
+    a head_dim the attention kernel does not take reaches the wrapper on the
+    card and raises, and so does an XLM-R layer on the post-LN wrappers: no
+    plain fallback by shape."""
+    from wise_tpu_torch.models.clip import hf_text as TH
+    from wise_tpu_torch.models.clip import model as TM
+
+    blk = TM.ResidualAttentionBlock(288, 4, "gelu", torch.bfloat16,
+                                    fused_block=False,
+                                    fused_attention=True).to(cuda)
+    A.reset_launches()
+    with pytest.raises(ValueError, match="head_dim"):
+        blk(torch.randn(2, 16, 288, device=cuda), n_valid=16)
+    layer = TH.BertLayer(TH.HFTextConfig(
+        vocab_size=64, width=128, layers=1, heads=4, intermediate=512,
+        dtype="bfloat16", fused_block=True)).to(cuda)
+    P.reset_launches()
+    with pytest.raises(ValueError, match="head_dim"):
+        layer(torch.randn(2, 16, 128, device=cuda).to(torch.bfloat16),
+              torch.zeros(2, 1, 16, device=cuda))
+    assert not any(A.LAUNCHES.values()) and not any(P.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+def test_hybrid_block_runs_the_attention_kernel_on_card(cuda):
+    """A CLIP block under WISE_FUSED_BLOCK=0: one fused_short_attention
+    launch, no block kernel, and the plain block's output."""
+    from wise_tpu_torch.models.clip import model as TM
+
+    kw = dict(width=128, heads=2, act="gelu", dtype=torch.bfloat16)
+    hybrid = TM.ResidualAttentionBlock(fused_block=False,
+                                       fused_attention=True, **kw)
+    TM.init_random_(hybrid, seed=1)
+    plain = TM.ResidualAttentionBlock(fused_block=False, **kw)
+    plain.load_state_dict(hybrid.state_dict())
+    hybrid, plain = hybrid.to(cuda), plain.to(cuda)
+    x = torch.randn(3, 50, 128, device=cuda)
+    K.reset_launches()
+    A.reset_launches()
+    with torch.no_grad():
+        got = hybrid(x, n_valid=50, causal=True)
+        assert A.LAUNCHES_BY_SHAPE == {("fused_short_attention", 50, 128): 1}
+        want = plain(x, n_valid=50, causal=True)
+    assert A.LAUNCHES == {"fused_short_attention": 1}
+    assert not any(K.LAUNCHES.values())
+    check = K.increment_agreement(got, want, x)
+    assert check["ok"], check

@@ -2,8 +2,9 @@
 
 // Shared building blocks of the port's CUDA kernels (sm_90a): LayerNorm,
 // the bf16 WMMA GEMM with its fused epilogues, and their launch helpers.
-// block_kernels.cu (the CLIP towers) and swin_kernels.cu (CLAP's HTSAT)
-// chain them with their own attention kernels.
+// block_kernels.cu (the CLIP towers), postln_kernels.cu (the XLM-R text
+// tower) and swin_kernels.cu (CLAP's HTSAT) chain them with their attention
+// kernels (attention.cuh; the Swin window attention is swin_kernels.cu's own).
 //
 // Everything here has internal linkage (an anonymous namespace), so each
 // translation unit that includes the header holds its own copy.
@@ -139,12 +140,14 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-template <typename TO, int EPI>
+// The residual is read as TR (the pre-LN blocks add in the stream's type,
+// TR = TO; the post-LN blocks add a bf16 x into an f32 sum, TO = float).
+template <typename TO, int EPI, typename TR>
 __global__ void __launch_bounds__(kGemmThreads)
 gemm_kernel(const bf16* __restrict__ A, int lda, RowMap amap,
             const bf16* __restrict__ W, int ldw,
             const bf16* __restrict__ bias, TO* __restrict__ out, int ldo,
-            const TO* __restrict__ res, int ldr, RowMap rmap, int M, int N,
+            const TR* __restrict__ res, int ldr, RowMap rmap, int M, int N,
             int K, int act) {
   extern __shared__ __align__(128) unsigned char gemm_smem[];
   bf16* As = reinterpret_cast<bf16*>(gemm_smem);
@@ -274,17 +277,19 @@ cudaError_t layernorm(const void* x, int x_f32, const float* s, const float* b,
                : launch_layernorm<bf16>(x, s, b, y, M, D, st);
 }
 
-template <typename TO, int EPI>
+// ``res`` points at TR values (or is null where EPI adds no residual)
+template <typename TO, int EPI, typename TR = TO>
 cudaError_t gemm(const bf16* A, int lda, RowMap amap, const bf16* W, int ldw,
-                 const bf16* bias, TO* out, int ldo, const TO* res, int ldr,
+                 const bf16* bias, TO* out, int ldo, const void* res, int ldr,
                  RowMap rmap, int M, int N, int K, int act, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(
-      gemm_kernel<TO, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gemm_kernel<TO, EPI, TR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kGemmSmem);
   if (err != cudaSuccess) return err;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_kernel<TO, EPI><<<grid, kGemmThreads, kGemmSmem, st>>>(
-      A, lda, amap, W, ldw, bias, out, ldo, res, ldr, rmap, M, N, K, act);
+  gemm_kernel<TO, EPI, TR><<<grid, kGemmThreads, kGemmSmem, st>>>(
+      A, lda, amap, W, ldw, bias, out, ldo, static_cast<const TR*>(res), ldr,
+      rmap, M, N, K, act);
   return cudaGetLastError();
 }
 
@@ -296,10 +301,10 @@ cudaError_t gemm_residual(const bf16* A, int lda, RowMap amap, const bf16* W,
   if (x_f32)
     return gemm<float, kBiasResidual>(
         A, lda, amap, W, ldw, bias, static_cast<float*>(out), ldo,
-        static_cast<const float*>(res), ldr, rmap, M, N, K, kNone, st);
+        res, ldr, rmap, M, N, K, kNone, st);
   return gemm<bf16, kBiasResidual>(
       A, lda, amap, W, ldw, bias, static_cast<bf16*>(out), ldo,
-      static_cast<const bf16*>(res), ldr, rmap, M, N, K, kNone, st);
+      res, ldr, rmap, M, N, K, kNone, st);
 }
 
 #define WT_CHECK(expr)                \

@@ -3,8 +3,9 @@
 The fields and registry entries of wise_tpu/models/clip/model.py
 (``CLIPConfig``, ``CLIP_CONFIGS``) with ``dtype`` as a name ("float32" or
 "bfloat16") in place of a jnp dtype. The port builds the OpenCLIP towers
-(class-token vision, causal argmax-pooled text); the other families of the
-reference registry wait for the port of their towers (ROADMAP Queue A 8).
+(class-token vision, causal argmax-pooled text) and the XLM-RoBERTa text
+tower of the default backbone; the other families of the reference registry
+wait for the port of their towers (ROADMAP Queue A 8).
 """
 
 from __future__ import annotations
@@ -42,7 +43,8 @@ class CLIPConfig:
     text_pool: str = "argmax"
     remat: bool = False
     attn_softmax_f32: bool = True
-    #: TPU attention-middle kernel; the port's block kernels cover its use
+    #: run the attention middle of a block through the attention kernel
+    #: (ops/attention.py) where ``fused_block`` is off
     fused_attention: bool = False
     #: run residual blocks through the CUDA block kernels (ops/block.py)
     fused_block: bool = False
@@ -77,6 +79,14 @@ CLIP_CONFIGS = {
         embed_dim=1024, patch_size=14, vision_width=1280, vision_layers=32,
         vision_heads=16, text_width=1024, text_heads=16, text_layers=24,
     ),
+    # the reference's default extractor backbone: ViT-H-14 vision +
+    # XLM-RoBERTa-large text
+    "xlm-roberta-large-ViT-H-14": CLIPConfig(
+        embed_dim=1024, patch_size=14, vision_width=1280, vision_layers=32,
+        vision_heads=16, context_length=64, vocab_size=250002,
+        text_width=1024, text_heads=16, text_layers=24,
+        text_tower="hf_xlm_roberta", hf_proj_type="mlp",
+    ),
     "ViT-Test-Tiny": CLIPConfig(
         embed_dim=32, image_size=32, patch_size=16, vision_width=64,
         vision_layers=2, vision_heads=4, context_length=16,
@@ -100,15 +110,18 @@ def production_clip_config(model_name: str) -> CLIPConfig:
     """The extractor's inference config, read from the same environment
     variables as wise_tpu's: bf16 activations by default
     (WISE_CLIP_DTYPE=float32 to override), the block kernels for bf16 towers
-    (WISE_FUSED_BLOCK=0 to disable), the pooled last layer
-    (WISE_POOL_LAST=0) and the f32 vision stream (WISE_BF16_STREAM=1 for
-    bf16)."""
+    (WISE_FUSED_BLOCK=0 to disable; the attention middle then still runs as
+    a kernel unless WISE_FUSED_ATTN=0, so the fully plain path is both at
+    0), the pooled last layer (WISE_POOL_LAST=0) and the f32 vision stream
+    (WISE_BF16_STREAM=1 for bf16)."""
     cfg = get_clip_config(model_name)
     dtype = os.environ.get("WISE_CLIP_DTYPE", "bfloat16")
     bf16 = dtype == "bfloat16"
     return dataclasses.replace(
         cfg,
         dtype="bfloat16" if bf16 else "float32",
+        fused_attention=(bf16
+                         and os.environ.get("WISE_FUSED_ATTN", "1") != "0"),
         fused_block=bf16 and os.environ.get("WISE_FUSED_BLOCK", "1") != "0",
         pool_last_block=os.environ.get("WISE_POOL_LAST", "1") != "0",
         bf16_stream=os.environ.get("WISE_BF16_STREAM", "0") == "1",

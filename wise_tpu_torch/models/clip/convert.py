@@ -9,8 +9,8 @@ converters here, or from the JAX package's ``CLIP.init``) onto the port's
 state_dict: the port's keys are the flax paths joined by dots, so the map is
 a flatten. ``load_openclip_state_dict`` and ``load_checkpoint`` end in it.
 
-Copy of ``wise_tpu/models/clip/convert.py``, with ``from_flax_params`` added
-and the HF text tower (not ported yet) raising.
+Copy of ``wise_tpu/models/clip/convert.py``, with ``from_flax_params``
+added.
 """
 
 from __future__ import annotations
@@ -23,7 +23,9 @@ import torch
 
 
 def from_flax_params(tree) -> Dict[str, torch.Tensor]:
-    """{'params': {...}} or the inner tree -> {state_dict key: f32 tensor}."""
+    """{'params': {...}} or the inner tree -> {state_dict key: f32 tensor}.
+    The XLM-R tower's separate ``self/{query, key, value}`` projections
+    become the one ``qkv`` Dense (D, 3D) the port stores."""
     tree = tree.get("params", tree)
     out: Dict[str, torch.Tensor] = {}
 
@@ -37,6 +39,10 @@ def from_flax_params(tree) -> Dict[str, torch.Tensor]:
                 np.array(node, dtype=np.float32))
 
     walk(tree, [])
+    for q_key in [k for k in out if ".self.query." in k]:
+        parts = [out.pop(q_key.replace(".self.query.", f".self.{name}."))
+                 for name in ("query", "key", "value")]
+        out[q_key.replace(".self.query.", ".qkv.")] = torch.cat(parts, dim=-1)
     return out
 
 
@@ -177,9 +183,11 @@ def convert_openclip_state_dict(sd: Dict[str, np.ndarray], config) -> Dict:
     if getattr(config, "vision_pool", "cls") == "map":
         return convert_siglip_state_dict(sd, config)
     if getattr(config, "text_tower", "clip") == "hf_xlm_roberta":
-        raise NotImplementedError(
-            "HF text towers (xlm-roberta) are not ported yet: ROADMAP "
-            "Queue A item 8")
+        from .hf_text import convert_hf_text_state_dict, hf_text_config
+
+        text_params = convert_hf_text_state_dict(sd, hf_text_config(config))
+    else:
+        text_params = None
     params = {
         "visual": {
             "conv1": {
@@ -202,7 +210,9 @@ def convert_openclip_state_dict(sd: Dict[str, np.ndarray], config) -> Dict:
             "ln_post": _ln(sd, "visual.ln_post"),
             "proj": np.asarray(sd["visual.proj"], dtype=np.float32),
         },
-        "text": {
+        "text": text_params
+        if text_params is not None
+        else {
             "token_embedding": np.asarray(
                 sd["token_embedding.weight"], dtype=np.float32
             ),

@@ -25,7 +25,7 @@ from ..feature_extractor import BucketPolicy, DeviceArray, FeatureExtractor
 from .config import production_clip_config
 from .convert import load_checkpoint
 from .model import CLIP, init_random_
-from .tokenizer import get_tokenizer
+from .tokenizer import HashTokenizer, get_tokenizer
 from .preprocess import preprocess_images, preprocess_images_gemm
 
 logger = logging.getLogger(__name__)
@@ -81,12 +81,21 @@ class OpenClipExtractor(FeatureExtractor):
             init_random_(model, seed=0)
         self.model = model.to(self.device).eval().requires_grad_(False)
 
-        bpe = ckpt_dir / "bpe_simple_vocab_16e6.txt.gz"
-        self.tokenizer = get_tokenizer(
-            bpe if bpe.exists() else None,
-            vocab_size=self.config.vocab_size,
-            context_length=self.config.context_length,
-        )
+        if self.config.text_tower == "hf_xlm_roberta":
+            # no sentencepiece vocabulary offline: the hash tokenizer with
+            # RoBERTa's padding convention
+            self.tokenizer = HashTokenizer(
+                vocab_size=self.config.vocab_size,
+                context_length=self.config.context_length,
+                pad_id=1,
+            )
+        else:
+            bpe = ckpt_dir / "bpe_simple_vocab_16e6.txt.gz"
+            self.tokenizer = get_tokenizer(
+                bpe if bpe.exists() else None,
+                vocab_size=self.config.vocab_size,
+                context_length=self.config.context_length,
+            )
         use_gemm = (self.config.dtype == "bfloat16"
                     and os.environ.get("WISE_PREPROCESS_GEMM", "1") == "1")
         #: uint8 (B, H, W, 3) device tensor -> normalised f32 model input

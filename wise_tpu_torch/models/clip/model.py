@@ -19,6 +19,13 @@ The kernels take head_dim 64 or 80 and at most 272 tokens
 H/14 at 224 px and their text towers; any other tower raises on the card
 unless ``fused_block`` is off. The MLP takes ``fused_mlp_block`` up to width
 768 and the ``fused_mlp_split`` pair above (``ops.block.mlp_choice``).
+
+With ``fused_block`` off and ``fused_attention`` set (bf16), a block's
+attention middle alone is a kernel (ops/attention.py
+``fused_short_attention``, between a plain in- and out-projection); its MLP
+and the pooled last layer are plain, as in the reference. With both off every
+block is plain PyTorch. ``text_tower="hf_xlm_roberta"`` swaps the text side
+for the XLM-RoBERTa tower (hf_text.py) on the post-LN kernels.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import math
 import torch
 from torch import nn
 
+from ...ops import attention as A
 from ...ops import block as K
 from .config import CLIPConfig
 
@@ -69,10 +77,14 @@ class Attention(nn.Module):
 
 class ResidualAttentionBlock(nn.Module):
     def __init__(self, width: int, heads: int, act: str, dtype: torch.dtype,
-                 fused_block: bool):
+                 fused_block: bool, fused_attention: bool = False):
         super().__init__()
         self.width, self.heads, self.act, self.dtype = width, heads, act, dtype
         self.fused_block = fused_block and dtype == torch.bfloat16
+        #: the attention middle alone as a kernel, where the block kernels
+        #: are off
+        self.fused_attention = (fused_attention and dtype == torch.bfloat16
+                                and not self.fused_block)
         self.ln_1 = LayerNorm(width)
         self.attn = Attention(width, dtype)
         self.ln_2 = LayerNorm(width)
@@ -84,8 +96,22 @@ class ResidualAttentionBlock(nn.Module):
         return (self.ln_1.scale, self.ln_1.bias, a.in_proj.kernel,
                 a.in_proj.bias, a.out_proj.kernel, a.out_proj.bias)
 
+    def _attention_middle(self, x, n_valid: int, causal: bool):
+        """x + out_proj(fused_short_attention(in_proj(LN(x)))): the
+        projections are plain GEMMs, as the reference leaves them to XLA."""
+        y = self.ln_1(x).to(self.dtype)
+        q, k, v = self.attn.in_proj(y).split(self.width, dim=-1)
+        att = A.fused_short_attention(q, k, v, self.heads, n_valid, causal)
+        return x + self.attn.out_proj(att).to(x.dtype)
+
     def forward(self, x, n_valid: int, causal: bool = False):
         fused = self.fused_block
+        if self.fused_attention:
+            x = self._attention_middle(x, n_valid, causal)
+            return K.plain_mlp_block(
+                x, self.ln_2.scale, self.ln_2.bias, self.mlp_fc.kernel,
+                self.mlp_fc.bias, self.mlp_proj.kernel, self.mlp_proj.bias,
+                act=self.act)
         attn = K.fused_attn_block if fused else K.plain_attn_block
         if not fused:
             mlp = K.plain_mlp_block
@@ -120,10 +146,12 @@ class ResidualAttentionBlock(nn.Module):
 
 class Transformer(nn.Module):
     def __init__(self, width: int, layers: int, heads: int, act: str,
-                 dtype: torch.dtype, fused_block: bool):
+                 dtype: torch.dtype, fused_block: bool,
+                 fused_attention: bool = False):
         super().__init__()
         self.resblocks = nn.ModuleList(
-            ResidualAttentionBlock(width, heads, act, dtype, fused_block)
+            ResidualAttentionBlock(width, heads, act, dtype, fused_block,
+                                   fused_attention)
             for _ in range(layers)
         )
 
@@ -172,7 +200,8 @@ class VisionTransformer(nn.Module):
             torch.zeros(n_tok, w, dtype=dt))
         self.ln_pre = LayerNorm(w)
         self.transformer = Transformer(w, c.vision_layers, c.vision_heads,
-                                       c.act_name, dt, c.fused_block)
+                                       c.act_name, dt, c.fused_block,
+                                       c.fused_attention)
         self.ln_post = LayerNorm(w)
         self.proj = nn.Parameter(torch.zeros(w, c.embed_dim, dtype=dt))
 
@@ -198,7 +227,7 @@ class TextTransformer(nn.Module):
         super().__init__()
         if c.text_tower != "clip" or c.text_pool != "argmax":
             raise NotImplementedError(
-                "HF / last-pooled text towers: ROADMAP Queue A item 8")
+                "last-pooled text towers: ROADMAP Queue A item 8")
         self.config = c
         dt, w = c.torch_dtype, c.text_width
         self.token_embedding = nn.Parameter(
@@ -206,7 +235,8 @@ class TextTransformer(nn.Module):
         self.positional_embedding = nn.Parameter(
             torch.zeros(c.context_length, w, dtype=dt))
         self.transformer = Transformer(w, c.text_layers, c.text_heads,
-                                       c.act_name, dt, c.fused_block)
+                                       c.act_name, dt, c.fused_block,
+                                       c.fused_attention)
         self.ln_final = LayerNorm(w)
         self.text_projection = nn.Parameter(
             torch.zeros(w, c.embed_dim, dtype=dt))
@@ -236,7 +266,12 @@ class CLIP(nn.Module):
         super().__init__()
         self.config = config
         self.visual = VisionTransformer(config)
-        self.text = TextTransformer(config)
+        if config.text_tower == "hf_xlm_roberta":
+            from .hf_text import XLMRobertaTextTower, hf_text_config
+
+            self.text = XLMRobertaTextTower(hf_text_config(config))
+        else:
+            self.text = TextTransformer(config)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
 
     def encode_image(self, images, normalize: bool = True):
@@ -252,8 +287,10 @@ class CLIP(nn.Module):
 def init_random_(model: CLIP, seed: int = 0) -> CLIP:
     """Seeded random weights, drawn on the CPU from torch.Generator(seed) in
     the reference's initialiser families: lecun-normal kernels, N(0, 0.02)
-    embeddings and projections (text positions N(0, 0.01)), zero biases,
-    unit LayerNorm scales."""
+    embeddings and projections (the CLIP text positions N(0, 0.01)), zero
+    biases, unit LayerNorm scales; the XLM-R tower's names fall into the
+    same families. One parameter is drawn at a time, so the host never
+    holds more than the largest table in f32."""
     g = torch.Generator().manual_seed(seed)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]

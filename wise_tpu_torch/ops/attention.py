@@ -1,0 +1,104 @@
+"""The attention middle on its own: a CUDA kernel and its plain version
+(wise_tpu/ops/attention.py).
+
+``fused_short_attention`` keeps the JAX wrapper's signature and layout: q, k
+and v are (B, SP, H * hd) in their natural layout, the output is (B, SP, D).
+It is what a CLIP tower runs between its in- and out-projection when the
+block kernels are off and ``fused_attention`` is on. On a CPU tensor it
+computes the plain version; on a CUDA tensor it launches ``wt_short_attention``
+(csrc/block_kernels.cu: the block kernels' attention kernel, reading three
+tensors) or raises. ``LAUNCHES`` counts the launches.
+
+| wrapper               | TPU kernel it replaces                        |
+| --------------------- | --------------------------------------------- |
+| fused_short_attention | fused_short_attention (attention.py:125)      |
+
+The reference admits head_dim 64 only, for a TPU layout reason; the kernel
+here is instantiated for 64 and 80. The reference pads the token axis to a
+multiple of 8 and masks the pad through ``n_valid``; the kernel pads to 16
+itself, so callers pass SP as it is.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .block import HEAD_DIMS, MAX_SEQ, _require, _stream
+from .build import LaunchCounter, check, load_library
+
+_launches = LaunchCounter("fused_short_attention")
+#: kernel launches since the last reset_launches()
+LAUNCHES = _launches.counts
+#: the same launches keyed by (wrapper, SP, D)
+LAUNCHES_BY_SHAPE = _launches.by_shape
+reset_launches = _launches.reset
+
+
+def plain_short_attention(q, k, v, heads: int, n_valid: int,
+                          causal: bool = False, scale: float | None = None):
+    """softmax(q k^T * scale) v per head, (B, SP, D): key columns >= n_valid
+    are masked, ``causal`` also masks columns above the query row. f32 logits
+    and softmax; p rounds to v's dtype before the PV product. ``scale``
+    defaults to 1 / sqrt(D / heads)."""
+    b, sp, d = q.shape
+    hd = d // heads
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
+    col = torch.arange(sp, device=q.device)
+    keep = (col < n_valid)[None, :]
+    if causal:
+        keep = keep & (col[None, :] <= col[:, None])
+    qh, kh, vh = (t.reshape(b, sp, heads, hd) for t in (q, k, v))
+    logits = torch.einsum("bqhd,bkhd->bhqk", qh.float(), kh.float()) * scale
+    logits = logits.masked_fill(~keep, -math.inf)
+    p = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vh).reshape(b, sp, d)
+
+
+def _rows(t, b: int, sp: int, d: int, name: str) -> int:
+    """The row stride (elements) of a (B, SP, D) bf16 tensor whose rows the
+    kernel can walk: unit stride along D, one stride from row to row across
+    examples (a contiguous tensor, or a column range of a packed
+    in-projection), 16-byte aligned."""
+    _require(tuple(t.shape) == (b, sp, d) and t.dtype == torch.bfloat16,
+             f"{name}: must be a ({b}, {sp}, {d}) bfloat16 tensor, got "
+             f"{tuple(t.shape)} {t.dtype}")
+    ld = t.stride(1)
+    _require(t.stride(2) == 1 and ld >= d
+             and (b == 1 or t.stride(0) == sp * ld),
+             f"{name}: rows must be evenly strided with unit stride along D")
+    _require(ld % 8 == 0 and t.data_ptr() % 16 == 0,
+             f"{name}: rows must be 16-byte aligned")
+    return ld
+
+
+def fused_short_attention(q, k, v, heads: int, n_valid: int,
+                          causal: bool = False, scale: float | None = None):
+    """q, k, v (B, SP, D) bf16 -> softmax(q k^T * scale) v per head as
+    (B, SP, D) bf16; key columns >= n_valid are masked and, with ``causal``,
+    columns above the query row. ``scale`` overrides 1 / sqrt(D / heads).
+    Every query row is computed (rows >= n_valid attend to the valid keys
+    like any other)."""
+    if not q.is_cuda:
+        return plain_short_attention(q, k, v, heads, n_valid, causal, scale)
+    name = "fused_short_attention"
+    _require(q.dim() == 3, f"{name}: q must be (B, SP, D)")
+    b, sp, d = q.shape
+    _require(heads >= 1 and d % heads == 0 and d // heads in HEAD_DIMS,
+             f"{name}: head_dim {d / max(heads, 1):g} not in {HEAD_DIMS}")
+    _require(b >= 1 and 1 <= sp <= MAX_SEQ,
+             f"{name}: batch {b} / sequence {sp} outside [1, {MAX_SEQ}]")
+    _require(1 <= n_valid <= sp, f"{name}: n_valid {n_valid} not in [1, {sp}]")
+    _require(k.device == q.device and v.device == q.device,
+             f"{name}: q, k and v must lie on one device")
+    lds = [_rows(t, b, sp, d, f"{name} {n}")
+           for t, n in ((q, "q"), (k, "k"), (v, "v"))]
+    scale = 1.0 / math.sqrt(d // heads) if scale is None else float(scale)
+    lib = load_library()
+    out = torch.empty((b, sp, d), dtype=torch.bfloat16, device=q.device)
+    check(lib.wt_short_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), *lds, out.data_ptr(), b, sp,
+        d, heads, int(n_valid), int(causal), scale, _stream(q)), name)
+    _launches.add(name, sp, d)
+    return out

@@ -203,6 +203,17 @@ def increment_agreement(got, want, base) -> dict:
     return dict(max_abs_err=err, err_bound=bound, min_cos=cos, ok=ok)
 
 
+def output_agreement(got, want) -> dict:
+    """How far an op's whole output ``got`` is from a reference ``want``:
+    the yardstick for ops without a residual stream under their output (a
+    post-LN block's output is a LayerNorm's, the attention middle's is the
+    attention alone), where ``increment_agreement`` has no base to take off.
+
+    ok: finite, per-token cosine >= COS_MIN, and max abs error <=
+    ERR_SHARE * max |want|."""
+    return increment_agreement(got, want, torch.zeros((), device=want.device))
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------

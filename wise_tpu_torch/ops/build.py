@@ -30,8 +30,9 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-#: C entry point -> argument types (csrc/block_kernels.cu, swin_kernels.cu)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: C entry point -> argument types (csrc/block_kernels.cu, postln_kernels.cu,
+#: swin_kernels.cu)
 SIGNATURES = {
     "wt_attn_block": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _P],
@@ -41,6 +42,12 @@ SIGNATURES = {
     "wt_mlp_proj": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _P],
     "wt_attn_block_pooled": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                              _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "wt_short_attention": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I,
+                           _F, _P],
+    "wt_postln_attn_block": [_P] * 12 + [_I] * 4 + [_P],
+    "wt_postln_mlp_block": [_P] * 10 + [_I] * 4 + [_P],
+    "wt_postln_fc": [_P] * 4 + [_I] * 4 + [_P],
+    "wt_postln_proj": [_P] * 8 + [_I] * 3 + [_P],
     "wt_window_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
                             _I, _I, _I, _I, _P],
     "wt_swin_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,

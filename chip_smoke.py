@@ -37,10 +37,13 @@ Phases, one line each; any failure exits non-zero:
    tokens of width 1024 and 1280, with ``F.scaled_dot_product_attention``
    timed beside it (``library_ms``): these have no residual under their
    output and are held on the whole output (cosine >= 0.999, max abs error
-   <= 5% of the output's max abs); planted there: the residual sum rounded
-   to bf16 before the LayerNorm, the key mask dropped, half the softmax
-   scale, the LayerNorm's scale and bias left out, h not activated, the
-   causal mask dropped.
+   <= 4 bf16 ulps of the output's max abs); planted there: the key mask
+   dropped, half the softmax scale, the LayerNorm's scale and bias left
+   out, h not activated, the causal mask dropped. Every post-LN row that
+   closes with the LayerNorm stands a second time ("-offset") on inputs
+   whose closing bias carries a common offset of 200: the kernel must pass
+   there too, and the residual sum rounded to bf16 before the LayerNorm
+   must fail.
 3. slice: a WiseProject built from seeded synthetic 224x224 uint8 frames,
    embedded by the port's OpenClipExtractor (ViT-B-32, production config,
    random weights) in batches of 256, written through the feature store and
@@ -70,17 +73,20 @@ Phases, one line each; any failure exits non-zero:
    xlm-roberta-large-ViT-H-14 (ViT-H/14's vision tower; the XLM-R large text
    tower: 64 tokens x 1024, 24 post-LN layers, 250,002-token vocabulary,
    the "mlp" projection head), 1,024 frames; a text batch must launch 24
-   post-LN attention blocks and 24 MLP pairs. The 8 queries also run with
-   the MLP as the "single" variant, against the split path (cosine >=
-   0.9999).
+   post-LN attention blocks and 24 MLP pairs, the batches counted apart
+   from the launch counters. The MLP as "single" is held in phase 2 alone:
+   at width 1024 the port's table, like the reference's, picks the split
+   pair, so the path must launch it no time and the summary says 0.
 8. hybrid: the production configuration with WISE_FUSED_BLOCK=0 (block
    kernels off, the attention middle a kernel) for ViT-B/32: one 256-frame
    batch and the 8 queries against the fully plain twin (min embedding
    cosine >= 0.9995); fused_short_attention must launch once for every
    non-pooled layer.
 
-The line before the last is the kernels' JSON summary; the last is
-{"ok": true, "device": {...}}. Needs one CUDA card; imports no JAX.
+The line before the last is the kernels' JSON summary ("kernels": those of
+the paths, with their launches there; "off_path": the "single" post-LN MLP
+rows, launches 0); the last is {"ok": true, "device": {...}}. Needs one
+CUDA card; imports no JAX.
 
 ``--phase profile`` runs the env phase, then breaks one 64-segment audio
 batch, one 256-frame ViT-H/14 batch and one text embed of the default
@@ -92,6 +98,7 @@ summary.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -640,12 +647,15 @@ def _postln_work(b, half=None, attn=False):
 def _postln_rows(torch, results, tag, s):
     """The post-LN attention block, the MLP as "single" and as the split
     pair, and each half, at one batch of the XLM-R shape, on their whole
-    outputs. Planted faults: the residual sum rounded to bf16 before the
-    LayerNorm (on inputs whose closing bias carries a common offset of 200,
-    which the LayerNorm takes out: the f32 sum keeps the signal under it,
-    a bf16 sum loses it), the key mask dropped, the softmax at half its
+    outputs. Planted faults: the key mask dropped, the softmax at half its
     scale, the LayerNorm's scale and bias replaced by ones and zeros, h not
-    activated."""
+    activated. Every row that closes with the LayerNorm stands a second
+    time (``tag``-offset) on the same inputs with a common offset of 200 on
+    the closing bias, which the LayerNorm takes out: the f32 sum keeps the
+    signal under it, so the kernel must pass there as well, and the planted
+    fault, the residual sum rounded to bf16 before the LayerNorm, loses it
+    and must fail (on ordinary inputs that fault moves the output by less
+    than an ulp)."""
     from wise_tpu_torch.ops import postln_block as P
     from wise_tpu_torch.ops.block import layer_norm_f32
 
@@ -663,74 +673,73 @@ def _postln_rows(torch, results, tag, s):
         return layer_norm_f32(res.to(bf), *ln).to(bf)
 
     x, km, ln, w = _postln_inputs(torch, b, seed_attn)
+    w_off = (*w[:3], offset(w[3]))
 
     def attn(w=w, km=km, ln=ln):
         return P.fused_postln_attn_block(x, km, *ln, *w, heads)
 
-    def attn_sum_rounded():
-        w2 = (*w[:3], offset(w[3]))
-        att = P.plain_postln_attention(x, km, *w[:2], heads)
-        return (sum_rounded(att, w[2], w2[3], x, ln),
-                P.plain_postln_attn_block(x, km, *ln, *w2, heads), attn(w2))
-
     half_q = (w[0].clone(), w[1].clone(), *w[2:])
     half_q[0][:, :d] *= 0.5
     half_q[1][:d] *= 0.5
-    _check_row(torch, results, "fused_postln_attn_block", tag,
-               ("fused_postln_attn_block", sp, d), x, attn,
+    name, key = "fused_postln_attn_block", ("fused_postln_attn_block", sp, d)
+    _check_row(torch, results, name, tag, key, x, attn,
                lambda: P.plain_postln_attn_block(x, km, *ln, *w, heads), None,
-               {"sum_rounded_bf16": attn_sum_rounded,
-                "mask_dropped": lambda: attn(km=torch.zeros_like(km)),
+               {"mask_dropped": lambda: attn(km=torch.zeros_like(km)),
                 "half_scale": lambda: attn(half_q),
                 "ln_identity": lambda: attn(ln=ident)},
+               _postln_work(b, attn=True))
+    _check_row(torch, results, name, f"{tag}-offset", key, x,
+               lambda: attn(w_off),
+               lambda: P.plain_postln_attn_block(x, km, *ln, *w_off, heads),
+               None,
+               {"sum_rounded_bf16": lambda: sum_rounded(
+                   P.plain_postln_attention(x, km, *w[:2], heads), w[2],
+                   w_off[3], x, ln)},
                _postln_work(b, attn=True))
 
     x, _, ln, w = _postln_inputs(torch, b, seed_mlp, mlp=True)
     fc, proj = w[:2], w[2:]
-    proj2 = (proj[0], offset(proj[1]))
+    proj_off = (proj[0], offset(proj[1]))
+    with torch.inference_mode():
+        hid = P.plain_postln_fc(x, *fc)
+        raw = P.plain_postln_fc(x, *fc, "none")
+    rounded = {"sum_rounded_bf16": lambda: sum_rounded(hid, *proj_off, x, ln)}
 
-    def mlp_sum_rounded(kernel):
-        h = P.plain_postln_fc(x, *fc)
-        return (sum_rounded(h, *proj2, x, ln),
-                P.plain_postln_mlp_block(x, *ln, *fc, *proj2), kernel())
-
-    for name, variant, key in (
-            ("fused_postln_mlp_block", "single", "fused_postln_mlp_block"),
-            ("fused_postln_mlp_split", "split", "fused_postln_mlp_split")):
+    for name, variant in (("fused_postln_mlp_block", "single"),
+                          ("fused_postln_mlp_split", "split")):
 
         def mlp(ln=ln, proj=proj, act="gelu", variant=variant):
             return P.fused_postln_mlp_block(x, *ln, *fc, *proj, act,
                                             variant=variant)
 
-        _check_row(torch, results, name, tag, (key, sp, d), x, mlp,
+        _check_row(torch, results, name, tag, (name, sp, d), x, mlp,
                    lambda: P.plain_postln_mlp_block(x, *ln, *w), None,
-                   {"sum_rounded_bf16": lambda m=mlp: mlp_sum_rounded(
-                       lambda: m(proj=proj2)),
-                    "ln_identity": lambda m=mlp: m(ln=ident),
+                   {"ln_identity": lambda m=mlp: m(ln=ident),
                     "h_not_activated": lambda m=mlp: m(act="none")},
                    _postln_work(b))
+        _check_row(torch, results, name, f"{tag}-offset", (name, sp, d), x,
+                   lambda m=mlp: m(proj=proj_off),
+                   lambda: P.plain_postln_mlp_block(x, *ln, *fc, *proj_off),
+                   None, rounded, _postln_work(b))
     _check_row(torch, results, "fused_postln_fc", tag,
                ("fused_postln_fc", sp, d), x,
                lambda: P.fused_postln_fc(x, *fc),
                lambda: P.plain_postln_fc(x, *fc), None,
                {"h_not_activated": lambda: P.fused_postln_fc(x, *fc, "none")},
                _postln_work(b, "fc"))
-    with torch.inference_mode():
-        hid = P.plain_postln_fc(x, *fc)
-        raw = P.plain_postln_fc(x, *fc, "none")
-    _check_row(torch, results, "fused_postln_proj", tag,
-               ("fused_postln_proj", sp, d), x,
+    name, key = "fused_postln_proj", ("fused_postln_proj", sp, d)
+    _check_row(torch, results, name, tag, key, x,
                lambda: P.fused_postln_proj(hid, *proj, x, *ln),
                lambda: P.plain_postln_proj(hid, *proj, x, *ln), None,
-               {"sum_rounded_bf16": lambda: (
-                   sum_rounded(hid, *proj2, x, ln),
-                   P.plain_postln_proj(hid, *proj2, x, *ln),
-                   P.fused_postln_proj(hid, *proj2, x, *ln)),
-                "ln_identity": lambda: P.fused_postln_proj(hid, *proj, x,
+               {"ln_identity": lambda: P.fused_postln_proj(hid, *proj, x,
                                                            *ident),
                 "h_not_activated": lambda: P.fused_postln_proj(raw, *proj, x,
                                                                *ln)},
                _postln_work(b, "proj"))
+    _check_row(torch, results, name, f"{tag}-offset", key, x,
+               lambda: P.fused_postln_proj(hid, *proj_off, x, *ln),
+               lambda: P.plain_postln_proj(hid, *proj_off, x, *ln), None,
+               rounded, _postln_work(b, "proj"))
 
 
 def _short_attention_rows(torch, results):
@@ -1046,23 +1055,42 @@ def _tower_keys(config):
                         "fused_attn_block_pooled_dyn")
 
 
-def _check_text_launches(phase, config, text, launches):
-    """The text tower's counts over the served requests, held to each other
-    by what the code implies: a CLIP text batch launches layers - 1
-    attention blocks and MLPs and one pooled last layer; an XLM-R batch
-    launches every layer's attention block and MLP pair."""
+@contextlib.contextmanager
+def _text_batches():
+    """Counts the text batches embedded while the block runs, by every CLIP
+    model of the process (the server builds its own): the list gains one
+    entry, the bucket-padded batch's rows, for each ``CLIP.encode_text``
+    call. It reads no launch counter, so the counters can be held to it."""
+    from wise_tpu_torch.models.clip.model import CLIP
+
+    sizes, encode_text = [], CLIP.encode_text
+
+    def counted(self, tokens):
+        sizes.append(len(tokens))
+        return encode_text(self, tokens)
+
+    CLIP.encode_text = counted
+    try:
+        yield sizes
+    finally:
+        CLIP.encode_text = encode_text
+
+
+def _check_text_launches(phase, config, text, launches, batches):
+    """The text tower's counts over the served requests, held to the
+    ``batches`` that ``_text_batches`` counted and to what the code implies:
+    a CLIP text batch launches layers - 1 attention blocks and MLPs and one
+    pooled last layer; an XLM-R batch launches every layer's attention block
+    and MLP pair."""
     got = [launches.get(key, 0) for key in text]
     layers = config.text_layers
     if config.text_tower == "hf_xlm_roberta":
-        ok = got[0] == got[1] and got[0] > 0 and got[0] % layers == 0
-        batches = got[0] // layers
+        want = [batches * layers] * 2
     else:
-        batches = got[2]
-        ok = batches > 0 and got[0] == got[1] == batches * (layers - 1)
-    if not ok:
-        raise PhaseError(f"{phase}: text launches {dict(zip(text, got))} do "
-                         f"not fit {layers} layers a batch")
-    return batches
+        want = [batches * (layers - 1)] * 2 + [batches]
+    if not batches or got != want:
+        raise PhaseError(f"{phase}: text launches {dict(zip(text, got))} over "
+                         f"{batches} text batches, expected {want}")
 
 
 def _hybrid_batch(torch, extractor, plain, frames, queries=()):
@@ -1103,33 +1131,6 @@ def _hybrid_batch(torch, extractor, plain, frames, queries=()):
     return counts, cos, _encode_rates(torch, hybrid, frames)[1]
 
 
-def _single_variant_run(torch, extractor, queries):
-    """The queries through the extractor's XLM-R tower with the MLP as the
-    "single" variant (one call a layer on scratch of its own) on the same
-    weights: (launches by (wrapper, SP, D), min cosine of the un-normalised
-    embeddings against the tower's own split path)."""
-    import dataclasses
-
-    from wise_tpu_torch.models.clip.hf_text import XLMRobertaTextTower
-    from wise_tpu_torch.ops import postln_block as P
-
-    text = extractor.model.text
-    with torch.device(extractor.device):
-        single = XLMRobertaTextTower(dataclasses.replace(
-            text.config, mlp_variant="single"))
-    single.load_state_dict(text.state_dict())
-    single.eval().requires_grad_(False)
-    tokens = torch.from_numpy(extractor.tokenizer(list(queries))).long().to(
-        extractor.device)
-    with torch.inference_mode():
-        want = text(tokens)
-        P.reset_launches()
-        got = single(tokens)
-        torch.cuda.synchronize()
-    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
-    return dict(P.LAUNCHES_BY_SHAPE), cos.min().item()
-
-
 def phase_slice(torch, card, model_id=MODEL_ID, n_frames=FRAMES,
                 phase="slice", topk_1m=True, size=224, k=10,
                 hybrid_frames=0):
@@ -1137,10 +1138,9 @@ def phase_slice(torch, card, model_id=MODEL_ID, n_frames=FRAMES,
     of the main path's run, keyed by (wrapper, SP, D). The vision tower's
     counts must be exact: batches x (layers - 1) for the attention block and
     the MLP, batches for the pooled last layer; the text tower's must fit
-    its layer count (_check_text_launches). With ``hybrid_frames`` that many
-    frames also go through the path of WISE_FUSED_BLOCK=0 (_hybrid_batch);
-    an XLM-R text tower also embeds the queries with its MLP as the
-    "single" variant (_single_variant_run)."""
+    the count of text batches served (_text_batches, _check_text_launches).
+    With ``hybrid_frames`` that many frames also go through the path of
+    WISE_FUSED_BLOCK=0 (_hybrid_batch)."""
     import numpy as np
     from wise_tpu_torch import project
     from wise_tpu_torch.cli import create_index
@@ -1178,13 +1178,15 @@ def phase_slice(torch, card, model_id=MODEL_ID, n_frames=FRAMES,
         if create_index.main(["--project-dir", str(project_dir)]) != 0:
             raise PhaseError("create-index failed")
         config = project.WiseProject(project_dir).load_config()
-        served, lat = _serve_queries(project_dir, config, QUERIES, k)
+        with _text_batches() as batch_sizes:
+            served, lat = _serve_queries(project_dir, config, QUERIES, k)
         launches = _block_launches()
         idle = [key for key in vision + text if not launches.get(key)]
         if idle:
             raise PhaseError(f"{phase}: not launched on the path: {idle}")
-        text_batches = _check_text_launches(phase, extractor.config, text,
-                                            launches)
+        text_batches = len(batch_sizes)
+        _check_text_launches(phase, extractor.config, text, launches,
+                             text_batches)
 
         # the same frames and queries through the plain PyTorch path
         plain = _twin(torch, extractor)
@@ -1202,19 +1204,6 @@ def phase_slice(torch, card, model_id=MODEL_ID, n_frames=FRAMES,
             _check_against_plain(*served[q], scores, ids, k, 1e-3)
 
         fields, extra = {}, []
-        if extractor.config.text_tower == "hf_xlm_roberta":
-            single, cos = _single_variant_run(torch, extractor, QUERIES)
-            c = extractor.config
-            key = ("fused_postln_mlp_block", c.context_length, c.text_width)
-            if single.get(key) != c.text_layers or cos < 0.9999:
-                raise PhaseError(
-                    f"{phase}: the single MLP variant launched {single}, "
-                    f"expected {c.text_layers} at {key[1:]}, or is off the "
-                    f"split path (min cos {cos:.6f} < 0.9999)")
-            launches[key] = single[key]
-            extra.append(dict(path="mlp_variant=single", queries=len(QUERIES),
-                              launches=single[key],
-                              min_cos_vs_split=f"{cos:.6f}"))
         if hybrid_frames:
             frames = clips[0][:hybrid_frames]
             counts, cos, ms = _hybrid_batch(torch, extractor, plain, frames)
@@ -1252,7 +1241,7 @@ def phase_slice(torch, card, model_id=MODEL_ID, n_frames=FRAMES,
         extractor_build_s=f"{build_s:.3f}", ingest_s=f"{ingest_s:.3f}",
         frames_per_s=f"{n / ingest_s:.1f}",
         ingest_peak_device_gb=f"{peak_gb:.3f}", requests=len(lat) + 9,
-        text_batches=text_batches,
+        text_batches=text_batches, text_batch_rows=sum(batch_sizes),
         query_p50_ms=f"{1e3 * float(np.median(lat)):.3f}", **fields,
         launches=json.dumps({_launch_name(key): c for key, c
                              in sorted(launches.items())},
@@ -1491,6 +1480,19 @@ def phase_audio(torch, card, k=10):
             device_ms_per_batch=f"{ms:.3f}",
             device_segments_per_s=f"{1e3 * len(batch) / ms:.1f}")
     return launches
+
+
+def _off_path(key) -> bool:
+    """Whether a kernel row's wrapper is one that no path may launch at the
+    row's width: the post-LN MLP as "single" where ``postln_mlp_choice``
+    picks the split pair (the XLM-R width, as in the reference's table). Such
+    a row is held against its plain version in the kernels phase alone, and
+    its count over the paths must be 0."""
+    from wise_tpu_torch.ops.postln_block import postln_mlp_choice
+
+    name, _, width = key[:3]
+    return (name == "fused_postln_mlp_block"
+            and postln_mlp_choice(width) != "single")
 
 
 def _launch_name(key) -> str:
@@ -1741,25 +1743,39 @@ def main(argv=None) -> int:
             "xlmr", phase_slice, torch, card, XLMR_ID, XLMR_FRAMES, "xlmr",
             topk_1m=False))
         launches.update(_timed("hybrid", phase_hybrid, torch, card))
+        off = {r["key"] for r in kernels if _off_path(r["key"])}
+        stray = [_launch_name(key) for key in off if launches.get(key)]
+        if stray:
+            raise PhaseError(f"launched against the port's own choice of "
+                             f"variant: {stray}")
         idle = [f"{r['name']}[{r['tag']}]" for r in kernels
-                if not launches.get(r["key"])]
+                if r["key"] not in off and not launches.get(r["key"])]
         if idle:
             raise PhaseError(f"not launched on the path at the shape "
                              f"checked: {idle}")
+        for key in sorted(off):
+            say("kernels", off_path=_launch_name(key), launches=0,
+                reason="the width's table picks the split pair, as the "
+                       "reference's does")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
+    def row(r):
+        return {"name": f"{r['name']}[{r['tag']}]", "route": "cuda",
+                "source": KERNELS[r["name"]][0],
+                "replaces": KERNELS[r["name"]][1],
+                "launches": launches.get(r["key"], 0),
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+
+    # "kernels": the kernels of the paths, each launched there; "off_path":
+    # the variant no path may launch (_off_path), held in the kernels phase
     print(card)
-    print(json.dumps({"kernels": [
-        {"name": f"{r['name']}[{r['tag']}]", "route": "cuda",
-         "source": KERNELS[r["name"]][0], "replaces": KERNELS[r["name"]][1],
-         "launches": launches[r["key"]],
-         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
-        for r in kernels
-    ]}))
+    print(json.dumps({
+        "kernels": [row(r) for r in kernels if r["key"] not in off],
+        "off_path": [row(r) for r in kernels if r["key"] in off]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -157,17 +157,22 @@ def test_f32_tower_never_takes_the_wrappers(monkeypatch):
 
 
 def test_mlp_variant_reaches_the_wrapper(monkeypatch):
+    """The layer names no variant, as the reference's does not: the wrapper
+    takes ``postln_mlp_choice`` of the width ("single" up to 768, "split"
+    above, the reference's table)."""
+    assert not hasattr(TH.HFTextConfig(), "mlp_variant")
     seen = []
     fn = P.fused_postln_mlp_block
     monkeypatch.setattr(P, "fused_postln_mlp_block", lambda *a, **kw: (
-        seen.append(kw.get("variant")), fn(*a, **kw))[1])
-    for variant, want in (("", None), ("single", "single")):
-        layer = TH.BertLayer(TH.HFTextConfig(
-            dtype="bfloat16", fused_block=True, mlp_variant=variant, **TINY))
-        TM.init_random_(layer, seed=0)
-        x = torch.randn(2, 4, 128).to(torch.bfloat16)
-        layer(x, torch.zeros(2, 1, 4))
-        assert seen.pop() == want
+        seen.append((a[0].shape[-1], kw.get("variant"))), fn(*a, **kw))[1])
+    layer = TH.BertLayer(TH.HFTextConfig(
+        dtype="bfloat16", fused_block=True, **TINY))
+    TM.init_random_(layer, seed=0)
+    x = torch.randn(2, 4, 128).to(torch.bfloat16)
+    layer(x, torch.zeros(2, 1, 4))
+    assert seen == [(128, None)]
+    assert P.postln_mlp_choice(128) == P.postln_mlp_choice(768) == "single"
+    assert P.postln_mlp_choice(1024) == "split"
 
 
 # ---------------------------------------------------------------------------

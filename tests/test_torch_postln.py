@@ -184,3 +184,34 @@ def test_postln_mlp_choice_and_counters():
         P.fused_postln_mlp_block(torch.from_numpy(x),
                                  *_torch(ln, torch.float32),
                                  *_torch(w, torch.float32), variant="both")
+
+
+def test_output_agreement_holds_a_layernorm_output_to_bf16_ulps():
+    """The yardstick the card's checks use on a post-LN block's whole output:
+    one bf16 ulp off passes, a fifth of a typical value off fails (5% of the
+    max would let it by), and the residual sum rounded to bf16 before the
+    LayerNorm fails on inputs whose closing bias carries a common offset."""
+    from wise_tpu_torch.ops import block as K
+
+    x, _, ln, w = _inputs(78, mlp=True)
+    bf = torch.bfloat16
+    tx, tln, tw = torch.from_numpy(x).to(bf), _torch(ln, torch.float32), \
+        _torch(w, bf)
+    want = P.plain_postln_mlp_block(tx, *tln, *tw)
+    top = want.float().abs().max().item()
+    ulp = K.bf16_ulp(top)
+    assert ulp == 2.0 ** (np.floor(np.log2(top)) - 7)
+    assert K.output_agreement(want, want)["ok"]
+    off = want.float()
+    off[0, 0, 0] += ulp
+    check = K.output_agreement(off, want)
+    assert check["ok"] and check["err_bound"] == K.OUT_ULPS * ulp
+    off[0, 0, 0] += 0.2
+    assert 0.2 < 0.05 * top and not K.output_agreement(off, want)["ok"]
+
+    tw[3] = (tw[3].float() + 200.0).to(bf)
+    want = P.plain_postln_mlp_block(tx, *tln, *tw)
+    h = P.plain_postln_fc(tx, *tw[:2])
+    res = tx.float() + (h @ tw[2]).float() + tw[3].float()
+    bad = K.layer_norm_f32(res.to(bf), *tln).to(bf)
+    assert not K.output_agreement(bad, want)["ok"]

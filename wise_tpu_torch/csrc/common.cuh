@@ -277,23 +277,30 @@ cudaError_t layernorm(const void* x, int x_f32, const float* s, const float* b,
                : launch_layernorm<bf16>(x, s, b, y, M, D, st);
 }
 
-// ``res`` points at TR values (or is null where EPI adds no residual)
+// names T without letting a call deduce it: the residual's type comes from the
+// template arguments alone, and a pointer of another type does not compile
+template <typename T>
+struct as_given {
+  using type = T;
+};
+
+// ``res`` points at TR values (null where EPI adds no residual)
 template <typename TO, int EPI, typename TR = TO>
 cudaError_t gemm(const bf16* A, int lda, RowMap amap, const bf16* W, int ldw,
-                 const bf16* bias, TO* out, int ldo, const void* res, int ldr,
-                 RowMap rmap, int M, int N, int K, int act, cudaStream_t st) {
+                 const bf16* bias, TO* out, int ldo,
+                 const typename as_given<TR>::type* res, int ldr, RowMap rmap,
+                 int M, int N, int K, int act, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(
       gemm_kernel<TO, EPI, TR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kGemmSmem);
   if (err != cudaSuccess) return err;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   gemm_kernel<TO, EPI, TR><<<grid, kGemmThreads, kGemmSmem, st>>>(
-      A, lda, amap, W, ldw, bias, out, ldo, static_cast<const TR*>(res), ldr,
-      rmap, M, N, K, act);
+      A, lda, amap, W, ldw, bias, out, ldo, res, ldr, rmap, M, N, K, act);
   return cudaGetLastError();
 }
 
-// out = res + (A W + bias) in x's dtype
+// out = res + (A W + bias) in x's dtype (out and res both float or both bf16)
 cudaError_t gemm_residual(const bf16* A, int lda, RowMap amap, const bf16* W,
                           int ldw, const bf16* bias, void* out, int ldo,
                           const void* res, int ldr, RowMap rmap, int x_f32,
@@ -301,10 +308,10 @@ cudaError_t gemm_residual(const bf16* A, int lda, RowMap amap, const bf16* W,
   if (x_f32)
     return gemm<float, kBiasResidual>(
         A, lda, amap, W, ldw, bias, static_cast<float*>(out), ldo,
-        res, ldr, rmap, M, N, K, kNone, st);
+        static_cast<const float*>(res), ldr, rmap, M, N, K, kNone, st);
   return gemm<bf16, kBiasResidual>(
       A, lda, amap, W, ldw, bias, static_cast<bf16*>(out), ldo,
-      res, ldr, rmap, M, N, K, kNone, st);
+      static_cast<const bf16*>(res), ldr, rmap, M, N, K, kNone, st);
 }
 
 #define WT_CHECK(expr)                \

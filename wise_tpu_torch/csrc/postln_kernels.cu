@@ -25,8 +25,10 @@
 // normalises is f32 (gemm_kernel<float, kBiasResidual, bf16>), so the sum
 // rounds once, after the LayerNorm, as in the TPU kernels; and the attention
 // adds km[b, j] (0 keep, -inf drop) to every logit of key j of example b.
-// "single" and "split" run the same chain and differ in who owns h, as
-// wt_mlp_block and wt_mlp_fc + wt_mlp_proj do.
+// "single" and "split" are one code path with two entries: wt_postln_mlp_block
+// is postln_fc then residual_layernorm on scratch of its own, wt_postln_fc and
+// wt_postln_proj are the same two calls with h in the caller's memory (as
+// wt_mlp_block and wt_mlp_fc + wt_mlp_proj are).
 //
 // What bounds them on the H100: at the tower's width (D = 1024, F = 4096) the
 // GEMMs hold over 95% of the operations and are compute-bound at an ingest

@@ -57,9 +57,6 @@ class HFTextConfig:
     dtype: str = "float32"
     #: run the layers through the post-LN kernel wrappers (bf16 only)
     fused_block: bool = False
-    #: the MLP wrapper's ``variant``: "single", "split", or "" for
-    #: ``ops.postln_block.postln_mlp_choice`` of the width
-    mlp_variant: str = ""
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -87,7 +84,6 @@ class BertLayer(nn.Module):
         dt = c.torch_dtype
         self.heads = c.heads
         self.fused_block = c.fused_block and dt == torch.bfloat16
-        self.mlp_variant = c.mlp_variant or None
         self.qkv = Dense(c.width, 3 * c.width, dt)
         self.attn_out = Dense(c.width, c.width, dt)
         self.attn_ln = LayerNorm(c.width)
@@ -102,13 +98,10 @@ class BertLayer(nn.Module):
         x = attn(x, km, self.attn_ln.scale, self.attn_ln.bias,
                  self.qkv.kernel, self.qkv.bias, self.attn_out.kernel,
                  self.attn_out.bias, self.heads)
-        mlp_args = (x, self.out_ln.scale, self.out_ln.bias,
-                    self.intermediate.kernel, self.intermediate.bias,
-                    self.output.kernel, self.output.bias, "gelu")
-        if fused:
-            return P.fused_postln_mlp_block(*mlp_args,
-                                            variant=self.mlp_variant)
-        return P.plain_postln_mlp_block(*mlp_args)
+        mlp = P.fused_postln_mlp_block if fused else P.plain_postln_mlp_block
+        return mlp(x, self.out_ln.scale, self.out_ln.bias,
+                   self.intermediate.kernel, self.intermediate.bias,
+                   self.output.kernel, self.output.bias, "gelu")
 
 
 class XLMRobertaTextTower(nn.Module):

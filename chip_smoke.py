@@ -9,6 +9,7 @@ and the production configuration with WISE_FUSED_BLOCK=0.
     python3 chip_smoke.py --phase vit_h    # env and the ViT-H/14 slice only
     python3 chip_smoke.py --phase xlmr     # env and the default backbone only
     python3 chip_smoke.py --phase hybrid   # env and WISE_FUSED_BLOCK=0 only
+    python3 chip_smoke.py --phase index    # env and the 1M-vector index only
     python3 chip_smoke.py --phase profile  # env and the audio breakdown
 
 Phases, one line each; any failure exits non-zero:
@@ -43,7 +44,16 @@ Phases, one line each; any failure exits non-zero:
    closes with the LayerNorm stands a second time ("-offset") on inputs
    whose closing bias carries a common offset of 200: the kernel must pass
    there too, and the residual sum rounded to bf16 before the LayerNorm
-   must fail.
+   must fail. The fused scan + top-k kernels at the index phase's database,
+   1,048,576 x 512 (TOPK_ROWS: fused_topk_threshold at Q = 1 and 8, k = 10
+   and 100; fused_topk at Q = 64, k = 100; f32 and bf16 storage), each held
+   against its plain version twice: on integer-valued vectors with planted
+   ties (scores and rows must be identical) and on seeded unit-norm random
+   vectors (scores within 2e-6, rows equal except among near-tied entries:
+   ops.fused_topk.topk_agreement), with ``torch.topk(q @ db.T, k)`` timed
+   beside them (``library_ms``: two library calls, used nowhere in the
+   port); planted there: the n_valid mask dropped, ties resolved to the
+   higher row, the threshold skip inverted, the last span left unscanned.
 3. slice: a WiseProject built from seeded synthetic 224x224 uint8 frames,
    embedded by the port's OpenClipExtractor (ViT-B-32, production config,
    random weights) in batches of 256, written through the feature store and
@@ -82,6 +92,18 @@ Phases, one line each; any failure exits non-zero:
    batch and the 8 queries against the fully plain twin (min embedding
    cosine >= 0.9995); fused_short_attention must launch once for every
    non-pooled layer.
+
+9. index: the index and query leg at deployment size. A WiseProject of
+   1,048,576 vectors of 512 dimensions (256 ViT-B/32 embeddings of one
+   seeded clip, the rest seeded synthetic unit vectors clustered by clip)
+   written through the port's feature store and DB; ``create-index``
+   through the port's CLI entry; the port's REST server, the 8 queries x 3
+   and a burst, k = 10, against a plain-PyTorch run; fused_topk_threshold
+   must launch once per served search batch (the batches counted apart from
+   the launch counter) and fused_topk in a ``search_batch`` of 64 vectors
+   at k = 100. Then the same index under bf16 and int8 storage, the
+   approximate scan at recall target 0.95, and IndexIVFFlat built from the
+   same store and searched at nprobe 1024.
 
 The line before the last is the kernels' JSON summary ("kernels": those of
 the paths, with their launches there; "off_path": the "single" post-LN MLP
@@ -134,8 +156,15 @@ AUDIO_QUERIES = ["a dog barking", "rain on a window", "a violin solo",
                  "people talking in a cafe", "a car engine starting",
                  "birds singing at dawn", "applause in a hall",
                  "a door slamming"]
+#: the index phase's database, and the top-k kernel rows': vectors x width
+#: (a multiple of the index's group of 4096 rows, so N_pad = N)
+INDEX_N, INDEX_D = 1 << 20, 512
 #: wrapper -> (source, TPU kernel it replaces)
 KERNELS = {
+    "fused_topk": ("wise_tpu_torch/csrc/topk_kernels.cu",
+                   "wise_tpu/ops/pallas_topk.py:82"),
+    "fused_topk_threshold": ("wise_tpu_torch/csrc/topk_kernels.cu",
+                             "wise_tpu/ops/pallas_topk.py:221"),
     "fused_attn_block": ("wise_tpu_torch/csrc/block_kernels.cu",
                          "wise_tpu/ops/block.py:466"),
     "fused_mlp_block": ("wise_tpu_torch/csrc/block_kernels.cu",
@@ -178,6 +207,8 @@ SWIN_STAGES = [("stage0", 4096, 96, 4, None),
 
 #: published dense peaks of one H100 SXM: bf16 operations/s, HBM bytes/s
 PEAK_OPS, PEAK_BYTES = 989e12, 3.35e12
+#: f32 operations/s outside the tensor cores (the top-k kernels on f32 rows)
+PEAK_OPS_F32 = 67e12
 
 
 class PhaseError(RuntimeError):
@@ -263,10 +294,11 @@ def _zero_q(w, d):
     return (wqkv, bqkv, *w[2:])
 
 
-def _bound(ops: float, nbytes: float):
+def _bound(ops: float, nbytes: float, peak_ops: float = PEAK_OPS):
     """(ms, which) of the least time the card could take: the larger of the
-    operations over the bf16 peak and the bytes over the memory rate."""
-    by_ops, by_bytes = 1e3 * ops / PEAK_OPS, 1e3 * nbytes / PEAK_BYTES
+    operations over the peak of their type (bf16 unless given) and the bytes
+    over the memory rate."""
+    by_ops, by_bytes = 1e3 * ops / peak_ops, 1e3 * nbytes / PEAK_BYTES
     return ((by_ops, "operations") if by_ops >= by_bytes
             else (by_bytes, "bytes"))
 
@@ -788,11 +820,133 @@ def _short_attention_rows(torch, results):
         del qkv
 
 
+#: the top-k kernel rows, all at INDEX_N x INDEX_D: (tag, wrapper, Q, k,
+#: storage). The served query (Q = 1), a coalesced burst (Q = 8), a page of
+#: 100, and the batched search
+TOPK_ROWS = [("q1-k10-f32", "fused_topk_threshold", 1, 10, "float32"),
+             ("q1-k10-bf16", "fused_topk_threshold", 1, 10, "bfloat16"),
+             ("q8-k10-f32", "fused_topk_threshold", 8, 10, "float32"),
+             ("q1-k100-f32", "fused_topk_threshold", 1, 100, "float32"),
+             ("q64-k100-f32", "fused_topk", 64, 100, "float32"),
+             ("q64-k100-bf16", "fused_topk", 64, 100, "bfloat16")]
+TOPK_GROUP = 4096  # FeatureSearchIndex.GROUP
+
+
+def _topk_inputs(torch):
+    """The two databases of the top-k rows, on the card, f32 and bf16.
+    "unit": seeded unit-norm random vectors and queries. "tied": vectors of
+    small non-negative integers (every score exact, ties everywhere, the
+    k-th boundary included), the last 1,000 rows zero like padding
+    (n_valid = N - 1000), all-zero rows planted among the valid ones
+    (inside one tile, across spans, in the last group); query 0 has only
+    negative coefficients, so it scores every row below the zero rows, and
+    unmasked padding would tie with the planted best."""
+    n, d = INDEX_N, INDEX_D
+    g = torch.Generator(device="cuda").manual_seed(1234)
+    unit = torch.randn(n, d, generator=g, device="cuda")
+    unit /= unit.norm(dim=1, keepdim=True)
+    uq = torch.randn(64, d, generator=g, device="cuda")
+    uq /= uq.norm(dim=1, keepdim=True)
+    tied = torch.randint(0, 4, (n, d), generator=g, device="cuda",
+                         dtype=torch.int8).float()
+    n_valid = n - 1000
+    tied[n_valid:] = 0
+    tied[[5, 77, 78, 79, n // 2 + 3, n_valid - 1]] = 0
+    tq = torch.randint(-2, 3, (64, d), generator=g, device="cuda").float()
+    tq[0] = -(tq[0].abs() + 1)
+    return {"unit": {"float32": unit, "bfloat16": unit.bfloat16(), "q": uq,
+                     "n_valid": n},
+            "tied": {"float32": tied, "bfloat16": tied.bfloat16(), "q": tq,
+                     "n_valid": n_valid}}
+
+
+def _topk_row(torch, results, data, tag, name, qn, k, storage):
+    """One top-k kernel row: identical to the plain version on the "tied"
+    database, within 2e-6 on the "unit" one, every planted fault caught on
+    the "tied" one; times on the "unit" one."""
+    from wise_tpu_torch.ops import fused_topk as FT
+    from wise_tpu_torch.ops import topk as TK
+
+    fn, plain = getattr(FT, name), getattr(FT, name + "_plain")
+    group, n = TOPK_GROUP, INDEX_N
+    tied, unit = data["tied"], data["unit"]
+    tdb, tq, nv = tied[storage], tied["q"][:qn], tied["n_valid"]
+    udb, uq = unit[storage], unit["q"][:qn]
+
+    def ties_to_the_higher_row():
+        """The kernel on the valid rows in reverse, rows mapped back: tied
+        scores then come highest row first."""
+        flipped = torch.cat([tdb[:nv].flip(0), tdb[nv:]])
+        s, r = fn(tq, flipped, nv, k, group)
+        return s, nv - 1 - r
+
+    def skip_inverted():
+        """What an inverted threshold skip leaves: once a buffer is full
+        nothing better gets in, so each group gives its first k rows."""
+        rows = (torch.arange(n // group, device="cuda")[:, None] * group
+                + torch.arange(k, device="cuda")).reshape(-1)
+        rows = rows[rows < nv]
+        s, pos = TK._stable_topk(TK._scores(tq, tdb[rows]), k)
+        return s, rows[pos]
+
+    faults = {
+        "mask_dropped": lambda: fn(tq, tdb, n, k, group),
+        "ties_to_higher_row": ties_to_the_higher_row,
+        "skip_inverted": skip_inverted,
+        "last_span_unscanned": lambda: fn(tq, tdb[:n - group], n - group, k,
+                                          group)}
+    with torch.inference_mode():
+        want = plain(tq, tdb, nv, k, group)
+        exact = FT.topk_agreement(fn(tq, tdb, nv, k, group), want)
+        check = FT.topk_agreement(fn(uq, udb, n, k, group),
+                                  plain(uq, udb, n, k, group), tol=2e-6)
+        torch.cuda.synchronize()
+        planted = {f: FT.topk_agreement(fault(), want)
+                   for f, fault in faults.items()}
+        ms = _cuda_ms(torch, lambda: fn(uq, udb, n, k, group), 10)
+        plain_ms = _cuda_ms(torch, lambda: plain(uq, udb, n, k, group), 5)
+        lq = uq.to(udb.dtype)
+        library_ms = _cuda_ms(
+            torch, lambda: torch.topk((lq @ udb.T).float(), k), 10)
+    caught = not any(c["ok"] for c in planted.values())
+    ok = exact["ok"] and check["ok"] and caught
+    itemsize = udb.element_size()
+    bound_ms, bound_by = _bound(
+        2 * qn * n * INDEX_D,
+        n * INDEX_D * itemsize + qn * INDEX_D * 4 + qn * k * 12,
+        PEAK_OPS_F32 if storage == "float32" else PEAK_OPS)
+    say("kernels", name=f"{name}[{tag}]", shape=f"{qn}x{n}x{INDEX_D}", k=k,
+        dtype=storage, tied_identical=exact["ok"],
+        tied_mismatched=exact["mismatched"],
+        max_abs_err=f"{check['max_abs_err']:.3g}", err_bound="2e-06",
+        near_tie_swaps=check["mismatched"],
+        planted_mismatched=",".join(f"{f}:{c['mismatched']}"
+                                    for f, c in planted.items()),
+        planted="FAIL(expected)" if caught else "PASSED(wrong)",
+        ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+        library_ms=f"{library_ms:.4f}", library="torch.topk(q@db.T,k)",
+        status="ok" if ok else "FAIL")
+    results.append(dict(name=name, tag=tag, key=(name, n, INDEX_D),
+                        max_abs_err=check["max_abs_err"], ms=ms,
+                        plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, library_ms=library_ms, ok=ok))
+
+
+def _topk_rows(torch, results):
+    data = _topk_inputs(torch)
+    for row in TOPK_ROWS:
+        _topk_row(torch, results, data, *row)
+    del data
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(torch):
     """Each kernel against its plain version at the serve paths' shapes
     (BLOCK_SHAPES, SWIN_STAGES, POSTLN_SHAPES, SHORT_ATTN_SHAPES), on the
     op's increment over its residual input (on the whole output where it
-    has none), with planted faults that must fail the same check."""
+    has none), with planted faults that must fail the same check; the top-k
+    kernels at TOPK_ROWS on their (scores, rows)."""
     results = []
     for tag, shape in BLOCK_SHAPES.items():
         _block_rows(torch, results, tag, shape)
@@ -800,6 +954,7 @@ def phase_kernels(torch):
     for tag, shape in POSTLN_SHAPES.items():
         _postln_rows(torch, results, tag, shape)
     _short_attention_rows(torch, results)
+    _topk_rows(torch, results)
     bad = [f"{r['name']}[{r['tag']}]" for r in results if not r["ok"]]
     if bad:
         raise PhaseError(f"kernels disagree with their plain versions, or "
@@ -1001,9 +1156,10 @@ SPLIT_PAIRS = [("fused_mlp_split", "fused_mlp_fc", "fused_mlp_proj"),
 
 
 def _launch_modules():
-    from wise_tpu_torch.ops import attention, block, postln_block
+    from wise_tpu_torch.ops import (attention, block, fused_topk,
+                                    postln_block)
 
-    return block, postln_block, attention
+    return block, postln_block, attention, fused_topk
 
 
 def _reset_launches():
@@ -1013,7 +1169,7 @@ def _reset_launches():
 
 def _block_launches():
     """The block, post-LN and attention wrappers' launch counts by (wrapper,
-    SP, D). A split MLP pair launches nothing of its own (its halves count
+    SP, D), and the top-k wrappers' by (wrapper, N_pad, D). A split MLP pair launches nothing of its own (its halves count
     themselves), so its count at a shape is derived here: the lesser of its
     halves' counts."""
     counts = {}
@@ -1482,6 +1638,340 @@ def phase_audio(torch, card, k=10):
     return launches
 
 
+#: vectors per synthetic clip of the index phase (a 34-minute video at 2 fps)
+INDEX_CLIP = 4096
+#: frames of the one clip the index phase embeds with the real tower
+INDEX_REAL = 256
+
+
+def _synthetic_clip(torch, seed: int, n: int):
+    """n seeded unit vectors of one synthetic clip, made on the card: a
+    clip centre (a random unit vector) plus per-frame noise of the same
+    norm, normalised; frames of a clip resemble each other (cosine about
+    0.5), as a video's do."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    centre = torch.randn(INDEX_D, generator=g, device="cuda")
+    centre /= centre.norm()
+    v = centre + torch.randn(n, INDEX_D, generator=g,
+                             device="cuda") / math.sqrt(INDEX_D)
+    return (v / v.norm(dim=1, keepdim=True)).cpu().numpy()
+
+
+def _write_index_project(torch, project_dir: Path, real):
+    """A WiseProject whose feature store and DB hold INDEX_N vectors: the
+    ``real`` embeddings as the frames of one clip, then synthetic clips of
+    INDEX_CLIP vectors at 2 fps, one media row each, written through the
+    store's ``add`` and the repositories' ``create`` / ``create_batch`` in
+    one transaction. Returns ((N, D) float32 vectors in id order, seconds
+    in the store's writes, seconds in the DB's)."""
+    import numpy as np
+    from wise_tpu_torch import config, data_models as dm, db, project, store
+    from wise_tpu_torch.db import repository
+
+    cfg = config.WiseConfig()
+    # the .npz shard store (store_type "numpy"): the default tar store took
+    # 162 s to write and 232 s to read back at this size on the host of an
+    # NVIDIA H100 80GB HBM3 (a third of the script's time limit)
+    cfg.store.store_type = "numpy"
+    proj = project.WiseProject(project_dir, create_project=True)
+    proj.save_config(cfg)
+    conn = db.init_project(proj.db_path)
+    sc = repository.SourceCollectionRepo().create(conn, dm.SourceCollection(
+        location=str(project_dir / "media"),
+        type=dm.SourceCollectionType.DIR))
+    fstore = store.FeatureStoreFactory.create_store(
+        cfg.store.store_type, "video", proj.create_features_dir(MODEL_ID))
+    fstore.enable_write(cfg.store.shard_maxcount, cfg.store.shard_maxsize)
+    media_repo, vector_repo = repository.MediaRepo(), repository.VectorRepo()
+    vecs = np.empty((INDEX_N, INDEX_D), np.float32)
+    store_s = db_s = 0.0
+    row = clip = 0
+    while row < INDEX_N:
+        if clip == 0:
+            feats = np.asarray(real, np.float32)
+        else:
+            feats = _synthetic_clip(torch, 1000 + clip,
+                                    min(INDEX_CLIP, INDEX_N - row))
+        n = len(feats)
+        t0 = time.perf_counter()
+        media = media_repo.create(conn, dm.MediaMetadata(
+            source_collection_id=sc.id, path=f"clip{clip:03d}.mp4",
+            media_type=dm.MediaType.VIDEO, format="mp4", width=224,
+            height=224, num_frames=n, duration=n / 2))
+        created = vector_repo.create_batch(conn, [
+            dm.VectorMetadata(modality=dm.ModalityType.VIDEO,
+                              media_id=media.id, timestamp=i / 2,
+                              end_timestamp=None) for i in range(n)])
+        t1 = time.perf_counter()
+        for v, feat in zip(created, feats):
+            fstore.add(v.id, feat[None, :])
+        store_s += time.perf_counter() - t1
+        db_s += t1 - t0
+        vecs[row:row + n] = feats
+        row += n
+        clip += 1
+    t0 = time.perf_counter()
+    fstore.close()
+    store_s += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    conn.commit()
+    conn.close()
+    db_s += time.perf_counter() - t0
+    return vecs, store_s, db_s, clip
+
+
+@contextlib.contextmanager
+def _search_batches():
+    """Counts the vector searches made while the block runs, by every
+    FeatureSearchIndex of the process (the server builds its own): the list
+    gains the batch's rows for each ``search_batch_dispatch`` or
+    ``search_batch`` call. It reads no launch counter, so the counters can
+    be held to it."""
+    from wise_tpu_torch.index.feature_index import FeatureSearchIndex as FSI
+
+    sizes = []
+    saved = {name: getattr(FSI, name)
+             for name in ("search_batch_dispatch", "search_batch")}
+
+    def counted(fn):
+        def call(self, query_vectors, topk):
+            sizes.append(len(query_vectors))
+            return fn(self, query_vectors, topk)
+        return call
+
+    for name, fn in saved.items():
+        setattr(FSI, name, counted(fn))
+    try:
+        yield sizes
+    finally:
+        for name, fn in saved.items():
+            setattr(FSI, name, fn)
+
+
+def _p50_ms(fn, calls: int = 20, warm: int = 3) -> float:
+    """Median host ms of ``fn()`` (which returns host arrays) over ``calls``
+    calls after ``warm``."""
+    import numpy as np
+
+    lat = []
+    for i in range(warm + calls):
+        t0 = time.perf_counter()
+        fn()
+        lat.append(time.perf_counter() - t0)
+    return 1e3 * float(np.median(lat[warm:]))
+
+
+def _recall(got_ids, want_ids) -> float:
+    hits = sum(len(set(g) & set(w))
+               for g, w in zip(got_ids.tolist(), want_ids.tolist()))
+    return hits / want_ids.size
+
+
+def phase_index(torch, card, k=10):
+    """The index and query leg at deployment size (see the module
+    docstring, phase 9); returns the top-k wrappers' launch counts over the
+    phase, keyed by (wrapper, N_pad, D)."""
+    import numpy as np
+    from wise_tpu_torch import project
+    from wise_tpu_torch.cli import create_index
+    from wise_tpu_torch.config import IndexConfig
+    from wise_tpu_torch.index.feature_index import FeatureSearchIndex
+    from wise_tpu_torch.models.clip.extractor import OpenClipExtractor
+    from wise_tpu_torch.ops import fused_topk as FT
+    from wise_tpu_torch.ops import topk as TK
+
+    thr = ("fused_topk_threshold", INDEX_N, INDEX_D)
+    grp = ("fused_topk", INDEX_N, INDEX_D)
+
+    def counts():
+        return (FT.LAUNCHES_BY_SHAPE.get(thr, 0),
+                FT.LAUNCHES_BY_SHAPE.get(grp, 0))
+
+    frames = _frames(123, INDEX_REAL, 224)
+    with tempfile.TemporaryDirectory(prefix="wise_smoke_index_") as tmp:
+        project_dir = Path(tmp) / "proj"
+        extractor = OpenClipExtractor(MODEL_ID)
+        with torch.inference_mode():  # first use: cuBLAS, kernel library
+            extractor.extract_image_features(frames[:8])
+            extractor.extract_text_features(["warm up"])
+        real = extractor.extract_image_features(frames)
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+
+        t0 = time.perf_counter()
+        vecs, store_s, db_s, clips = _write_index_project(
+            torch, project_dir, real)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if create_index.main(["--project-dir", str(project_dir)]) != 0:
+            raise PhaseError("create-index failed")
+        build_s = time.perf_counter() - t0
+        say("index", card=repr(card), vectors=INDEX_N, dim=INDEX_D,
+            media_rows=clips, write_s=f"{write_s:.1f}",
+            store_write_s=f"{store_s:.1f}", db_write_s=f"{db_s:.1f}",
+            flat_build_s=f"{build_s:.1f}")
+
+        # REST: the 8 queries x 3 and the burst, k = 10
+        config = project.WiseProject(project_dir).load_config()
+        with _search_batches() as batches:
+            served, lat = _serve_queries(project_dir, config, QUERIES, k)
+        launched = counts()
+        if not batches or launched != (len(batches), 0):
+            raise PhaseError(
+                f"index: fused_topk_threshold / fused_topk launched "
+                f"{launched} over {len(batches)} served search batches "
+                f"(rows {batches}); expected one threshold launch a batch")
+
+        # the same query vectors (the text tower's, on the kernel path as
+        # the server's) against the stored vectors in plain PyTorch: the
+        # towers are held against their plain twins in the slice phase
+        ids = _vector_ids(project_dir)
+        if len(ids) != INDEX_N:
+            raise PhaseError(f"index: {len(ids)} vector rows in the DB")
+        prefix = config.search.query_prefix
+        qv = np.concatenate([extractor.extract_text_features(
+            [f"{prefix} {q}".strip()]) for q in QUERIES])
+        db_plain = torch.from_numpy(vecs).cuda()
+        scores = (torch.from_numpy(qv).cuda() @ db_plain.T).cpu().numpy()
+        for q, row in zip(QUERIES, scores):
+            _check_against_plain(*served[q], row, ids, k, 1e-3)
+        # 64 query vectors: the 8 text embeddings, 56 stored frames perturbed
+        rng = np.random.default_rng(5)
+        near = vecs[rng.integers(0, INDEX_N, 56)] + 0.02 * rng.standard_normal(
+            (56, INDEX_D)).astype(np.float32)
+        q64 = np.concatenate([qv, near / np.linalg.norm(near, axis=1,
+                                                        keepdims=True)])
+        q64 = np.ascontiguousarray(q64, np.float32)
+        with torch.inference_mode():
+            plain64 = TK._stable_topk(torch.from_numpy(q64).cuda()
+                                      @ db_plain.T, 100)
+            plain64 = (plain64[0].cpu(), plain64[1].cpu())
+        del db_plain
+        torch.cuda.empty_cache()
+        say("index", card=repr(card), path="rest", requests=len(lat) + 9,
+            search_batches=len(batches), search_batch_rows=sum(batches),
+            threshold_launches=launched[0],
+            http_p50_ms=f"{1e3 * float(np.median(lat)):.3f}",
+            text_embed_p50_ms=f"{_p50_ms(lambda: extractor.extract_text_features(QUERIES[:1])):.3f}",
+            vs_plain="ok")
+
+        assets = project.WiseProject(project_dir).discover_assets()
+        asset = assets["video"][MODEL_ID]
+
+        def load(index_type="IndexFlatIP", **cfg):
+            """A loaded index whose device copy is built: (index, seconds)."""
+            t0 = time.perf_counter()
+            idx = FeatureSearchIndex("video", MODEL_ID, asset,
+                                     config=IndexConfig(**cfg))
+            if not idx.load_index(index_type):
+                raise PhaseError(f"index: no {index_type} file")
+            idx.search_batch(q64[:1], k)
+            return idx, time.perf_counter() - t0
+
+        def timed(idx, tag, load_s, **more):
+            say("index", card=repr(card), path=tag, load_s=f"{load_s:.1f}",
+                q1_k10_p50_ms=f"{_p50_ms(lambda: idx.search_batch(q64[:1], k)):.3f}",
+                q64_k100_p50_ms=f"{_p50_ms(lambda: idx.search_batch(q64, 100)):.3f}",
+                **more)
+
+        # f32: the batched search launches fused_topk and agrees with plain
+        idx, load_s = load()
+        before = counts()
+        got = idx.search_batch(q64, 100)
+        if counts() != (before[0], before[1] + 1):
+            raise PhaseError(f"index: search_batch(64, k=100) launched "
+                             f"{counts()} after {before}")
+        rows64 = np.searchsorted(ids, got[1])
+        check = FT.topk_agreement(
+            (torch.from_numpy(got[0]), torch.from_numpy(rows64)), plain64,
+            tol=2e-6)
+        if not check["ok"]:
+            raise PhaseError(f"index: search_batch(64, k=100) off the plain "
+                             f"run: {check}")
+        f32_10, f32_100 = idx.search_batch(q64, k), got
+        f32_ids10, f32_ids100 = f32_10[1], f32_100[1]
+        timed(idx, "float32", load_s, q64_max_abs_err=check["max_abs_err"],
+              q64_near_tie_swaps=check["mismatched"])
+        del idx
+        torch.cuda.empty_cache()
+
+        # bf16: the kernel path on half the bytes
+        idx, load_s = load(storage_dtype="bfloat16")
+        before = counts()
+        bf_ids100 = idx.search_batch(q64, 100)[1]
+        bf_ids10 = idx.search_batch(q64, k)[1]
+        if counts() != (before[0] + 1, before[1] + 1):
+            raise PhaseError(f"index: bf16 searches launched {counts()} "
+                             f"after {before}")
+        bf_recall = _recall(bf_ids100, f32_ids100)
+        top1 = float((bf_ids10[:, 0] == f32_ids10[:, 0]).mean())
+        if bf_recall < 0.95 or top1 < 0.95:
+            raise PhaseError(f"index: bf16 storage recall@100 {bf_recall} "
+                             f"top-1 {top1} against f32")
+        timed(idx, "bfloat16", load_s, recall100_vs_f32=f"{bf_recall:.4f}",
+              top1_vs_f32=f"{top1:.4f}")
+        del idx
+        torch.cuda.empty_cache()
+
+        # int8: plain torch candidates + exact host rerank, no kernel
+        idx, load_s = load(storage_dtype="int8")
+        before = counts()
+        i8 = [idx.search_batch(q64, kk) for kk in (k, 100)]
+        if counts() != before:
+            raise PhaseError("index: int8 storage launched a top-k kernel")
+        # the rerank's scores are numpy's f32 sums: the f32 kernel's ids,
+        # up to swaps between scores within 2e-6
+        checks = [FT.topk_agreement(tuple(map(torch.from_numpy, a)),
+                                    tuple(map(torch.from_numpy, b)), tol=2e-6)
+                  for a, b in zip(i8, (f32_10, f32_100))]
+        if not all(c["ok"] for c in checks):
+            raise PhaseError(f"index: int8 ids differ from f32's: {checks}")
+        timed(idx, "int8", load_s, ids_vs_f32="equal",
+              near_tie_swaps=sum(c["mismatched"] for c in checks))
+        del idx
+        torch.cuda.empty_cache()
+
+        # the approximate scan at recall target 0.95
+        idx, load_s = load(flat_approx_recall=0.95)
+        approx_recall = _recall(idx.search_batch(q64, 100)[1], f32_ids100)
+        if approx_recall < 0.95:
+            raise PhaseError(f"index: flat_approx_recall=0.95 gave recall "
+                             f"{approx_recall} at 64 x k=100")
+        timed(idx, "approx0.95", load_s,
+              recall100_vs_exact=f"{approx_recall:.4f}",
+              buckets=TK.approx_buckets(INDEX_N, 100, 0.95))
+        del idx
+        torch.cuda.empty_cache()
+
+        # IVF-Flat from the same store, nprobe 1024
+        t0 = time.perf_counter()
+        if create_index.main(["--project-dir", str(project_dir),
+                              "--index-type", "IndexIVFFlat"]) != 0:
+            raise PhaseError("create-index IndexIVFFlat failed")
+        ivf_build_s = time.perf_counter() - t0
+        idx, load_s = load("IndexIVFFlat", nprobe=1024)
+        ivf_recall = _recall(idx.search_batch(q64, k)[1], f32_ids10)
+        say("index", card=repr(card), path="IndexIVFFlat",
+            build_s=f"{ivf_build_s:.1f}", load_s=f"{load_s:.1f}",
+            nlist=idx._metadata["nlist"], nprobe=1024,
+            recall10_vs_flat=f"{ivf_recall:.4f}",
+            q1_k10_p50_ms=f"{_p50_ms(lambda: idx.search_batch(q64[:1], k), 10):.3f}",
+            q64_k10_p50_ms=f"{_p50_ms(lambda: idx.search_batch(q64, k), 5, 1):.3f}")
+        if ivf_recall < 0.9:
+            raise PhaseError(f"index: IVF-Flat recall@10 {ivf_recall} < 0.9 "
+                             f"at nprobe 1024")
+        del idx
+        torch.cuda.empty_cache()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    launches = {key: n for key, n in FT.LAUNCHES_BY_SHAPE.items() if n}
+    say("index", card=repr(card), peak_device_gb=f"{peak_gb:.3f}",
+        launches=json.dumps({_launch_name(key): n for key, n
+                             in sorted(launches.items())},
+                            separators=(",", ":")))
+    return launches
+
+
 def _off_path(key) -> bool:
     """Whether a kernel row's wrapper is one that no path may launch at the
     row's width: the post-LN MLP as "single" where ``postln_mlp_choice``
@@ -1497,8 +1987,11 @@ def _off_path(key) -> bool:
 
 def _launch_name(key) -> str:
     """A launch counter's key as text: (wrapper, SP, D) of the block
-    kernels, (wrapper, L, C, masked) of the Swin kernels."""
+    kernels, (wrapper, L, C, masked) of the Swin kernels, (wrapper, N_pad,
+    D) of the top-k kernels."""
     name, a, b, *masked = key
+    if name.startswith("fused_topk"):
+        return f"{name}[N={a},D={b}]"
     if masked:
         return f"{name}[L={a},C={b}{',masked' if masked[0] else ''}]"
     return f"{name}[SP={a},D={b}]"
@@ -1693,7 +2186,8 @@ def _encode_rates(torch, extractor, frames, reps: int = 5):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", choices=["all", "kernels", "vit_h", "xlmr",
-                                        "hybrid", "profile"], default="all")
+                                        "hybrid", "index", "profile"],
+                    default="all")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print nvcc -Xptxas -v (registers, shared memory)")
     args = ap.parse_args(argv)
@@ -1730,6 +2224,9 @@ def main(argv=None) -> int:
         if args.phase == "hybrid":
             phase_hybrid(torch, card)
             return 0
+        if args.phase == "index":
+            _timed("index", phase_index, torch, card)
+            return 0
         kernels = _timed("kernels", phase_kernels, torch)
         if args.phase == "kernels":
             return 0
@@ -1743,6 +2240,7 @@ def main(argv=None) -> int:
             "xlmr", phase_slice, torch, card, XLMR_ID, XLMR_FRAMES, "xlmr",
             topk_1m=False))
         launches.update(_timed("hybrid", phase_hybrid, torch, card))
+        launches.update(_timed("index", phase_index, torch, card))
         off = {r["key"] for r in kernels if _off_path(r["key"])}
         stray = [_launch_name(key) for key in off if launches.get(key)]
         if stray:

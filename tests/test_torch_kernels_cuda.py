@@ -1,6 +1,6 @@
 """The CUDA kernels (wise_tpu_torch/csrc/*.cu: the pre-LN blocks, the Swin
-blocks, the post-LN blocks, the attention middle) against their plain PyTorch
-versions, on the card.
+blocks, the post-LN blocks, the attention middle, the fused scan + top-k)
+against their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA device and nvcc, carries the ``cuda`` marker
 and skips without one. The file imports no JAX, so it also runs on a GPU
@@ -13,6 +13,11 @@ its residual input, per-token cosine >= 0.999, the bar the Pallas kernels
 are held to (tests/test_block_kernels.py), and max abs error <= 5% of the
 plain increment's max abs. The kernel rounds its bf16 operands at the TPU
 kernel's points, the plain version at PyTorch's.
+
+The top-k kernels (ops.fused_topk.topk_agreement): on integer-valued vectors
+scores and rows identical to the plain version's; on unit-norm random vectors
+scores within 2e-6 and rows equal except among entries whose plain scores lie
+within 2e-6 of each other (f32 sums in another order than cuBLAS's).
 """
 
 import numpy as np
@@ -716,3 +721,123 @@ def test_hybrid_block_runs_the_attention_kernel_on_card(cuda):
     assert not any(K.LAUNCHES.values())
     check = K.increment_agreement(got, want, x)
     assert check["ok"], check
+
+
+# ---------------------------------------------------------------------------
+# The fused scan + top-k kernels (wise_tpu_torch/csrc/topk_kernels.cu)
+# ---------------------------------------------------------------------------
+
+from wise_tpu_torch.ops import fused_topk as FT  # noqa: E402
+from wise_tpu_torch.ops import topk as TK  # noqa: E402
+
+TOPK_FNS = ["fused_topk", "fused_topk_threshold"]
+#: (n, d, q, k, group): one query, a ragged last group, more than one query
+#: tile, the widest rows and buffer, fewer valid rows than k
+TOPK_CASES = [(1000, 16, 1, 10, 256), (300, 32, 3, 7, 128),
+              (5000, 768, 9, 33, 512), (40000, 1024, 17, 1024, 4096),
+              (3, 8, 2, 10, 64)]
+
+
+def _topk_tied(n, d, q, group, device, storage):
+    """Small-integer vectors with planted duplicates (across groups, inside
+    one tile, at the k-th boundary) and a query with only negative scores;
+    rows zero-padded to a multiple of ``group``."""
+    g = torch.Generator().manual_seed(n + d)
+    db = torch.randint(-3, 4, (n, d), generator=g).float()
+    if n > 50:
+        db[n // 2] = db[3]
+        db[n - 1] = db[3]
+        db[7:12] = db[40]
+    queries = torch.randint(-2, 3, (q, d), generator=g).float()
+    queries[0] = -queries[0].abs()
+    return queries.to(device), TK.pad_rows(db, group).to(device, storage)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", TOPK_CASES)
+@pytest.mark.parametrize("fn", TOPK_FNS)
+def test_topk_kernel_identical_on_integer_vectors(cuda, fn, case, storage):
+    n, d, q, k, group = case
+    queries, db = _topk_tied(n, d, q, group, cuda, storage)
+    FT.reset_launches()
+    got = getattr(FT, fn)(queries, db, n, k, group)
+    torch.cuda.synchronize()
+    assert FT.LAUNCHES[fn] == 1
+    assert FT.LAUNCHES_BY_SHAPE == {(fn, db.shape[0], d): 1}
+    want = getattr(FT, fn + "_plain")(queries, db, n, k, group)
+    check = FT.topk_agreement(got, want)
+    assert check["ok"], check
+    assert got[0].shape == (q, min(k, n)) and int(got[1].max()) < n
+    # the same order as the exact search on the CPU
+    cpu = TK.flat_topk(queries.cpu(), db.cpu(), n, k, group)
+    assert torch.equal(got[1].cpu(), cpu[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fn", TOPK_FNS)
+def test_topk_kernel_on_random_unit_vectors(cuda, fn, storage):
+    g = torch.Generator().manual_seed(5)
+    n, d, group = 50000, 512, 4096
+    db = torch.nn.functional.normalize(torch.randn(n, d, generator=g))
+    queries = torch.nn.functional.normalize(torch.randn(12, d, generator=g))
+    db = TK.pad_rows(db, group).to(cuda, storage)
+    got = getattr(FT, fn)(queries.to(cuda), db, n, 100, group)
+    want = getattr(FT, fn + "_plain")(queries.to(cuda), db, n, 100, group)
+    check = FT.topk_agreement(got, want, tol=2e-6)
+    assert check["ok"], check
+
+
+@pytest.mark.cuda
+def test_topk_planted_faults_fail_the_check(cuda):
+    """The n_valid mask dropped, and ties resolved to the higher row (the
+    kernel run on the rows in reverse), must fail the check the kernels
+    pass."""
+    n, d, q, k, group = 1000, 16, 3, 10, 256
+    queries, db = _topk_tied(n, d, q, group, cuda, torch.float32)
+    # non-negative rows under a negative query: every true score is below
+    # the zero padding's
+    db, queries[0] = db.abs(), -(queries[0].abs() + 1)
+    want = FT.fused_topk_threshold_plain(queries, db, n, k, group)
+    unmasked = FT.fused_topk_threshold(queries, db, db.shape[0], k, group)
+    assert not FT.topk_agreement(unmasked, want)["ok"]
+    flipped = torch.zeros_like(db)
+    flipped[db.shape[0] - n:] = db[:n].flip(0)
+    s, r = FT.fused_topk_threshold(queries, flipped, db.shape[0], k, group)
+    assert not FT.topk_agreement((s, db.shape[0] - 1 - r), want)["ok"]
+
+
+@pytest.mark.cuda
+def test_flat_topk_dispatches_to_the_kernels_on_card(cuda):
+    n, d, group = 3000, 64, 512
+    queries, db = _topk_tied(n, d, 16, group, cuda, torch.float32)
+    cpu_db = db.cpu()
+    for qn, k, name in ((1, 10, "fused_topk_threshold"),
+                        (16, 10, "fused_topk_threshold"),
+                        (16, 100, "fused_topk"), (16, 600, None)):
+        FT.reset_launches()
+        got = TK.flat_topk(queries[:qn], db, n, k, group)
+        want = TK.flat_topk(queries[:qn].cpu(), cpu_db, n, k, group)
+        assert torch.equal(got[1].cpu(), want[1])
+        assert torch.equal(got[0].cpu(), want[0])
+        assert FT.LAUNCHES == {
+            w: int(w == name) for w in ("fused_topk", "fused_topk_threshold")}
+
+
+@pytest.mark.cuda
+def test_topk_wrappers_reject_what_they_do_not_take(cuda):
+    q = torch.zeros(1, 16, device=cuda)
+    db = torch.zeros(4096, 16, device=cuda)
+    FT.reset_launches()
+    for fn in (FT.fused_topk, FT.fused_topk_threshold):
+        with pytest.raises(ValueError, match="width"):
+            fn(torch.zeros(1, 12, device=cuda),
+               torch.zeros(4096, 12, device=cuda), 10, 5)
+        with pytest.raises(ValueError, match="k "):
+            fn(q, db, 4096, 2000)
+        with pytest.raises(ValueError, match="multiple of group"):
+            fn(q, db[:4000], 4000, 5)
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            fn(q, db.half(), 4096, 5)
+    assert not any(FT.LAUNCHES.values())

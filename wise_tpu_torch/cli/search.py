@@ -38,13 +38,13 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["IndexFlatIP", "IndexIVFFlat", "IndexIVFPQ"])
     p.add_argument("--storage-dtype", default=None,
                    choices=["float32", "bfloat16", "int8"],
-                   help="HBM dtype for the resident index: bfloat16 halves "
-                        "scan bandwidth; int8 quarters it (device candidate "
-                        "scan + exact host f32 rerank)")
+                   help="dtype of the device-resident index: bfloat16 halves "
+                        "the bytes a scan reads; int8 quarters them (device "
+                        "candidate scan + exact host f32 rerank)")
     p.add_argument("--flat-approx-recall", type=float, default=None,
                    help="approximate flat scan with this recall target "
-                        "(lax.approx_max_k — measured 7.4x at k=1000, "
-                        "recall@1000 0.983); default exact")
+                        "(bucket maxima, ops.topk.flat_topk_approx); "
+                        "default exact")
     p.add_argument("--topk", action="append", type=int)
     p.add_argument("--max-filename-length", type=int, default=50)
     p.add_argument("--no-merge", action="store_true")

@@ -32,7 +32,7 @@ NVCC_FLAGS = (
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C entry point -> argument types (csrc/block_kernels.cu, postln_kernels.cu,
-#: swin_kernels.cu)
+#: swin_kernels.cu, topk_kernels.cu)
 SIGNATURES = {
     "wt_attn_block": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _P],
@@ -52,6 +52,8 @@ SIGNATURES = {
                             _I, _I, _I, _I, _P],
     "wt_swin_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
                       _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "wt_topk_threshold": [_P, _P, _I, _P, _P] + [_I] * 7 + [_P],
+    "wt_topk_group": [_P, _P, _I, _P, _P] + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()

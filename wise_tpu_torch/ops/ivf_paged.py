@@ -1,0 +1,148 @@
+"""Paged IVF-Flat search: coarse probe + page gather + chunked matmul
+(wise_tpu/ops/ivf_paged.py, the IVF-Flat half).
+
+- **Paged layout** (built once at load): the cell-sorted rows are re-packed
+  so every cell starts on a page boundary and occupies an integral number of
+  fixed ``lpad``-row pages; one trailing all-padding page is the dummy target
+  of unused slots. A page is one contiguous block of device memory, so the
+  gather moves whole pages.
+- **Page-list construction** without a per-cell loop: probed cells are
+  re-sorted ascending, their page counts cumsummed, and each of ``budget``
+  slots finds its cell with a batched ``searchsorted``.
+- **Chunked scan**: the page list is processed ``chunk`` pages at a time, a
+  Python loop of budget / chunk steps; each step is one gather (Q, chunk,
+  lpad, D), one einsum and a running top-k merge.
+
+``budget`` is the worst-case page count for the given nprobe
+(``paged_budget``); queries that probe fewer pages pad with the dummy page.
+
+Tie-break matches faiss (equal scores -> lower row id): probed cells are
+ascending, pages within a cell ascending, lanes within a page ascending, and
+earlier chunks hold lower rows; every selection is a stable sort, which keeps
+the first occurrence (``torch.topk`` does not promise to).
+
+Plain torch ops: the reference leaves this path to XLA. ``build_paged_layout``
+is numpy, copied from the reference. The IVF-PQ core and the multi-chip
+partitioning are not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .topk import _merge_topk, _stable_topk
+
+
+def build_paged_layout(
+    data: np.ndarray, cell_offsets: np.ndarray, lpad: int
+) -> dict:
+    """Re-pack cell-sorted rows (vectors or PQ codes) into cell-aligned pages.
+
+    Returns dict with:
+      paged      (T+1, lpad, W)  rows re-packed; final page is all padding
+      page_rows  (T+1, lpad)     cell-sorted row index per lane, -1 = padding
+      page_first (nlist,) int32  first page of each cell
+      page_count (nlist,) int32  pages per cell
+    """
+    data = np.ascontiguousarray(data)
+    n, w = data.shape
+    offsets = np.asarray(cell_offsets, dtype=np.int64)
+    nlist = len(offsets) - 1
+    lens = np.diff(offsets)
+    page_count = ((lens + lpad - 1) // lpad).astype(np.int32)
+    page_first = np.zeros(nlist, np.int32)
+    np.cumsum(page_count[:-1], out=page_first[1:])
+    total = int(page_count.sum())
+
+    paged = np.zeros((total + 1, lpad, w), dtype=data.dtype)
+    page_rows = np.full((total + 1) * lpad, -1, np.int32)
+    if n:
+        cell_of_row = np.repeat(np.arange(nlist), lens)
+        within = np.arange(n, dtype=np.int64) - offsets[cell_of_row]
+        dest = page_first[cell_of_row].astype(np.int64) * lpad + within
+        paged.reshape((total + 1) * lpad, w)[dest] = data
+        page_rows[dest] = np.arange(n, dtype=np.int32)
+    return {
+        "paged": paged,
+        "page_rows": page_rows.reshape(total + 1, lpad),
+        "page_first": page_first,
+        "page_count": page_count,
+    }
+
+
+def paged_budget(page_count: np.ndarray, nprobe: int) -> int:
+    """Worst-case pages any query can probe = sum of the nprobe largest
+    per-cell page counts."""
+    c = np.sort(np.asarray(page_count))[::-1]
+    return max(1, int(c[: int(nprobe)].sum()))
+
+
+def default_chunk(lpad: int, width: int, budget: int, nq: int = 1,
+                  target_bytes: int = 32 << 20) -> int:
+    """Pages per scan step such that the per-step f32 working buffer stays
+    around ``target_bytes``. The gather materialises a per-query buffer (Q,
+    chunk, lpad, width), so the chunk shrinks with the query batch."""
+    per_page = lpad * max(width, 1) * 4 * max(int(nq), 1)
+    return max(1, min(budget, target_bytes // per_page))
+
+
+def _probe_pages(q, centroids, page_first, page_count, nprobe, budget, dummy):
+    """Top-nprobe cells (ascending) -> (pages (Q, budget), probed-cell coarse
+    score per slot (Q, budget)). Out-of-budget slots map to the dummy page."""
+    cscores = q @ centroids.float().T                      # (Q, nlist)
+    pscores, cells = _stable_topk(cscores, nprobe)
+    cells, order = torch.sort(cells, dim=1)                # ascending cells
+    pscores = torch.gather(pscores, 1, order)
+
+    counts = page_count.long()[cells]                      # (Q, nprobe)
+    ends = torch.cumsum(counts, dim=1)                     # inclusive
+    slot = torch.arange(budget, device=q.device)
+    ci = torch.searchsorted(
+        ends, slot[None, :].expand(q.shape[0], -1).contiguous(), right=True)
+    ci = ci.clamp(max=nprobe - 1)
+    sel_count = torch.gather(counts, 1, ci)
+    sel_end = torch.gather(ends, 1, ci)
+    sel_cell = torch.gather(cells, 1, ci)
+    page = page_first.long()[sel_cell] + (slot[None, :]
+                                          - (sel_end - sel_count))
+    in_budget = slot[None, :] < ends[:, -1:]
+    page = torch.where(in_budget, page, torch.full_like(page, dummy))
+    return page, torch.gather(pscores, 1, ci)
+
+
+def paged_flat_core(queries, centroids, page_first, page_count, paged_db,
+                    page_rows, nprobe: int, budget: int, chunk: int, k: int):
+    """IVF-Flat paged search. queries (Q, D) f32; centroids (nlist, D) f32;
+    page_first, page_count (nlist,) int32; paged_db (T+1, lpad, D) f32 or
+    bf16, last page dummy; page_rows (T+1, lpad) int32, -1 = padding ->
+    (scores (Q, k), cell-sorted rows (Q, k)); empty slots score -inf."""
+    q = queries.to(device=paged_db.device, dtype=torch.float32)
+    nq = q.shape[0]
+    dummy = paged_db.shape[0] - 1
+    lpad = paged_db.shape[1]
+    pages, _ = _probe_pages(q, centroids, page_first, page_count, nprobe,
+                            budget, dummy)
+    pad = (-pages.shape[1]) % chunk
+    if pad:
+        pages = torch.nn.functional.pad(pages, (0, pad), value=dummy)
+    bf16 = paged_db.dtype == torch.bfloat16
+    # bf16 storage: bf16 query operand, f32 products and sums
+    qd = q.to(torch.bfloat16).float() if bf16 else q
+
+    best_v = torch.full((nq, k), float("-inf"), device=q.device)
+    best_r = torch.zeros((nq, k), dtype=torch.int64, device=q.device)
+    for lo in range(0, pages.shape[1], chunk):
+        pg = pages[:, lo:lo + chunk]                 # (Q, chunk)
+        blocks = paged_db[pg].float()                # (Q, chunk, lpad, D)
+        rows = page_rows[pg].long()                  # (Q, chunk, lpad)
+        s = torch.einsum("qd,qcld->qcl", qd, blocks)
+        s = s.masked_fill(rows < 0, float("-inf"))
+        s, rows = s.reshape(nq, chunk * lpad), rows.reshape(nq, chunk * lpad)
+        v, pos = _stable_topk(s, min(k, s.shape[1]))
+        best_v, best_r = _merge_topk(best_v, best_r, v,
+                                     torch.gather(rows, 1, pos), k)
+    return best_v, best_r
+
+
+ivf_search_paged = paged_flat_core

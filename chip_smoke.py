@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serve paths once on one NVIDIA GPU: OpenCLIP
-ViT-B/32, ViT-H/14 and the default backbone xlm-roberta-large-ViT-H-14 (video
-frames, with one batch of ViT-L/14 and ViT-B/16), CLAP 2023 (audio segments),
-and the production configuration with WISE_FUSED_BLOCK=0.
+"""Drive the PyTorch/CUDA port's paths once on one NVIDIA GPU. Serving:
+OpenCLIP ViT-B/32, ViT-H/14 and the default backbone
+xlm-roberta-large-ViT-H-14 (video frames, with one batch of ViT-L/14 and
+ViT-B/16), CLAP 2023 (audio segments), and the production configuration with
+WISE_FUSED_BLOCK=0. Training: CLIP fine-tuning steps of ViT-B/32 and
+ViT-L/14 on the saved-activation block kernels.
 
     python3 chip_smoke.py                  # env, kernels, every slice
     python3 chip_smoke.py --phase kernels  # env and kernels only
@@ -10,6 +12,7 @@ and the production configuration with WISE_FUSED_BLOCK=0.
     python3 chip_smoke.py --phase xlmr     # env and the default backbone only
     python3 chip_smoke.py --phase hybrid   # env and WISE_FUSED_BLOCK=0 only
     python3 chip_smoke.py --phase index    # env and the 1M-vector index only
+    python3 chip_smoke.py --phase train    # env and the training steps only
     python3 chip_smoke.py --phase profile  # env and the audio breakdown
 
 Phases, one line each; any failure exits non-zero:
@@ -105,6 +108,33 @@ Phases, one line each; any failure exits non-zero:
    approximate scan at recall target 0.95, and IndexIVFFlat built from the
    same store and searched at nprobe 1024.
 
+10. train: CLIP fine-tuning through the port's CLIPTrainer at full width
+   and depth. ViT-B/32 (``training_clip_config("ViT-B-32", "bfloat16")``:
+   block kernels, pooled last layer, f32 master weights) on a batch of 256
+   seeded synthetic frames and hash-tokenised captions: three steps on the
+   kernel path and on a plain twin (``fused_block`` and ``pool_last_block``
+   off) from one master tree, losses within 5e-2 step by step and the first
+   step's gradients per parameter (cosine >= 0.95 each, >= 0.99 over the
+   whole tree); a step must launch exactly 22 fused_attn_block_res, 22
+   fused_mlp_block_res, one of each pooled kernel and no serve twin, the
+   plain twin nothing; after one step at lr 1e-5 a master weight has moved
+   by less than a bf16 ulp and its bf16 cast has not; one batch repeated for
+   30 steps makes the loss fall, and below ln(batch), the loss of uniform
+   logits that a collapsed model would reach; a checkpoint restored into a fresh trainer
+   gives the same next loss, and the port's OpenClipExtractor serves it with
+   embeddings that differ from the seed-0 weights'. Then two steps of
+   ViT-L/14 at batch 32, whose width takes fused_mlp_split_res: 34
+   fused_attn_block_res, 23 fused_mlp_fc_res and fused_mlp_proj, 11
+   fused_mlp_block_res and the two pooled kernels a step. ms a step by CUDA
+   events (forward, backward, optimizer; median) for both paths, and the
+   peak device memory.
+
+The kernels phase also holds the three training forwards at the training
+shapes (TRAIN_SHAPES), output and residual, with the faults "residual
+written after the activation" and "residual left unwritten" planted, and the
+five autograd rules' gradients against autograd through the plain blocks
+(``[backward]`` lines; planted: a backward that ignores the saved residual).
+
 The line before the last is the kernels' JSON summary ("kernels": those of
 the paths, with their launches there; "off_path": the "single" post-LN MLP
 rows, launches 0); the last is {"ok": true, "device": {...}}. Needs one
@@ -112,9 +142,9 @@ CUDA card; imports no JAX.
 
 ``--phase profile`` runs the env phase, then breaks one 64-segment audio
 batch, one 256-frame ViT-H/14 batch and one text embed of the default
-backbone on the kernel path down on ``[profile]`` lines (see phase_profile,
-profile_vit_h, profile_xlmr_text); it checks nothing and prints no
-summary.
+backbone on the kernel path, and one ViT-B/32 train step, down on
+``[profile]`` lines (see phase_profile, profile_vit_h, profile_xlmr_text,
+profile_train_step); it checks nothing and prints no summary.
 """
 
 from __future__ import annotations
@@ -195,6 +225,14 @@ KERNELS = {
                           "wise_tpu/ops/postln_block.py:265"),
     "fused_short_attention": ("wise_tpu_torch/csrc/block_kernels.cu",
                               "wise_tpu/ops/attention.py:125"),
+    "fused_attn_block_res": ("wise_tpu_torch/csrc/block_kernels.cu",
+                             "wise_tpu/ops/block.py:1586"),
+    "fused_mlp_block_res": ("wise_tpu_torch/csrc/block_kernels.cu",
+                            "wise_tpu/ops/block.py:1635"),
+    "fused_mlp_split_res": ("wise_tpu_torch/csrc/block_kernels.cu",
+                            "wise_tpu/ops/block.py:1681"),
+    "fused_mlp_fc_res": ("wise_tpu_torch/csrc/block_kernels.cu",
+                         "wise_tpu/ops/block.py:1708"),
 }
 #: HTSAT's window batches at batch 64: (tag, windows N, C, heads, n_win of
 #: the shift mask or None); L = 64 tokens (window 8) throughout
@@ -619,6 +657,245 @@ def _swin_rows(torch, results):
                        (ops, nbytes))
 
 
+#: the training forwards' shapes: ViT-B/32's towers at the training batch
+#: (as many captions as frames) and ViT-L/14's vision tower at batch 32,
+#: whose width takes the split pair
+TRAIN_SHAPES = {
+    "train-vision": dict(b=256, sp=50, d=768, heads=12, f32=True,
+                         causal=False, act="gelu", seeds=(61, 62)),
+    "train-text": dict(b=256, sp=77, d=512, heads=8, f32=False, causal=True,
+                       act="gelu", seeds=(63, 64)),
+    "train-vit_l": dict(b=32, sp=257, d=1024, heads=16, f32=True,
+                        causal=False, act="gelu", seeds=(65, 66)),
+}
+
+
+def _check_res_row(torch, results, name, tag, x, kernel, plain, twin, base,
+                   res_faults, work, faults=None):
+    """A training forward's row: ``kernel()`` and ``plain()`` return (out,
+    residual). The output is held as its serve twin's is (``_check_row`` on
+    the increment over ``base``; planted ``faults``, by default the skipped
+    block), the residual on
+    the whole tensor (``output_agreement``), and every callable in
+    ``res_faults`` returns a faulty residual that must fail that check.
+    ``twin`` is the serve wrapper on the same inputs, timed beside."""
+    from wise_tpu_torch.ops.block import output_agreement
+
+    _check_row(torch, results, name, tag, (name, *x.shape[1:]), x,
+               lambda: kernel()[0], lambda: plain()[0], base,
+               faults or {"block_skipped": lambda: base}, work)
+    with torch.inference_mode():
+        got, want = kernel()[1], plain()[1]
+        torch.cuda.synchronize()
+        same = got.shape == want.shape and got.dtype == want.dtype
+        check = output_agreement(got, want) if same else dict(
+            ok=False, max_abs_err=math.inf, err_bound=0.0, min_cos=0.0)
+        planted = {k: output_agreement(f(), want)
+                   for k, f in res_faults.items()}
+        twin_ms = _cuda_ms(torch, twin, 20)
+    caught = not any(c["ok"] for c in planted.values())
+    ok = same and check["ok"] and caught
+    say("kernels", name=f"{name}[{tag}]", residual="x".join(
+            map(str, got.shape)), res_dtype=str(got.dtype)[6:],
+        res_max_abs_err=f"{check['max_abs_err']:.6g}",
+        res_err_bound=f"{check['err_bound']:.6g}",
+        res_min_cos=f"{check['min_cos']:.6f}",
+        res_planted_min_cos=",".join(f"{k}:{c['min_cos']:.4f}"
+                                     for k, c in planted.items()),
+        res_planted="FAIL(expected)" if caught else "PASSED(wrong)",
+        serve_twin_ms=f"{twin_ms:.4f}", status="ok" if ok else "FAIL")
+    results[-1]["ok"] = results[-1]["ok"] and ok
+
+
+def _train_rows(torch, results, tag, s):
+    """fused_attn_block_res and the MLP's training forward (the wrapper
+    ``mlp_choice`` gives the width; the split pair's fc half also alone) at
+    one training shape. Bound: the serve twin's, plus the residual's bytes
+    written (2 M 3D, or 2 M F). Planted on the residual: left unwritten
+    (zeros), and for the MLP written after the activation (h in its
+    place)."""
+    from wise_tpu_torch.ops import block as K
+
+    b, sp, d, h, causal = s["b"], s["sp"], s["d"], s["heads"], s["causal"]
+    dtype = torch.float32 if s["f32"] else torch.bfloat16
+    xb = 4 if s["f32"] else 2
+    m, f, act = b * sp, 4 * d, s["act"]
+    kw = dict(heads=h, n_valid=sp, causal=causal)
+    keys = (sp + 1) / 2 if causal else sp
+
+    def more(work, nbytes):
+        return work[0], work[1] + nbytes
+
+    x, ln, w = _block_inputs(torch, b, sp, d, dtype, s["seeds"][0])
+    _check_res_row(
+        torch, results, "fused_attn_block_res", tag, x,
+        lambda: K.fused_attn_block_res(x, *ln, *w, **kw),
+        lambda: K.plain_attn_block_res(x, *ln, *w, **kw),
+        lambda: K.fused_attn_block(x, *ln, *w, **kw), x,
+        {"res_unwritten": lambda: torch.zeros(
+            b, sp, 3 * d, dtype=torch.bfloat16, device="cuda")},
+        more(_attn_work(b, sp, d, xb, keys), 2 * m * 3 * d))
+
+    x, ln, w = _block_inputs(torch, b, sp, d, dtype, s["seeds"][1], mlp=True)
+    res_faults = {
+        "res_after_activation": lambda: K.fused_mlp_fc(x, *ln, *w[:2],
+                                                       act=act),
+        "res_unwritten": lambda: torch.zeros(
+            b, sp, f, dtype=torch.bfloat16, device="cuda")}
+    split = K.mlp_choice(d) == "split"
+    name = "fused_mlp_split_res" if split else "fused_mlp_block_res"
+    res_fn, plain_fn, twin = (
+        (K.fused_mlp_split_res, K.plain_mlp_split_res, K.fused_mlp_split)
+        if split else
+        (K.fused_mlp_block_res, K.plain_mlp_block_res, K.fused_mlp_block))
+    _check_res_row(
+        torch, results, name, tag, x,
+        lambda: res_fn(x, *ln, *w, act=act),
+        lambda: plain_fn(x, *ln, *w, act=act),
+        lambda: twin(x, *ln, *w, act=act), x, res_faults,
+        more(_mlp_work(m, d, f, xb), 2 * m * f))
+    if split:
+        # the fc half alone: no residual stream under h, so h is held whole
+        _check_res_row(
+            torch, results, "fused_mlp_fc_res", tag, x,
+            lambda: K.fused_mlp_fc_res(x, *ln, *w[:2], act=act),
+            lambda: K.plain_mlp_fc_res(x, *ln, *w[:2], act=act),
+            lambda: K.fused_mlp_fc(x, *ln, *w[:2], act=act),
+            torch.zeros((), device="cuda"), res_faults,
+            more(_mlp_work(m, d, f, xb, "fc"), 2 * m * f),
+            faults={"h_not_activated": lambda: K.fused_mlp_fc_res(
+                x, *ln, *w[:2], act="none")[0]})
+
+
+#: the bars of a backward row: per-tensor cosine of the gradients, and max
+#: abs error as a share of the plain gradient's max abs (bf16 class: the
+#: cosine is the bar tests/test_block_train.py holds the reference's rules to)
+GRAD_COS_MIN, GRAD_ERR_SHARE = 0.999, 0.05
+
+
+def _grad_agreement(got, want) -> dict:
+    err = max((g.float() - w.float()).abs().max().item() / max(
+        w.float().abs().max().item(), 1e-30) for g, w in zip(got, want))
+    cos = min(_flat_cos(g, w) for g, w in zip(got, want))
+    finite = all(bool(g.isfinite().all()) for g in got)
+    return dict(min_cos=cos, max_rel_err=err,
+                ok=finite and cos >= GRAD_COS_MIN and err <= GRAD_ERR_SHARE)
+
+
+def _flat_cos(a, b) -> float:
+    import torch
+
+    return torch.nn.functional.cosine_similarity(
+        a.float().flatten(), b.float().flatten(), dim=0).item()
+
+
+def _backward_rows(torch):
+    """Each of the five autograd rules on the card: the gradients of a
+    seeded scalar loss (sum of the output times a fixed N(0, 1) tensor) with
+    respect to x and every parameter, against autograd through the plain
+    block on the same tensors: per-tensor cosine >= GRAD_COS_MIN and max abs
+    error <= GRAD_ERR_SHARE of the plain gradient's max abs. Planted, for
+    the two saved-activation rules: a backward that ignores the saved
+    residual (the forward's residual replaced by zeros) must fail. Times a
+    forward + backward of both (CUDA events, 10 calls after 3)."""
+    from wise_tpu_torch.ops import block as K
+
+    def zeroed(fn):
+        def call(*a, **kw):
+            out, res = fn(*a, **kw)
+            return out, torch.zeros_like(res)
+        return call
+
+    bad = []
+    vis, txt, vit_l = (TRAIN_SHAPES[k] for k in ("train-vision", "train-text",
+                                                 "train-vit_l"))
+    rows_of = torch.randint(1, 77, (txt["b"],), dtype=torch.int32,
+                            device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(70))
+    cases = [
+        ("fused_attn_block_train", "train-vision", vis, False,
+         lambda a, s: K.fused_attn_block_train(*a, s["heads"], s["sp"],
+                                               s["causal"]),
+         lambda a, s: K.plain_attn_block(*a, s["heads"], s["sp"],
+                                         s["causal"]),
+         "fused_attn_block_res"),
+        ("fused_attn_block_train", "train-text", txt, False,
+         lambda a, s: K.fused_attn_block_train(*a, s["heads"], s["sp"],
+                                               s["causal"]),
+         lambda a, s: K.plain_attn_block(*a, s["heads"], s["sp"],
+                                         s["causal"]),
+         "fused_attn_block_res"),
+        ("fused_mlp_block_train", "train-vision", vis, True,
+         lambda a, s: K.fused_mlp_block_train(*a, s["act"]),
+         lambda a, s: K.plain_mlp_block(*a, s["act"]),
+         "fused_mlp_block_res"),
+        ("fused_mlp_split_train", "train-vit_l", vit_l, True,
+         lambda a, s: K.fused_mlp_split_train(*a, s["act"]),
+         lambda a, s: K.plain_mlp_split(*a, s["act"]),
+         "fused_mlp_fc_res"),
+        ("fused_attn_block_pooled_train", "train-vision", vis, False,
+         lambda a, s: K.fused_attn_block_pooled_train(
+             *a, s["heads"], s["sp"], 0, s["causal"]),
+         lambda a, s: K.plain_attn_block_pooled(
+             *a, s["heads"], s["sp"], 0, s["causal"]), None),
+        ("fused_attn_block_pooled_dyn_train", "train-text", txt, False,
+         lambda a, s: K.fused_attn_block_pooled_dyn_train(
+             a[0], rows_of, *a[1:], s["heads"], s["sp"], s["causal"]),
+         lambda a, s: K.plain_attn_block_pooled_dyn(
+             a[0], rows_of, *a[1:], s["heads"], s["sp"], s["causal"]), None),
+    ]
+    names = {False: ("x", "ln_s", "ln_b", "wqkv", "bqkv", "wo", "bo"),
+             True: ("x", "ln_s", "ln_b", "wfc", "bfc", "wproj", "bproj")}
+    for i, (name, tag, s, mlp, rule, plain, res_name) in enumerate(cases):
+        dtype = torch.float32 if s["f32"] else torch.bfloat16
+        x, ln, w = _block_inputs(torch, s["b"], s["sp"], s["d"], dtype,
+                                 80 + i, mlp=mlp)
+        args = [t.requires_grad_() for t in (x, *ln, *w)]
+        g = torch.Generator(device="cuda").manual_seed(90 + i)
+        with torch.no_grad():
+            shape = rule(args, s).shape
+        weight = torch.randn(shape, generator=g, device="cuda")
+
+        def grads(fn):
+            return torch.autograd.grad((fn(args, s).float() * weight).sum(),
+                                       args)
+
+        got, want = grads(rule), grads(plain)
+        torch.cuda.synchronize()
+        check = _grad_agreement(got, want)
+        per = {n: _flat_cos(a, b) for n, a, b in zip(names[mlp], got, want)}
+        planted = None
+        if res_name:
+            real = getattr(K, res_name)
+            setattr(K, res_name, zeroed(real))
+            try:
+                planted = _grad_agreement(grads(rule), want)
+            finally:
+                setattr(K, res_name, real)
+        ms = _cuda_ms(torch, lambda: grads(rule), 10)
+        plain_ms = _cuda_ms(torch, lambda: grads(plain), 10)
+        ok = check["ok"] and not (planted and planted["ok"])
+        say("backward", name=f"{name}[{tag}]",
+            shape="x".join(map(str, x.shape)), dtype=str(x.dtype)[6:],
+            min_cos=f"{check['min_cos']:.6f}", cos_bar=GRAD_COS_MIN,
+            max_rel_err=f"{check['max_rel_err']:.6g}",
+            err_bar=GRAD_ERR_SHARE,
+            cos=",".join(f"{n}:{c:.6f}" for n, c in per.items()),
+            planted_res_zeroed=("none" if planted is None else
+                                f"min_cos:{planted['min_cos']:.4f},"
+                                + ("PASSED(wrong)" if planted["ok"]
+                                   else "FAIL(expected)")),
+            fwd_bwd_ms=f"{ms:.4f}", plain_fwd_bwd_ms=f"{plain_ms:.4f}",
+            status="ok" if ok else "FAIL")
+        if not ok:
+            bad.append(f"{name}[{tag}]")
+        del args, got, want, weight
+    torch.cuda.empty_cache()
+    if bad:
+        raise PhaseError(f"autograd rules off the plain blocks' gradients, "
+                         f"or a planted fault passed: {bad}")
+
+
 #: the XLM-R tower's shape (64 tokens x 1024, 16 heads, F = 4096) at a
 #: served query batch and at the batch the reference calibrated its kernels
 POSTLN_SHAPES = {"query": dict(b=8, seeds=(41, 42)),
@@ -950,6 +1227,8 @@ def phase_kernels(torch):
     results = []
     for tag, shape in BLOCK_SHAPES.items():
         _block_rows(torch, results, tag, shape)
+    for tag, shape in TRAIN_SHAPES.items():
+        _train_rows(torch, results, tag, shape)
     _swin_rows(torch, results)
     for tag, shape in POSTLN_SHAPES.items():
         _postln_rows(torch, results, tag, shape)
@@ -959,6 +1238,7 @@ def phase_kernels(torch):
     if bad:
         raise PhaseError(f"kernels disagree with their plain versions, or "
                          f"the check missed a planted fault: {bad}")
+    _backward_rows(torch)
     return results
 
 
@@ -1151,6 +1431,7 @@ def _twin(torch, extractor, fused_block=False, fused_attention=False):
 #: the two-kernel MLP pairs: (pair, first half, second half). A pair launches
 #: nothing of its own, so its count is derived from its halves'
 SPLIT_PAIRS = [("fused_mlp_split", "fused_mlp_fc", "fused_mlp_proj"),
+               ("fused_mlp_split_res", "fused_mlp_fc_res", "fused_mlp_proj"),
                ("fused_postln_mlp_split", "fused_postln_fc",
                 "fused_postln_proj")]
 
@@ -1481,6 +1762,304 @@ def phase_hybrid(torch, card, batch: int = 256):
                              in sorted(counts.items())},
                             separators=(",", ":")))
     return counts
+
+
+#: word lists of the train phase's synthetic captions
+_CAPTION_WORDS = (
+    ["a dog", "two cats", "a child", "an old man", "a red car", "the chef",
+     "a cyclist", "three birds", "a fisherman", "the crowd"],
+    ["running", "sleeping", "cooking", "waiting", "dancing", "reading",
+     "jumping", "standing", "singing", "working"],
+    ["on the beach", "in a kitchen", "at night", "in the snow", "by a river",
+     "on a city street", "in the rain", "under a bridge", "in a garden",
+     "at the market"])
+
+
+def _captions(seed: int, n: int):
+    """n seeded synthetic captions, all different (each ends in its own
+    number)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    picks = rng.integers(0, 10, (n, 3))
+    return [" ".join(words[j] for words, j in zip(_CAPTION_WORDS, row))
+            + f" take {i}" for i, row in enumerate(picks)]
+
+
+def _train_batch(torch, config, seed: int, n: int):
+    """(images (n, S, S, 3) f32 in [0, 1], tokens (n, ctx) int64) on the
+    card: what pipeline/train_data.py ``caption_batches`` yields, made from
+    seeded synthetic frames and captions instead of decoded video (the
+    card's machine has no cv2)."""
+    from wise_tpu_torch.models.clip.tokenizer import get_tokenizer
+
+    tokenizer = get_tokenizer(None, vocab_size=config.vocab_size,
+                              context_length=config.context_length)
+    frames = _frames(seed, n, config.image_size).astype("float32") / 255.0
+    tokens = tokenizer(_captions(seed, n))
+    return (torch.from_numpy(frames).cuda(),
+            torch.from_numpy(tokens.astype("int64")).cuda())
+
+
+def _step_ms(torch, trainer, images, tokens, steps: int = 5):
+    """Median ms of a train step's forward, backward and optimizer update
+    (CUDA events around each, ``steps`` steps after one)."""
+    import numpy as np
+
+    rows = []
+    for _ in range(steps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        trainer.optimizer.zero_grad()
+        ev[0].record()
+        loss = trainer.loss(images, tokens)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        trainer.optimizer.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        rows.append([a.elapsed_time(b) for a, b in zip(ev, ev[1:])])
+    fwd, bwd, opt = np.median(np.array(rows[1:]), axis=0)
+    return dict(forward_ms=f"{fwd:.3f}", backward_ms=f"{bwd:.3f}",
+                optimizer_ms=f"{opt:.3f}", step_ms=f"{fwd + bwd + opt:.3f}")
+
+
+def _counted_step(trainer, images, tokens):
+    """One train step with every launch counter at 0 before it: (loss,
+    launches by wrapper, launches by (wrapper, SP, D))."""
+    from wise_tpu_torch.ops import block as K
+
+    _reset_launches()
+    loss = float(trainer.train_step(images, tokens))
+    by_name = {k: v for k, v in K.LAUNCHES.items() if v}
+    return loss, by_name, {k: v for k, v in _block_launches().items() if v}
+
+
+def _add_counts(total, counts):
+    for key, n in counts.items():
+        total[key] = total.get(key, 0) + n
+
+
+def _step_launches(config):
+    """What one train step of ``config`` launches, by wrapper: every
+    non-pooled layer of both towers its attention block and its MLP (the
+    wrapper ``mlp_choice`` gives the tower's width), with their residuals,
+    and each tower's pooled last layer."""
+    from wise_tpu_torch.ops.block import mlp_choice
+
+    want = {"fused_attn_block_pooled": 1, "fused_attn_block_pooled_dyn": 1}
+    for width, layers in ((config.vision_width, config.vision_layers),
+                          (config.text_width, config.text_layers)):
+        names = ["fused_attn_block_res"] + (
+            ["fused_mlp_block_res"] if mlp_choice(width) == "single"
+            else ["fused_mlp_fc_res", "fused_mlp_proj"])
+        for name in names:
+            want[name] = want.get(name, 0) + layers - 1
+    return want
+
+
+def phase_train(torch, card, model: str = "ViT-B-32", batch: int = 256,
+                wide: str = "ViT-L-14", wide_batch: int = 32):
+    """CLIP fine-tuning on the card through CLIPTrainer (see the module
+    docstring, phase 10); returns the launch counts of the kernel path's
+    steps, keyed by (wrapper, SP, D)."""
+    import dataclasses
+
+    from wise_tpu_torch.cli.train import training_clip_config
+    from wise_tpu_torch.models.clip.extractor import OpenClipExtractor
+    from wise_tpu_torch.parallel.train import CLIPTrainer
+
+    launches = {}
+    cfg = training_clip_config(model, "bfloat16")
+    if not (cfg.fused_block and cfg.pool_last_block):
+        raise PhaseError("train: the training config has the kernels off")
+    plain_cfg = dataclasses.replace(cfg, fused_block=False,
+                                    pool_last_block=False)
+    batches = [_train_batch(torch, cfg, 200 + i, batch) for i in range(3)]
+    torch.cuda.reset_peak_memory_stats()
+
+    # three steps at the train CLI's learning rate and clip (1e-5, 1.0; no
+    # schedule, whose warm-up would make the first step's rate 0) on the
+    # kernel path and on the plain twin, from one master tree
+    kw = dict(learning_rate=1e-5, grad_clip=1.0)
+    kernel = CLIPTrainer(cfg, **kw).init(seed=0)
+    plain = CLIPTrainer(plain_cfg, **kw).init(
+        params={k: v.clone() for k, v in kernel.params.items()})
+    if any(p.dtype != torch.float32 for p in kernel.model.parameters()):
+        raise PhaseError("train: a master weight is not f32")
+
+    def grads(trainer):
+        trainer.optimizer.zero_grad()
+        trainer.loss(*batches[0]).backward()
+        return {k: p.grad.clone() for k, p in trainer.model.named_parameters()}
+
+    _reset_launches()
+    gk = grads(kernel)
+    first_counts = dict(_block_launches())
+    gp = grads(plain)
+    if _block_launches() != first_counts:
+        raise PhaseError("train: the plain twin launched kernels")
+    floor = 1e-6 * math.sqrt(sum(float(g.float().pow(2).sum())
+                                 for g in gp.values()))
+    cos = {k: _flat_cos(gk[k], g) for k, g in gp.items()
+           if float(g.norm()) > floor}
+    worst = min(cos, key=cos.get)
+    whole = _flat_cos(torch.cat([gk[k].flatten() for k in gp]),
+                      torch.cat([g.flatten() for g in gp.values()]))
+    say("train", card=repr(card), model=model, batch=batch,
+        check="first_step_gradients", parameters=len(gp), compared=len(cos),
+        min_cos=f"{cos[worst]:.6f}", min_cos_at=worst, per_parameter_bar=0.95,
+        whole_tree_cos=f"{whole:.6f}", whole_tree_bar=0.99)
+    if not (cos[worst] >= 0.95 and whole >= 0.99
+            and all(bool(g.isfinite().all()) for g in gk.values())):
+        raise PhaseError(f"train: kernel-path gradients off the plain "
+                         f"twin's (min cos {cos[worst]:.4f} at {worst}, "
+                         f"whole tree {whole:.4f})")
+    del gk, gp
+
+    key = "visual.transformer.resblocks.0.mlp_fc.kernel"
+    before = kernel.params[key].clone()
+    # ViT-B/32: 22 fused_attn_block_res, 22 fused_mlp_block_res, 1 + 1 pooled
+    want = _step_launches(cfg)
+    losses = {"kernels": [], "plain": []}
+    for i, b in enumerate(batches):
+        loss, by_name, by_shape = _counted_step(kernel, *b)
+        if by_name != want:
+            raise PhaseError(f"train: a {model} step launched {by_name}, "
+                             f"expected exactly {want}")
+        _add_counts(launches, by_shape)
+        losses["kernels"].append(loss)
+        loss, by_name, _ = _counted_step(plain, *b)
+        if by_name:
+            raise PhaseError(f"train: the plain twin launched {by_name}")
+        losses["plain"].append(loss)
+        if i == 0:
+            # the check that would catch bf16-only parameters: one step at
+            # lr 1e-5 moves the f32 master by less than a bf16 ulp
+            after = kernel.params[key]
+            big = before.abs() > 0.01  # bf16 ulp there >= 2^-14 ~ 6.1e-5
+            delta = (after - before).abs()[big]
+            moved = float((delta > 0).float().mean())
+            flipped = float((after.bfloat16() != before.bfloat16())[big]
+                            .float().mean())
+            say("train", card=repr(card), check="master_weights", key=key,
+                weights=int(big.sum()), max_step=f"{float(delta.max()):.3g}",
+                bf16_ulp_min=f"{2.0 ** -14:.3g}", share_moved=f"{moved:.4f}",
+                share_bf16_cast_changed=f"{flipped:.4f}")
+            if not (0 < float(delta.max()) < 2.0 ** -14 and moved > 0.9
+                    and flipped < 0.25):
+                raise PhaseError("train: the master weights did not take a "
+                                 "sub-ulp update")
+    gap = max(abs(a - b) for a, b in zip(losses["kernels"], losses["plain"]))
+    say("train", card=repr(card), check="losses",
+        kernels=",".join(f"{v:.5f}" for v in losses["kernels"]),
+        plain=",".join(f"{v:.5f}" for v in losses["plain"]),
+        max_gap=f"{gap:.5f}", bar=0.05,
+        launches_per_step=json.dumps(want, separators=(",", ":")))
+    if not (gap <= 0.05 and all(math.isfinite(v) for v in
+                                losses["kernels"] + losses["plain"])):
+        raise PhaseError(f"train: losses differ step by step: {losses}")
+
+    for name, trainer in (("kernels", kernel), ("plain", plain), ("plain",
+                          plain), ("kernels", kernel)):
+        say("train", card=repr(card), model=model, batch=batch,
+            path=name, **_step_ms(torch, trainer, *batches[1]))
+    say("train", card=repr(card), model=model, batch=batch,
+        peak_device_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    del plain
+    torch.cuda.empty_cache()
+
+    # one batch repeated: the loss must fall, and below ln(batch), where a
+    # model that collapsed to uniform logits would stop. From random weights
+    # a higher rate does just that (1e-4 and 3e-5 overshoot on the first
+    # step and settle at ln 256 within 24 steps on an NVIDIA H100 80GB
+    # HBM3; 1e-5 reaches 5.44 there and goes on falling)
+    tuned = CLIPTrainer(cfg, **kw).init(seed=0)
+    seen = []
+    for _ in range(30):
+        loss, _, by_shape = _counted_step(tuned, *batches[2])
+        _add_counts(launches, by_shape)
+        seen.append(loss)
+    say("train", card=repr(card), check="loss_falls", lr=kw["learning_rate"],
+        steps=len(seen), losses=",".join(f"{v:.4f}" for v in seen),
+        ln_batch=f"{math.log(batch):.4f}",
+        bar="last < first - 0.05 and last < ln(batch)")
+    if not (all(math.isfinite(v) for v in seen) and seen[-1] < seen[0] - 0.05
+            and seen[-1] < math.log(batch)):
+        raise PhaseError(f"train: the loss did not fall: {seen}")
+
+    # the extractor serves the checkpoint; then restore into a fresh trainer,
+    # the next step's loss equal
+    frames = _frames(7, 64, cfg.image_size)
+    seeded = torch.from_numpy(OpenClipExtractor(
+        f"mlfoundations/open_clip/{model}/none").extract_image_features(
+            frames))
+    with tempfile.TemporaryDirectory(prefix="wise_smoke_train_") as tmp:
+        ckpt_dir = Path(tmp) / model / "finetuned"
+        tuned.save_checkpoint(ckpt_dir, len(seen))
+        os.environ["WISE_CHECKPOINT_DIR"] = tmp
+        try:
+            served = OpenClipExtractor(
+                f"mlfoundations/open_clip/{model}/finetuned")
+        finally:
+            del os.environ["WISE_CHECKPOINT_DIR"]
+        got = torch.from_numpy(served.extract_image_features(frames))
+        # the same frames through the trainer's own model: its f32 masters
+        # cast at use are the weights the extractor cast at load
+        with torch.inference_mode():
+            x = served.preprocess_frames(
+                torch.from_numpy(frames).cuda(), cfg.image_size)
+            want = tuned.model.encode_image(x.float()).cpu()
+        fresh = CLIPTrainer(cfg, **kw).init(seed=1)
+        step = fresh.restore_checkpoint(ckpt_dir)
+        a = float(tuned.train_step(*batches[0]))
+        b = float(fresh.train_step(*batches[0]))
+    say("train", card=repr(card), check="checkpoint", restored_step=step,
+        next_loss=f"{a:.6f}", next_loss_restored=f"{b:.6f}", bar=1e-6)
+    if step != len(seen) or not abs(a - b) <= 1e-6:
+        raise PhaseError(f"train: restored step {step}, next loss {a} vs {b}")
+    moved = float((got - seeded).abs().max())
+    off = float((got - want).abs().max())
+    say("train", card=repr(card), check="extractor_serves_checkpoint",
+        frames=len(frames), max_abs_diff_vs_seed0=f"{moved:.4f}",
+        moved_bar="> 1e-3", max_abs_diff_vs_trainer=f"{off:.6f}",
+        same_bar="<= 1e-3")
+    if not (bool(got.isfinite().all()) and moved > 1e-3 and off <= 1e-3
+            and float((got.norm(dim=1) - 1).abs().max()) < 1e-3):
+        raise PhaseError(f"train: the served checkpoint's embeddings moved "
+                         f"{moved} from the seed-0 weights' and are {off} "
+                         f"from the trainer's own")
+    del fresh
+    del tuned, served, kernel
+    torch.cuda.empty_cache()
+
+    # ViT-L/14 at batch 32: the width that takes fused_mlp_split_res
+    cfg_l = training_clip_config(wide, "bfloat16")
+    big = CLIPTrainer(cfg_l, learning_rate=1e-5, grad_clip=1.0).init(seed=0)
+    batch_l = _train_batch(torch, cfg_l, 300, wide_batch)
+    # ViT-L/14: 34 fused_attn_block_res (23 vision, 11 text), 23
+    # fused_mlp_fc_res and fused_mlp_proj (vision, width 1024), 11
+    # fused_mlp_block_res (text, width 768), 1 + 1 pooled
+    want = _step_launches(cfg_l)
+    seen = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        loss, by_name, by_shape = _counted_step(big, *batch_l)
+        if by_name != want:
+            raise PhaseError(f"train: a {wide} step launched {by_name}, "
+                             f"expected exactly {want}")
+        _add_counts(launches, by_shape)
+        seen.append(loss)
+    if not all(math.isfinite(v) for v in seen):
+        raise PhaseError(f"train: {wide} losses {seen}")
+    say("train", card=repr(card), model=wide, batch=wide_batch,
+        losses=",".join(f"{v:.4f}" for v in seen),
+        launches_per_step=json.dumps(want, separators=(",", ":")),
+        **_step_ms(torch, big, *batch_l, steps=3),
+        peak_device_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    del big
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _segments(torch, n: int, seed: int, chunk: int = 128):
@@ -1997,14 +2576,15 @@ def _launch_name(key) -> str:
     return f"{name}[SP={a},D={b}]"
 
 
-def _device_kernels(torch, fn, reps: int = 3):
+def _device_kernels(torch, fn, reps: int = 3, grad: bool = False):
     """Device ms per CUDA kernel over ``reps`` calls of ``fn``
     (torch.profiler, kernels only: each kernel's self device time), as
-    [(ms a call, launches a call, kernel name)], largest first."""
+    [(ms a call, launches a call, kernel name)], largest first. ``grad``
+    leaves autograd on, for a function that trains."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode():
+    with torch.inference_mode(not grad):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -2090,6 +2670,24 @@ def profile_xlmr_text(torch, card, reps: int = 5):
         extract_text_1_host_ms=f"{1e3 * float(np.median(host)):.4f}")
     _say_kernels(_device_kernels(torch, embed(fe, 8)),
                  model=XLMR_ID.split("/")[2], path="text_embed_8")
+
+
+def profile_train_step(torch, card, batch: int = 256):
+    """Where one ViT-B/32 train step's time goes on the kernel path: ms of
+    its forward, backward and optimizer update (CUDA events, median of 5)
+    and the device ms per CUDA kernel of a whole step (torch.profiler, mean
+    of 2 steps)."""
+    from wise_tpu_torch.cli.train import training_clip_config
+    from wise_tpu_torch.parallel.train import CLIPTrainer
+
+    cfg = training_clip_config("ViT-B-32", "bfloat16")
+    trainer = CLIPTrainer(cfg, learning_rate=1e-5, grad_clip=1.0).init(seed=0)
+    images, tokens = _train_batch(torch, cfg, 200, batch)
+    say("profile", card=repr(card), model="ViT-B-32", batch=batch,
+        path="train_step", **_step_ms(torch, trainer, images, tokens))
+    _say_kernels(_device_kernels(
+        torch, lambda: trainer.train_step(images, tokens), 2, grad=True),
+        top=20, model="ViT-B-32", path="train_step")
 
 
 def phase_profile(torch, card, batch: int = 64, reps: int = 5):
@@ -2186,7 +2784,8 @@ def _encode_rates(torch, extractor, frames, reps: int = 5):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", choices=["all", "kernels", "vit_h", "xlmr",
-                                        "hybrid", "index", "profile"],
+                                        "hybrid", "index", "train",
+                                        "profile"],
                     default="all")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print nvcc -Xptxas -v (registers, shared memory)")
@@ -2212,6 +2811,7 @@ def main(argv=None) -> int:
             phase_profile(torch, card)
             profile_vit_h(torch, card)
             profile_xlmr_text(torch, card)
+            profile_train_step(torch, card)
             return 0
         if args.phase == "vit_h":
             phase_slice(torch, card, VIT_H_ID, VIT_H_FRAMES, "vit_h",
@@ -2227,6 +2827,9 @@ def main(argv=None) -> int:
         if args.phase == "index":
             _timed("index", phase_index, torch, card)
             return 0
+        if args.phase == "train":
+            _timed("train", phase_train, torch, card)
+            return 0
         kernels = _timed("kernels", phase_kernels, torch)
         if args.phase == "kernels":
             return 0
@@ -2241,6 +2844,10 @@ def main(argv=None) -> int:
             topk_1m=False))
         launches.update(_timed("hybrid", phase_hybrid, torch, card))
         launches.update(_timed("index", phase_index, torch, card))
+        # the training steps' counts stand beside the serve paths': a key
+        # both reach (the pooled kernels at ViT-B/32) keeps its serve count
+        for key, n in _timed("train", phase_train, torch, card).items():
+            launches.setdefault(key, n)
         off = {r["key"] for r in kernels if _off_path(r["key"])}
         stray = [_launch_name(key) for key in off if launches.get(key)]
         if stray:

@@ -94,22 +94,27 @@ def test_head_dim_80_towers_match_jax(monkeypatch, dtype, pool_last):
 
 def test_wide_towers_pick_the_split_mlp(monkeypatch):
     """A bf16 tower over width 768 routes its MLP to fused_mlp_split, a
-    narrower one to fused_mlp_block; the attention block either way."""
+    narrower one to fused_mlp_block; the attention block either way. With a
+    gradient required the same choice takes the saved-activation forwards."""
     calls = []
-    for name in ("fused_attn_block", "fused_mlp_block", "fused_mlp_split"):
+    names = ("fused_attn_block", "fused_mlp_block", "fused_mlp_split")
+    for name in names + tuple(n + "_res" for n in names):
         plain = getattr(K, name)
         monkeypatch.setattr(
             K, name, lambda *a, _n=name, _f=plain, **kw: (calls.append(_n),
                                                           _f(*a, **kw))[1])
     for width, want in ((128, "fused_mlp_block"), (1024, "fused_mlp_split")):
-        calls.clear()
         blk = TM.ResidualAttentionBlock(width, width // 64, "gelu",
                                         torch.bfloat16, fused_block=True)
         TM.init_random_(blk, seed=0)
         x = torch.randn(2, 5, width, dtype=torch.bfloat16)
-        out = blk(x, n_valid=5)
-        assert out.shape == x.shape and bool(torch.isfinite(out).all())
-        assert calls == ["fused_attn_block", want]
+        for grad, suffix in ((False, ""), (True, "_res")):
+            calls.clear()
+            with torch.set_grad_enabled(grad):
+                out = blk(x, n_valid=5)
+            assert out.shape == x.shape and bool(torch.isfinite(out).all())
+            assert out.requires_grad == grad
+            assert calls == ["fused_attn_block" + suffix, want + suffix]
 
 
 def test_vit_h_14_builds_at_full_width_on_meta(monkeypatch):

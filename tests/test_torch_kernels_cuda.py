@@ -249,7 +249,9 @@ def test_swin_wrappers_reject_what_they_do_not_take(cuda):
 @pytest.mark.parametrize("swin_block", [True, False])
 def test_swin_model_raises_outside_the_kernels_shapes(cuda, swin_block):
     """A CLAP block whose windows the kernels do not take (window 12: 144
-    tokens) reaches the wrapper on the card and raises: no plain fallback."""
+    tokens) reaches the wrapper on the card and raises: no plain fallback.
+    With autograd on and trainable parameters the wrapper refuses first: the
+    Swin kernels have no training rule."""
     import dataclasses
 
     from wise_tpu_torch.models.clap import config as TC
@@ -258,8 +260,12 @@ def test_swin_model_raises_outside_the_kernels_shapes(cuda, swin_block):
     cfg = dataclasses.replace(TC.CLAPConfig(), dtype="bfloat16",
                               fused_block=True, fused_swin_block=swin_block)
     blk = TM.SwinBlock(32, 2, 12, 6, (24, 24), 4.0, cfg).to(cuda)
-    with pytest.raises(ValueError, match="outside the kernel's shapes"):
-        blk(torch.randn(2, 24 * 24, 32, device=cuda))
+    x = torch.randn(2, 24 * 24, 32, device=cuda)
+    with torch.no_grad(), pytest.raises(
+            ValueError, match="outside the kernel's shapes"):
+        blk(x)
+    with pytest.raises(RuntimeError, match="cut from the autograd graph"):
+        blk(x)
 
 
 # ---------------------------------------------------------------------------
@@ -677,7 +683,8 @@ def test_hybrid_and_postln_layers_raise_outside_the_kernels_shapes(cuda):
     """With ``fused_block`` off and ``fused_attention`` on, a CLIP block of
     a head_dim the attention kernel does not take reaches the wrapper on the
     card and raises, and so does an XLM-R layer on the post-LN wrappers: no
-    plain fallback by shape."""
+    plain fallback by shape. With autograd on and trainable parameters
+    both refuse first: neither has its training rule yet."""
     from wise_tpu_torch.models.clip import hf_text as TH
     from wise_tpu_torch.models.clip import model as TM
 
@@ -685,15 +692,21 @@ def test_hybrid_and_postln_layers_raise_outside_the_kernels_shapes(cuda):
                                     fused_block=False,
                                     fused_attention=True).to(cuda)
     A.reset_launches()
-    with pytest.raises(ValueError, match="head_dim"):
-        blk(torch.randn(2, 16, 288, device=cuda), n_valid=16)
+    x = torch.randn(2, 16, 288, device=cuda)
+    with torch.no_grad(), pytest.raises(ValueError, match="head_dim"):
+        blk(x, n_valid=16)
+    with pytest.raises(RuntimeError, match="Queue A item 16"):
+        blk(x, n_valid=16)
     layer = TH.BertLayer(TH.HFTextConfig(
         vocab_size=64, width=128, layers=1, heads=4, intermediate=512,
         dtype="bfloat16", fused_block=True)).to(cuda)
     P.reset_launches()
-    with pytest.raises(ValueError, match="head_dim"):
-        layer(torch.randn(2, 16, 128, device=cuda).to(torch.bfloat16),
-              torch.zeros(2, 1, 16, device=cuda))
+    x = torch.randn(2, 16, 128, device=cuda).to(torch.bfloat16)
+    km = torch.zeros(2, 1, 16, device=cuda)
+    with torch.no_grad(), pytest.raises(ValueError, match="head_dim"):
+        layer(x, km)
+    with pytest.raises(RuntimeError, match="Queue A item 16"):
+        layer(x, km)
     assert not any(A.LAUNCHES.values()) and not any(P.LAUNCHES.values())
 
 
@@ -841,3 +854,139 @@ def test_topk_wrappers_reject_what_they_do_not_take(cuda):
         with pytest.raises(ValueError, match="float32 or bfloat16"):
             fn(q, db.half(), 4096, 5)
     assert not any(FT.LAUNCHES.values())
+
+
+# ---------------------------------------------------------------------------
+# the training forwards (fused_*_res) and the autograd rules (fused_*_train)
+# ---------------------------------------------------------------------------
+
+
+def _res_call(kind, x, ln, w, fused=True):
+    """((out, residual), serve twin's output) of one training forward."""
+    kw = dict(heads=HEADS, n_valid=SP, causal=kind == "attn-causal")
+    pick = (lambda f, p: f) if fused else (lambda f, p: p)
+    if kind.startswith("attn"):
+        fn = pick(K.fused_attn_block_res, K.plain_attn_block_res)
+        return fn(x, *ln, *w, **kw), K.fused_attn_block(x, *ln, *w, **kw)
+    if kind == "mlp":
+        fn = pick(K.fused_mlp_block_res, K.plain_mlp_block_res)
+        return fn(x, *ln, *w, act="gelu"), K.fused_mlp_block(x, *ln, *w,
+                                                             act="gelu")
+    fn = pick(K.fused_mlp_split_res, K.plain_mlp_split_res)
+    return (fn(x, *ln, *w, act="quick_gelu"),
+            K.fused_mlp_split(x, *ln, *w, act="quick_gelu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["attn", "attn-causal", "mlp", "split"])
+def test_res_kernel_matches_plain_on_card(cuda, kind, stream):
+    """Output on its increment, residual whole (output_agreement); the
+    output is the serve twin's bit for bit (one launch chain, one epilogue
+    value)."""
+    x, ln, w = _inputs(40, cuda, stream, mlp=not kind.startswith("attn"))
+    with torch.inference_mode():
+        (got, res), twin = _res_call(kind, x, ln, w)
+        (want, want_res), _ = _res_call(kind, x, ln, w, fused=False)
+        torch.cuda.synchronize()
+    assert res.dtype == torch.bfloat16 and res.shape == want_res.shape
+    assert K.increment_agreement(got, want, x)["ok"]
+    assert K.output_agreement(res, want_res)["ok"]
+    assert torch.equal(got, twin)
+
+
+@pytest.mark.cuda
+def test_mlp_residual_is_the_value_before_the_activation(cuda):
+    x, ln, w = _inputs(41, cuda, torch.float32, mlp=True)
+    with torch.inference_mode():
+        h, h_pre = K.fused_mlp_fc_res(x, *ln, *w[:2], act="gelu")
+        _, want = K.plain_mlp_fc_res(x, *ln, *w[:2], act="gelu")
+        assert torch.equal(h, K.fused_mlp_fc(x, *ln, *w[:2], act="gelu"))
+    assert K.output_agreement(h_pre, want)["ok"]
+    assert not K.output_agreement(h, want)["ok"]
+    assert not K.output_agreement(torch.zeros_like(h), want)["ok"]
+
+
+def _grad_cos(got, want):
+    return min(torch.nn.functional.cosine_similarity(
+        g.float().flatten(), w.float().flatten(), dim=0).item()
+        for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rule", ["attn", "attn-causal", "mlp", "split",
+                                  "pooled", "dyn"])
+def test_train_rule_gradients_match_plain_on_card(cuda, rule, stream):
+    """Each autograd rule's gradients against autograd through the plain
+    block on the same tensors: per-tensor cosine >= 0.999."""
+    mlp = rule in ("mlp", "split")
+    x, ln, w = _inputs(42, cuda, stream, mlp=mlp)
+    args = [t.requires_grad_() for t in (x, *ln, *w)]
+    rows = torch.from_numpy(ROWS).to(cuda)
+    causal = rule == "attn-causal"
+    fused, plain = {
+        "attn": (lambda: K.fused_attn_block_train(*args, HEADS, SP, causal),
+                 lambda: K.plain_attn_block(*args, HEADS, SP, causal)),
+        "mlp": (lambda: K.fused_mlp_block_train(*args, "gelu"),
+                lambda: K.plain_mlp_block(*args, "gelu")),
+        "split": (lambda: K.fused_mlp_split_train(*args, "gelu"),
+                  lambda: K.plain_mlp_split(*args, "gelu")),
+        "pooled": (lambda: K.fused_attn_block_pooled_train(*args, HEADS, SP,
+                                                           5, False),
+                   lambda: K.plain_attn_block_pooled(*args, HEADS, SP, 5,
+                                                     False)),
+        "dyn": (lambda: K.fused_attn_block_pooled_dyn_train(
+                    args[0], rows, *args[1:], HEADS, SP, True),
+                lambda: K.plain_attn_block_pooled_dyn(
+                    args[0], rows, *args[1:], HEADS, SP, True)),
+    }[rule.split("-")[0]]
+    K.reset_launches()
+    out = fused()
+    assert out.requires_grad
+    weight = torch.randn(out.shape, device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(1))
+    got = torch.autograd.grad((out.float() * weight).sum(), args)
+    want = torch.autograd.grad((plain().float() * weight).sum(), args)
+    assert _grad_cos(got, want) >= 0.999
+    launched = {k for k, v in K.LAUNCHES.items() if v}
+    assert launched == {
+        "attn": {"fused_attn_block_res"}, "mlp": {"fused_mlp_block_res"},
+        "split": {"fused_mlp_fc_res", "fused_mlp_proj"},
+        "pooled": {"fused_attn_block_pooled"},
+        "dyn": {"fused_attn_block_pooled_dyn"}}[rule.split("-")[0]]
+
+
+@pytest.mark.cuda
+def test_wrappers_raise_under_autograd_on_card(cuda):
+    """A kernel wrapper called on CUDA tensors with an input that requires a
+    gradient raises instead of returning a tensor cut from the graph; with
+    autograd off it launches."""
+    from wise_tpu_torch.ops import attention as A
+    from wise_tpu_torch.ops import fused_topk as FT
+
+    x, ln, w = _inputs(43, cuda, torch.bfloat16)
+    w[0].requires_grad_()
+    rows = torch.from_numpy(ROWS).to(cuda)
+    kw = dict(heads=HEADS, n_valid=SP)
+    calls = [lambda: K.fused_attn_block(x, *ln, *w, **kw),
+             lambda: K.fused_attn_block_res(x, *ln, *w, **kw),
+             lambda: K.fused_attn_block_pooled(x, *ln, *w, **kw),
+             lambda: K.fused_attn_block_pooled_dyn(x, rows, *ln, *w, **kw)]
+    xm, lnm, wm = _inputs(44, cuda, torch.bfloat16, mlp=True)
+    lnm[0].requires_grad_()
+    calls += [lambda: K.fused_mlp_block(xm, *lnm, *wm),
+              lambda: K.fused_mlp_block_res(xm, *lnm, *wm),
+              lambda: K.fused_mlp_split(xm, *lnm, *wm),
+              lambda: K.fused_mlp_split_res(xm, *lnm, *wm),
+              lambda: K.fused_mlp_fc(xm, *lnm, *wm[:2])]
+    q = torch.randn(2, 16, 128, device=cuda).bfloat16().requires_grad_()
+    calls.append(lambda: A.fused_short_attention(q, q, q, 2, 16))
+    db = torch.randn(4096, 64, device=cuda)
+    qv = torch.randn(1, 64, device=cuda, requires_grad=True)
+    calls.append(lambda: FT.fused_topk_threshold(qv, db, 4096, 10))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="cut from the autograd"):
+            call()
+        with torch.no_grad():
+            call()

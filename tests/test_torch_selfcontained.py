@@ -1,5 +1,5 @@
-"""wise_tpu_torch stands alone: it imports torch and numpy, never jax or
-flax, and nothing of the JAX package ``wise_tpu``; and its entry points run
+"""wise_tpu_torch stands alone: it imports torch and numpy, never jax,
+flax, optax or orbax, and nothing of the JAX package ``wise_tpu``; and its entry points run
 on the card unless the caller asks for the CPU.
 
 (a) an ``ast`` walk over every source of the port finds no such import and
@@ -27,7 +27,10 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "wise_tpu_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("wise_tpu", "jax", "flax")
+FORBIDDEN = ("wise_tpu", "jax", "jaxlib", "flax", "optax", "orbax")
+#: the training slice's modules, which the walk over SOURCES must reach
+TRAINING = ["parallel/__init__.py", "parallel/train.py", "cli/train.py",
+            "cli/metadata.py", "pipeline/train_data.py"]
 #: the host modules the port copied from the JAX package, path for path
 COPIED = """config data_models utils project db db.repository store
 store.feature_store store.factory store.npz_store store.tar_store io
@@ -36,7 +39,8 @@ search.results index.format index.search_index index.fts_index
 models.feature_extractor models.random_features models.clip.tokenizer
 models.clip.convert models.clap.tokenizer models.clap.convert
 pipeline.extract api.models api.coalesce api.engine api.server
-cli.extract_features cli.create_index cli.search cli.serve""".split()
+cli.extract_features cli.create_index cli.search cli.serve cli.metadata
+pipeline.train_data""".split()
 
 
 def _rel(path):
@@ -71,6 +75,36 @@ def test_source_imports_nothing_of_the_jax_package(path):
                     f"{_rel(path)}:{node.lineno} imports {arg.value}")
 
 
+def test_walk_reaches_the_training_modules():
+    walked = {_rel(p) for p in SOURCES}
+    assert not [m for m in TRAINING if f"wise_tpu_torch/{m}" not in walked]
+
+
+def test_train_cli_imports_without_the_jax_stack():
+    """A fresh interpreter imports the train CLI, builds its parser and its
+    config, and the trainer's module, with no jax, optax, orbax or flax (and
+    nothing of the JAX package) in sys.modules."""
+    script = textwrap.dedent("""
+        import json, sys
+        from wise_tpu_torch.cli import train
+        from wise_tpu_torch.parallel import train as trainer
+        train.build_parser()
+        cfg = train.training_clip_config("ViT-B-32")
+        assert cfg.fused_block and cfg.pool_last_block
+        assert trainer.CLIPTrainer(cfg, device="cpu").config is cfg
+        print(json.dumps(sorted(k for k in sys.modules if k.split(".")[0] in
+              ("wise_tpu", "jax", "jaxlib", "flax", "optax", "orbax"))))
+    """)
+    run = subprocess.run(
+        [sys.executable, "-c", script], capture_output=True, text=True,
+        cwd=ROOT, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT),
+             "WISE_TORCH_DEVICE": "cpu"},
+    )
+    assert run.returncode == 0, run.stderr[-3000:]
+    assert json.loads(run.stdout.strip().splitlines()[-1]) == []
+
+
 def test_host_module_is_gone():
     assert not (PORT / "_host.py").exists()
     assert not any("rebind" in p.read_text() for p in SOURCES)
@@ -98,7 +132,8 @@ def test_port_main_path_loads_nothing_of_the_jax_package(tmp_path):
         assert search.main(["--project-dir", proj, "--query", "red",
                             "--in", "video"]) == 0
         loaded = sorted(k for k in sys.modules if k.split(".")[0]
-                        in ("wise_tpu", "jax", "jaxlib", "flax"))
+                        in ("wise_tpu", "jax", "jaxlib", "flax", "optax",
+                            "orbax"))
         print(json.dumps(loaded))
     """)
     run = subprocess.run(

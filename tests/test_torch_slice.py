@@ -1,8 +1,11 @@
 """The port's serve path end to end against the JAX package's.
 
 Both packages drive the same media (tests/media_fixtures.py) through their
-own extract-features -> create-index -> search CLI -> REST server, with
-ViT-Test-Tiny loading one seeded open_clip-keyed ``.npz`` from a temporary
+own extract-features -> create-index -> search CLI -> REST server, with a
+tiny CLIP (ViT-Test-Tiny's shape with a vocabulary of 4,096, registered in
+both registries for the test: the hash tokenizer's ids fall outside a
+vocabulary under 3,000, which the port refuses where the JAX towers clamp)
+loading one seeded open_clip-keyed ``.npz`` from a temporary
 WISE_CHECKPOINT_DIR. In f32 (the conformance dtype) the two towers agree to
 ~1e-7, so the searches return the same results: the same CSV rows (scores
 printed to 3 decimals, so they may differ by one unit in the last digit) and
@@ -28,15 +31,19 @@ import pytest
 from tests.media_fixtures import make_image, make_video
 
 ROOT = Path(__file__).resolve().parents[1]
-FID = "mlfoundations/open_clip/ViT-Test-Tiny/slice"
+MODEL, VOCAB = "ViT-Test-Slice", 4096
+FID = f"mlfoundations/open_clip/{MODEL}/slice"
 QUERIES = ["red", "a dog in the snow", "green light"]
 
 
 @pytest.fixture(scope="module")
 def env(tmp_path_factory):
     """Media, the checkpoint, and the environment both drives run under."""
+    import dataclasses
+
     from tests.test_convert_published_keysets import openclip_clip_keyset
-    from wise_tpu.models.clip.model import get_clip_config
+    from wise_tpu.models.clip import model as JM
+    from wise_tpu_torch.models.clip import config as TC
 
     root = tmp_path_factory.mktemp("slice")
     media = root / "media"
@@ -46,13 +53,17 @@ def env(tmp_path_factory):
     make_image(media / "i1.png", value=50)
     make_image(media / "i2.png", value=200)
     rng = np.random.default_rng(0)
+    cfg = dataclasses.replace(JM.get_clip_config("ViT-Test-Tiny"),
+                              vocab_size=VOCAB)
     sd = {k: rng.normal(0.0, 0.02, np.shape(v)).astype(np.float32)
-          for k, v in openclip_clip_keyset(
-              get_clip_config("ViT-Test-Tiny")).items()}
-    ckpt = root / "ckpts" / "ViT-Test-Tiny" / "slice"
+          for k, v in openclip_clip_keyset(cfg).items()}
+    ckpt = root / "ckpts" / MODEL / "slice"
     ckpt.mkdir(parents=True)
     np.savez(ckpt / "open_clip_model.npz", **sd)
     with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(JM.CLIP_CONFIGS, MODEL, cfg)
+        mp.setitem(TC.CLIP_CONFIGS, MODEL, dataclasses.replace(
+            TC.get_clip_config("ViT-Test-Tiny"), vocab_size=VOCAB))
         mp.setenv("WISE_CHECKPOINT_DIR", str(root / "ckpts"))
         mp.setenv("WISE_CLIP_DTYPE", "float32")
         mp.setenv("WISE_TORCH_DEVICE", "cpu")
@@ -131,9 +142,12 @@ def test_port_path_never_imports_jax(env):
     """extract -> index -> search -> REST through the port in a fresh
     interpreter: jax, flax and the JAX package stay out of sys.modules."""
     script = textwrap.dedent(f"""
-        import json, sys
+        import dataclasses, json, sys
         from wise_tpu_torch.cli import create_index, extract_features, search
         from wise_tpu_torch.api.server import create_server
+        from wise_tpu_torch.models.clip import config as TC
+        TC.CLIP_CONFIGS[{MODEL!r}] = dataclasses.replace(
+            TC.get_clip_config("ViT-Test-Tiny"), vocab_size={VOCAB})
         proj = {str(env / "nojax")!r}
         assert extract_features.main([{str(env / "media")!r},
             "--project-dir", proj, "--video-feature-id", {FID!r},

@@ -1,0 +1,161 @@
+"""train CLI: contrastive CLIP fine-tuning on a project's caption metadata
+(wise_tpu/cli/train.py).
+
+Takes optimizer steps on one card (``WISE_TORCH_DEVICE=cpu`` for the CPU)
+with f32 master weights under AdamW, checkpoints as ``step_%08d`` directories
+and can resume. bf16 runs go through the saved-activation block kernels and
+the pooled last layer.
+
+    python -m wise_tpu_torch.cli.train --project-dir P \\
+        --metadata-id EK/ann/train --caption-column narration \\
+        --model ViT-B-32 --steps 1000 --batch-size 64
+
+Point ``WISE_CHECKPOINT_DIR`` at a directory that holds the result as
+``<model>/<pretrained>/step_*`` and the extractor serves it.
+
+The multi-device options of the reference's CLI (``--dp`` other than -1 or
+1, ``--mp``, ``--pp`` with ``--microbatches``) are parsed and refused:
+ROADMAP Queue A item 12.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import logging
+import os
+import sys
+import time
+
+
+def build_parser():
+    p = argparse.ArgumentParser(prog="train", description=__doc__)
+    p.add_argument("--project-dir", required=True)
+    p.add_argument("--metadata-id", required=True,
+                   help="FOLDER/DB/TABLE with __filename/__starttime/__stoptime")
+    p.add_argument("--caption-column", required=True)
+    p.add_argument("--model", default="ViT-B-32")
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--batch-size", type=int, default=64)
+    p.add_argument("--learning-rate", type=float, default=1e-5)
+    p.add_argument("--warmup-steps", type=int, default=0)
+    p.add_argument("--grad-clip", type=float, default=1.0)
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--checkpoint-every", type=int, default=500)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--dp", type=int, default=-1)
+    p.add_argument("--mp", type=int, default=1)
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline-parallel stages (multi-device: refused)")
+    p.add_argument("--microbatches", type=int, default=2,
+                   help="GPipe microbatches per step (only with --pp > 1)")
+    p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
+    p.add_argument("--remat", action="store_true",
+                   help="recompute transformer blocks in the backward "
+                        "(about one more forward, for less activation "
+                        "memory)")
+    return p
+
+
+def training_clip_config(model: str, dtype: str = "bfloat16", pp: int = 1,
+                         remat: bool = False):
+    """The train CLI's model config: bf16 fine-tuning runs the block kernels
+    (their ``*_train`` rules: saved-activation forwards, plain backwards)
+    and the pooled last layer by default. WISE_FUSED_BLOCK=0 /
+    WISE_POOL_LAST=0 opt out; pipeline-parallel training keeps the kernels
+    off, as in the reference."""
+    from ..models.clip.config import get_clip_config
+
+    bf16 = dtype == "bfloat16"
+    return dataclasses.replace(
+        get_clip_config(model),
+        dtype="bfloat16" if bf16 else "float32",
+        remat=remat,
+        fused_block=(
+            bf16 and pp <= 1
+            and os.environ.get("WISE_FUSED_BLOCK", "1") != "0"
+        ),
+        pool_last_block=(
+            bf16 and pp <= 1
+            and os.environ.get("WISE_POOL_LAST", "1") != "0"
+        ),
+    )
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+    log = logging.getLogger("train")
+
+    if args.dp not in (-1, 1) or args.mp > 1 or args.pp > 1:
+        raise NotImplementedError(
+            "--dp / --mp / --pp: multi-device training is not ported "
+            "(ROADMAP Queue A item 12); this trainer runs on one card")
+
+    from ..models.clip.tokenizer import get_tokenizer
+    from ..parallel.train import CLIPTrainer
+    from ..pipeline.train_data import caption_batches, load_caption_segments
+    from ..project import WiseProject
+
+    project = WiseProject(args.project_dir)
+    segments = load_caption_segments(
+        project, args.metadata_id, args.caption_column
+    )
+    if not segments:
+        log.error("no caption segments found")
+        return 1
+    log.info(f"{len(segments)} caption segments")
+
+    config = training_clip_config(args.model, args.dtype, args.pp,
+                                  remat=args.remat)
+    trainer = CLIPTrainer(
+        config, learning_rate=args.learning_rate,
+        warmup_steps=args.warmup_steps, total_steps=args.steps,
+        grad_clip=args.grad_clip,
+    ).init(seed=0)
+    start_step = 0
+    ckpt_dir = args.checkpoint_dir or str(
+        project.project_dir / "checkpoints" / args.model
+    )
+    if args.resume:
+        try:
+            start_step = trainer.restore_checkpoint(ckpt_dir)
+            log.info(f"resumed from step {start_step}")
+        except FileNotFoundError:
+            log.info("no checkpoint found; starting fresh")
+    tokenizer = get_tokenizer(
+        None, vocab_size=config.vocab_size,
+        context_length=config.context_length,
+    )
+
+    batches = caption_batches(
+        segments, tokenizer, args.batch_size, config.image_size,
+        epochs=10_000,
+    )
+    t0 = time.time()
+    step = start_step
+    for images, tokens in batches:
+        if step >= args.steps:
+            break
+        loss = trainer.train_step(images, tokens)
+        step += 1
+        if step % 10 == 0 or step == args.steps:
+            log.info(
+                f"step {step}/{args.steps} loss={float(loss):.4f} "
+                f"({step - start_step}/{time.time()-t0:.0f}s)"
+            )
+        if args.checkpoint_every and step % args.checkpoint_every == 0:
+            trainer.save_checkpoint(ckpt_dir, step)
+    if step == start_step:
+        log.error(
+            "no training steps ran — not enough decodable caption "
+            "segments to fill a batch?"
+        )
+        return 1
+    trainer.save_checkpoint(ckpt_dir, step)
+    log.info(f"saved final checkpoint at step {step} to {ckpt_dir}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,6 +7,12 @@
 //   wt_attn_block_pooled  <- fused_attn_block_pooled     (_attn_block_pooled_kernel)
 //                            fused_attn_block_pooled_dyn (_attn_block_pooled_dyn_kernel)
 //   wt_mlp_fc, wt_mlp_proj <- fused_mlp_split            (_fc_kernel, _proj_kernel)
+// the saved-activation forwards of training (the same Pallas kernels with
+// one more output):
+//   wt_attn_block_res     <- fused_attn_block_res        (_attn_block_kernel, qkv_out)
+//   wt_mlp_block_res      <- fused_mlp_block_res         (_mlp_block_kernel, h_out)
+//   wt_mlp_fc_res (then wt_mlp_proj)
+//                         <- fused_mlp_split_res         (_fc_kernel with hpre_ref)
 // and of wise_tpu/ops/attention.py:
 //   wt_short_attention    <- fused_short_attention       (_kernel)
 //
@@ -34,6 +40,17 @@
 // where the split exists because both weights do not fit VMEM above width
 // 768. Here no weight is resident, so the two wrappers differ only in who
 // owns h.
+//
+// The training forwards hand the backward one buffer each. The attention
+// block's qkv GEMM already writes the post-bias qkv (M, 3D) bf16 to device
+// memory between its launches, so wt_attn_block and wt_attn_block_res are one
+// launch chain and differ only in who owns qkv: the serve entry's scratch, or
+// the caller's residual. The MLP's residual is new work: the fc GEMM's
+// kBiasActPre epilogue stores bf16(acc + bias) beside bf16(act(acc + bias))
+// from the same f32 accumulator, 2 M F more bytes and no second pass. The
+// saved value is the rounded one the backward differentiates the activation
+// at; h itself still comes from the unrounded accumulator, as in serving
+// (the two differ by under one bf16 ulp of h).
 //
 // wt_short_attention is that attention kernel alone, for the towers that run
 // with the block kernels off: it reads q, k and v through their own pointers
@@ -144,13 +161,17 @@ cudaError_t launch_attention_pooled(const bf16* q, const bf16* kv, int D,
   return cudaGetLastError();
 }
 
-// h = act(fc(LN(x))) as (M, F) bf16; scratch y (M, D) bf16
+// h = act(fc(LN(x))) as (M, F) bf16; scratch y (M, D) bf16. With h_pre
+// (M, F) bf16 the pre-activation fc(LN(x)) is stored there as well.
 cudaError_t mlp_fc(const void* x, int x_f32, const float* ln_s,
                    const float* ln_b, const bf16* wfc, const bf16* bfc,
-                   bf16* h, bf16* y, int M, int D, int F, int act,
+                   bf16* h, bf16* h_pre, bf16* y, int M, int D, int F, int act,
                    cudaStream_t st) {
   cudaError_t err = layernorm(x, x_f32, ln_s, ln_b, y, M, D, st);
   if (err != cudaSuccess) return err;
+  if (h_pre)
+    return gemm<bf16, kBiasActPre>(y, D, kNoMap, wfc, F, bfc, h, F, nullptr, 0,
+                                   kNoMap, M, F, D, act, st, h_pre);
   return gemm<bf16, kBiasAct>(y, D, kNoMap, wfc, F, bfc, h, F, nullptr, 0,
                               kNoMap, M, F, D, act, st);
 }
@@ -161,6 +182,26 @@ cudaError_t mlp_proj(const bf16* h, const bf16* wproj, const bf16* bproj,
                      cudaStream_t st) {
   return gemm_residual(h, F, kNoMap, wproj, D, bproj, out, D, x, D, kNoMap,
                        x_f32, M, D, F, st);
+}
+
+// The attention block's launch chain; qkv (B*SP, 3D) bf16 holds the
+// post-bias in-projection when it returns.
+int attn_block(const void* x, int x_f32, const float* ln_s, const float* ln_b,
+               const bf16* wqkv, const bf16* bqkv, const bf16* wo,
+               const bf16* bo, void* out, bf16* y, bf16* qkv, bf16* att, int B,
+               int SP, int D, int H, int n_valid, int causal,
+               cudaStream_t st) {
+  const int M = B * SP;
+  const int hd = head_dim(SP, D, H);
+  if (!hd) return (int)cudaErrorInvalidValue;
+  WT_CHECK(layernorm(x, x_f32, ln_s, ln_b, y, M, D, st));
+  WT_CHECK((gemm<bf16, kBias>(y, D, kNoMap, wqkv, 3 * D, bqkv, qkv, 3 * D,
+                              nullptr, 0, kNoMap, M, 3 * D, D, kNone, st)));
+  WT_CHECK(attention_packed(hd, qkv, nullptr, att, D, B, SP, H, n_valid,
+                            causal, st));
+  WT_CHECK(gemm_residual(att, D, kNoMap, wo, D, bo, out, D, x, D, kNoMap,
+                         x_f32, M, D, D, st));
+  return 0;
 }
 
 }  // namespace
@@ -175,18 +216,23 @@ int wt_attn_block(const void* x, int x_f32, const float* ln_s,
                   const bf16* wo, const bf16* bo, void* out, bf16* y,
                   bf16* qkv, bf16* att, int B, int SP, int D, int H,
                   int n_valid, int causal, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int M = B * SP;
-  const int hd = head_dim(SP, D, H);
-  if (!hd) return (int)cudaErrorInvalidValue;
-  WT_CHECK(layernorm(x, x_f32, ln_s, ln_b, y, M, D, st));
-  WT_CHECK((gemm<bf16, kBias>(y, D, kNoMap, wqkv, 3 * D, bqkv, qkv, 3 * D,
-                              nullptr, 0, kNoMap, M, 3 * D, D, kNone, st)));
-  WT_CHECK(attention_packed(hd, qkv, nullptr, att, D, B, SP, H, n_valid,
-                            causal, st));
-  WT_CHECK(gemm_residual(att, D, kNoMap, wo, D, bo, out, D, x, D, kNoMap,
-                         x_f32, M, D, D, st));
-  return 0;
+  return attn_block(x, x_f32, ln_s, ln_b, wqkv, bqkv, wo, bo, out, y, qkv, att,
+                    B, SP, D, H, n_valid, causal,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// The training forward of the attention block: out as wt_attn_block, and the
+// post-bias qkv (B*SP, 3D) bf16 as a second output in the caller's memory,
+// written once by the qkv GEMM's bias epilogue. Scratch (bf16): y (B*SP, D),
+// att (B*SP, D). The arguments stand as wt_attn_block's.
+int wt_attn_block_res(const void* x, int x_f32, const float* ln_s,
+                      const float* ln_b, const bf16* wqkv, const bf16* bqkv,
+                      const bf16* wo, const bf16* bo, void* out, bf16* y,
+                      bf16* qkv_out, bf16* att, int B, int SP, int D, int H,
+                      int n_valid, int causal, void* stream) {
+  return attn_block(x, x_f32, ln_s, ln_b, wqkv, bqkv, wo, bo, out, y, qkv_out,
+                    att, B, SP, D, H, n_valid, causal,
+                    static_cast<cudaStream_t>(stream));
 }
 
 // The attention middle alone: softmax(q k^T * scale, keys >= n_valid and,
@@ -210,7 +256,23 @@ int wt_mlp_block(const void* x, int x_f32, const float* ln_s,
                  const bf16* wproj, const bf16* bproj, void* out, bf16* y,
                  bf16* h, int M, int D, int F, int act, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  WT_CHECK(mlp_fc(x, x_f32, ln_s, ln_b, wfc, bfc, h, y, M, D, F, act, st));
+  WT_CHECK(mlp_fc(x, x_f32, ln_s, ln_b, wfc, bfc, h, nullptr, y, M, D, F, act,
+                  st));
+  WT_CHECK(mlp_proj(h, wproj, bproj, x, x_f32, out, M, D, F, st));
+  return 0;
+}
+
+// The training forward of the MLP block: out as wt_mlp_block, and the
+// pre-activation fc output (M, F) bf16 as a second output in the caller's
+// memory. Scratch (bf16): y (M, D), h (M, F).
+int wt_mlp_block_res(const void* x, int x_f32, const float* ln_s,
+                     const float* ln_b, const bf16* wfc, const bf16* bfc,
+                     const bf16* wproj, const bf16* bproj, void* out,
+                     bf16* h_pre, bf16* y, bf16* h, int M, int D, int F,
+                     int act, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  WT_CHECK(mlp_fc(x, x_f32, ln_s, ln_b, wfc, bfc, h, h_pre, y, M, D, F, act,
+                  st));
   WT_CHECK(mlp_proj(h, wproj, bproj, x, x_f32, out, M, D, F, st));
   return 0;
 }
@@ -220,7 +282,19 @@ int wt_mlp_block(const void* x, int x_f32, const float* ln_s,
 int wt_mlp_fc(const void* x, int x_f32, const float* ln_s, const float* ln_b,
               const bf16* wfc, const bf16* bfc, bf16* h, bf16* y, int M, int D,
               int F, int act, void* stream) {
-  return (int)mlp_fc(x, x_f32, ln_s, ln_b, wfc, bfc, h, y, M, D, F, act,
+  return (int)mlp_fc(x, x_f32, ln_s, ln_b, wfc, bfc, h, nullptr, y, M, D, F,
+                     act, static_cast<cudaStream_t>(stream));
+}
+
+// The first half of the split MLP's training forward: h as wt_mlp_fc, and
+// the pre-activation fc output (M, F) bf16 beside it, both in the caller's
+// memory; wt_mlp_proj closes the block unchanged. Scratch (bf16): y (M, D).
+int wt_mlp_fc_res(const void* x, int x_f32, const float* ln_s,
+                  const float* ln_b, const bf16* wfc, const bf16* bfc, bf16* h,
+                  bf16* h_pre, bf16* y, int M, int D, int F, int act,
+                  void* stream) {
+  if (!h_pre) return (int)cudaErrorInvalidValue;
+  return (int)mlp_fc(x, x_f32, ln_s, ln_b, wfc, bfc, h, h_pre, y, M, D, F, act,
                      static_cast<cudaStream_t>(stream));
 }
 

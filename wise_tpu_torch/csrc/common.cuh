@@ -22,7 +22,10 @@ namespace {
 
 constexpr float kEps = 1e-5f;
 
-enum Epilogue { kBias = 0, kBiasAct = 1, kBiasResidual = 2 };
+// kBiasActPre is kBiasAct that also stores the pre-activation value
+// (acc + bias, rounded to the output type) to a second output: the residual
+// the training backward differentiates the activation at.
+enum Epilogue { kBias = 0, kBiasAct = 1, kBiasResidual = 2, kBiasActPre = 3 };
 enum Act { kNone = 0, kGelu = 1, kQuickGelu = 2, kGeluTanh = 3 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -142,13 +145,15 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // The residual is read as TR (the pre-LN blocks add in the stream's type,
 // TR = TO; the post-LN blocks add a bf16 x into an f32 sum, TO = float).
+// ``pre`` (kBiasActPre only) has out's shape and row stride: both values come
+// from one accumulator, so the second output costs its bytes and no pass.
 template <typename TO, int EPI, typename TR>
 __global__ void __launch_bounds__(kGemmThreads)
 gemm_kernel(const bf16* __restrict__ A, int lda, RowMap amap,
             const bf16* __restrict__ W, int ldw,
             const bf16* __restrict__ bias, TO* __restrict__ out, int ldo,
             const TR* __restrict__ res, int ldr, RowMap rmap, int M, int N,
-            int K, int act) {
+            int K, int act, TO* __restrict__ pre) {
   extern __shared__ __align__(128) unsigned char gemm_smem[];
   bf16* As = reinterpret_cast<bf16*>(gemm_smem);
   bf16* Bs = As + kStages * A_STAGE;
@@ -243,7 +248,8 @@ gemm_kernel(const bf16* __restrict__ A, int lda, RowMap amap,
         if (m < M && n < N) {
           float v = cs[e];
           if (bias) v += __bfloat162float(bias[n]);
-          if (EPI == kBiasAct) v = activation(v, act);
+          if (EPI == kBiasActPre) pre[(size_t)m * ldo + n] = from_f<TO>(v);
+          if (EPI == kBiasAct || EPI == kBiasActPre) v = activation(v, act);
           if (EPI == kBiasResidual) {
             const float r = to_f(res[map_row(rmap, m) * ldr + n]);
             out[(size_t)m * ldo + n] = from_f<TO>(r + to_f(from_f<TO>(v)));
@@ -284,19 +290,22 @@ struct as_given {
   using type = T;
 };
 
-// ``res`` points at TR values (null where EPI adds no residual)
+// ``res`` points at TR values (null where EPI adds no residual); ``pre`` is
+// kBiasActPre's second output (null otherwise)
 template <typename TO, int EPI, typename TR = TO>
 cudaError_t gemm(const bf16* A, int lda, RowMap amap, const bf16* W, int ldw,
                  const bf16* bias, TO* out, int ldo,
                  const typename as_given<TR>::type* res, int ldr, RowMap rmap,
-                 int M, int N, int K, int act, cudaStream_t st) {
+                 int M, int N, int K, int act, cudaStream_t st,
+                 TO* pre = nullptr) {
   cudaError_t err = cudaFuncSetAttribute(
       gemm_kernel<TO, EPI, TR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kGemmSmem);
   if (err != cudaSuccess) return err;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   gemm_kernel<TO, EPI, TR><<<grid, kGemmThreads, kGemmSmem, st>>>(
-      A, lda, amap, W, ldw, bias, out, ldo, res, ldr, rmap, M, N, K, act);
+      A, lda, amap, W, ldw, bias, out, ldo, res, ldr, rmap, M, N, K, act,
+      pre);
   return cudaGetLastError();
 }
 

@@ -5,8 +5,12 @@ Same 4-token id scheme (``mlfoundations/open_clip/<model>/<pretrained>``),
 same checkpoint search (``open_clip_*.{npz,pt,bin,safetensors}`` under
 ``$WISE_CHECKPOINT_DIR/<model>/<pretrained>/``, a
 ``bpe_simple_vocab_16e6.txt.gz`` beside it for real tokenisation), same
-L2-normalised float32 outputs and batch buckets. Without a checkpoint the
-towers take seeded random weights, with a warning. Frames move to the
+L2-normalised float32 outputs and batch buckets. A directory that holds
+``step_*`` checkpoints of the port's trainer (parallel/train.py) and no
+open_clip file serves the newest of them, as the reference serves its
+trainer's orbax checkpoints; an orbax ``step_*`` directory itself raises,
+since the port cannot read orbax. Without a checkpoint the towers take seeded
+random weights, with a warning. Frames move to the
 device as uint8; preprocessing and both towers run there.
 """
 
@@ -22,6 +26,7 @@ import torch
 
 from ...utils.device import default_device
 from ..feature_extractor import BucketPolicy, DeviceArray, FeatureExtractor
+from ...parallel.train import checkpoint_steps, restore_train_checkpoint
 from .config import production_clip_config
 from .convert import load_checkpoint
 from .model import CLIP, init_random_
@@ -43,7 +48,9 @@ def _find_checkpoint(d: Path) -> Optional[Path]:
     if not d.exists():
         return None
     for pat in ("*.npz", "*.pt", "*.bin", "*.safetensors"):
-        hits = sorted(d.glob(pat))
+        # a trainer's step_* entry is never an open_clip checkpoint
+        hits = sorted(p for p in d.glob(pat)
+                      if p.is_file() and not p.name.startswith("step_"))
         if hits:
             return hits[0]
     return None
@@ -66,11 +73,22 @@ class OpenClipExtractor(FeatureExtractor):
         model = CLIP(self.config)
         ckpt_dir = _checkpoint_dir(self.model_name, self.pretrained)
         ckpt = _find_checkpoint(ckpt_dir)
-        if ckpt is None and ckpt_dir.exists() and any(ckpt_dir.glob("step_*")):
+        steps = checkpoint_steps(ckpt_dir)
+        if ckpt is None and steps:
+            # fine-tuned by cli/train.py: the f32 master tree, cast into the
+            # serving dtype as it is copied in
+            step, params, _ = restore_train_checkpoint(ckpt_dir, steps[-1])
+            logger.info(f"loading fine-tuned checkpoint step {step} of "
+                        f"{ckpt_dir}")
+            model.load_state_dict(params)
+        elif ckpt is None and ckpt_dir.exists() and any(
+                ckpt_dir.glob("step_*")):
             raise NotImplementedError(
-                f"{ckpt_dir} holds an orbax fine-tuned checkpoint; the port "
-                "reads open_clip checkpoints only (ROADMAP Queue A item 13)")
-        if ckpt is not None:
+                f"{ckpt_dir} holds step_* directories without a "
+                "train_state.pt: an orbax checkpoint of the JAX package's "
+                "trainer, which the port cannot read (it does not import "
+                "orbax); fine-tune with wise_tpu_torch.cli.train")
+        elif ckpt is not None:
             logger.info(f"loading CLIP checkpoint {ckpt}")
             model.load_state_dict(load_checkpoint(ckpt, self.config))
         else:
@@ -139,6 +157,12 @@ class OpenClipExtractor(FeatureExtractor):
         """Device half of ``extract_image_features``: the (n, D) embedding
         stays on the device until numpy reads it."""
         images = np.asarray(images)
+        if images.dtype == np.uint8 and os.environ.get(
+                "WISE_PREPROCESS", "") == "exact":
+            raise NotImplementedError(
+                "WISE_PREPROCESS=exact: the reference's PIL preprocessing "
+                "path is not ported (ROADMAP Queue A item 15); unset it for "
+                "the device resize")
         if images.ndim == 3:
             images = images[None]
         s = self.config.image_size

@@ -3,9 +3,14 @@
 OpenCLIP's architecture with the reference's parameter tree: a module's
 state_dict key is the flax path joined by dots (``resblocks_3`` becomes
 ``resblocks.3``), and every matrix keeps the flax x @ W layout, which is the
-layout the block kernels take. Matrices, Dense biases and embeddings are
-stored in the compute dtype (the reference casts them at every use, which
-rounds the same way); LayerNorm parameters stay f32.
+layout the block kernels take. For serving, matrices, Dense biases and
+embeddings are stored in the compute dtype (the reference casts them at
+every use, which rounds the same way); LayerNorm parameters stay f32. For
+training, ``CLIP(config, param_dtype=torch.float32)`` stores every parameter
+in f32 and casts at each use, as the reference does: an AdamW update at a
+fine-tuning learning rate is smaller than half a bf16 ulp of most weights and
+would be lost whole in a bf16 parameter. The gradient flows back through the
+cast into the f32 master.
 
 Numerics follow the reference's production path: f32 LayerNorms, bf16
 GEMMs, an f32 vision residual stream after ``ln_pre`` (bf16 with
@@ -26,6 +31,13 @@ attention middle alone is a kernel (ops/attention.py
 and the pooled last layer are plain, as in the reference. With both off every
 block is plain PyTorch. ``text_tower="hf_xlm_roberta"`` swaps the text side
 for the XLM-RoBERTa tower (hf_text.py) on the post-LN kernels.
+
+Under autograd the blocks go through the ``*_train`` functions of
+ops/block.py: with no gradient required they launch what serving launches;
+with one, the saved-activation kernels and plain-PyTorch backwards. The
+attention-middle kernel and the post-LN kernels have no training rule yet and
+raise there. ``config.remat`` recomputes each block in the backward
+(``torch.utils.checkpoint``).
 """
 
 from __future__ import annotations
@@ -34,6 +46,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...ops import attention as A
 from ...ops import block as K
@@ -53,31 +66,39 @@ class LayerNorm(nn.Module):
 
 
 class Dense(nn.Module):
-    """flax Dense: kernel (in, out), bias (out,) unless ``bias=False``, in
+    """flax Dense: kernel (in, out), bias (out,) unless ``bias=False``,
+    stored in ``param_dtype`` (the compute dtype unless given) and used in
     the compute dtype."""
 
     def __init__(self, din: int, dout: int, dtype: torch.dtype,
-                 bias: bool = True):
+                 bias: bool = True, param_dtype: torch.dtype | None = None):
         super().__init__()
-        self.kernel = nn.Parameter(torch.zeros(din, dout, dtype=dtype))
-        self.bias = (nn.Parameter(torch.zeros(dout, dtype=dtype)) if bias
+        self.dtype = dtype
+        pdt = param_dtype or dtype
+        self.kernel = nn.Parameter(torch.zeros(din, dout, dtype=pdt))
+        self.bias = (nn.Parameter(torch.zeros(dout, dtype=pdt)) if bias
                      else None)
 
+    def weights(self):
+        """(kernel, bias) in the compute dtype."""
+        return self.kernel.to(self.dtype), self.bias.to(self.dtype)
+
     def forward(self, x):
-        y = x.to(self.kernel.dtype) @ self.kernel
-        return y if self.bias is None else y + self.bias
+        y = x.to(self.dtype) @ self.kernel.to(self.dtype)
+        return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 class Attention(nn.Module):
-    def __init__(self, width: int, dtype: torch.dtype):
+    def __init__(self, width: int, dtype: torch.dtype, param_dtype=None):
         super().__init__()
-        self.in_proj = Dense(width, 3 * width, dtype)
-        self.out_proj = Dense(width, width, dtype)
+        self.in_proj = Dense(width, 3 * width, dtype, param_dtype=param_dtype)
+        self.out_proj = Dense(width, width, dtype, param_dtype=param_dtype)
 
 
 class ResidualAttentionBlock(nn.Module):
     def __init__(self, width: int, heads: int, act: str, dtype: torch.dtype,
-                 fused_block: bool, fused_attention: bool = False):
+                 fused_block: bool, fused_attention: bool = False,
+                 param_dtype=None):
         super().__init__()
         self.width, self.heads, self.act, self.dtype = width, heads, act, dtype
         self.fused_block = fused_block and dtype == torch.bfloat16
@@ -86,15 +107,20 @@ class ResidualAttentionBlock(nn.Module):
         self.fused_attention = (fused_attention and dtype == torch.bfloat16
                                 and not self.fused_block)
         self.ln_1 = LayerNorm(width)
-        self.attn = Attention(width, dtype)
+        self.attn = Attention(width, dtype, param_dtype)
         self.ln_2 = LayerNorm(width)
-        self.mlp_fc = Dense(width, 4 * width, dtype)
-        self.mlp_proj = Dense(4 * width, width, dtype)
+        self.mlp_fc = Dense(width, 4 * width, dtype, param_dtype=param_dtype)
+        self.mlp_proj = Dense(4 * width, width, dtype,
+                              param_dtype=param_dtype)
 
     def _attn_params(self):
         a = self.attn
-        return (self.ln_1.scale, self.ln_1.bias, a.in_proj.kernel,
-                a.in_proj.bias, a.out_proj.kernel, a.out_proj.bias)
+        return (self.ln_1.scale, self.ln_1.bias, *a.in_proj.weights(),
+                *a.out_proj.weights())
+
+    def _mlp_params(self):
+        return (self.ln_2.scale, self.ln_2.bias, *self.mlp_fc.weights(),
+                *self.mlp_proj.weights())
 
     def _attention_middle(self, x, n_valid: int, causal: bool):
         """x + out_proj(fused_short_attention(in_proj(LN(x)))): the
@@ -108,22 +134,17 @@ class ResidualAttentionBlock(nn.Module):
         fused = self.fused_block
         if self.fused_attention:
             x = self._attention_middle(x, n_valid, causal)
-            return K.plain_mlp_block(
-                x, self.ln_2.scale, self.ln_2.bias, self.mlp_fc.kernel,
-                self.mlp_fc.bias, self.mlp_proj.kernel, self.mlp_proj.bias,
-                act=self.act)
-        attn = K.fused_attn_block if fused else K.plain_attn_block
+            return K.plain_mlp_block(x, *self._mlp_params(), act=self.act)
+        attn = K.fused_attn_block_train if fused else K.plain_attn_block
         if not fused:
             mlp = K.plain_mlp_block
         elif K.mlp_choice(self.width) == "split":
-            mlp = K.fused_mlp_split
+            mlp = K.fused_mlp_split_train
         else:
-            mlp = K.fused_mlp_block
+            mlp = K.fused_mlp_block_train
         x = attn(x, *self._attn_params(), heads=self.heads, n_valid=n_valid,
                  causal=causal)
-        return mlp(x, self.ln_2.scale, self.ln_2.bias, self.mlp_fc.kernel,
-                   self.mlp_fc.bias, self.mlp_proj.kernel, self.mlp_proj.bias,
-                   act=self.act)
+        return mlp(x, *self._mlp_params(), act=self.act)
 
     def pooled(self, x, n_valid: int, causal: bool = False,
                pool_row: int | None = None, rows=None):
@@ -131,12 +152,12 @@ class ResidualAttentionBlock(nn.Module):
         int32 per example (text EOT), else the static ``pool_row``."""
         fused = self.fused_block
         if rows is not None:
-            fn = (K.fused_attn_block_pooled_dyn if fused
+            fn = (K.fused_attn_block_pooled_dyn_train if fused
                   else K.plain_attn_block_pooled_dyn)
             x0 = fn(x, rows, *self._attn_params(), heads=self.heads,
                     n_valid=n_valid, causal=causal)
         else:
-            fn = (K.fused_attn_block_pooled if fused
+            fn = (K.fused_attn_block_pooled_train if fused
                   else K.plain_attn_block_pooled)
             x0 = fn(x, *self._attn_params(), heads=self.heads,
                     n_valid=n_valid, pool_row=pool_row, causal=causal)
@@ -147,11 +168,15 @@ class ResidualAttentionBlock(nn.Module):
 class Transformer(nn.Module):
     def __init__(self, width: int, layers: int, heads: int, act: str,
                  dtype: torch.dtype, fused_block: bool,
-                 fused_attention: bool = False):
+                 fused_attention: bool = False, remat: bool = False,
+                 param_dtype=None):
         super().__init__()
+        #: recompute each block in the backward instead of keeping its
+        #: activations (the reference's nn.remat around a block)
+        self.remat = remat
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads, act, dtype, fused_block,
-                                   fused_attention)
+                                   fused_attention, param_dtype)
             for _ in range(layers)
         )
 
@@ -159,11 +184,19 @@ class Transformer(nn.Module):
                 pool_row: int | None = None, pool_rows=None):
         """(B, S, D) -> (B, S, D); with ``pool_row`` / ``pool_rows`` the last
         layer runs pooled and the result is (B, D)."""
+        remat = self.remat and torch.is_grad_enabled()
+
+        def run(fn, *args):
+            if remat:
+                return checkpoint(fn, *args, use_reentrant=False)
+            return fn(*args)
+
         last = len(self.resblocks) - 1
         for i, blk in enumerate(self.resblocks):
             if i == last and (pool_row is not None or pool_rows is not None):
-                return blk.pooled(x, n_valid, causal, pool_row, pool_rows)
-            x = blk(x, n_valid, causal)
+                return run(blk.pooled, x, n_valid, causal, pool_row,
+                           pool_rows)
+            x = run(blk, x, n_valid, causal)
         return x
 
 
@@ -171,46 +204,51 @@ class PatchEmbed(nn.Module):
     """The patch convolution's kernel in flax HWIO layout (p, p, 3, D),
     applied as patchify + one GEMM."""
 
-    def __init__(self, patch: int, width: int, dtype: torch.dtype):
+    def __init__(self, patch: int, width: int, dtype: torch.dtype,
+                 param_dtype=None):
         super().__init__()
+        self.dtype = dtype
         self.kernel = nn.Parameter(
-            torch.zeros(patch, patch, 3, width, dtype=dtype))
+            torch.zeros(patch, patch, 3, width, dtype=param_dtype or dtype))
 
     def forward(self, images):
         p, width = self.kernel.shape[0], self.kernel.shape[-1]
         b, h, w, _ = images.shape
         gh, gw = h // p, w // p
-        x = images.to(self.kernel.dtype).reshape(b, gh, p, gw, p, 3)
+        x = images.to(self.dtype).reshape(b, gh, p, gw, p, 3)
         x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, gh * gw, p * p * 3)
-        return x @ self.kernel.reshape(p * p * 3, width)
+        return x @ self.kernel.to(self.dtype).reshape(p * p * 3, width)
 
 
 class VisionTransformer(nn.Module):
-    def __init__(self, c: CLIPConfig):
+    def __init__(self, c: CLIPConfig, param_dtype=None):
         super().__init__()
         if c.vision_pool != "cls":
             raise NotImplementedError(
                 "MAP-pooled vision towers: ROADMAP Queue A item 8")
         self.config = c
         dt, w = c.torch_dtype, c.vision_width
+        pdt = param_dtype or dt
         n_tok = (c.image_size // c.patch_size) ** 2 + 1
-        self.conv1 = PatchEmbed(c.patch_size, w, dt)
-        self.class_embedding = nn.Parameter(torch.zeros(w, dtype=dt))
+        self.conv1 = PatchEmbed(c.patch_size, w, dt, param_dtype)
+        self.class_embedding = nn.Parameter(torch.zeros(w, dtype=pdt))
         self.positional_embedding = nn.Parameter(
-            torch.zeros(n_tok, w, dtype=dt))
+            torch.zeros(n_tok, w, dtype=pdt))
         self.ln_pre = LayerNorm(w)
         self.transformer = Transformer(w, c.vision_layers, c.vision_heads,
                                        c.act_name, dt, c.fused_block,
-                                       c.fused_attention)
+                                       c.fused_attention, c.remat,
+                                       param_dtype)
         self.ln_post = LayerNorm(w)
-        self.proj = nn.Parameter(torch.zeros(w, c.embed_dim, dtype=dt))
+        self.proj = nn.Parameter(torch.zeros(w, c.embed_dim, dtype=pdt))
 
     def forward(self, images):
         """images (B, H, W, 3) float, normalised -> (B, embed_dim) f32."""
         c = self.config
+        dt = c.torch_dtype
         x = self.conv1(images)
-        cls = self.class_embedding.expand(x.shape[0], 1, -1)
-        x = torch.cat([cls, x], dim=1) + self.positional_embedding
+        cls = self.class_embedding.to(dt).expand(x.shape[0], 1, -1)
+        x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(dt)
         x = self.ln_pre(x)
         if c.bf16_stream:
             x = x.to(c.torch_dtype)
@@ -219,33 +257,44 @@ class VisionTransformer(nn.Module):
         else:
             x = self.transformer(x, x.shape[1])[:, 0]
         x = self.ln_post(x)
-        return (x.to(c.torch_dtype) @ self.proj).float()
+        return (x.to(dt) @ self.proj.to(dt)).float()
 
 
 class TextTransformer(nn.Module):
-    def __init__(self, c: CLIPConfig):
+    def __init__(self, c: CLIPConfig, param_dtype=None):
         super().__init__()
         if c.text_tower != "clip" or c.text_pool != "argmax":
             raise NotImplementedError(
                 "last-pooled text towers: ROADMAP Queue A item 8")
         self.config = c
         dt, w = c.torch_dtype, c.text_width
+        pdt = param_dtype or dt
         self.token_embedding = nn.Parameter(
-            torch.zeros(c.vocab_size, w, dtype=dt))
+            torch.zeros(c.vocab_size, w, dtype=pdt))
         self.positional_embedding = nn.Parameter(
-            torch.zeros(c.context_length, w, dtype=dt))
+            torch.zeros(c.context_length, w, dtype=pdt))
         self.transformer = Transformer(w, c.text_layers, c.text_heads,
                                        c.act_name, dt, c.fused_block,
-                                       c.fused_attention)
+                                       c.fused_attention, c.remat,
+                                       param_dtype)
         self.ln_final = LayerNorm(w)
         self.text_projection = nn.Parameter(
-            torch.zeros(w, c.embed_dim, dtype=dt))
+            torch.zeros(w, c.embed_dim, dtype=pdt))
 
     def forward(self, tokens):
         """tokens (B, context_length) int -> (B, embed_dim) f32, pooled at
-        the argmax token (EOT has the highest id, as in open_clip)."""
+        the argmax token (EOT has the highest id, as in open_clip). Ids
+        outside the vocabulary raise: the reference's gather clamps them
+        without a word, and an index error from the card names nothing."""
         c = self.config
-        x = self.token_embedding[tokens] + self.positional_embedding
+        dt = c.torch_dtype
+        lo, hi = (int(v) for v in torch.stack(torch.aminmax(tokens)).tolist())
+        if lo < 0 or hi >= c.vocab_size:
+            raise ValueError(
+                f"token ids span [{lo}, {hi}], outside the vocabulary "
+                f"[0, {c.vocab_size})")
+        x = (self.token_embedding[tokens].to(dt)
+             + self.positional_embedding.to(dt))
         eot = tokens.argmax(dim=-1)
         n = x.shape[1]
         if c.pool_last_block:
@@ -254,7 +303,7 @@ class TextTransformer(nn.Module):
         else:
             x = self.ln_final(self.transformer(x, n, causal=c.text_causal))
             pooled = x[torch.arange(x.shape[0], device=x.device), eot]
-        return (pooled.to(c.torch_dtype) @ self.text_projection).float()
+        return (pooled.to(dt) @ self.text_projection.to(dt)).float()
 
 
 def _l2_normalize(x):
@@ -262,16 +311,25 @@ def _l2_normalize(x):
 
 
 class CLIP(nn.Module):
-    def __init__(self, config: CLIPConfig):
+    """``param_dtype`` stores the matrices, biases and embeddings in another
+    dtype than the compute dtype: float32 for training (the module
+    docstring says why); None, the compute dtype, for serving."""
+
+    def __init__(self, config: CLIPConfig,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
         self.config = config
-        self.visual = VisionTransformer(config)
+        self.visual = VisionTransformer(config, param_dtype)
         if config.text_tower == "hf_xlm_roberta":
             from .hf_text import XLMRobertaTextTower, hf_text_config
 
+            if param_dtype not in (None, config.torch_dtype):
+                raise NotImplementedError(
+                    "training the XLM-RoBERTa text tower: ROADMAP Queue A "
+                    "item 16")
             self.text = XLMRobertaTextTower(hf_text_config(config))
         else:
-            self.text = TextTransformer(config)
+            self.text = TextTransformer(config, param_dtype)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
 
     def encode_image(self, images, normalize: bool = True):
@@ -281,6 +339,12 @@ class CLIP(nn.Module):
     def encode_text(self, tokens, normalize: bool = True):
         feats = self.text(tokens)
         return _l2_normalize(feats) if normalize else feats
+
+    def forward(self, images, tokens):
+        """(normalised image features, normalised text features,
+        exp(logit_scale)): what the contrastive loss takes."""
+        return (self.encode_image(images), self.encode_text(tokens),
+                self.logit_scale.exp())
 
 
 @torch.no_grad()

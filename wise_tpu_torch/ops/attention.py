@@ -26,7 +26,7 @@ import math
 import torch
 
 from .block import HEAD_DIMS, MAX_SEQ, _require, _stream
-from .build import LaunchCounter, check, load_library
+from .build import LaunchCounter, check, load_library, refuse_grad
 
 _launches = LaunchCounter("fused_short_attention")
 #: kernel launches since the last reset_launches()
@@ -34,6 +34,11 @@ LAUNCHES = _launches.counts
 #: the same launches keyed by (wrapper, SP, D)
 LAUNCHES_BY_SHAPE = _launches.by_shape
 reset_launches = _launches.reset
+
+
+#: what a wrapper here says when it is called on the card under autograd
+NO_TRAIN_RULE = ("its training rule is not ported yet (ROADMAP.md Queue A "
+                 "item 16)")
 
 
 def plain_short_attention(q, k, v, heads: int, n_valid: int,
@@ -83,6 +88,7 @@ def fused_short_attention(q, k, v, heads: int, n_valid: int,
     if not q.is_cuda:
         return plain_short_attention(q, k, v, heads, n_valid, causal, scale)
     name = "fused_short_attention"
+    refuse_grad(name, (q, k, v), NO_TRAIN_RULE)
     _require(q.dim() == 3, f"{name}: q must be (B, SP, D)")
     b, sp, d = q.shape
     _require(heads >= 1 and d % heads == 0 and d // heads in HEAD_DIMS,

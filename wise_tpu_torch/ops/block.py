@@ -15,6 +15,20 @@ version; on a CUDA tensor it launches its kernel chain
 | fused_attn_block_pooled_dyn   | fused_attn_block_pooled_dyn (block.py:811)  |
 | fused_mlp_split (fused_mlp_fc | fused_mlp_split (block.py:1209: _fc_kernel  |
 |   then fused_mlp_proj)        |   block.py:1129, _proj_kernel block.py:1158)|
+| fused_attn_block_res          | fused_attn_block_res (block.py:1586)        |
+| fused_mlp_block_res           | fused_mlp_block_res (block.py:1635)         |
+| fused_mlp_split_res           | fused_mlp_split_res (block.py:1681)         |
+
+The ``*_res`` wrappers are the training forwards: each returns its serve
+twin's output and the residual the backward starts from (the post-bias qkv,
+the pre-activation fc output), in the weight dtype. The ``*_train`` functions
+(wise_tpu/ops/block.py:1906-2045) are what the towers call: with no gradient
+required they are the serve wrappers; otherwise a ``torch.autograd.Function``
+whose forward launches the ``*_res`` kernel (the pooled ones their serve
+kernel) and whose backward is plain PyTorch, as the reference's is plain JAX.
+Any other wrapper called on the card under autograd with an input that
+requires a gradient raises: a kernel writes through raw pointers, and its
+output would be cut from the graph.
 """
 
 from __future__ import annotations
@@ -23,7 +37,7 @@ import math
 
 import torch
 
-from .build import LaunchCounter, check, load_library
+from .build import LaunchCounter, check, load_library, refuse_grad
 
 EPS = 1e-5
 #: head dims the attention kernels are instantiated for (csrc/block_kernels.cu)
@@ -37,7 +51,8 @@ ACTS = {"none": 0, "gelu": 1, "quick_gelu": 2, "gelu_tanh": 3}
 _launches = LaunchCounter("fused_attn_block", "fused_mlp_block",
                           "fused_attn_block_pooled",
                           "fused_attn_block_pooled_dyn", "fused_mlp_fc",
-                          "fused_mlp_proj")
+                          "fused_mlp_proj", "fused_attn_block_res",
+                          "fused_mlp_block_res", "fused_mlp_fc_res")
 #: kernel launches per wrapper since the last reset_launches()
 LAUNCHES = _launches.counts
 #: the same launches keyed by (wrapper, SP, D) of x: one tower's count
@@ -105,33 +120,92 @@ def _softmax_attend(q, kh, vh, keep, dt):
     return torch.einsum("bhqk,bkhd->bqhd", p, vh)
 
 
-def plain_attn_block(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads: int,
-                     n_valid: int, causal: bool = False):
-    b, sp, d = x.shape
+def qkv_stage(x, ln_s, ln_b, wqkv, bqkv):
+    """The attention block up to its cut point: the post-bias in-projection
+    of LN(x), (B, SP, 3D) in the weight dtype (wise_tpu/ops/block.py:1813
+    ``_qkv_stage``)."""
+    return layer_norm_f32(x, ln_s, ln_b).to(wqkv.dtype) @ wqkv + bqkv
+
+
+def attention_of_qkv(qkv, heads: int, n_valid: int, causal: bool = False):
+    """Multi-head attention on a packed in-projection qkv (B, SP, 3D):
+    (B, SP, D) in qkv's dtype, f32 logits and softmax."""
+    b, sp, d3 = qkv.shape
+    d = d3 // 3
     hd = d // heads
-    dt = wqkv.dtype
-    y = layer_norm_f32(x, ln_s, ln_b).to(dt)
-    q, k, v = (y @ wqkv + bqkv).split(d, dim=-1)
-    col = torch.arange(sp, device=x.device)
+    q, k, v = qkv.split(d, dim=-1)
+    col = torch.arange(sp, device=qkv.device)
     keep = (col < n_valid)[None, None, None, :]
     if causal:
         keep = keep & (col[None, :] <= col[:, None])[None, None]
-    att = _softmax_attend(
+    return _softmax_attend(
         q.reshape(b, sp, heads, hd), k.reshape(b, sp, heads, hd),
-        v.reshape(b, sp, heads, hd), keep, dt,
+        v.reshape(b, sp, heads, hd), keep, qkv.dtype,
     ).reshape(b, sp, d)
+
+
+def attn_from_qkv(x, qkv, wo, bo, heads: int, n_valid: int,
+                  causal: bool = False):
+    """The attention block from its cut point: x + out_proj(MHA(qkv))
+    (wise_tpu/ops/block.py:1818 ``_attn_from_qkv``)."""
+    att = attention_of_qkv(qkv, heads, n_valid, causal)
     return x + (att @ wo + bo).to(x.dtype)
+
+
+def fc_stage(x, ln_s, ln_b, wfc, bfc):
+    """The MLP block up to its cut point: the pre-activation fc output of
+    LN(x), (B, SP, F) in the weight dtype (wise_tpu/ops/block.py:1839
+    ``_fc_stage``)."""
+    return layer_norm_f32(x, ln_s, ln_b).to(wfc.dtype) @ wfc + bfc
+
+
+def mlp_from_h(x, h_pre, wproj, bproj, act: str = "gelu"):
+    """The MLP block from its cut point: x + proj(act(h_pre)), the
+    activation in f32 on the rounded h_pre (wise_tpu/ops/block.py:1844
+    ``_mlp_from_h``)."""
+    h = activation(h_pre.float(), act).to(h_pre.dtype)
+    return plain_mlp_proj(h, wproj, bproj, x)
+
+
+def plain_attn_block_res(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads: int,
+                         n_valid: int, causal: bool = False):
+    """(x + out_proj(MHA(LN(x))), the post-bias qkv (B, SP, 3D))."""
+    qkv = qkv_stage(x, ln_s, ln_b, wqkv, bqkv)
+    return attn_from_qkv(x, qkv, wo, bo, heads, n_valid, causal), qkv
+
+
+def plain_attn_block(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads: int,
+                     n_valid: int, causal: bool = False):
+    return plain_attn_block_res(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads,
+                                n_valid, causal)[0]
+
+
+def plain_mlp_block_res(x, ln_s, ln_b, wfc, bfc, wproj, bproj,
+                        act: str = "gelu"):
+    """(x + proj(act(fc(LN(x)))), the pre-activation fc output (B, SP, F))."""
+    h_pre = fc_stage(x, ln_s, ln_b, wfc, bfc)
+    return mlp_from_h(x, h_pre, wproj, bproj, act), h_pre
+
+
+def plain_mlp_split_res(x, ln_s, ln_b, wfc, bfc, wproj, bproj,
+                        act: str = "gelu"):
+    return plain_mlp_block_res(x, ln_s, ln_b, wfc, bfc, wproj, bproj, act)
 
 
 def plain_mlp_block(x, ln_s, ln_b, wfc, bfc, wproj, bproj, act: str = "gelu"):
     return plain_mlp_split(x, ln_s, ln_b, wfc, bfc, wproj, bproj, act)
 
 
+def plain_mlp_fc_res(x, ln_s, ln_b, wfc, bfc, act: str = "gelu"):
+    """(h = act(fc(LN(x))), the pre-activation fc(LN(x))), both (B, SP, F)
+    in the weight dtype."""
+    h_pre = fc_stage(x, ln_s, ln_b, wfc, bfc)
+    return activation(h_pre.float(), act).to(h_pre.dtype), h_pre
+
+
 def plain_mlp_fc(x, ln_s, ln_b, wfc, bfc, act: str = "gelu"):
     """h = act(fc(LN(x))) in the weight dtype, (B, SP, F)."""
-    dt = wfc.dtype
-    y = layer_norm_f32(x, ln_s, ln_b).to(dt)
-    return activation((y @ wfc + bfc).float(), act).to(dt)
+    return plain_mlp_fc_res(x, ln_s, ln_b, wfc, bfc, act)[0]
 
 
 def plain_mlp_proj(h, wproj, bproj, x):
@@ -255,6 +329,10 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+def _refuse_grad(name: str, train: str, *tensors) -> None:
+    refuse_grad(name, tensors, f"call {train}, which differentiates")
+
+
 def _check_x(x, name: str):
     _require(x.dim() == 3 and x.is_contiguous(),
              f"{name}: x must be a contiguous (B, SP, D) tensor")
@@ -290,6 +368,28 @@ def _check_attn(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads, n_valid, name):
     return b, sp, d
 
 
+def _attn_launch(name, entry, x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, heads,
+                 n_valid, causal):
+    """The attention block's launch chain through ``entry`` (wt_attn_block
+    or wt_attn_block_res: one chain, the two differ in who owns qkv):
+    (out, qkv (B, SP, 3D) bf16)."""
+    b, sp, d = _check_attn(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, heads,
+                           n_valid, name)
+    lib = load_library()
+    m = b * sp
+    scratch = dict(dtype=torch.bfloat16, device=x.device)
+    y = torch.empty((m, d), **scratch)
+    qkv = torch.empty((b, sp, 3 * d), **scratch)
+    att = torch.empty((m, d), **scratch)
+    out = torch.empty_like(x)
+    check(getattr(lib, entry)(
+        *_ptrs(x), _is_f32(x), *_ptrs(ln_scale, ln_bias, wqkv, bqkv, wo, bo,
+                                     out, y, qkv, att),
+        b, sp, d, heads, int(n_valid), int(causal), _stream(x)), name)
+    _launches.add(name, sp, d)
+    return out, qkv
+
+
 def fused_attn_block(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, heads: int,
                      n_valid: int, causal: bool = False):
     """x (B, SP, D) -> x + out_proj(MHA(LN(x))); key columns >= n_valid are
@@ -298,21 +398,29 @@ def fused_attn_block(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, heads: int,
         return plain_attn_block(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
                                 heads, n_valid, causal)
     name = "fused_attn_block"
-    b, sp, d = _check_attn(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, heads,
-                           n_valid, name)
-    lib = load_library()
-    m = b * sp
-    scratch = dict(dtype=torch.bfloat16, device=x.device)
-    y = torch.empty((m, d), **scratch)
-    qkv = torch.empty((m, 3 * d), **scratch)
-    att = torch.empty((m, d), **scratch)
-    out = torch.empty_like(x)
-    check(lib.wt_attn_block(
-        *_ptrs(x), _is_f32(x), *_ptrs(ln_scale, ln_bias, wqkv, bqkv, wo, bo,
-                                     out, y, qkv, att),
-        b, sp, d, heads, int(n_valid), int(causal), _stream(x)), name)
-    _launches.add(name, sp, d)
-    return out
+    _refuse_grad(name, "fused_attn_block_train", x, ln_scale, ln_bias, wqkv,
+                 bqkv, wo, bo)
+    return _attn_launch(name, "wt_attn_block", x, ln_scale, ln_bias, wqkv,
+                        bqkv, wo, bo, heads, n_valid, causal)[0]
+
+
+def fused_attn_block_res(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo, heads: int,
+                         n_valid: int, causal: bool = False):
+    """The training forward of the attention block: (fused_attn_block's
+    output, the post-bias qkv (B, SP, 3D) in the weight dtype, bf16 even
+    under an f32 stream). On this card the serve kernel and the training
+    kernel are one launch chain: the qkv GEMM writes qkv to device memory
+    between its launch and the attention's either way, once, through its
+    bias epilogue. They differ in who owns that buffer: the serve wrapper
+    drops it as scratch, this one hands it to the backward."""
+    if not x.is_cuda:
+        return plain_attn_block_res(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
+                                    heads, n_valid, causal)
+    name = "fused_attn_block_res"
+    _refuse_grad(name, "fused_attn_block_train", x, ln_scale, ln_bias, wqkv,
+                 bqkv, wo, bo)
+    return _attn_launch(name, "wt_attn_block_res", x, ln_scale, ln_bias, wqkv,
+                        bqkv, wo, bo, heads, n_valid, causal)
 
 
 def _check_mlp(x, ln_scale, ln_bias, wfc, bfc, act, name):
@@ -333,6 +441,29 @@ def _check_proj(wproj, bproj, d, f, dev, name):
     _check_param(bproj, (d,), torch.bfloat16, dev, f"{name} bproj")
 
 
+def _mlp_block_launch(name, x, ln_scale, ln_bias, wfc, bfc, wproj, bproj, act,
+                      res: bool):
+    """(out, h_pre or None): wt_mlp_block, or with ``res`` wt_mlp_block_res."""
+    b, sp, d, f = _check_mlp(x, ln_scale, ln_bias, wfc, bfc, act, name)
+    _check_proj(wproj, bproj, d, f, x.device, name)
+    lib = load_library()
+    m = b * sp
+    bf = dict(dtype=torch.bfloat16, device=x.device)
+    y = torch.empty((m, d), **bf)
+    h = torch.empty((m, f), **bf)
+    out = torch.empty_like(x)
+    h_pre = torch.empty((b, sp, f), **bf) if res else None
+    head = (*_ptrs(x), _is_f32(x), *_ptrs(ln_scale, ln_bias, wfc, bfc, wproj,
+                                          bproj, out))
+    tail = (m, d, f, ACTS[act], _stream(x))
+    if res:
+        check(lib.wt_mlp_block_res(*head, *_ptrs(h_pre, y, h), *tail), name)
+    else:
+        check(lib.wt_mlp_block(*head, *_ptrs(y, h), *tail), name)
+    _launches.add(name, sp, d)
+    return out, h_pre
+
+
 def fused_mlp_block(x, ln_scale, ln_bias, wfc, bfc, wproj, bproj,
                     act: str = "gelu"):
     """x (B, SP, D) -> x + proj(act(fc(LN(x))))."""
@@ -340,19 +471,47 @@ def fused_mlp_block(x, ln_scale, ln_bias, wfc, bfc, wproj, bproj,
         return plain_mlp_block(x, ln_scale, ln_bias, wfc, bfc, wproj, bproj,
                                act)
     name = "fused_mlp_block"
+    _refuse_grad(name, "fused_mlp_block_train", x, ln_scale, ln_bias, wfc,
+                 bfc, wproj, bproj)
+    return _mlp_block_launch(name, x, ln_scale, ln_bias, wfc, bfc, wproj,
+                             bproj, act, res=False)[0]
+
+
+def fused_mlp_block_res(x, ln_scale, ln_bias, wfc, bfc, wproj, bproj,
+                        act: str = "gelu"):
+    """The training forward of the MLP block: (fused_mlp_block's output, the
+    pre-activation fc output (B, SP, F) in the weight dtype). The fc GEMM's
+    epilogue stores both values from one f32 accumulator: the activated h
+    from the unrounded sum, as in serving, and the sum rounded to bf16 as
+    the residual. The rounded value is the one the backward differentiates
+    the activation at, as the reference's and both plain versions do; h
+    differs from the activation of the rounded value by under one bf16 ulp."""
+    if not x.is_cuda:
+        return plain_mlp_block_res(x, ln_scale, ln_bias, wfc, bfc, wproj,
+                                   bproj, act)
+    name = "fused_mlp_block_res"
+    _refuse_grad(name, "fused_mlp_block_train", x, ln_scale, ln_bias, wfc,
+                 bfc, wproj, bproj)
+    return _mlp_block_launch(name, x, ln_scale, ln_bias, wfc, bfc, wproj,
+                             bproj, act, res=True)
+
+
+def _mlp_fc_launch(name, x, ln_scale, ln_bias, wfc, bfc, act, res: bool):
+    """(h, h_pre or None): wt_mlp_fc, or with ``res`` wt_mlp_fc_res."""
     b, sp, d, f = _check_mlp(x, ln_scale, ln_bias, wfc, bfc, act, name)
-    _check_proj(wproj, bproj, d, f, x.device, name)
     lib = load_library()
-    m = b * sp
-    y = torch.empty((m, d), dtype=torch.bfloat16, device=x.device)
-    h = torch.empty((m, f), dtype=torch.bfloat16, device=x.device)
-    out = torch.empty_like(x)
-    check(lib.wt_mlp_block(
-        *_ptrs(x), _is_f32(x), *_ptrs(ln_scale, ln_bias, wfc, bfc, wproj,
-                                     bproj, out, y, h),
-        m, d, f, ACTS[act], _stream(x)), name)
+    bf = dict(dtype=torch.bfloat16, device=x.device)
+    y = torch.empty((b * sp, d), **bf)
+    h = torch.empty((b, sp, f), **bf)
+    h_pre = torch.empty((b, sp, f), **bf) if res else None
+    head = (*_ptrs(x), _is_f32(x), *_ptrs(ln_scale, ln_bias, wfc, bfc, h))
+    tail = (b * sp, d, f, ACTS[act], _stream(x))
+    if res:
+        check(lib.wt_mlp_fc_res(*head, *_ptrs(h_pre, y), *tail), name)
+    else:
+        check(lib.wt_mlp_fc(*head, *_ptrs(y), *tail), name)
     _launches.add(name, sp, d)
-    return out
+    return h, h_pre
 
 
 def fused_mlp_fc(x, ln_scale, ln_bias, wfc, bfc, act: str = "gelu"):
@@ -362,15 +521,20 @@ def fused_mlp_fc(x, ln_scale, ln_bias, wfc, bfc, act: str = "gelu"):
     if not x.is_cuda:
         return plain_mlp_fc(x, ln_scale, ln_bias, wfc, bfc, act)
     name = "fused_mlp_fc"
-    b, sp, d, f = _check_mlp(x, ln_scale, ln_bias, wfc, bfc, act, name)
-    lib = load_library()
-    y = torch.empty((b * sp, d), dtype=torch.bfloat16, device=x.device)
-    h = torch.empty((b, sp, f), dtype=torch.bfloat16, device=x.device)
-    check(lib.wt_mlp_fc(
-        *_ptrs(x), _is_f32(x), *_ptrs(ln_scale, ln_bias, wfc, bfc, h, y),
-        b * sp, d, f, ACTS[act], _stream(x)), name)
-    _launches.add(name, sp, d)
-    return h
+    _refuse_grad(name, "fused_mlp_split_train", x, ln_scale, ln_bias, wfc, bfc)
+    return _mlp_fc_launch(name, x, ln_scale, ln_bias, wfc, bfc, act,
+                          res=False)[0]
+
+
+def fused_mlp_fc_res(x, ln_scale, ln_bias, wfc, bfc, act: str = "gelu"):
+    """The first half of the split MLP's training forward: (h, h_pre), both
+    (B, SP, F) bf16 in device memory; see fused_mlp_block_res for the two
+    roundings."""
+    if not x.is_cuda:
+        return plain_mlp_fc_res(x, ln_scale, ln_bias, wfc, bfc, act)
+    name = "fused_mlp_fc_res"
+    _refuse_grad(name, "fused_mlp_split_train", x, ln_scale, ln_bias, wfc, bfc)
+    return _mlp_fc_launch(name, x, ln_scale, ln_bias, wfc, bfc, act, res=True)
 
 
 def fused_mlp_proj(h, wproj, bproj, x):
@@ -379,6 +543,7 @@ def fused_mlp_proj(h, wproj, bproj, x):
     if not x.is_cuda:
         return plain_mlp_proj(h, wproj, bproj, x)
     name = "fused_mlp_proj"
+    _refuse_grad(name, "fused_mlp_split_train", h, wproj, bproj, x)
     b, sp, d = _check_x(x, name)
     f = wproj.shape[0]
     _require(f % 32 == 0, f"{name}: hidden width {f} not a multiple of 32")
@@ -403,6 +568,19 @@ def fused_mlp_split(x, ln_scale, ln_bias, wfc, bfc, wproj, bproj,
                                act)
     h = fused_mlp_fc(x, ln_scale, ln_bias, wfc, bfc, act)
     return fused_mlp_proj(h, wproj, bproj, x)
+
+
+def fused_mlp_split_res(x, ln_scale, ln_bias, wfc, bfc, wproj, bproj,
+                        act: str = "gelu"):
+    """The training forward of the split pair: (fused_mlp_split's output,
+    the pre-activation fc output (B, SP, F)). fused_mlp_fc_res writes h and
+    h_pre, fused_mlp_proj closes the block unchanged; each half counts
+    itself."""
+    if not x.is_cuda:
+        return plain_mlp_split_res(x, ln_scale, ln_bias, wfc, bfc, wproj,
+                                   bproj, act)
+    h, h_pre = fused_mlp_fc_res(x, ln_scale, ln_bias, wfc, bfc, act)
+    return fused_mlp_proj(h, wproj, bproj, x), h_pre
 
 
 def _pooled_launch(name, x, rows, pool_row, ln_scale, ln_bias, wqkv, bqkv, wo,
@@ -432,6 +610,8 @@ def fused_attn_block_pooled(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
     if not x.is_cuda:
         return plain_attn_block_pooled(x, ln_scale, ln_bias, wqkv, bqkv, wo,
                                        bo, heads, n_valid, pool_row, causal)
+    _refuse_grad("fused_attn_block_pooled", "fused_attn_block_pooled_train",
+                 x, ln_scale, ln_bias, wqkv, bqkv, wo, bo)
     _require(0 <= pool_row < x.shape[1],
              f"fused_attn_block_pooled: pool_row {pool_row} out of range")
     return _pooled_launch("fused_attn_block_pooled", x, None, pool_row,
@@ -450,6 +630,207 @@ def fused_attn_block_pooled_dyn(x, rows, ln_scale, ln_bias, wqkv, bqkv, wo,
                                            bqkv, wo, bo, heads, n_valid,
                                            causal)
     name = "fused_attn_block_pooled_dyn"
+    _refuse_grad(name, "fused_attn_block_pooled_dyn_train", x, ln_scale,
+                 ln_bias, wqkv, bqkv, wo, bo)
     _check_param(rows, (x.shape[0],), torch.int32, x.device, f"{name} rows")
     return _pooled_launch(name, x, rows, 0, ln_scale, ln_bias, wqkv, bqkv, wo,
                           bo, heads, n_valid, causal)
+
+
+# ---------------------------------------------------------------------------
+# autograd rules (wise_tpu/ops/block.py:1849-2045). The reference's backward
+# rules are jax.vjp over plain stage functions, not kernels; so are these:
+# plain PyTorch from the saved residual, or a recompute of the plain block.
+#
+# The reference also carries a ``None``-residual arm (_attn_saved_bwd,
+# _mlp_saved_bwd, _attn_train_fwd), taken when the extra output does not
+# fit VMEM. Device memory holds the residual at every shape the kernels
+# take, so that arm has no counterpart here.
+# ---------------------------------------------------------------------------
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _leaves(*tensors):
+    return [t.detach().requires_grad_() for t in tensors]
+
+
+def _dense_bwd(a, w, g):
+    """Pull ``g``, the cotangent of ``a @ w + b``, back to (a, w, b): what
+    autograd derives for the expression, written out so that the product
+    itself is not computed again."""
+    a2, g2 = a.flatten(0, -2), g.flatten(0, -2)
+    return g @ w.T, a2.T @ g2, g2.sum(0)
+
+
+def _stage_a_bwd(x, ln_s, ln_b, w, g):
+    """Pull ``g``, the cotangent of LN(x).to(w.dtype) @ w + b, back to (x,
+    ln_s, ln_b, w, b). The GEMM's own output is not needed for that, so it
+    is not computed again: its three pullbacks are written out (what
+    autograd derives for ``y @ w + b``), and autograd differentiates only
+    the LayerNorm."""
+    x, ln_s, ln_b = _leaves(x, ln_s, ln_b)
+    with torch.enable_grad():
+        y = layer_norm_f32(x, ln_s, ln_b).to(w.dtype)
+    g_y, g_w, g_b = _dense_bwd(y.detach(), w, g.to(w.dtype))
+    gx, g_ls, g_lb = torch.autograd.grad(y, (x, ln_s, ln_b), g_y)
+    return gx, g_ls, g_lb, g_w, g_b
+
+
+class _AttnBlockTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads, n_valid,
+                causal):
+        out, qkv = fused_attn_block_res(x, ln_s, ln_b, wqkv, bqkv, wo, bo,
+                                        heads, n_valid, causal)
+        ctx.save_for_backward(x, qkv, ln_s, ln_b, wqkv, wo)
+        ctx.static = (heads, n_valid, causal)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        """From the saved qkv: the second stage (attn_from_qkv: attention,
+        out-proj, residual) is differentiated at qkv, the first (qkv_stage)
+        from its cotangent. Of the second stage only the attention is run
+        again, under autograd; the out-proj's pullbacks are written out and
+        its product, which no gradient needs, is left out (XLA drops it
+        from the reference's jax.vjp as dead code). The kernel leaves output
+        rows >= n_valid undefined where the plain stage computes values, so
+        the cotangent is zeroed there."""
+        x, qkv, ln_s, ln_b, wqkv, wo = ctx.saved_tensors
+        heads, n_valid, causal = ctx.static
+        if n_valid < g.shape[1]:
+            g = g.clone()
+            g[:, n_valid:] = 0
+        qkv_, = _leaves(qkv)
+        with torch.enable_grad():
+            att = attention_of_qkv(qkv_, heads, n_valid, causal)
+        g_att, g_wo, g_bo = _dense_bwd(att.detach(), wo, g.to(wo.dtype))
+        g_qkv, = torch.autograd.grad(att, qkv_, g_att)
+        gx2, g_ls, g_lb, g_wqkv, g_bqkv = _stage_a_bwd(x, ln_s, ln_b, wqkv,
+                                                       g_qkv)
+        return (g + gx2, g_ls, g_lb, g_wqkv, g_bqkv, g_wo, g_bo, None, None,
+                None)
+
+
+class _MlpBlockTrain(torch.autograd.Function):
+    """fused_mlp_block_train and fused_mlp_split_train: ``split`` picks the
+    forward, the backward is one rule (the split is a detail of the
+    forward, not another function)."""
+
+    @staticmethod
+    def forward(ctx, x, ln_s, ln_b, wfc, bfc, wproj, bproj, act, split):
+        res = fused_mlp_split_res if split else fused_mlp_block_res
+        out, h_pre = res(x, ln_s, ln_b, wfc, bfc, wproj, bproj, act)
+        ctx.save_for_backward(x, h_pre, ln_s, ln_b, wfc, wproj)
+        ctx.act = act
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        """From the saved pre-activation output: mlp_from_h is
+        differentiated at h_pre (the activation under autograd, the proj's
+        pullbacks written out), fc_stage from its cotangent."""
+        x, h_pre, ln_s, ln_b, wfc, wproj = ctx.saved_tensors
+        h_, = _leaves(h_pre)
+        with torch.enable_grad():
+            h = activation(h_.float(), ctx.act).to(h_.dtype)
+        g_act, g_wproj, g_bproj = _dense_bwd(h.detach(), wproj,
+                                             g.to(wproj.dtype))
+        g_h, = torch.autograd.grad(h, h_, g_act)
+        gx2, g_ls, g_lb, g_wfc, g_bfc = _stage_a_bwd(x, ln_s, ln_b, wfc, g_h)
+        return (g + gx2, g_ls, g_lb, g_wfc, g_bfc, g_wproj, g_bproj, None,
+                None)
+
+
+class _PooledTrain(torch.autograd.Function):
+    """fused_attn_block_pooled_train (``rows`` None, the static ``pool_row``)
+    and fused_attn_block_pooled_dyn_train: the serve kernel forward, and a
+    backward that differentiates the plain pooled block at the saved
+    inputs. ``rows`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, rows, ln_s, ln_b, wqkv, bqkv, wo, bo, heads, n_valid,
+                pool_row, causal):
+        params = (ln_s, ln_b, wqkv, bqkv, wo, bo)
+        if rows is None:
+            out = fused_attn_block_pooled(x, *params, heads, n_valid,
+                                          pool_row, causal)
+        else:
+            out = fused_attn_block_pooled_dyn(x, rows, *params, heads,
+                                              n_valid, causal)
+        ctx.save_for_backward(x, *params)
+        ctx.rows, ctx.static = rows, (heads, n_valid, pool_row, causal)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        heads, n_valid, pool_row, causal = ctx.static
+        x, *params = _leaves(*ctx.saved_tensors)
+        with torch.enable_grad():
+            if ctx.rows is None:
+                out = plain_attn_block_pooled(x, *params, heads, n_valid,
+                                              pool_row, causal)
+            else:
+                out = plain_attn_block_pooled_dyn(x, ctx.rows, *params, heads,
+                                                  n_valid, causal)
+        gx, *gp = torch.autograd.grad(out, (x, *params), g)
+        return (gx, None, *gp, None, None, None, None)
+
+
+def fused_attn_block_train(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads: int,
+                           n_valid: int, causal: bool = False):
+    """fused_attn_block for the towers: with a gradient required the
+    forward is fused_attn_block_res and the backward starts from its qkv;
+    with none it is the serve wrapper, which writes no extra buffer."""
+    args = (x, ln_s, ln_b, wqkv, bqkv, wo, bo)
+    if not _needs_grad(*args):
+        return fused_attn_block(*args, heads, n_valid, causal)
+    return _AttnBlockTrain.apply(*args, heads, n_valid, causal)
+
+
+def fused_mlp_block_train(x, ln_s, ln_b, wfc, bfc, wproj, bproj,
+                          act: str = "gelu"):
+    """fused_mlp_block for the towers; under a gradient fused_mlp_block_res
+    and a backward from its pre-activation output."""
+    args = (x, ln_s, ln_b, wfc, bfc, wproj, bproj)
+    if not _needs_grad(*args):
+        return fused_mlp_block(*args, act)
+    return _MlpBlockTrain.apply(*args, act, False)
+
+
+def fused_mlp_split_train(x, ln_s, ln_b, wfc, bfc, wproj, bproj,
+                          act: str = "gelu"):
+    """fused_mlp_split for the towers; under a gradient
+    fused_mlp_split_res and fused_mlp_block_train's backward."""
+    args = (x, ln_s, ln_b, wfc, bfc, wproj, bproj)
+    if not _needs_grad(*args):
+        return fused_mlp_split(*args, act)
+    return _MlpBlockTrain.apply(*args, act, True)
+
+
+def fused_attn_block_pooled_train(x, ln_s, ln_b, wqkv, bqkv, wo, bo,
+                                  heads: int, n_valid: int, pool_row: int = 0,
+                                  causal: bool = False):
+    """fused_attn_block_pooled for the towers; under a gradient the same
+    kernel forward and a recompute backward."""
+    args = (x, ln_s, ln_b, wqkv, bqkv, wo, bo)
+    if not _needs_grad(*args):
+        return fused_attn_block_pooled(*args, heads, n_valid, pool_row,
+                                       causal)
+    return _PooledTrain.apply(x, None, *args[1:], heads, n_valid, pool_row,
+                              causal)
+
+
+def fused_attn_block_pooled_dyn_train(x, rows, ln_s, ln_b, wqkv, bqkv, wo, bo,
+                                      heads: int, n_valid: int,
+                                      causal: bool = False):
+    """fused_attn_block_pooled_dyn for the towers; under a gradient the
+    same kernel forward and a recompute backward."""
+    args = (x, ln_s, ln_b, wqkv, bqkv, wo, bo)
+    if not _needs_grad(*args):
+        return fused_attn_block_pooled_dyn(x, rows, *args[1:], heads, n_valid,
+                                           causal)
+    return _PooledTrain.apply(x, rows, *args[1:], heads, n_valid, 0, causal)

@@ -36,9 +36,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "wt_attn_block": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _P],
+    "wt_attn_block_res": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _P],
     "wt_mlp_block": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _P],
+    "wt_mlp_block_res": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _P],
     "wt_mlp_fc": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "wt_mlp_fc_res": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "wt_mlp_proj": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _P],
     "wt_attn_block_pooled": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                              _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -143,6 +148,20 @@ def load_library() -> ctypes.CDLL:
 def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} failed: cudaError_t {err}")
+
+
+def refuse_grad(name: str, tensors, instead: str) -> None:
+    """Raise where a kernel wrapper is called on the card under autograd with
+    an input that requires a gradient: the kernel writes through raw
+    pointers, so its output would carry no graph and a backward through it
+    would stop there without a word. ``instead`` says what differentiates."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires a gradient, and the kernel's output "
+            f"would be cut from the autograd graph; {instead}")
 
 
 class LaunchCounter:

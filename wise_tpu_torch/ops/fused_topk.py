@@ -33,7 +33,7 @@ from __future__ import annotations
 import torch
 
 from .block import _require, _stream
-from .build import LaunchCounter, check, load_library
+from .build import LaunchCounter, check, load_library, refuse_grad
 from .topk import _scores, _stable_topk, running_topk
 
 #: the largest k the kernels' shared-memory buffer holds
@@ -136,6 +136,8 @@ def _merge(out_s, out_r, k: int):
 
 
 def _launch(name, queries, db_padded, n_valid, k, group, threshold):
+    refuse_grad(name, (queries, db_padded),
+                "a search is not differentiated in either package")
     _require(db_padded.dim() == 2 and db_padded.is_contiguous()
              and db_padded.dtype in (torch.float32, torch.bfloat16),
              f"{name}: db must be a contiguous (N_pad, D) float32 or "

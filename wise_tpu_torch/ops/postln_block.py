@@ -36,7 +36,8 @@ import torch
 
 from .block import (ACTS, HEAD_DIMS, _check_param, _check_proj, _check_x,
                     _ptrs, _require, _stream, activation, layer_norm_f32)
-from .build import LaunchCounter, check, load_library
+from .attention import NO_TRAIN_RULE
+from .build import LaunchCounter, check, load_library, refuse_grad
 
 _launches = LaunchCounter("fused_postln_attn_block", "fused_postln_mlp_block",
                           "fused_postln_fc", "fused_postln_proj")
@@ -137,6 +138,8 @@ def fused_postln_attn_block(x, km, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
         return plain_postln_attn_block(x, km, ln_scale, ln_bias, wqkv, bqkv,
                                        wo, bo, heads)
     name = "fused_postln_attn_block"
+    refuse_grad(name, (x, ln_scale, ln_bias, wqkv, bqkv, wo, bo),
+                NO_TRAIN_RULE)
     b, sp, d = _check_stream(x, name)
     _require(heads >= 1 and d % heads == 0 and d // heads in HEAD_DIMS,
              f"{name}: head_dim {d / max(heads, 1):g} not in {HEAD_DIMS}")
@@ -167,6 +170,7 @@ def fused_postln_fc(x, wfc, bfc, act: str = "gelu"):
     if not x.is_cuda:
         return plain_postln_fc(x, wfc, bfc, act)
     name = "fused_postln_fc"
+    refuse_grad(name, (x, wfc, bfc), NO_TRAIN_RULE)
     b, sp, d, f = _check_fc(x, wfc, bfc, act, name)
     lib = load_library()
     h = torch.empty((b, sp, f), dtype=torch.bfloat16, device=x.device)
@@ -182,6 +186,7 @@ def fused_postln_proj(h, wproj, bproj, x, ln_scale, ln_bias):
     if not x.is_cuda:
         return plain_postln_proj(h, wproj, bproj, x, ln_scale, ln_bias)
     name = "fused_postln_proj"
+    refuse_grad(name, (h, wproj, bproj, x, ln_scale, ln_bias), NO_TRAIN_RULE)
     b, sp, d = _check_stream(x, name)
     f = wproj.shape[0]
     _require(f % 32 == 0, f"{name}: hidden width {f} not a multiple of 32")
@@ -215,6 +220,8 @@ def fused_postln_mlp_block(x, ln_scale, ln_bias, wfc, bfc, wproj, bproj,
         h = fused_postln_fc(x, wfc, bfc, act)
         return fused_postln_proj(h, wproj, bproj, x, ln_scale, ln_bias)
     name = "fused_postln_mlp_block"
+    refuse_grad(name, (x, ln_scale, ln_bias, wfc, bfc, wproj, bproj),
+                NO_TRAIN_RULE)
     b, sp, d, f = _check_fc(x, wfc, bfc, act, name)
     _check_proj(wproj, bproj, d, f, x.device, name)
     _check_ln(ln_scale, ln_bias, d, x.device, name)

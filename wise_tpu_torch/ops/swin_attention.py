@@ -20,7 +20,7 @@ import math
 import torch
 
 from .block import _check_param, _ptrs, _require, _stream
-from .build import LaunchCounter, check, load_library
+from .build import LaunchCounter, check, load_library, refuse_grad
 
 MAX_WINDOW_TOKENS = 64
 MAX_HEAD_DIM = 32
@@ -99,6 +99,8 @@ def fused_window_attention(x, wqkv, bqkv, wo, bo, bias, mask, heads: int):
         return plain_window_attention(x, wqkv, bqkv, wo, bo, bias, mask,
                                       heads)
     name = "fused_window_attention"
+    refuse_grad(name, (x, wqkv, bqkv, wo, bo, bias),
+                "the reference has no training rule for it either")
     n, l, c, n_win = check_window_inputs(x, bias, mask, heads, name)
     check_dense(wqkv, bqkv, (c, 3 * c), x.device, f"{name} qkv")
     check_dense(wo, bo, (c, c), x.device, f"{name} proj")

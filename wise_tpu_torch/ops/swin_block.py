@@ -20,7 +20,7 @@ import torch
 
 from .block import (_check_param, _ptrs, _require, _stream, activation,
                     layer_norm_f32)
-from .build import LaunchCounter, check, load_library
+from .build import LaunchCounter, check, load_library, refuse_grad
 from .swin_attention import (check_dense, check_window_inputs,
                              plain_window_attention)
 
@@ -56,6 +56,9 @@ def fused_swin_block(x, ln1_scale, ln1_bias, wqkv, bqkv, wo, bo, bias, mask,
                                 bias, mask, ln2_scale, ln2_bias, wfc, bfc,
                                 wproj, bproj, heads)
     name = "fused_swin_block"
+    refuse_grad(name, (x, ln1_scale, ln1_bias, wqkv, bqkv, wo, bo, bias,
+                       ln2_scale, ln2_bias, wfc, bfc, wproj, bproj),
+                "the reference has no training rule for it either")
     n, l, c, n_win = check_window_inputs(x, bias, mask, heads, name)
     f = wfc.shape[-1]
     dev = x.device

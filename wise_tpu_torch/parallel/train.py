@@ -1,0 +1,230 @@
+"""CLIP contrastive training on one device (wise_tpu/parallel/train.py).
+
+The reference's ``CLIPTrainer`` with its GSPMD rules left out: the mesh,
+``_spec_for_path`` and ``clip_param_shardings`` are multi-device and wait for
+ROADMAP Queue A item 12, so the trainer takes a device, not a mesh. What is
+kept, name for name: ``build_optimizer`` (AdamW, warm-up + cosine schedule,
+global-norm clip), ``clip_loss``, ``CLIPTrainer`` and the ``step_%08d``
+checkpoints, here on ``torch.save`` / ``torch.load`` where the reference
+uses orbax.
+
+**f32 master weights.** The trainer builds the towers with
+``param_dtype=torch.float32`` (models/clip/model.py): every parameter is an
+f32 tensor that the optimizer updates, and each use casts it to the compute
+dtype with the gradient flowing back through the cast, as the reference's
+flax modules do. A bf16 parameter would lose an update of lr 1e-5 whole: it
+is smaller than half a bf16 ulp of most weights. The checkpoint holds the f32
+tree.
+
+**The optimizer, held to optax 0.2.6.** ``optax.adamw(schedule, wd)`` decays
+every leaf (biases and LayerNorms too) and adds eps outside the root, which
+is what ``torch.optim.AdamW`` over one parameter group computes. The
+schedule counts from 0 at the first update. ``optax.clip_by_global_norm``
+scales by ``max_norm / norm`` exactly when the norm exceeds the bound
+(``torch.nn.utils.clip_grad_norm_`` divides by ``norm + 1e-6``), so the clip
+is written out here.
+
+PyTorch's idiom inside: the trainer owns its model and optimizer and
+``train_step`` updates them in place, where the reference threads ``params``
+and ``opt_state`` through a jitted function.
+"""
+
+from __future__ import annotations
+
+import math
+from pathlib import Path
+from typing import Callable
+
+import torch
+
+from ..models.clip.config import CLIPConfig
+from ..models.clip.model import CLIP, init_random_
+from ..utils.device import default_device
+
+#: the file inside a ``step_%08d`` directory
+STATE_FILE = "train_state.pt"
+
+
+def warmup_cosine_schedule(learning_rate: float, warmup_steps: int,
+                           total_steps: int) -> Callable[[int], float]:
+    """optax.warmup_cosine_decay_schedule(0, lr, max(warmup, 1),
+    max(total, warmup + 1), 0.01 * lr) as a function of the update count:
+    linear from 0 to lr over the warm-up, then half a cosine down to
+    0.01 * lr at ``total_steps``, constant after."""
+    warm = max(warmup_steps, 1)
+    decay = max(total_steps, warmup_steps + 1) - warm
+    alpha = 0.0 if learning_rate == 0.0 else 0.01
+
+    def schedule(count: int) -> float:
+        if count < warm:
+            return learning_rate * count / warm
+        t = min(count - warm, decay)
+        cosine = 0.5 * (1.0 + math.cos(math.pi * t / decay))
+        return learning_rate * ((1.0 - alpha) * cosine + alpha)
+
+    return schedule
+
+
+class Optimizer:
+    """AdamW under a learning-rate schedule, after a global-norm clip: what
+    ``optax.chain(clip_by_global_norm(c), adamw(schedule, wd))`` computes.
+    ``count`` is the number of updates made."""
+
+    def __init__(self, params, schedule: Callable[[int], float],
+                 weight_decay: float, grad_clip: float):
+        self.params = list(params)
+        self.schedule, self.grad_clip, self.count = schedule, grad_clip, 0
+        self.adamw = torch.optim.AdamW(
+            self.params, lr=schedule(0), betas=(0.9, 0.999), eps=1e-8,
+            weight_decay=weight_decay)
+
+    def zero_grad(self) -> None:
+        self.adamw.zero_grad(set_to_none=True)
+
+    def _clip(self) -> None:
+        grads = [p.grad for p in self.params if p.grad is not None]
+        norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+        # g * (max_norm / norm) where the norm exceeds the bound, g otherwise;
+        # a tensor factor keeps the host from waiting for the norm
+        scale = torch.where(norm < self.grad_clip, torch.ones_like(norm),
+                            self.grad_clip / norm)
+        torch._foreach_mul_(grads, scale)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        if self.grad_clip and self.grad_clip > 0:
+            self._clip()
+        for group in self.adamw.param_groups:
+            group["lr"] = self.schedule(self.count)
+        self.adamw.step()
+        self.count += 1
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "adamw": self.adamw.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.count = int(state["count"])
+        self.adamw.load_state_dict(state["adamw"])
+
+
+def build_optimizer(params, learning_rate: float, weight_decay: float,
+                    warmup_steps: int = 0, total_steps: int = 0,
+                    grad_clip: float = 0.0) -> Optimizer:
+    """AdamW over ``params`` with an optional warm-up + cosine schedule
+    (when either step count is given) and global-norm clipping."""
+    if warmup_steps or total_steps:
+        schedule = warmup_cosine_schedule(learning_rate, warmup_steps,
+                                          total_steps)
+    else:
+        def schedule(count: int) -> float:
+            return learning_rate
+    return Optimizer(params, schedule, weight_decay, grad_clip)
+
+
+def save_train_checkpoint(ckpt_dir, step: int, params, opt_state) -> Path:
+    """{params, opt_state} under ``step_<N>/train_state.pt``; ``params`` is
+    the f32 state_dict. Written to a temporary name first, so a reader never
+    sees half a file."""
+    path = Path(ckpt_dir).absolute() / f"step_{step:08d}"
+    path.mkdir(parents=True, exist_ok=True)
+    tmp = path / (STATE_FILE + ".tmp")
+    torch.save({"step": step, "params": params, "opt_state": opt_state}, tmp)
+    tmp.replace(path / STATE_FILE)
+    return path
+
+
+def checkpoint_steps(ckpt_dir) -> list:
+    """The steps that hold a torch checkpoint under ``ckpt_dir``, ascending."""
+    d = Path(ckpt_dir)
+    if not d.exists():
+        return []
+    return sorted(int(p.name.split("_")[1]) for p in d.glob("step_*")
+                  if (p / STATE_FILE).is_file())
+
+
+def restore_train_checkpoint(ckpt_dir, step: int = -1, map_location="cpu"):
+    """The latest (or the given) step: (step, params, opt_state)."""
+    d = Path(ckpt_dir).absolute()
+    if step < 0:
+        steps = checkpoint_steps(d)
+        if not steps:
+            raise FileNotFoundError(f"no checkpoints under {d}")
+        step = steps[-1]
+    state = torch.load(d / f"step_{step:08d}" / STATE_FILE,
+                       map_location=map_location, weights_only=True)
+    return step, state["params"], state["opt_state"]
+
+
+def clip_loss(img_feats, txt_feats, logit_scale):
+    """Symmetric InfoNCE over the batch."""
+    logits = logit_scale * img_feats @ txt_feats.T
+    labels = torch.arange(logits.shape[0], device=logits.device)
+    ce = torch.nn.functional.cross_entropy
+    return 0.5 * (ce(logits, labels) + ce(logits.T, labels))
+
+
+class CLIPTrainer:
+    """Fine-tunes the CLIP towers of ``config`` on ``device`` (the card
+    unless ``WISE_TORCH_DEVICE`` says otherwise). With ``config.fused_block``
+    the forward runs the saved-activation block kernels (ops/block.py
+    ``*_train``) and the backward is plain PyTorch."""
+
+    def __init__(self, config: CLIPConfig, device=None,
+                 learning_rate: float = 1e-4, weight_decay: float = 0.01,
+                 warmup_steps: int = 0, total_steps: int = 0,
+                 grad_clip: float = 0.0):
+        self.config = config
+        self.device = torch.device(device) if device else default_device()
+        self._opt_args = (learning_rate, weight_decay, warmup_steps,
+                          total_steps, grad_clip)
+        self.model = None
+        self.optimizer = None
+
+    def init(self, seed: int = 0, params=None) -> "CLIPTrainer":
+        """Build the f32 master model and its optimizer: seeded random
+        weights (models/clip/model.py ``init_random_``), or ``params``, a
+        state_dict such as ``convert.from_flax_params`` gives."""
+        model = CLIP(self.config, param_dtype=torch.float32)
+        if params is None:
+            init_random_(model, seed)
+        else:
+            model.load_state_dict(params)
+        self.model = model.to(self.device).train()
+        self.optimizer = build_optimizer(self.model.parameters(),
+                                         *self._opt_args)
+        return self
+
+    @property
+    def params(self) -> dict:
+        """The f32 master weights, by state_dict key."""
+        return self.model.state_dict()
+
+    def loss(self, images, tokens):
+        img, txt, scale = self.model(images, tokens)
+        return clip_loss(img, txt, scale)
+
+    def train_step(self, images, tokens):
+        """One optimizer step on a batch: images (B, S, S, 3) float, tokens
+        (B, ctx) int. Returns the loss before the step, a 0-d tensor on the
+        device (reading it waits for the step)."""
+        images = torch.as_tensor(images).to(self.device, torch.float32)
+        tokens = torch.as_tensor(tokens).to(self.device, torch.int64)
+        self.optimizer.zero_grad()
+        loss = self.loss(images, tokens)
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach()
+
+    def save_checkpoint(self, ckpt_dir, step: int) -> Path:
+        return save_train_checkpoint(ckpt_dir, step, self.params,
+                                     self.optimizer.state_dict())
+
+    def restore_checkpoint(self, ckpt_dir, step: int = -1) -> int:
+        """Load the latest (or the given) step into this trainer; returns
+        the step."""
+        step, params, opt_state = restore_train_checkpoint(
+            ckpt_dir, step, map_location=self.device)
+        self.model.load_state_dict(params)
+        self.optimizer.load_state_dict(opt_state)
+        return step

@@ -4,7 +4,8 @@ OpenCLIP ViT-B/32, ViT-H/14 and the default backbone
 xlm-roberta-large-ViT-H-14 (video frames, with one batch of ViT-L/14 and
 ViT-B/16), CLAP 2023 (audio segments), and the production configuration with
 WISE_FUSED_BLOCK=0. Training: CLIP fine-tuning steps of ViT-B/32 and
-ViT-L/14 on the saved-activation block kernels.
+ViT-L/14 on the saved-activation block kernels. Then the two paths whose
+gates ship closed: ViT-H/14 on the padded-head block, and the embed fold.
 
     python3 chip_smoke.py                  # env, kernels, every slice
     python3 chip_smoke.py --phase kernels  # env and kernels only
@@ -13,6 +14,8 @@ ViT-L/14 on the saved-activation block kernels.
     python3 chip_smoke.py --phase hybrid   # env and WISE_FUSED_BLOCK=0 only
     python3 chip_smoke.py --phase index    # env and the 1M-vector index only
     python3 chip_smoke.py --phase train    # env and the training steps only
+    python3 chip_smoke.py --phase padded   # env and the padded-head block only
+    python3 chip_smoke.py --phase embed_fold  # env and the embed fold only
     python3 chip_smoke.py --phase profile  # env and the audio breakdown
 
 Phases, one line each; any failure exits non-zero:
@@ -129,6 +132,21 @@ Phases, one line each; any failure exits non-zero:
    events (forward, backward, optimizer; median) for both paths, and the
    peak device memory.
 
+11. padded: ViT-H/14's vision tower (production config, random weights
+   from seed 0) on one 64-frame batch with the padded-head block opened for
+   its shape (head_dim 80 in 128-lane slots: three fused_ln_matmul, the
+   attention middle at head_dim 128, fused_residual_matmul a layer): the
+   run must launch exactly 93 / 31 / 31 of them, 31 split MLP pairs, one
+   pooled block and no monolithic block; embeddings against the monolithic
+   and the plain path (cosine >= 0.999); one layer timed against
+   fused_attn_block; the training rule's gradients at 32 x 257 x 1280
+   against autograd through the plain block (cosine >= 0.999 per tensor);
+   and the three kernels' rows (phase_padded).
+12. embed_fold: fused_embed_attn_block at ViT-B/32's geometry (512 x 50
+   tokens, patch 32, width 768): one counted call, the kernel against its
+   plain version with the stream in f32 and bf16, and timed against the
+   split entry (phase_embed_fold).
+
 The kernels phase also holds the three training forwards at the training
 shapes (TRAIN_SHAPES), output and residual, with the faults "residual
 written after the activation" and "residual left unwritten" planted, and the
@@ -233,6 +251,12 @@ KERNELS = {
                             "wise_tpu/ops/block.py:1681"),
     "fused_mlp_fc_res": ("wise_tpu_torch/csrc/block_kernels.cu",
                          "wise_tpu/ops/block.py:1708"),
+    "fused_ln_matmul": ("wise_tpu_torch/csrc/block_kernels.cu",
+                        "wise_tpu/ops/block.py:1303"),
+    "fused_residual_matmul": ("wise_tpu_torch/csrc/block_kernels.cu",
+                              "wise_tpu/ops/block.py:1340"),
+    "fused_embed_attn_block": ("wise_tpu_torch/csrc/block_kernels.cu",
+                               "wise_tpu/ops/embed_block.py:138"),
 }
 #: HTSAT's window batches at batch 64: (tag, windows N, C, heads, n_win of
 #: the shift mask or None); L = 64 tokens (window 8) throughout
@@ -1234,12 +1258,16 @@ def phase_kernels(torch):
         _postln_rows(torch, results, tag, shape)
     _short_attention_rows(torch, results)
     _topk_rows(torch, results)
+    _require_rows(results)
+    _backward_rows(torch)
+    return results
+
+
+def _require_rows(results) -> None:
     bad = [f"{r['name']}[{r['tag']}]" for r in results if not r["ok"]]
     if bad:
         raise PhaseError(f"kernels disagree with their plain versions, or "
                          f"the check missed a planted fault: {bad}")
-    _backward_rows(torch)
-    return results
 
 
 def _frames(seed: int, n: int, size: int):
@@ -1437,10 +1465,10 @@ SPLIT_PAIRS = [("fused_mlp_split", "fused_mlp_fc", "fused_mlp_proj"),
 
 
 def _launch_modules():
-    from wise_tpu_torch.ops import (attention, block, fused_topk,
+    from wise_tpu_torch.ops import (attention, block, embed_block, fused_topk,
                                     postln_block)
 
-    return block, postln_block, attention, fused_topk
+    return block, postln_block, attention, fused_topk, embed_block
 
 
 def _reset_launches():
@@ -2551,6 +2579,377 @@ def phase_index(torch, card, k=10):
     return launches
 
 
+#: the padded-head phase (ViT-H/14's vision tower with the padded-head block
+#: opened): the batch of the tower run and the per-layer timing, and the
+#: training rule's batch
+PADDED_BATCH, PADDED_TRAIN_BATCH = 64, 32
+#: the embed fold's phase at ViT-B/32's geometry: batch, tokens (49 patches
+#: and the cls row; the port does not pad to 56), patch, width, heads
+EMBED_B, EMBED_SP, EMBED_PATCH, EMBED_D, EMBED_HEADS = 512, 50, 32, 768, 12
+
+
+@contextlib.contextmanager
+def _padded_gate(seq: int, width: int):
+    """Open the padded-head block for one tower shape while the block runs,
+    as the reference's tests open it (tests/test_fused_block_model.py
+    ``force_fused_block_padded``): (seq, width) enters ops.block's padded
+    table and leaves the monolithic block's gate. Both close again after,
+    so every other phase runs with the tables as they ship (empty)."""
+    from wise_tpu_torch.ops import block as K
+
+    real = K.supports_fused_block
+    K._CALIBRATED_PAD.add((seq, width))
+    K.supports_fused_block = lambda s, w, h: ((s, w) != (seq, width)
+                                              and real(s, w, h))
+    try:
+        yield
+    finally:
+        K.supports_fused_block = real
+        K._CALIBRATED_PAD.discard((seq, width))
+
+
+def _addmm(torch, a, w, b=None):
+    """The library yardstick of a GEMM row: one torch.addmm on the same
+    product (bf16 operands, the bias where the row has one), the product
+    alone: no LayerNorm, activation, residual or attention around it."""
+    a2 = a.reshape(-1, a.shape[-1])
+    bias = b if b is not None else torch.zeros(
+        w.shape[1], dtype=w.dtype, device=w.device)
+    return lambda: torch.addmm(bias, a2, w)
+
+
+def _padded_rows(torch, results, b, sp, d, heads):
+    """The padded block's three kernels at ViT-H/14's vision shape (f32
+    stream): fused_ln_matmul (act none, as the block calls it, and gelu) and
+    the attention middle at head_dim 128 held whole (output_agreement),
+    fused_residual_matmul on its increment over x. The LayerNorm parameters
+    at 1 + N(0, 0.25) / N(0, 0.25), so that a kernel that left them out
+    would show. Planted: the LayerNorm's scale and bias as ones and zeros,
+    h not activated; the attention at head_dim 128's own scale (the true
+    head_dim's is passed), the key mask dropped; the residual GEMM with
+    half its heads dropped, the block skipped."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from wise_tpu_torch.ops import attention as A
+    from wise_tpu_torch.ops import block as K
+
+    hd, hp = d // heads, K.HEAD_PAD
+    dp, m = heads * hp, b * sp
+    x, _, w = _block_inputs(torch, b, sp, d, torch.float32, 140)
+    g = torch.Generator(device="cuda").manual_seed(141)
+    ln = (1.0 + 0.25 * torch.randn(d, generator=g, device="cuda"),
+          0.25 * torch.randn(d, generator=g, device="cuda"))
+    ident = (torch.ones(d, device="cuda"), torch.zeros(d, device="cuda"))
+    (wq, bq), _, _, wo_pad = K._pad_head_weights(*w[:3], heads, hd, hp)
+    y = K.layer_norm_f32(x, *ln).to(torch.bfloat16)
+    for act in ("none", "gelu"):
+        faults = {"ln_identity": lambda a=act: K.fused_ln_matmul(
+            x, *ident, wq, bq, a)}
+        if act == "gelu":
+            faults["h_not_activated"] = lambda: K.fused_ln_matmul(
+                x, *ln, wq, bq, "none")
+        _check_row(torch, results, "fused_ln_matmul", f"vit_h-padded-{act}",
+                   ("fused_ln_matmul", sp, d), x,
+                   lambda a=act: K.fused_ln_matmul(x, *ln, wq, bq, a),
+                   lambda a=act: K.plain_ln_matmul(x, *ln, wq, bq, a), None,
+                   faults,
+                   (2 * m * d * dp, m * d * 4 + (d * dp + dp) * 2
+                    + _LN_BYTES * d + m * dp * 4),
+                   library=_addmm(torch, y, wq, bq))
+
+    # q, k and v as the padded GEMMs hand them over: zero past each head's
+    # true head_dim
+    qkv = torch.randn(b, sp, 3, heads, hp, generator=g, device="cuda")
+    qkv[..., hd:] = 0
+    q, k, v = (t.reshape(b, sp, dp).to(torch.bfloat16)
+               for t in qkv.unbind(2))
+    del qkv
+    scale = hd ** -0.5
+    q4, k4, v4 = (t.reshape(b, sp, heads, hp).transpose(1, 2)
+                  for t in (q, k, v))
+
+    def attn(fn=A.fused_short_attention, n_valid=sp, scale=scale):
+        return fn(q, k, v, heads, n_valid, False, scale)
+
+    _check_row(torch, results, "fused_short_attention", "vit_h-padded",
+               ("fused_short_attention", sp, dp), q, attn,
+               lambda: attn(A.plain_short_attention), None,
+               {"scale_of_hd128": lambda: attn(scale=None),
+                "mask_dropped": lambda: (
+                    attn(), attn(A.plain_short_attention, n_valid=sp - 7),
+                    attn(n_valid=sp - 7))},
+               (4 * b * sp * sp * dp, 4 * m * dp * 2),
+               library=lambda: sdpa(q4, k4, v4, scale=scale))
+
+    h = attn()
+    half = h.clone()
+    half[..., dp // 2:] = 0
+    _check_row(torch, results, "fused_residual_matmul", "vit_h-padded",
+               ("fused_residual_matmul", sp, d), x,
+               lambda: K.fused_residual_matmul(x, h, wo_pad, w[3]),
+               lambda: K.plain_residual_matmul(x, h, wo_pad, w[3]), x,
+               {"heads_dropped": lambda: K.fused_residual_matmul(
+                   x, half, wo_pad, w[3]),
+                "block_skipped": lambda: x},
+               (2 * m * dp * d, m * dp * 2 + (dp * d + d) * 2 + 2 * m * d * 4),
+               library=_addmm(torch, h, wo_pad, w[3]))
+    del x, y, q, k, v, q4, k4, v4, h, half
+    torch.cuda.empty_cache()
+
+
+def phase_padded(torch, card, batch: int = PADDED_BATCH,
+                 train_batch: int = PADDED_TRAIN_BATCH):
+    """The padded-head block (ops/block.py fused_attn_block_padded) on
+    ViT-H/14's vision tower, the path of a head_dim that is not a multiple
+    of 64, as the reference's tests and its probe
+    (scripts/bench_block_kernels.py --padded) drive it. Returns (launch
+    counts of the tower run keyed by (wrapper, SP, D), kernel rows).
+
+    1. The port's extractor (OpenCLIP ViT-H/14, production config, random
+       weights from seed 0: 32 layers, 1280 wide, 16 heads of 80, 257
+       tokens) embeds one 64-frame batch with the gate opened for its
+       vision shape (_padded_gate): the run must launch exactly 93
+       fused_ln_matmul, 31 fused_short_attention at width 16 x 128, 31
+       fused_residual_matmul, 31 split MLP pairs and one pooled block, and no
+       monolithic block. Its embeddings against the monolithic block path
+       and the plain path on the same weights and frames: per-frame cosine
+       >= 0.999 each, and the three paths' device ms a batch.
+    2. One layer at 64 x 257 x 1280 (f32 stream): the padded chain against
+       fused_attn_block (CUDA events, 20 calls after 3), both on their
+       increment against plain_attn_block.
+    3. fused_attn_block_padded_train, forward + backward at 32 x 257 x 1280,
+       against autograd through plain_attn_block: per-tensor gradient
+       cosine >= 0.999.
+    4. The kernel rows (_padded_rows) at the batch of 1 and 2."""
+    from wise_tpu_torch.models.clip.extractor import OpenClipExtractor
+    from wise_tpu_torch.ops import block as K
+
+    fe = OpenClipExtractor(VIT_H_ID)
+    c = fe.config
+    sp = (c.image_size // c.patch_size) ** 2 + 1
+    d, heads, layers = c.vision_width, c.vision_heads, c.vision_layers
+    dp = heads * K.HEAD_PAD
+    frames = _frames(77, batch, 224)
+    with torch.inference_mode(), _padded_gate(sp, d):
+        fe.extract_image_features(frames[:8])  # first use of the path
+        _reset_launches()
+        got = torch.from_numpy(fe.extract_image_features(frames))
+        launches = _block_launches()
+        padded_ms = _encode_rates(torch, fe, frames)[1]
+    full = layers - 1
+    mlp = (("fused_mlp_fc", "fused_mlp_proj", "fused_mlp_split")
+           if K.mlp_choice(d) == "split" else ("fused_mlp_block",))
+    want = {("fused_ln_matmul", sp, d): 3 * full,
+            ("fused_short_attention", sp, dp): full,
+            ("fused_residual_matmul", sp, d): full,
+            **{(name, sp, d): full for name in mlp},
+            ("fused_attn_block_pooled", sp, d): 1}
+    if launches != want:
+        raise PhaseError(f"padded: the tower launched {launches}, expected "
+                         f"{want}")
+    mono = torch.from_numpy(fe.extract_image_features(frames))
+    mono_ms = _encode_rates(torch, fe, frames)[1]
+    plain = _twin(torch, fe)
+    flat = torch.from_numpy(plain.extract_image_features(frames))
+    plain_ms = _encode_rates(torch, plain, frames)[1]
+    del plain
+    cos = {name: torch.nn.functional.cosine_similarity(got, ref, dim=-1)
+           .min().item() for name, ref in (("monolithic", mono),
+                                           ("plain", flat))}
+    say("padded", card=repr(card), model="ViT-H-14", batch=batch,
+        min_cos_vs_monolithic=f"{cos['monolithic']:.6f}",
+        min_cos_vs_plain=f"{cos['plain']:.6f}", cos_bar=0.999,
+        padded_device_ms_per_batch=f"{padded_ms:.3f}",
+        monolithic_device_ms_per_batch=f"{mono_ms:.3f}",
+        plain_device_ms_per_batch=f"{plain_ms:.3f}",
+        launches=json.dumps({_launch_name(key): n for key, n
+                             in sorted(launches.items())},
+                            separators=(",", ":")))
+    if not (got.shape == mono.shape and bool(torch.isfinite(got).all())
+            and min(cos.values()) >= 0.999):
+        raise PhaseError(f"padded: embeddings off the other paths {cos}")
+    del fe, got, mono, flat
+    torch.cuda.empty_cache()
+
+    # one layer: the padded chain against the monolithic block
+    x, ln, w = _block_inputs(torch, batch, sp, d, torch.float32, 142)
+    kw = dict(heads=heads, n_valid=sp)
+    with torch.inference_mode():
+        ref = K.plain_attn_block(x, *ln, *w, **kw)
+        chk = {name: K.increment_agreement(fn(x, *ln, *w, **kw), ref, x)
+               for name, fn in (("padded", K.fused_attn_block_padded),
+                                ("monolithic", K.fused_attn_block))}
+        del ref
+        # in turns: padded, monolithic, monolithic, padded
+        order = ("padded", "monolithic", "monolithic", "padded")
+        fns = {"padded": K.fused_attn_block_padded,
+               "monolithic": K.fused_attn_block}
+        layer_ms = {name: [] for name in fns}
+        for name in order:
+            layer_ms[name].append(_cuda_ms(
+                torch, lambda f=fns[name]: f(x, *ln, *w, **kw), 20))
+    say("padded", card=repr(card), check="layer", shape=f"{batch}x{sp}x{d}",
+        dtype="float32",
+        padded_ms=",".join(f"{v:.4f}" for v in layer_ms["padded"]),
+        monolithic_ms=",".join(f"{v:.4f}" for v in layer_ms["monolithic"]),
+        padded_min_cos=f"{chk['padded']['min_cos']:.6f}",
+        monolithic_min_cos=f"{chk['monolithic']['min_cos']:.6f}",
+        status="ok" if all(c["ok"] for c in chk.values()) else "FAIL")
+    if not all(c["ok"] for c in chk.values()):
+        raise PhaseError(f"padded: a layer off plain_attn_block {chk}")
+    del x
+
+    # the training rule
+    x, ln, w = _block_inputs(torch, train_batch, sp, d, torch.float32, 143)
+    args = [t.requires_grad_() for t in (x, *ln, *w)]
+    weight = torch.randn(x.shape, device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(144))
+
+    def grads(fn):
+        out = fn(*args, heads, sp)
+        return torch.autograd.grad((out.float() * weight).sum(), args)
+
+    got, ref = grads(K.fused_attn_block_padded_train), grads(
+        K.plain_attn_block)
+    check = _grad_agreement(got, ref)
+    per = {n: _flat_cos(a, b) for n, a, b in zip(
+        ("x", "ln_s", "ln_b", "wqkv", "bqkv", "wo", "bo"), got, ref)}
+    del got, ref
+    ms = _cuda_ms(torch, lambda: grads(K.fused_attn_block_padded_train), 10)
+    plain_ms = _cuda_ms(torch, lambda: grads(K.plain_attn_block), 10)
+    say("backward", name="fused_attn_block_padded_train[vit_h-padded]",
+        shape=f"{train_batch}x{sp}x{d}", dtype="float32",
+        min_cos=f"{check['min_cos']:.6f}", cos_bar=GRAD_COS_MIN,
+        max_rel_err=f"{check['max_rel_err']:.6g}", err_bar=GRAD_ERR_SHARE,
+        cos=",".join(f"{n}:{c:.6f}" for n, c in per.items()),
+        fwd_bwd_ms=f"{ms:.4f}", plain_fwd_bwd_ms=f"{plain_ms:.4f}",
+        status="ok" if check["ok"] else "FAIL")
+    if not check["ok"]:
+        raise PhaseError("padded: the training rule's gradients are off "
+                         "plain_attn_block's")
+    del args, weight
+    torch.cuda.empty_cache()
+
+    results = []
+    _padded_rows(torch, results, batch, sp, d, heads)
+    _require_rows(results)
+    return launches, results
+
+
+def _embed_inputs(torch, seed):
+    """The fold's inputs at ViT-B/32's geometry: frames ~ U[-2, 2]
+    patchified (row 0 of each example zero), the patch kernel at
+    1/sqrt(fan_in), positions and the class embedding N(0, 0.02) and their
+    combined table, ln_pre and LN1 at 1 + N(0, 0.25) / N(0, 0.25), the
+    attention weights as _block_inputs draws them. Returns (fold arguments,
+    cls, pos)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b, sp, d = EMBED_B, EMBED_SP, EMBED_D
+    pd = EMBED_PATCH ** 2 * 3
+
+    def r(*shape, scale=0.02):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    xp = (4 * torch.rand(b, sp, pd, generator=g, device="cuda") - 2).to(
+        torch.bfloat16)
+    xp[:, 0] = 0
+    kern = r(pd, d, scale=pd ** -0.5).to(torch.bfloat16)
+    cls, pos = r(d), r(sp, d)
+    posc = pos.clone()
+    posc[0] += cls
+    lns = [t for _ in range(2) for t in (1.0 + r(d, scale=0.25),
+                                         r(d, scale=0.25))]
+    _, _, w = _block_inputs(torch, 1, sp, d, torch.float32, seed + 1)
+    return [xp, kern, posc, *lns, *w], cls, pos
+
+
+def phase_embed_fold(torch, card):
+    """The embed fold (ops/embed_block.py fused_embed_attn_block: patch
+    GEMM, positional + cls table, ln_pre and the first attention block in
+    one entry) at ViT-B/32's geometry, B = 512, SP = 50, PD = 3072, D = 768,
+    12 heads, seeded weights; the model does not call it, as the
+    reference's does not, so its path is the wrapper. Returns (launch counts
+    of the path's one call keyed by (wrapper, SP, D), kernel rows).
+
+    The path: one call with the stream in f32, counted (exactly one launch,
+    nothing else). Then the kernel rows, f32 and bf16 stream (``bf16_out``),
+    against plain_embed_attn on the first block's increment over the ln_pre
+    stream (every row is valid at SP = 50); planted: the positional table
+    dropped, the block skipped. Then the fold against the split entry (the
+    model's patch GEMM in bf16, cls and positions added in bf16, ln_pre,
+    fused_attn_block), as scripts/probe_embed_fold.py times it: ms of both
+    (CUDA events, 20 calls after 3) and their per-token cosine."""
+    from wise_tpu_torch.ops import block as K
+    from wise_tpu_torch.ops import embed_block as E
+
+    b, sp, d, heads = EMBED_B, EMBED_SP, EMBED_D, EMBED_HEADS
+    pd, m = EMBED_PATCH ** 2 * 3, EMBED_B * EMBED_SP
+    args, cls, pos = _embed_inputs(torch, 150)
+    xp, kern, posc, lnp_s, lnp_b, ln_s, ln_b, *w = args
+    with torch.inference_mode():
+        E.fused_embed_attn_block(*args, heads, sp)  # first use
+        torch.cuda.synchronize()
+        _reset_launches()
+        E.fused_embed_attn_block(*args, heads, sp)
+        torch.cuda.synchronize()
+        launches = _block_launches()
+    if launches != {("fused_embed_attn_block", sp, d): 1}:
+        raise PhaseError(f"embed_fold: the path launched {launches}")
+
+    results = []
+    for tag, bf16_out in (("vit_b32-f32", False), ("vit_b32-bf16", True)):
+        ob = 2 if bf16_out else 4
+        with torch.inference_mode():
+            stream = K.layer_norm_f32(xp.float() @ kern.float() + posc,
+                                      lnp_s, lnp_b).to(
+                torch.bfloat16 if bf16_out else torch.float32)
+
+        def fold(posc=posc, bf16_out=bf16_out):
+            return E.fused_embed_attn_block(xp, kern, posc, *args[3:], heads,
+                                            sp, bf16_out)
+
+        _check_row(torch, results, "fused_embed_attn_block", tag,
+                   ("fused_embed_attn_block", sp, d), xp, fold,
+                   lambda bf16_out=bf16_out: E.plain_embed_attn(
+                       *args, heads, sp, bf16_out), stream,
+                   {"positions_dropped": lambda: fold(torch.zeros_like(posc)),
+                    "block_skipped": lambda s=stream: s},
+                   (2 * m * pd * d + 8 * m * d * d + 4 * m * sp * d,
+                    m * pd * 2 + pd * d * 2 + sp * d * 4 + 2 * _LN_BYTES * d
+                    + (4 * d * d + 4 * d) * 2 + m * d * ob),
+                   library=_addmm(torch, xp, kern))
+        del stream
+
+    def split():
+        """The model's entry (VisionTransformer.forward up to the first
+        block) on the same pixels, then fused_attn_block."""
+        x = xp[:, 1:] @ kern
+        x = torch.cat([cls.to(x.dtype).expand(b, 1, -1), x], dim=1)
+        x = K.layer_norm_f32(x + pos.to(x.dtype), lnp_s, lnp_b)
+        return K.fused_attn_block(x, ln_s, ln_b, *w, heads, sp)
+
+    with torch.inference_mode():
+        cos = torch.nn.functional.cosine_similarity(
+            E.fused_embed_attn_block(*args, heads, sp).reshape(-1, d),
+            split().reshape(-1, d), dim=-1).min().item()
+        fold_ms = _cuda_ms(torch, lambda: E.fused_embed_attn_block(
+            *args, heads, sp), 20)
+        split_ms = _cuda_ms(torch, split, 20)
+    say("embed_fold", card=repr(card), shape=f"{b}x{sp}x{pd}->{d}",
+        heads=heads, fold_ms=f"{fold_ms:.4f}", split_entry_ms=f"{split_ms:.4f}",
+        min_cos_fold_vs_split=f"{cos:.6f}", cos_bar=0.999,
+        launches=json.dumps({_launch_name(key): n for key, n
+                             in sorted(launches.items())},
+                            separators=(",", ":")))
+    if not cos >= 0.999:
+        raise PhaseError(f"embed_fold: the fold is off the split entry (min "
+                         f"cos {cos:.6f})")
+    del args, xp, kern
+    torch.cuda.empty_cache()
+    _require_rows(results)
+    return launches, results
+
+
 def _off_path(key) -> bool:
     """Whether a kernel row's wrapper is one that no path may launch at the
     row's width: the post-LN MLP as "single" where ``postln_mlp_choice``
@@ -2785,7 +3184,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", choices=["all", "kernels", "vit_h", "xlmr",
                                         "hybrid", "index", "train",
-                                        "profile"],
+                                        "padded", "embed_fold", "profile"],
                     default="all")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print nvcc -Xptxas -v (registers, shared memory)")
@@ -2830,6 +3229,12 @@ def main(argv=None) -> int:
         if args.phase == "train":
             _timed("train", phase_train, torch, card)
             return 0
+        if args.phase == "padded":
+            _timed("padded", phase_padded, torch, card)
+            return 0
+        if args.phase == "embed_fold":
+            _timed("embed_fold", phase_embed_fold, torch, card)
+            return 0
         kernels = _timed("kernels", phase_kernels, torch)
         if args.phase == "kernels":
             return 0
@@ -2848,6 +3253,14 @@ def main(argv=None) -> int:
         # both reach (the pooled kernels at ViT-B/32) keeps its serve count
         for key, n in _timed("train", phase_train, torch, card).items():
             launches.setdefault(key, n)
+        # the padded-head block and the embed fold, each on its own path;
+        # their rows join the kernels phase's
+        for phase, fn in (("padded", phase_padded),
+                          ("embed_fold", phase_embed_fold)):
+            counts, rows = _timed(phase, fn, torch, card)
+            for key, n in counts.items():
+                launches.setdefault(key, n)
+            kernels += rows
         off = {r["key"] for r in kernels if _off_path(r["key"])}
         stray = [_launch_name(key) for key in off if launches.get(key)]
         if stray:

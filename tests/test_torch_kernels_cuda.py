@@ -1,6 +1,7 @@
 """The CUDA kernels (wise_tpu_torch/csrc/*.cu: the pre-LN blocks, the Swin
-blocks, the post-LN blocks, the attention middle, the fused scan + top-k)
-against their plain PyTorch versions, on the card.
+blocks, the post-LN blocks, the attention middle, the fused scan + top-k,
+the padded-head block's GEMMs, the embed fold) against their plain PyTorch
+versions, on the card.
 
 Every test here needs a CUDA device and nvcc, carries the ``cuda`` marker
 and skips without one. The file imports no JAX, so it also runs on a GPU
@@ -608,6 +609,9 @@ SHORT_CASES = {
     "vit_h": (2, 257, 320, 4, 257, False, None),
     "longest": (2, 272, 160, 2, 270, True, None),
     "one": (2, 1, 128, 2, 1, False, None),
+    # head_dim 128: the padded-head block's slots, at head_dim 80's scale
+    "head_dim_128": (3, 257, 256, 2, 250, True, 80 ** -0.5),
+    "longest_128": (2, 272, 256, 2, 272, False, None),
 }
 
 
@@ -990,3 +994,171 @@ def test_wrappers_raise_under_autograd_on_card(cuda):
             call()
         with torch.no_grad():
             call()
+
+
+# ---------------------------------------------------------------------------
+# the padded-head block (fused_ln_matmul, fused_residual_matmul, the chain
+# and its training rule) and the embed fold
+# ---------------------------------------------------------------------------
+
+from wise_tpu_torch.ops import embed_block as E  # noqa: E402
+
+#: head_dim 80 at 24 tokens, as WIDE_SHAPES' smallest
+PAD_B, PAD_SP, PAD_D, PAD_HEADS, PAD_NV = 3, 24, 160, 2, 21
+
+
+def _padded_inputs(seed, device, stream):
+    g = torch.Generator().manual_seed(seed)
+
+    def w(*shape, std=0.02):
+        return (std * torch.randn(shape, generator=g)).to(device)
+
+    d = PAD_D
+    x = torch.randn((PAD_B, PAD_SP, d), generator=g).to(device, stream)
+    ln = [1.0 + w(d), w(d)]
+    ws = (w(d, 3 * d, std=d ** -0.5), w(3 * d), w(d, d, std=d ** -0.5),
+          w(d))
+    return x, ln, [t.to(torch.bfloat16) for t in ws]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["none", "gelu"])
+@pytest.mark.parametrize("stream", [torch.float32, torch.bfloat16])
+def test_ln_matmul_matches_plain_on_card(cuda, stream, act):
+    x, ln, w = _padded_inputs(120, cuda, stream)
+    K.reset_launches()
+    with torch.inference_mode():
+        got = K.fused_ln_matmul(x, *ln, *w[:2], act)
+        want = K.plain_ln_matmul(x, *ln, *w[:2], act)
+        torch.cuda.synchronize()
+    assert K.LAUNCHES_BY_SHAPE == {("fused_ln_matmul", PAD_SP, PAD_D): 1}
+    assert got.dtype == want.dtype == stream and got.shape == want.shape
+    assert K.output_agreement(got, want)["ok"]
+    if act == "gelu":
+        bad = K.fused_ln_matmul(x, *ln, *w[:2], "none")
+        assert not K.output_agreement(bad, want)["ok"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", [torch.float32, torch.bfloat16])
+def test_residual_matmul_matches_plain_on_card(cuda, stream):
+    x, _, w = _padded_inputs(121, cuda, stream)
+    h = torch.randn(PAD_B, PAD_SP, PAD_D, device=cuda).bfloat16()
+    with torch.inference_mode():
+        got = K.fused_residual_matmul(x, h, *w[2:])
+        want = K.plain_residual_matmul(x, h, *w[2:])
+        torch.cuda.synchronize()
+    assert got.dtype == stream and got.shape == x.shape
+    assert K.increment_agreement(got, want, x)["ok"]
+    assert not K.increment_agreement(x, want, x)["ok"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_padded_block_matches_plain_on_card(cuda, causal, stream):
+    """Five wrapper calls: three fused_ln_matmul, one attention at head_dim
+    128, one fused_residual_matmul; the attention block's function at rows
+    < n_valid."""
+    x, ln, w = _padded_inputs(122, cuda, stream)
+    K.reset_launches()
+    A.reset_launches()
+    with torch.inference_mode():
+        got = K.fused_attn_block_padded(x, *ln, *w, PAD_HEADS, PAD_NV, causal)
+        want = K.plain_attn_block(x, *ln, *w, PAD_HEADS, PAD_NV, causal)
+        torch.cuda.synchronize()
+    assert K.LAUNCHES_BY_SHAPE == {("fused_ln_matmul", PAD_SP, PAD_D): 3,
+                                   ("fused_residual_matmul", PAD_SP, PAD_D): 1}
+    assert A.LAUNCHES_BY_SHAPE == {
+        ("fused_short_attention", PAD_SP, PAD_HEADS * K.HEAD_PAD): 1}
+    v = slice(0, PAD_NV)
+    assert got.dtype == stream
+    assert K.increment_agreement(got[:, v], want[:, v], x[:, v])["ok"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_padded_train_rule_gradients_match_plain_on_card(cuda, causal):
+    x, ln, w = _padded_inputs(123, cuda, torch.float32)
+    args = [t.requires_grad_() for t in (x, *ln, *w)]
+    weight = torch.randn(x.shape, device=cuda)
+    weight[:, PAD_NV:] = 0
+
+    def grads(fn):
+        out = fn(*args, PAD_HEADS, PAD_NV, causal)
+        return torch.autograd.grad((out.float() * weight).sum(), args)
+
+    K.reset_launches()
+    got = grads(K.fused_attn_block_padded_train)
+    assert K.LAUNCHES["fused_ln_matmul"] == 3
+    assert _grad_cos(got, grads(K.plain_attn_block)) >= 0.999
+    with pytest.raises(RuntimeError, match="cut from the autograd"):
+        K.fused_attn_block_padded(*args, PAD_HEADS, PAD_NV, causal)
+
+
+def _embed_inputs(pd, device, seed=130, b=4, sp=50, d=128, nv=45):
+    g = torch.Generator().manual_seed(seed)
+
+    def r(*shape, std=0.05):
+        return std * torch.randn(shape, generator=g)
+
+    xp = r(b, sp, pd, std=1.0)
+    xp[:, 0] = 0
+    xp[:, nv:] = 0
+    posc = r(sp, d)
+    posc[nv:] = 0
+    bf = [t.to(device, torch.bfloat16) for t in (
+        xp, r(pd, d, std=pd ** -0.5), r(d, 3 * d, std=d ** -0.5), r(3 * d),
+        r(d, d, std=d ** -0.5), r(d))]
+    lns = [t.to(device) for t in (1 + r(d), r(d), 1 + r(d), r(d))]
+    return ([bf[0], bf[1], posc.to(device), *lns, *bf[2:]], nv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16_out", [False, True])
+@pytest.mark.parametrize("pd", [96, 48, 588])
+def test_embed_fold_matches_plain_on_card(cuda, pd, bf16_out):
+    """PD 96 as it is; 48 and 588 (/14) pad K to the GEMM's step of 32. Held
+    on the first block's increment over the ln_pre stream, rows < n_valid."""
+    args, nv = _embed_inputs(pd, cuda)
+    E.reset_launches()
+    with torch.inference_mode():
+        got = E.fused_embed_attn_block(*args, 2, nv, bf16_out)
+        want = E.plain_embed_attn(*args, 2, nv, bf16_out)
+        stream = E.layer_norm_f32(
+            args[0].float() @ args[1].float() + args[2], args[3],
+            args[4]).to(want.dtype)
+        torch.cuda.synchronize()
+    assert E.LAUNCHES == {"fused_embed_attn_block": 1}
+    assert got.dtype == want.dtype and got.shape == want.shape
+    v = slice(0, nv)
+    assert K.increment_agreement(got[:, v], want[:, v], stream[:, v])["ok"]
+    # a fold that dropped the positional table must fail the same check
+    bad = E.fused_embed_attn_block(args[0], args[1], torch.zeros_like(args[2]),
+                                   *args[3:], 2, nv, bf16_out)
+    assert not K.increment_agreement(bad[:, v], want[:, v], stream[:, v])["ok"]
+
+
+@pytest.mark.cuda
+def test_padded_and_fold_wrappers_reject_what_they_do_not_take(cuda):
+    x, ln, w = _padded_inputs(124, cuda, torch.bfloat16)
+    K.reset_launches()
+    with pytest.raises(ValueError, match="activation"):
+        K.fused_ln_matmul(x, *ln, *w[:2], "relu")
+    with pytest.raises(ValueError, match="output width"):
+        K.fused_ln_matmul(x, *ln, w[0][:, :-4].contiguous(), w[1][:-4])
+    with pytest.raises(ValueError, match="dtype"):
+        K.fused_ln_matmul(x, *ln, w[0].float(), w[1])
+    with pytest.raises(ValueError, match="shape"):
+        K.fused_residual_matmul(x, x[:, :-1].contiguous(), *w[2:])
+    with pytest.raises(ValueError, match="above"):
+        K.fused_attn_block_padded(x, *ln, *w, 1, PAD_SP)
+    assert not K.LAUNCHES["fused_ln_matmul"]
+    args, nv = _embed_inputs(96, cuda)
+    E.reset_launches()
+    with pytest.raises(ValueError, match="head_dim"):
+        E.fused_embed_attn_block(*args, 3, nv)
+    with pytest.raises(ValueError, match="dtype"):
+        E.fused_embed_attn_block(args[0].float(), *args[1:], 2, nv)
+    assert E.LAUNCHES == {"fused_embed_attn_block": 0}
+

@@ -31,6 +31,9 @@ FORBIDDEN = ("wise_tpu", "jax", "jaxlib", "flax", "optax", "orbax")
 #: the training slice's modules, which the walk over SOURCES must reach
 TRAINING = ["parallel/__init__.py", "parallel/train.py", "cli/train.py",
             "cli/metadata.py", "pipeline/train_data.py"]
+#: the embed fold and the copy of the exact (PIL) preprocessing, which the
+#: walk over SOURCES must reach as well
+EMBED_AND_EXACT = ["ops/embed_block.py", "models/clip/preprocess.py"]
 #: the host modules the port copied from the JAX package, path for path
 COPIED = """config data_models utils project db db.repository store
 store.feature_store store.factory store.npz_store store.tar_store io
@@ -78,6 +81,16 @@ def test_source_imports_nothing_of_the_jax_package(path):
 def test_walk_reaches_the_training_modules():
     walked = {_rel(p) for p in SOURCES}
     assert not [m for m in TRAINING if f"wise_tpu_torch/{m}" not in walked]
+
+
+def test_walk_reaches_the_embed_fold_and_the_exact_preprocessing():
+    from wise_tpu_torch.models.clip.preprocess import preprocess_images_exact
+
+    walked = {_rel(p) for p in SOURCES}
+    assert not [m for m in EMBED_AND_EXACT
+                if f"wise_tpu_torch/{m}" not in walked]
+    assert "wise_tpu/models/clip/preprocess.py" in (
+        preprocess_images_exact.__doc__ or ""), "the copy names its origin"
 
 
 def test_train_cli_imports_without_the_jax_stack():

@@ -224,20 +224,61 @@ def test_a_trainer_file_is_never_taken_for_an_open_clip_checkpoint(tmp_path):
     assert _find_checkpoint(tmp_path).name == "open_clip_model.pt"
 
 
-def test_exact_preprocessing_raises_until_it_is_ported(env, monkeypatch):
-    """WISE_PREPROCESS=exact routes uint8 frames through a PIL path in the
-    JAX package; the port has no such path yet and says so (ROADMAP Queue
-    C 8) where it used to ignore the variable."""
-    from wise_tpu_torch.models.clip.extractor import OpenClipExtractor
+@pytest.mark.parametrize("shape", [(224, 224), (180, 320)])
+def test_exact_preprocessing_matches_jax(shape):
+    """The port's copy of preprocess_images_exact (PIL resize first, then
+    the centre crop) gives the JAX package's output bit for bit on seeded
+    uint8 frames, square and not."""
+    from wise_tpu.models.clip.preprocess import preprocess_images_exact as jx
+    from wise_tpu_torch.models.clip.preprocess import (
+        preprocess_images_exact as tx)
 
-    fe = OpenClipExtractor(f"mlfoundations/open_clip/{MODEL}/none")
-    frames = np.zeros((1, 32, 32, 3), np.uint8)
-    fe.extract_image_features(frames)
+    frames = np.random.default_rng(sum(shape)).integers(
+        0, 256, (3, *shape, 3), dtype=np.uint8)
+    got, want = tx(frames, 224), jx(frames, 224)
+    assert got.dtype == want.dtype == np.float32
+    assert got.shape == want.shape == (3, 224, 224, 3)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(tx(frames[0], 224), jx(frames[0], 224))
+
+
+def test_exact_preprocessing_raises_until_it_is_ported(env, monkeypatch,
+                                                       tmp_path):
+    """WISE_PREPROCESS=exact routes uint8 frames through the upstream PIL
+    path in both packages (the port raised here until it had its copy,
+    ROADMAP Queue C 8). One seeded open_clip checkpoint drives both
+    extractors in f32: on non-square uint8 frames their embeddings agree to
+    tests/test_torch_slice.py's 1.001e-3 and differ from the port's device
+    resize (crop first) on the same frames."""
+    from tests.test_convert_published_keysets import openclip_clip_keyset
+    from wise_tpu.models.clip import model as JM
+    from wise_tpu.models.clip.extractor import OpenClipExtractor as JX
+    from wise_tpu_torch.models.clip.extractor import OpenClipExtractor as TX
+
+    rng = np.random.default_rng(0)
+    sd = {k: rng.normal(0.0, 0.02, np.shape(v)).astype(np.float32)
+          for k, v in openclip_clip_keyset(JM.CLIPConfig(**TINY)).items()}
+    ckpt = tmp_path / MODEL / "exact"
+    ckpt.mkdir(parents=True)
+    np.savez(ckpt / "open_clip_model.npz", **sd)
+    monkeypatch.setenv("WISE_CHECKPOINT_DIR", str(tmp_path))
+    monkeypatch.setenv("WISE_CLIP_DTYPE", "float32")
+    fid = f"mlfoundations/open_clip/{MODEL}/exact"
+    frames = np.random.default_rng(5).integers(0, 256, (3, 48, 40, 3),
+                                               dtype=np.uint8)
+    port, ref = TX(fid), JX(fid)
+    device_resize = port.extract_image_features(frames)
     monkeypatch.setenv("WISE_PREPROCESS", "exact")
-    with pytest.raises(NotImplementedError, match="Queue A item 15"):
-        fe.extract_image_features(frames)
+    got = port.extract_image_features(frames)
+    want = ref.extract_image_features(frames)
+    assert got.shape == want.shape == (3, TINY["embed_dim"])
+    np.testing.assert_allclose(got, want, atol=1.001e-3, rtol=0)
+    assert not np.allclose(got, device_resize, atol=1e-6)
     # float input is already preprocessed: the variable does not apply
-    fe.extract_image_features(np.zeros((1, 32, 32, 3), np.float32))
+    floats = np.zeros((1, 32, 32, 3), np.float32)
+    exact = port.extract_image_features(floats)
+    monkeypatch.delenv("WISE_PREPROCESS")
+    np.testing.assert_array_equal(exact, port.extract_image_features(floats))
 
 
 @pytest.mark.parametrize("flags", [("--dp", "2"), ("--mp", "2"),

@@ -16,13 +16,6 @@ namespace {
 // Hopper's 232,448 bytes. 272 = 17 * 16 covers the 257 tokens of the /14
 // towers at 224 px.
 constexpr int kMaxSeq = 272;
-
-// Query rows per block. One block per SM fits either way (K and V alone take
-// 96 KB of the SM's 228 KB at 257 tokens), so 64 rows rather than 32: K and V
-// are loaded 5 times per head instead of 9, and 8 warps share 4 x 17 score
-// tiles. A full row of S fits in shared memory, so the softmax is one pass:
-// no online rescaling at these lengths.
-constexpr int kQTile = 64;
 constexpr int kAttnThreads = 256;
 
 // ---------------------------------------------------------------------------
@@ -38,8 +31,17 @@ constexpr int kAttnThreads = 256;
 // padding: masked as keys (n_valid <= SP), never stored as queries.
 // ---------------------------------------------------------------------------
 
+// Query rows per block (kQTile). One block per SM fits either way (K and V
+// alone take 96 KB of the SM's 228 KB at 257 tokens and head_dim 80), so 64
+// rows rather than 32 where they fit: K and V are loaded 5 times per head
+// instead of 9, and 8 warps share 4 x 17 score tiles. At head_dim 128 (the
+// padded-head block's 128-lane slots) a 64-row tile needs 271,872 bytes at
+// 272 keys, over the 232,448 a block may take; 32 rows need 209,920. A full
+// row of S fits in shared memory, so the softmax is one pass: no online
+// rescaling at these lengths.
 template <int HD>
 struct AttnLayout {
+  static constexpr int kQTile = HD > 80 ? 32 : 64;
   static constexpr int QK_LD = HD + 8;  // +8 bf16: rows stay 16-byte aligned
   __host__ __device__ static int s_ld(int spp) {
     return (spp > HD ? spp : HD) + 4;  // S rows also stage the O tile
@@ -64,9 +66,9 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   using L = AttnLayout<HD>;
   constexpr int QK_LD = L::QK_LD, kChunks = HD / 8, kWarps = kAttnThreads / 32;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int h = blockIdx.x, b = blockIdx.y, q0 = blockIdx.z * kQTile;
+  const int h = blockIdx.x, b = blockIdx.y, q0 = blockIdx.z * L::kQTile;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int qt = min(kQTile, SPp - q0);  // query rows of this tile, % 16 == 0
+  const int qt = min(L::kQTile, SPp - q0);  // rows of this tile, % 16 == 0
   const int S_LD = L::s_ld(SPp), P_LD = SPp + 8;
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + SPp * QK_LD;
@@ -172,27 +174,38 @@ cudaError_t launch_attention(const bf16* q, const bf16* k, const bf16* v,
                              int n_valid, int causal, float scale,
                              cudaStream_t st) {
   const int spp = (SP + 15) / 16 * 16;
-  const size_t smem = AttnLayout<HD>::smem_bytes(spp);
+  using L = AttnLayout<HD>;
+  const size_t smem = L::smem_bytes(spp);
   cudaError_t err = cudaFuncSetAttribute(
       attention_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  attention_kernel<HD>
-      <<<dim3(H, B, (spp + kQTile - 1) / kQTile), kAttnThreads, smem, st>>>(
-          q, k, v, ldq, ldk, ldv, km, att, D, SP, spp, n_valid, causal, scale);
+  attention_kernel<HD><<<dim3(H, B, (spp + L::kQTile - 1) / L::kQTile),
+                         kAttnThreads, smem, st>>>(
+      q, k, v, ldq, ldk, ldv, km, att, D, SP, spp, n_valid, causal, scale);
   return cudaGetLastError();
 }
 
-// The attention of a (D, H) pair at its head_dim (64 or 80, from head_dim()).
+// The attention of a (D, H) pair at its head_dim: 64 or 80 (head_dim()), or
+// 128 for the attention-middle entry alone (short_head_dim()).
 inline cudaError_t attention(int hd, const bf16* q, const bf16* k,
                              const bf16* v, int ldq, int ldk, int ldv,
                              const float* km, bf16* att, int D, int B, int SP,
                              int H, int n_valid, int causal, float scale,
                              cudaStream_t st) {
-  return hd == 64 ? launch_attention<64>(q, k, v, ldq, ldk, ldv, km, att, D,
-                                         B, SP, H, n_valid, causal, scale, st)
-                  : launch_attention<80>(q, k, v, ldq, ldk, ldv, km, att, D,
-                                         B, SP, H, n_valid, causal, scale, st);
+  switch (hd) {
+    case 64:
+      return launch_attention<64>(q, k, v, ldq, ldk, ldv, km, att, D, B, SP,
+                                  H, n_valid, causal, scale, st);
+    case 80:
+      return launch_attention<80>(q, k, v, ldq, ldk, ldv, km, att, D, B, SP,
+                                  H, n_valid, causal, scale, st);
+    case 128:
+      return launch_attention<128>(q, k, v, ldq, ldk, ldv, km, att, D, B, SP,
+                                   H, n_valid, causal, scale, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // attention over a packed qkv buffer (B * SP, 3D) at the scale 1/sqrt(hd)
@@ -203,11 +216,19 @@ inline cudaError_t attention_packed(int hd, const bf16* qkv, const float* km,
                    D, B, SP, H, n_valid, causal, 1.0f / sqrtf((float)hd), st);
 }
 
-// head_dim of a (D, H) pair the kernels take (64 or 80), else 0
+// head_dim of a (D, H) pair the block kernels take (64 or 80), else 0
 inline int head_dim(int SP, int D, int H) {
   if (SP < 1 || SP > kMaxSeq || H < 1 || D % H != 0) return 0;
   const int hd = D / H;
   return hd == 64 || hd == 80 ? hd : 0;
+}
+
+// head_dim of a (D, H) pair the attention-middle entry takes: the block
+// kernels' two, and 128, the padded-head block's zero-padded slots
+inline int short_head_dim(int SP, int D, int H) {
+  if (SP < 1 || SP > kMaxSeq || H < 1 || D % H != 0) return 0;
+  const int hd = D / H;
+  return hd == 128 ? hd : head_dim(SP, D, H);
 }
 
 }  // namespace

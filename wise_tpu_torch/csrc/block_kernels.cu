@@ -13,8 +13,14 @@
 //   wt_mlp_block_res      <- fused_mlp_block_res         (_mlp_block_kernel, h_out)
 //   wt_mlp_fc_res (then wt_mlp_proj)
 //                         <- fused_mlp_split_res         (_fc_kernel with hpre_ref)
+// the padded-head block's GEMMs (head dims that are not a multiple of 64,
+// each head's q/k/v slot zero-padded to 128 lanes in the weights):
+//   wt_ln_matmul          <- fused_ln_matmul             (_fc_kernel)
+//   wt_residual_matmul    <- fused_residual_matmul       (_proj_kernel)
 // and of wise_tpu/ops/attention.py:
 //   wt_short_attention    <- fused_short_attention       (_kernel)
+// and of wise_tpu/ops/embed_block.py:
+//   wt_embed_attn_block   <- fused_embed_attn_block      (_embed_attn_kernel)
 //
 // The TPU kernels run a whole block per grid step with the layer weights
 // resident in VMEM, because their VMEM holds megabytes and the grid runs in
@@ -25,9 +31,11 @@
 //   gemm_kernel        bf16 WMMA tiles, f32 accumulation, fused epilogue:
 //                      bias | bias + activation | bias + residual add
 //                      (both in common.cuh, shared with swin_kernels.cu)
-//   attention_kernel   one (head, batch, tile of 64 query rows) per block, for
-//                      head_dim 64 or 80 and up to 272 keys: K and V of the
-//                      whole sequence and the Q tile in shared memory,
+//   attention_kernel   one (head, batch, tile of 64 query rows; 32 at
+//                      head_dim 128) per block, for head_dim 64 or 80 (and
+//                      128 through wt_short_attention) and up to 272 keys:
+//                      K and V of the whole sequence and the Q tile in
+//                      shared memory,
 //                      S = QK^T and O = PV on the tensor cores, f32 softmax
 //                      (attention.cuh, shared with postln_kernels.cu)
 //   attention_pooled_kernel
@@ -58,6 +66,24 @@
 // in-projection) and takes the softmax scale as an argument. It moves
 // 4 M D bf16 values for 4 M keys D operations, ~keys / 2 operations a byte:
 // under the card's ~295 at every length the kernel takes, so bytes bound it.
+//
+// wt_ln_matmul is the MLP's first half with the output in x's dtype and the
+// activation optional, wt_residual_matmul its second half under another
+// name: the same LayerNorm and GEMM launches. The padded-head block
+// (ops/block.py fused_attn_block_padded) chains three wt_ln_matmul, the
+// attention at head_dim 128 through wt_short_attention, and one
+// wt_residual_matmul: it runs the LayerNorm three times and its q/k/v and
+// out-proj GEMMs 128 / hd times as wide as the block's own (1.6x at
+// head_dim 80), as the TPU design does.
+//
+// wt_embed_attn_block (the "embed fold") is the ViT entry and the first
+// attention block in one call: the patch GEMM xp (M, PD) x kern (PD, D)
+// with the (SP, D) f32 positional + cls table added to the f32 accumulator
+// in the epilogue (a RowMap in kRowInExample mode reads table row m mod SP),
+// so nothing rounds to bf16 before the add; ln_pre into the residual stream
+// (f32, or bf16); then wt_attn_block's chain on that stream. The patch
+// product is the one new GEMM shape (K = PD = p * p * 3: 3072 at /32); it is
+// compute-bound like the block's.
 //
 // What bounds them on the H100: the GEMMs hold ~90% of a block's FLOPs and
 // are compute-bound at the towers' batch sizes, so the GEMM's tensor-core rate
@@ -176,6 +202,19 @@ cudaError_t mlp_fc(const void* x, int x_f32, const float* ln_s,
                               kNoMap, M, F, D, act, st);
 }
 
+// out = act(LN(x) W + b) in TO (x's dtype); scratch y (M, D) bf16. kBiasAct
+// with act = kNone is the bias alone.
+template <typename TO>
+cudaError_t ln_matmul(const void* x, int x_f32, const float* ln_s,
+                      const float* ln_b, const bf16* w, const bf16* b,
+                      TO* out, bf16* y, int M, int D, int OW, int act,
+                      cudaStream_t st) {
+  cudaError_t err = layernorm(x, x_f32, ln_s, ln_b, y, M, D, st);
+  if (err != cudaSuccess) return err;
+  return gemm<TO, kBiasAct>(y, D, kNoMap, w, OW, b, out, OW, nullptr, 0,
+                            kNoMap, M, OW, D, act, st);
+}
+
 // out = x + (proj(h) + b) in x's dtype
 cudaError_t mlp_proj(const bf16* h, const bf16* wproj, const bf16* bproj,
                      const void* x, int x_f32, void* out, int M, int D, int F,
@@ -243,7 +282,7 @@ int wt_short_attention(const bf16* q, const bf16* k, const bf16* v, int ldq,
                        int ldk, int ldv, bf16* out, int B, int SP, int D,
                        int H, int n_valid, int causal, float scale,
                        void* stream) {
-  const int hd = head_dim(SP, D, H);
+  const int hd = short_head_dim(SP, D, H);
   if (!hd) return (int)cudaErrorInvalidValue;
   return (int)attention(hd, q, k, v, ldq, ldk, ldv, nullptr, out, D, B, SP, H,
                         n_valid, causal, scale,
@@ -306,6 +345,59 @@ int wt_mlp_proj(const bf16* h, const bf16* wproj, const bf16* bproj,
                        static_cast<cudaStream_t>(stream));
 }
 
+// act(LN(x) W + b): x (M, D) f32 or bf16, W (D, OW) bf16, b (OW,) bf16;
+// out (M, OW) in x's dtype. act as ACTS (0 none). Scratch (bf16): y (M, D).
+int wt_ln_matmul(const void* x, int x_f32, const float* ln_s,
+                 const float* ln_b, const bf16* w, const bf16* b, void* out,
+                 bf16* y, int M, int D, int OW, int act, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_f32)
+    return (int)ln_matmul(x, x_f32, ln_s, ln_b, w, b,
+                          static_cast<float*>(out), y, M, D, OW, act, st);
+  return (int)ln_matmul(x, x_f32, ln_s, ln_b, w, b, static_cast<bf16*>(out),
+                        y, M, D, OW, act, st);
+}
+
+// x + (h W + b): h (M, IW) bf16, W (IW, D) bf16, x and out (M, D) in x's
+// dtype. No scratch.
+int wt_residual_matmul(const bf16* h, const bf16* w, const bf16* b,
+                       const void* x, int x_f32, void* out, int M, int D,
+                       int IW, void* stream) {
+  return (int)mlp_proj(h, w, b, x, x_f32, out, M, D, IW,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// The ViT entry and the first attention block: xp (B*SP, PD) bf16 patch
+// pixels (row 0 of each example and rows >= n_valid zero), kern (PD, D)
+// bf16, posc (SP, D) f32 (row 0 holds the class embedding), ln_pre (lnp_*)
+// and LN1 (ln_*) f32 -> out (B*SP, D), f32 unless out_f32 is 0 (bf16).
+// PD % 32 == 0 (the wrapper zero-pads K). Scratch: t (B*SP, D) f32, xs
+// (B*SP, D) in out's dtype (the residual stream after ln_pre), and
+// wt_attn_block's y, qkv, att (bf16).
+int wt_embed_attn_block(const bf16* xp, const bf16* kern, const float* posc,
+                        const float* lnp_s, const float* lnp_b,
+                        const float* ln_s, const float* ln_b,
+                        const bf16* wqkv, const bf16* bqkv, const bf16* wo,
+                        const bf16* bo, void* out, int out_f32, float* t,
+                        void* xs, bf16* y, bf16* qkv, bf16* att, int B,
+                        int SP, int PD, int D, int H, int n_valid,
+                        void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int M = B * SP;
+  if (!head_dim(SP, D, H) || PD % BK != 0) return (int)cudaErrorInvalidValue;
+  const RowMap in_example = {nullptr, 0, SP, kRowInExample};
+  WT_CHECK((gemm<float, kBiasResidual>(xp, PD, kNoMap, kern, D, nullptr, t, D,
+                                       posc, D, in_example, M, D, PD, kNone,
+                                       st)));
+  WT_CHECK(out_f32 ? launch_layernorm<float>(t, lnp_s, lnp_b,
+                                             static_cast<float*>(xs), M, D, st)
+                   : launch_layernorm<float>(t, lnp_s, lnp_b,
+                                             static_cast<bf16*>(xs), M, D,
+                                             st));
+  return attn_block(xs, out_f32, ln_s, ln_b, wqkv, bqkv, wo, bo, out, y, qkv,
+                    att, B, SP, D, H, n_valid, 0, st);
+}
+
 // The attention block at one row per example, as (B, D): rows[b] when rows
 // is given (device int32), else pool_row for every example. k/v cover every
 // row; q, attention and out-proj only the pooled one. Scratch (bf16):
@@ -320,7 +412,7 @@ int wt_attn_block_pooled(const void* x, int x_f32, const float* ln_s,
   const int M = B * SP;
   const int hd = head_dim(SP, D, H);
   if (!hd) return (int)cudaErrorInvalidValue;
-  const RowMap pooled = {rows, pool_row, SP, 1};
+  const RowMap pooled = {rows, pool_row, SP, kGatherPooled};
   WT_CHECK(layernorm(x, x_f32, ln_s, ln_b, y, M, D, st));
   WT_CHECK((gemm<bf16, kBias>(y, D, kNoMap, wqkv + D, 3 * D, bqkv + D, kv,
                               2 * D, nullptr, 0, kNoMap, M, 2 * D, D, kNone,

@@ -68,9 +68,13 @@ __device__ __forceinline__ int pooled_row(const int* rows, int row0, int b,
   return rows ? min(max(rows[b], 0), sp - 1) : row0;
 }
 
-// A row of a GEMM operand, optionally gathered: row m of the logical matrix
-// lies at row m * sp + pooled_row(m) of the stored one. The pooled blocks use
-// it to read one token per example out of the (B * SP, D) stream.
+// A row of a GEMM operand, optionally mapped. kGatherPooled: row m of the
+// logical matrix lies at row m * sp + pooled_row(m) of the stored one (the
+// pooled blocks read one token per example out of the (B * SP, D) stream).
+// kRowInExample: row m lies at row m mod sp (the embed fold reads its
+// (SP, D) positional table under the (B * SP, D) patch product).
+enum RowMode { kRowsAsIs = 0, kGatherPooled = 1, kRowInExample = 2 };
+
 struct RowMap {
   const int* rows;
   int row0;
@@ -79,18 +83,21 @@ struct RowMap {
 };
 
 __device__ __forceinline__ size_t map_row(const RowMap& g, int m) {
-  if (!g.gather) return (size_t)m;
+  if (g.gather == kRowInExample) return (size_t)(m % g.sp);
+  if (g.gather != kGatherPooled) return (size_t)m;
   return (size_t)m * g.sp + pooled_row(g.rows, g.row0, m, g.sp);
 }
 
 // ---------------------------------------------------------------------------
-// LayerNorm: one warp per row, f32 statistics, bf16 output (the GEMM operand)
+// LayerNorm: one warp per row, f32 statistics, bf16 output (the GEMM
+// operand) unless TY says otherwise (the embed fold's ln_pre writes the f32
+// residual stream)
 // ---------------------------------------------------------------------------
 
-template <typename T>
+template <typename T, typename TY = bf16>
 __global__ void __launch_bounds__(256)
 layernorm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                 const float* __restrict__ bias, bf16* __restrict__ y, int M,
+                 const float* __restrict__ bias, TY* __restrict__ y, int M,
                  int D) {
   const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -107,9 +114,9 @@ layernorm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   const float mean = sum / D;
   const float var = fmaxf(sq / D - mean * mean, 0.f);
   const float rs = rsqrtf(var + kEps);
-  bf16* yr = y + (size_t)row * D;
+  TY* yr = y + (size_t)row * D;
   for (int i = lane; i < D; i += 32)
-    yr[i] = __float2bfloat16((to_f(xr[i]) - mean) * (rs * scale[i]) + bias[i]);
+    yr[i] = from_f<TY>((to_f(xr[i]) - mean) * (rs * scale[i]) + bias[i]);
 }
 
 // ---------------------------------------------------------------------------
@@ -267,12 +274,12 @@ gemm_kernel(const bf16* __restrict__ A, int lda, RowMap amap,
 // host-side launch helpers
 // ---------------------------------------------------------------------------
 
-const RowMap kNoMap = {nullptr, 0, 0, 0};
+const RowMap kNoMap = {nullptr, 0, 0, kRowsAsIs};
 
-template <typename T>
+template <typename T, typename TY = bf16>
 cudaError_t launch_layernorm(const void* x, const float* s, const float* b,
-                             bf16* y, int M, int D, cudaStream_t st) {
-  layernorm_kernel<T><<<(M + 7) / 8, 256, 0, st>>>(
+                             TY* y, int M, int D, cudaStream_t st) {
+  layernorm_kernel<T, TY><<<(M + 7) / 8, 256, 0, st>>>(
       static_cast<const T*>(x), s, b, y, M, D);
   return cudaGetLastError();
 }

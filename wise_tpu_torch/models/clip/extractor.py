@@ -31,7 +31,8 @@ from .config import production_clip_config
 from .convert import load_checkpoint
 from .model import CLIP, init_random_
 from .tokenizer import HashTokenizer, get_tokenizer
-from .preprocess import preprocess_images, preprocess_images_gemm
+from .preprocess import (preprocess_images, preprocess_images_exact,
+                         preprocess_images_gemm)
 
 logger = logging.getLogger(__name__)
 
@@ -157,16 +158,15 @@ class OpenClipExtractor(FeatureExtractor):
         """Device half of ``extract_image_features``: the (n, D) embedding
         stays on the device until numpy reads it."""
         images = np.asarray(images)
-        if images.dtype == np.uint8 and os.environ.get(
-                "WISE_PREPROCESS", "") == "exact":
-            raise NotImplementedError(
-                "WISE_PREPROCESS=exact: the reference's PIL preprocessing "
-                "path is not ported (ROADMAP Queue A item 15); unset it for "
-                "the device resize")
         if images.ndim == 3:
             images = images[None]
         s = self.config.image_size
-        if images.shape[1:3] != (s, s):
+        if images.dtype == np.uint8 and os.environ.get(
+                "WISE_PREPROCESS", "") == "exact":
+            # the upstream PIL preprocessing, resize first, on the host;
+            # slow, for parity audits (preprocess_images_exact)
+            images = preprocess_images_exact(images, s)
+        elif images.shape[1:3] != (s, s):
             images = self.preprocess_image(images)
         n = images.shape[0]
         batch = self._pad(images, self._image_buckets.pick(n))

@@ -22,7 +22,10 @@ kernels on CUDA tensors and compute their plain versions on CPU tensors.
 The kernels take head_dim 64 or 80 and at most 272 tokens
 (``ops.block.supports_fused_block``), which covers ViT-B/32, B/16, L/14 and
 H/14 at 224 px and their text towers; any other tower raises on the card
-unless ``fused_block`` is off. The MLP takes ``fused_mlp_block`` up to width
+unless ``fused_block`` is off. A shape the monolithic block does not take
+and ``ops.block.supports_fused_block_padded`` does takes the padded-head
+block; that gate's table is empty, so no tower does unless a caller fills
+it. The MLP takes ``fused_mlp_block`` up to width
 768 and the ``fused_mlp_split`` pair above (``ops.block.mlp_choice``).
 
 With ``fused_block`` off and ``fused_attention`` set (bf16), a block's
@@ -130,12 +133,24 @@ class ResidualAttentionBlock(nn.Module):
         att = A.fused_short_attention(q, k, v, self.heads, n_valid, causal)
         return x + self.attn.out_proj(att).to(x.dtype)
 
+    def _fused_attn(self, seq: int):
+        """The attention block's wrapper for a block tower: the monolithic
+        block, unless it does not take the shape and the padded-head block
+        does (the reference's precedence, wise_tpu/models/clip/model.py:
+        346-355). The padded gate's table is empty, so only a caller that
+        fills it reaches the padded block."""
+        if (not K.supports_fused_block(seq, self.width, self.heads)
+                and K.supports_fused_block_padded(seq, self.width,
+                                                  self.heads)):
+            return K.fused_attn_block_padded_train
+        return K.fused_attn_block_train
+
     def forward(self, x, n_valid: int, causal: bool = False):
         fused = self.fused_block
         if self.fused_attention:
             x = self._attention_middle(x, n_valid, causal)
             return K.plain_mlp_block(x, *self._mlp_params(), act=self.act)
-        attn = K.fused_attn_block_train if fused else K.plain_attn_block
+        attn = self._fused_attn(x.shape[1]) if fused else K.plain_attn_block
         if not fused:
             mlp = K.plain_mlp_block
         elif K.mlp_choice(self.width) == "split":

@@ -6,6 +6,10 @@ linear per axis, so it runs as two GEMMs with the exact separable weights of
 jax.image's antialiased Keys-cubic resize (``resize_weights``); the operands
 are bf16 and the sums f32, as in the reference's ``preprocess_images_gemm``.
 Plain torch ops: the reference leaves this to XLA, not to a Pallas kernel.
+
+``preprocess_images_exact`` is the host-side PIL path behind
+``WISE_PREPROCESS=exact``, a copy of the reference's function
+(wise_tpu/models/clip/preprocess.py:120).
 """
 
 from __future__ import annotations
@@ -87,3 +91,44 @@ def preprocess_images_gemm(frames, target_size: int = 224,
     x = torch.einsum("Hh,bhwc->bHwc", w, x.float()).to(torch.bfloat16)
     x = torch.einsum("wW,bHwc->bHWc", w.T, x.float())
     return _normalise(x, mean, std)
+
+
+def preprocess_images_exact(frames: np.ndarray, target_size: int = 224,
+                            mean=OPENAI_DATASET_MEAN,
+                            std=OPENAI_DATASET_STD) -> np.ndarray:
+    """Bit-faithful replica of the upstream preprocessing (open_clip's
+    ``image_transform``): PIL shortest-side bicubic resize (PIL's resample is
+    the antialiased convolution torchvision delegates to on PIL inputs) ->
+    torchvision-style centre crop -> ToTensor -> Normalize. uint8 (B, H, W,
+    3) or (H, W, 3) -> (B, S, S, 3) f32 on the host.
+
+    Host-side and per frame: for parity audits and query-image embedding
+    (``WISE_PREPROCESS=exact``), not for ingest throughput; the device path
+    (``preprocess_images*``, crop first) is the production route. A copy of
+    wise_tpu/models/clip/preprocess.py ``preprocess_images_exact``."""
+    from PIL import Image
+
+    frames = np.asarray(frames)
+    if frames.ndim == 3:
+        frames = frames[None]
+    s = target_size
+    mean_a = np.asarray(mean, np.float32)
+    std_a = np.asarray(std, np.float32)
+    out = np.empty((len(frames), s, s, 3), np.float32)
+    for i, f in enumerate(frames):
+        im = Image.fromarray(np.ascontiguousarray(f))
+        w, h = im.size
+        if (w, h) != (s, s):
+            if w <= h:  # torchvision Resize(int): short side -> s
+                new_w, new_h = s, int(s * h / w)
+            else:
+                new_w, new_h = int(s * w / h), s
+            im = im.resize((new_w, new_h), Image.BICUBIC)
+            arr = np.asarray(im, dtype=np.float32)
+            top = int(round((new_h - s) / 2.0))
+            left = int(round((new_w - s) / 2.0))
+            arr = arr[top:top + s, left:left + s]
+        else:
+            arr = np.asarray(im, dtype=np.float32)
+        out[i] = (arr / 255.0 - mean_a) / std_a
+    return out

@@ -13,10 +13,13 @@ tensors) or raises. ``LAUNCHES`` counts the launches.
 | --------------------- | --------------------------------------------- |
 | fused_short_attention | fused_short_attention (attention.py:125)      |
 
-The reference admits head_dim 64 only, for a TPU layout reason; the kernel
-here is instantiated for 64 and 80. The reference pads the token axis to a
-multiple of 8 and masks the pad through ``n_valid``; the kernel pads to 16
-itself, so callers pass SP as it is.
+The reference admits head_dim 64 only, for a TPU layout reason, and its
+padded-head block (ops/block.py ``fused_attn_block_padded``) calls it on
+128-lane slots; the kernel here is instantiated for 64, 80 and 128
+(``HEAD_DIMS``, a set of its own: the block kernels take 64 and 80 alone).
+The reference pads the token axis to a multiple of 8 and masks the pad
+through ``n_valid``; the kernel pads to 16 itself, so callers pass SP as it
+is.
 """
 
 from __future__ import annotations
@@ -25,8 +28,14 @@ import math
 
 import torch
 
-from .block import HEAD_DIMS, MAX_SEQ, _require, _stream
+from . import block
+from .block import MAX_SEQ, _require, _stream
 from .build import LaunchCounter, check, load_library, refuse_grad
+
+#: head dims the attention-middle kernel takes: the block kernels' and the
+#: padded-head block's 128-lane slots (a 32-row query tile there keeps K, V
+#: and the tile within a block's shared memory at 272 keys)
+HEAD_DIMS = (*block.HEAD_DIMS, block.HEAD_PAD)
 
 _launches = LaunchCounter("fused_short_attention")
 #: kernel launches since the last reset_launches()

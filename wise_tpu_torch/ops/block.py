@@ -18,6 +18,15 @@ version; on a CUDA tensor it launches its kernel chain
 | fused_attn_block_res          | fused_attn_block_res (block.py:1586)        |
 | fused_mlp_block_res           | fused_mlp_block_res (block.py:1635)         |
 | fused_mlp_split_res           | fused_mlp_split_res (block.py:1681)         |
+| fused_ln_matmul               | fused_ln_matmul (block.py:1303)             |
+| fused_residual_matmul         | fused_residual_matmul (block.py:1340)       |
+
+``fused_attn_block_padded`` (block.py:1420) chains the last two with the
+attention middle (ops/attention.py) at head_dim 128: the padded-head block
+for head dims that are not a multiple of 64, with its training rule
+``fused_attn_block_padded_train`` (block.py:1931). Its gate
+``supports_fused_block_padded`` reads a table that is empty, as the
+reference's is, so no tower takes it unless a caller fills the table.
 
 The ``*_res`` wrappers are the training forwards: each returns its serve
 twin's output and the residual the backward starts from (the post-bias qkv,
@@ -52,7 +61,8 @@ _launches = LaunchCounter("fused_attn_block", "fused_mlp_block",
                           "fused_attn_block_pooled",
                           "fused_attn_block_pooled_dyn", "fused_mlp_fc",
                           "fused_mlp_proj", "fused_attn_block_res",
-                          "fused_mlp_block_res", "fused_mlp_fc_res")
+                          "fused_mlp_block_res", "fused_mlp_fc_res",
+                          "fused_ln_matmul", "fused_residual_matmul")
 #: kernel launches per wrapper since the last reset_launches()
 LAUNCHES = _launches.counts
 #: the same launches keyed by (wrapper, SP, D) of x: one tower's count
@@ -537,6 +547,23 @@ def fused_mlp_fc_res(x, ln_scale, ln_bias, wfc, bfc, act: str = "gelu"):
     return _mlp_fc_launch(name, x, ln_scale, ln_bias, wfc, bfc, act, res=True)
 
 
+def _proj_launch(name, entry, h, w, b, x):
+    """x + (h @ w + b) in x's dtype through ``entry`` (wt_mlp_proj or
+    wt_residual_matmul: one GEMM with the residual epilogue)."""
+    bsz, sp, d = _check_x(x, name)
+    f = w.shape[0]
+    _require(f % 32 == 0, f"{name}: inner width {f} not a multiple of 32")
+    _check_param(h, (bsz, sp, f), torch.bfloat16, x.device, f"{name} h")
+    _check_proj(w, b, d, f, x.device, name)
+    lib = load_library()
+    out = torch.empty_like(x)
+    check(getattr(lib, entry)(
+        *_ptrs(h, w, b, x), _is_f32(x), *_ptrs(out), bsz * sp, d, f,
+        _stream(x)), name)
+    _launches.add(name, sp, d)
+    return out
+
+
 def fused_mlp_proj(h, wproj, bproj, x):
     """The second half: h (B, SP, F) bf16, x (B, SP, D) ->
     x + (proj(h) + b) in x's dtype."""
@@ -544,18 +571,7 @@ def fused_mlp_proj(h, wproj, bproj, x):
         return plain_mlp_proj(h, wproj, bproj, x)
     name = "fused_mlp_proj"
     _refuse_grad(name, "fused_mlp_split_train", h, wproj, bproj, x)
-    b, sp, d = _check_x(x, name)
-    f = wproj.shape[0]
-    _require(f % 32 == 0, f"{name}: hidden width {f} not a multiple of 32")
-    _check_param(h, (b, sp, f), torch.bfloat16, x.device, f"{name} h")
-    _check_proj(wproj, bproj, d, f, x.device, name)
-    lib = load_library()
-    out = torch.empty_like(x)
-    check(lib.wt_mlp_proj(
-        *_ptrs(h, wproj, bproj, x), _is_f32(x), *_ptrs(out), b * sp, d, f,
-        _stream(x)), name)
-    _launches.add(name, sp, d)
-    return out
+    return _proj_launch(name, "wt_mlp_proj", h, wproj, bproj, x)
 
 
 def fused_mlp_split(x, ln_scale, ln_bias, wfc, bfc, wproj, bproj,
@@ -635,6 +651,132 @@ def fused_attn_block_pooled_dyn(x, rows, ln_scale, ln_bias, wqkv, bqkv, wo,
     _check_param(rows, (x.shape[0],), torch.int32, x.device, f"{name} rows")
     return _pooled_launch(name, x, rows, 0, ln_scale, ln_bias, wqkv, bqkv, wo,
                           bo, heads, n_valid, causal)
+
+
+# ---------------------------------------------------------------------------
+# the padded-head attention block (wise_tpu/ops/block.py:1255-1450). Each
+# head's q/k/v slot is zero-padded to HEAD_PAD lanes in the weights (zero K
+# columns add nothing to a logit, zero V columns give zero output columns,
+# and wo gets zero rows there): three fused_ln_matmul for q, k and v, the
+# attention middle at width heads x HEAD_PAD with the softmax scale of the
+# true head_dim, and fused_residual_matmul. The reference built it for a TPU
+# layout reason (head slices at 80-lane offsets); it runs the LayerNorm
+# three times and the attention-side GEMMs HEAD_PAD / hd times as wide
+# (1.6x at head_dim 80). The port keeps that design and the gate.
+# ---------------------------------------------------------------------------
+
+#: lanes each head's q/k/v slot is zero-padded to
+HEAD_PAD = 128
+#: (SP, D) shapes on which a tower takes the padded-head block. Empty, as the
+#: reference's ``_CALIBRATED_PAD`` is: a shape enters only when a measurement
+#: on the card shows the block beating the path in use.
+_CALIBRATED_PAD: set = set()
+
+
+def supports_fused_block_padded(seq: int, width: int, heads: int) -> bool:
+    """Whether a tower of this shape takes the padded-head block: a head_dim
+    under HEAD_PAD that is not a multiple of 64, a sequence the attention
+    kernel takes, and (seq, width) in the table. The reference's other
+    terms (the bf16 dtype, seq % 8, VMEM groups, the TPU backend) belong to
+    the TPU or to the caller (the model asks only for bf16 block towers)."""
+    if (seq, width) not in _CALIBRATED_PAD or heads < 1 or width % heads:
+        return False
+    hd = width // heads
+    return hd < HEAD_PAD and hd % 64 != 0 and 1 <= seq <= MAX_SEQ
+
+
+def plain_ln_matmul(x, ln_s, ln_b, w, b, act: str = "none"):
+    """act(LN(x) @ w + b) in x's dtype: LN(x) rounds to the weight dtype
+    (the GEMM operand), the product, bias and activation are f32, and the
+    result rounds once, to x's dtype."""
+    y = layer_norm_f32(x, ln_s, ln_b).to(w.dtype).float()
+    return activation(y @ w.float() + b.float(), act).to(x.dtype)
+
+
+def plain_residual_matmul(x, h, w, b):
+    """x + (h @ w + b) in x's dtype."""
+    return plain_mlp_proj(h, w, b, x)
+
+
+def fused_ln_matmul(x, ln_scale, ln_bias, w, b, act: str = "none"):
+    """x (B, SP, D) -> act(LN(x) @ w + b) as (B, SP, OW) in x's dtype; w
+    (D, OW) bf16, b (OW,) bf16."""
+    if not x.is_cuda:
+        return plain_ln_matmul(x, ln_scale, ln_bias, w, b, act)
+    name = "fused_ln_matmul"
+    _refuse_grad(name, "fused_attn_block_padded_train", x, ln_scale, ln_bias,
+                 w, b)
+    _require(act in ACTS, f"{name}: unknown activation {act!r}")
+    bsz, sp, d = _check_x(x, name)
+    ow = w.shape[-1]
+    _require(ow % 8 == 0, f"{name}: output width {ow} not a multiple of 8")
+    dev, bf = x.device, torch.bfloat16
+    _check_param(ln_scale, (d,), torch.float32, dev, f"{name} ln_scale")
+    _check_param(ln_bias, (d,), torch.float32, dev, f"{name} ln_bias")
+    _check_param(w, (d, ow), bf, dev, f"{name} w")
+    _check_param(b, (ow,), bf, dev, f"{name} b")
+    lib = load_library()
+    y = torch.empty((bsz * sp, d), dtype=bf, device=dev)
+    out = torch.empty((bsz, sp, ow), dtype=x.dtype, device=dev)
+    check(lib.wt_ln_matmul(
+        *_ptrs(x), _is_f32(x), *_ptrs(ln_scale, ln_bias, w, b, out, y),
+        bsz * sp, d, ow, ACTS[act], _stream(x)), name)
+    _launches.add(name, sp, d)
+    return out
+
+
+def fused_residual_matmul(x, h, w, b):
+    """x (B, SP, D), h (B, SP, IW) bf16 -> x + (h @ w + b) in x's dtype; w
+    (IW, D) bf16, b (D,) bf16."""
+    if not x.is_cuda:
+        return plain_residual_matmul(x, h, w, b)
+    name = "fused_residual_matmul"
+    _refuse_grad(name, "fused_attn_block_padded_train", x, h, w, b)
+    return _proj_launch(name, "wt_residual_matmul", h, w, b, x)
+
+
+def _pad_head_weights(wqkv, bqkv, wo, heads: int, hd: int, hp: int):
+    """Zero-pad each head's slot to hp lanes: ((wq, bq), (wk, bk), (wv, bv),
+    wo_pad) with wq (D, heads * hp), bq (heads * hp,), wo_pad (heads * hp,
+    D). Weight tensors only; the activation stream is never padded."""
+    d = wqkv.shape[0]
+    pad = torch.nn.functional.pad
+
+    def slot(i):
+        w = pad(wqkv[:, i * d:(i + 1) * d].reshape(d, heads, hd),
+                (0, hp - hd))
+        bb = pad(bqkv[i * d:(i + 1) * d].reshape(heads, hd), (0, hp - hd))
+        return w.reshape(d, heads * hp), bb.reshape(heads * hp)
+
+    wo_pad = pad(wo.reshape(heads, hd, d), (0, 0, 0, hp - hd))
+    return slot(0), slot(1), slot(2), wo_pad.reshape(heads * hp, d)
+
+
+def fused_attn_block_padded(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
+                            heads: int, n_valid: int, causal: bool = False):
+    """fused_attn_block's contract for head dims under HEAD_PAD, as five
+    wrapper calls: q, k and v each by fused_ln_matmul on padded weights,
+    fused_short_attention at head_dim HEAD_PAD with the scale of the true
+    head_dim, and fused_residual_matmul with the zero-row out-projection.
+
+    One deviation from the reference: there fused_ln_matmul hands q, k and v
+    over in x's dtype, f32 under the vision towers' f32 stream, while the
+    attention kernel here takes bf16; q, k and v round to bf16 here, on
+    both devices, so the plain chain and the kernel chain compute one
+    function."""
+    from .attention import fused_short_attention
+
+    d = x.shape[-1]
+    _require(heads >= 1 and d % heads == 0 and d // heads <= HEAD_PAD,
+             f"fused_attn_block_padded: head_dim {d / max(heads, 1):g} "
+             f"above {HEAD_PAD}")
+    hd = d // heads
+    *qkv, wo_pad = _pad_head_weights(wqkv, bqkv, wo, heads, hd, HEAD_PAD)
+    q, k, v = (fused_ln_matmul(x, ln_scale, ln_bias, w, b).to(torch.bfloat16)
+               for w, b in qkv)
+    att = fused_short_attention(q, k, v, heads, n_valid, causal,
+                                scale=1.0 / math.sqrt(hd))
+    return fused_residual_matmul(x, att, wo_pad, bo)
 
 
 # ---------------------------------------------------------------------------
@@ -780,6 +922,35 @@ class _PooledTrain(torch.autograd.Function):
         return (gx, None, *gp, None, None, None, None)
 
 
+class _PaddedTrain(torch.autograd.Function):
+    """fused_attn_block_padded_train: the padded chain forward, and a
+    backward that differentiates plain_attn_block at the saved inputs (the
+    reference's ``_recompute_bwd`` over ``plain_attn_block``: the padding is
+    a detail of the forward, the function is the attention block's). The
+    cotangent is zeroed at rows >= n_valid, where the forward's rows are
+    the kernel's to leave undefined."""
+
+    @staticmethod
+    def forward(ctx, x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads, n_valid,
+                causal):
+        out = fused_attn_block_padded(x, ln_s, ln_b, wqkv, bqkv, wo, bo,
+                                      heads, n_valid, causal)
+        ctx.save_for_backward(x, ln_s, ln_b, wqkv, bqkv, wo, bo)
+        ctx.static = (heads, n_valid, causal)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        heads, n_valid, causal = ctx.static
+        if n_valid < g.shape[1]:
+            g = g.clone()
+            g[:, n_valid:] = 0
+        x, *params = _leaves(*ctx.saved_tensors)
+        with torch.enable_grad():
+            out = plain_attn_block(x, *params, heads, n_valid, causal)
+        return (*torch.autograd.grad(out, (x, *params), g), None, None, None)
+
+
 def fused_attn_block_train(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads: int,
                            n_valid: int, causal: bool = False):
     """fused_attn_block for the towers: with a gradient required the
@@ -834,3 +1005,14 @@ def fused_attn_block_pooled_dyn_train(x, rows, ln_s, ln_b, wqkv, bqkv, wo, bo,
         return fused_attn_block_pooled_dyn(x, rows, *args[1:], heads, n_valid,
                                            causal)
     return _PooledTrain.apply(x, rows, *args[1:], heads, n_valid, 0, causal)
+
+
+def fused_attn_block_padded_train(x, ln_s, ln_b, wqkv, bqkv, wo, bo,
+                                  heads: int, n_valid: int,
+                                  causal: bool = False):
+    """fused_attn_block_padded for the towers; under a gradient the same
+    five-call forward and a recompute backward through plain_attn_block."""
+    args = (x, ln_s, ln_b, wqkv, bqkv, wo, bo)
+    if not _needs_grad(*args):
+        return fused_attn_block_padded(*args, heads, n_valid, causal)
+    return _PaddedTrain.apply(*args, heads, n_valid, causal)

@@ -49,6 +49,9 @@ SIGNATURES = {
                              _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "wt_short_attention": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I,
                            _F, _P],
+    "wt_ln_matmul": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "wt_residual_matmul": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _P],
+    "wt_embed_attn_block": [_P] * 12 + [_I] + [_P] * 5 + [_I] * 6 + [_P],
     "wt_postln_attn_block": [_P] * 12 + [_I] * 4 + [_P],
     "wt_postln_mlp_block": [_P] * 10 + [_I] * 4 + [_P],
     "wt_postln_fc": [_P] * 4 + [_I] * 4 + [_P],

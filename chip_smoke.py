@@ -1075,12 +1075,22 @@ def _postln_rows(torch, results, tag, s):
                rounded, _postln_work(b, "proj"))
 
 
+def _last_whole_tile(sp: int) -> int:
+    """The keys of the attention kernel's whole key tiles below sp: n_valid
+    as a loop that stopped one tile early would take it."""
+    from wise_tpu_torch.ops.attention import KEY_TILE
+
+    return (sp - 1) // KEY_TILE * KEY_TILE
+
+
 def _short_attention_rows(torch, results):
     """fused_short_attention at SHORT_ATTN_SHAPES on its whole output, q, k
     and v being the three column ranges of one packed (B, SP, 3D) bf16
     in-projection ~ N(0, 1), as the model hands them over. Planted faults:
     the softmax at half its scale, the key mask dropped (n_valid = SP where
-    the reference masks the last 7 keys), the causal mask dropped. The
+    the reference masks the last 7 keys), the causal mask dropped, and over
+    one key tile the last tile unscanned (the kernel at n_valid cut to the
+    last whole tile, against the reference at SP). The
     library call that computes the same function is
     ``F.scaled_dot_product_attention`` on the same q, k and v as (B, H, SP,
     hd) views."""
@@ -1111,6 +1121,9 @@ def _short_attention_rows(torch, results):
         if causal:
             faults["causal_dropped"] = lambda: call(A.fused_short_attention,
                                                     causal=False)
+        if sp > A.KEY_TILE:
+            faults["last_tile_unscanned"] = lambda: call(
+                A.fused_short_attention, n_valid=_last_whole_tile(sp))
         keys = (sp + 1) / 2 if causal else sp
         _check_row(torch, results, "fused_short_attention", tag,
                    ("fused_short_attention", sp, d), q,
@@ -2626,7 +2639,8 @@ def _padded_rows(torch, results, b, sp, d, heads):
     at 1 + N(0, 0.25) / N(0, 0.25), so that a kernel that left them out
     would show. Planted: the LayerNorm's scale and bias as ones and zeros,
     h not activated; the attention at head_dim 128's own scale (the true
-    head_dim's is passed), the key mask dropped; the residual GEMM with
+    head_dim's is passed), the key mask dropped, the last key tile
+    unscanned; the residual GEMM with
     half its heads dropped, the block skipped."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
@@ -2677,7 +2691,9 @@ def _padded_rows(torch, results, b, sp, d, heads):
                {"scale_of_hd128": lambda: attn(scale=None),
                 "mask_dropped": lambda: (
                     attn(), attn(A.plain_short_attention, n_valid=sp - 7),
-                    attn(n_valid=sp - 7))},
+                    attn(n_valid=sp - 7)),
+                "last_tile_unscanned": lambda: attn(
+                    n_valid=_last_whole_tile(sp))},
                (4 * b * sp * sp * dp, 4 * m * dp * 2),
                library=lambda: sdpa(q4, k4, v4, scale=scale))
 

@@ -566,6 +566,28 @@ def test_postln_planted_fault_fails_the_check(cuda, fault):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["xlmr", "tile+1"])
+def test_postln_attention_with_an_example_masked_whole_on_card(cuda, shape):
+    """km drops every key of example 0, and all keys of example 1 but its
+    last (at 65 tokens the first key tile is masked whole, and the rows find
+    their one key in the second): NaN where the plain version is NaN (all of
+    example 0), agreement elsewhere."""
+    x, km, ln, w = _postln_inputs(shape, 105, cuda)
+    sp, heads = x.shape[1], POSTLN_SHAPES[shape][3]
+    km[0] = float("-inf")
+    km[1, :, :sp - 1] = float("-inf")
+    km[1, :, sp - 1] = 0
+    got = P.fused_postln_attn_block(x, km, *ln, *w, heads)
+    want = P.plain_postln_attn_block(x, km, *ln, *w, heads)
+    torch.cuda.synchronize()
+    nan = torch.isnan(want)
+    assert nan[0].all() and not nan[1:].any()
+    assert torch.equal(torch.isnan(got), nan)
+    check = K.output_agreement(got[1:], want[1:])
+    assert check["ok"], check
+
+
+@pytest.mark.cuda
 def test_postln_wrappers_reject_what_they_do_not_take(cuda):
     x, km, ln, w = _postln_inputs("tiny", 103, cuda)
     heads = POSTLN_SHAPES["tiny"][3]
@@ -612,6 +634,11 @@ SHORT_CASES = {
     # head_dim 128: the padded-head block's slots, at head_dim 80's scale
     "head_dim_128": (3, 257, 256, 2, 250, True, 80 ** -0.5),
     "longest_128": (2, 272, 256, 2, 272, False, None),
+    # the key loop's edges: a 2-key last tile, causal tiles skipped with
+    # n_valid < SP, a last tile of 250 - 192 keys at head_dim 80
+    "ragged_tile": (2, 130, 128, 2, 130, False, None),
+    "causal_257": (2, 257, 128, 2, 250, True, None),
+    "head_dim_80_n_valid": (2, 257, 160, 2, 250, False, None),
 }
 
 

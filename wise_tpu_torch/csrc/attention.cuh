@@ -4,166 +4,316 @@
 // (the CLIP towers' pre-LN blocks and the attention-middle entry point) and
 // postln_kernels.cu (the XLM-R tower's post-LN block). Internal linkage, as
 // common.cuh: each translation unit holds its own copy.
+//
+// Replaces the attention of the Pallas TPU kernels wise_tpu/ops/attention.py
+// fused_short_attention (_kernel), and the attention middles of
+// wise_tpu/ops/block.py _attn_block_kernel and wise_tpu/ops/postln_block.py
+// _postln_attn_kernel. The TPU kernel holds q, k, v of a group of examples in
+// VMEM and a whole (SP, SP) logits block per head; a Hopper SM has 227 KB of
+// shared memory and 64K registers, so the kernel here is flash-style.
+//
+// What bounds it: it reads q, k, v and writes the output once, 8 M D bytes
+// (bf16, M = B * SP), for 4 M keys D operations: keys / 2 operations a byte,
+// under the card's ~295 at every length it takes, so bytes bound it (0.05 ms
+// at ViT-H/14's 64 x 257 x 1280). What the design does about it:
+//   - one block of 4 warps per (64-row query tile, head, example), the query
+//     tile fastest in blockIdx.x, so that the tiles of one (example, head)
+//     run together and find its K and V in L2: device memory sees them about
+//     once;
+//   - a loop over key tiles of 64, in two passes: the first reads K alone
+//     and carries each row's max and sum online (f32 registers, the sum
+//     rescaled by exp(m_old - m_new)); the second reads K and V of the same
+//     tiles and adds bf16(p) V with p = exp(logit - m) / sum, which is where
+//     the reference and the plain version round p. (One pass that rounds
+//     exp(logit - m_running) and divides at the end rounds elsewhere: its
+//     bf16-level difference from the plain path, over ViT-B/32's 12 layers,
+//     took the served scores past chip_smoke's check; PERF.md §6.) K is
+//     read twice, the second time from L2. The tiles pass through two
+//     shared-memory stages filled by 16-byte cp.async copies, the next tile
+//     in flight while the tensor cores work on this one; shared memory is
+//     5 tiles of 64 rows whatever SP is (46-87 KB), so 2-4 blocks share an
+//     SM;
+//   - S = Q K^T and O += P V on mma.sync m16n8k16 (bf16 in, f32
+//     accumulation): each warp owns 16 query rows, its Q fragments stay in
+//     registers for the whole loop, S and P never leave registers (the S
+//     accumulator of two 8-key n-tiles is the A fragment of one 16-key slice
+//     of P V), K comes in by ldmatrix and V by ldmatrix.trans;
+//   - the output is staged through the warp's own rows of the dead Q tile
+//     and stored in 16-byte rows.
+// Shared rows are padded by 8 bf16 (144 / 176 / 272 bytes at head_dim 64 /
+// 80 / 128): the 8 rows an ldmatrix reads fall in 8 distinct 16-byte bank
+// groups, so it is free of bank conflicts.
 
 #include "common.cuh"
 
 namespace {
 
-// The longest sequence the attention kernels take. K and V of one head stay
-// resident in shared memory for the whole block: at head_dim 80 and 272 keys
-// they hold 2 * 272 * 88 * 2 = 95,744 bytes, and with a 64-row query tile,
-// its f32 scores and its bf16 probabilities the block needs 213,504 of
-// Hopper's 232,448 bytes. 272 = 17 * 16 covers the 257 tokens of the /14
-// towers at 224 px.
+// The longest sequence the attention kernels take: the gates (head_dim(),
+// short_head_dim(), ops/block.py MAX_SEQ) apply it. It is no longer a
+// shared-memory limit (the key loop's memory does not grow with SP); it
+// covers the 257 tokens of the /14 towers at 224 px, and a longer tower
+// (SigLIP at 384 px, 577 tokens: ROADMAP Queue A 8) lifts it.
 constexpr int kMaxSeq = 272;
-constexpr int kAttnThreads = 256;
+constexpr int kQTile = 64, kKTile = 64, kAttnWarps = kQTile / 16;
+constexpr int kAttnThreads = 32 * kAttnWarps;
 
-// ---------------------------------------------------------------------------
-// attention over a short sequence: one block (8 warps) per (head, batch,
-// query tile). q, k, v are (B * SP, D) bf16 matrices with row strides ldq,
-// ldk, ldv (a packed qkv buffer is q = qkv, k = qkv + D, v = qkv + 2D with
-// stride 3D; three tensors of their own have stride D); att (B * SP, D)
-// bf16. logit = q . k * scale (+ km[b, j], an additive f32 key mask per
-// example, where km is given); keys >= n_valid and, with causal, keys above
-// the query row are dropped. A row whose keys are all dropped or at -inf
-// comes out as NaN (0 / 0), as softmax over an empty set does.
-// Rows SP..SPp-1 (SPp = SP rounded up to 16) are the kernel's own zero
-// padding: masked as keys (n_valid <= SP), never stored as queries.
-// ---------------------------------------------------------------------------
-
-// Query rows per block (kQTile). One block per SM fits either way (K and V
-// alone take 96 KB of the SM's 228 KB at 257 tokens and head_dim 80), so 64
-// rows rather than 32 where they fit: K and V are loaded 5 times per head
-// instead of 9, and 8 warps share 4 x 17 score tiles. At head_dim 128 (the
-// padded-head block's 128-lane slots) a 64-row tile needs 271,872 bytes at
-// 272 keys, over the 232,448 a block may take; 32 rows need 209,920. A full
-// row of S fits in shared memory, so the softmax is one pass: no online
-// rescaling at these lengths.
+// shared memory of one block: the Q tile and two stages of K and V
 template <int HD>
-struct AttnLayout {
-  static constexpr int kQTile = HD > 80 ? 32 : 64;
-  static constexpr int QK_LD = HD + 8;  // +8 bf16: rows stay 16-byte aligned
-  __host__ __device__ static int s_ld(int spp) {
-    return (spp > HD ? spp : HD) + 4;  // S rows also stage the O tile
-  }
-  __host__ __device__ static int q_rows(int spp) {
-    return spp < kQTile ? spp : kQTile;
-  }
-  static size_t smem_bytes(int spp) {
-    const int qt = q_rows(spp);
-    return (size_t)(2 * spp + qt) * QK_LD * sizeof(bf16) +
-           (size_t)qt * s_ld(spp) * sizeof(float) +
-           (size_t)qt * (spp + 8) * sizeof(bf16);
-  }
-};
+constexpr size_t attn_smem_bytes() {
+  return (size_t)(kQTile + 4 * kKTile) * (HD + 8) * sizeof(bf16);
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats as bf16x2, lo in the low half (the lower column of a fragment)
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// ---------------------------------------------------------------------------
+// attention over a short sequence: one block (4 warps) per (query tile of
+// 64 rows, head, example). q, k, v are (B * SP, D) bf16 matrices with row
+// strides ldq, ldk, ldv (a packed qkv buffer is q = qkv, k = qkv + D,
+// v = qkv + 2D with stride 3D; three tensors of their own have stride D);
+// att (B * SP, D) bf16. logit = q . k * scale (+ km[b, j], an additive f32
+// key mask per example, where km is given); keys >= n_valid and, with
+// causal, keys above the query row are dropped. A row whose keys are all
+// dropped or at -inf comes out as NaN (0 / 0), as softmax over an empty set
+// does. Query rows >= SP are zeros in the Q tile and never stored; key rows
+// >= SP (and past the last key any row of the block keeps) are zeros in the
+// K and V tiles and masked.
+//
+// Per row, f32 registers carry the running max m and the thread's share of
+// the running sum l; in the first pass a key tile scales l by
+// exp(m_old - m_new) and adds exp(logit - m_new) to it. While m is -inf (no
+// kept key yet) it counts as 0 there, so that exp(-inf - -inf) cannot poison
+// a row that later finds a kept key. The second pass adds
+// bf16(exp(logit - m) / l) V to O, in f32; a row with no kept key divides 0
+// by 0. expf and the division are the accurate ones, as in the plain
+// version's softmax.
+// ---------------------------------------------------------------------------
 
 template <int HD>
 __global__ void __launch_bounds__(kAttnThreads)
 attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, int ldq, int ldk, int ldv,
                  const float* __restrict__ km, bf16* __restrict__ att, int D,
-                 int SP, int SPp, int n_valid, int causal, float scale) {
-  using L = AttnLayout<HD>;
-  constexpr int QK_LD = L::QK_LD, kChunks = HD / 8, kWarps = kAttnThreads / 32;
+                 int SP, int n_valid, int causal, float scale) {
+  constexpr int LD = HD + 8, kChunks = HD / 8, kSteps = HD / 16;
+  constexpr int kTile = kKTile * LD;  // elements of one K or V stage
   extern __shared__ __align__(128) unsigned char smem[];
-  const int h = blockIdx.x, b = blockIdx.y, q0 = blockIdx.z * L::kQTile;
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = Qs + kQTile * LD;
+  bf16* Vs = Ks + 2 * kTile;
+
+  const int q0 = blockIdx.x * kQTile, col0 = blockIdx.y * HD;
+  const size_t row0 = (size_t)blockIdx.z * SP;  // the example's first row
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int qt = min(L::kQTile, SPp - q0);  // rows of this tile, % 16 == 0
-  const int S_LD = L::s_ld(SPp), P_LD = SPp + 8;
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + SPp * QK_LD;
-  bf16* Qs = Vs + SPp * QK_LD;
-  float* Ss = reinterpret_cast<float*>(Qs + L::q_rows(SPp) * QK_LD);
-  bf16* Ps = reinterpret_cast<bf16*>(Ss + L::q_rows(SPp) * S_LD);
+  const int g = lane >> 2, t = lane & 3;  // fragment row and column pair
+  const int wrow = q0 + warp * 16;        // the warp's first query row
+  const bool live = wrow < SP;            // the warp has a row to compute
+  const int rows[2] = {wrow + g, wrow + g + 8};
 
-  const size_t row0 = (size_t)b * SP;  // the example's first row
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int c = tid; c < SPp * kChunks; c += kAttnThreads) {
-    const int r = c / kChunks, col = h * HD + (c % kChunks) * 8;
-    uint4 kc = zero, vc = zero;
-    if (r < SP) {
-      kc = *reinterpret_cast<const uint4*>(k + (row0 + r) * ldk + col);
-      vc = *reinterpret_cast<const uint4*>(v + (row0 + r) * ldv + col);
-    }
-    const int dst = r * QK_LD + (c % kChunks) * 8;
-    *reinterpret_cast<uint4*>(Ks + dst) = kc;
-    *reinterpret_cast<uint4*>(Vs + dst) = vc;
-  }
-  for (int c = tid; c < qt * kChunks; c += kAttnThreads) {
+  // keys any row of the block keeps: below n_valid and, with causal, up to
+  // the block's last row
+  const int kend = causal ? min(n_valid, min(q0 + kQTile, SP)) : n_valid;
+  const int tiles = (kend + kKTile - 1) / kKTile;
+
+  for (int c = tid; c < kQTile * kChunks; c += kAttnThreads) {
     const int r = c / kChunks, col = (c % kChunks) * 8;
-    uint4 qc = zero;
-    if (q0 + r < SP)
-      qc = *reinterpret_cast<const uint4*>(q + (row0 + q0 + r) * ldq +
-                                           h * HD + col);
-    *reinterpret_cast<uint4*>(Qs + r * QK_LD + col) = qc;
+    const bool ok = q0 + r < SP;
+    cp_async16(Qs + r * LD + col,
+               q + (row0 + (ok ? q0 + r : 0)) * ldq + col0 + col, ok);
   }
-  __syncthreads();
+  // 2 * tiles steps: pass 1 (step < tiles) reads K alone and carries the
+  // row statistics, pass 2 reads K and V of the same tiles and adds P V
+  auto load = [&](int step) {
+    const bool with_v = step >= tiles;
+    const int kt = with_v ? step - tiles : step;
+    bf16* ks = Ks + (step & 1) * kTile;
+    bf16* vs = Vs + (step & 1) * kTile;
+    for (int c = tid; c < kKTile * kChunks; c += kAttnThreads) {
+      const int r = c / kChunks, col = (c % kChunks) * 8;
+      const int j = kt * kKTile + r;
+      const bool ok = j < kend;
+      const size_t src = row0 + (ok ? j : 0);
+      cp_async16(ks + r * LD + col, k + src * ldk + col0 + col, ok);
+      if (with_v) cp_async16(vs + r * LD + col, v + src * ldv + col0 + col, ok);
+    }
+  };
+  load(0);
+  cp_async_commit();
 
-  const int nt = SPp / 16, qtiles = qt / 16;
-  for (int t = warp; t < qtiles * nt; t += kWarps) {  // S = Q K^T
-    const int i0 = (t / nt) * 16, j0 = (t % nt) * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
+  unsigned qf[kSteps][4];
+  float o[2 * kSteps][4];
 #pragma unroll
-    for (int kk = 0; kk < HD; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bk;
-      wmma::load_matrix_sync(a, Qs + i0 * QK_LD + kk, QK_LD);
-      wmma::load_matrix_sync(bk, Ks + j0 * QK_LD + kk, QK_LD);
-      wmma::mma_sync(acc, a, bk, acc);
-    }
-    wmma::store_matrix_sync(Ss + i0 * S_LD + j0, acc, S_LD,
-                            wmma::mem_row_major);
-  }
-  __syncthreads();
+  for (int n = 0; n < 2 * kSteps; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, mu[2];
 
-  for (int r = warp; r < qt; r += kWarps) {  // f32 softmax, one warp per row
-    float* srow = Ss + r * S_LD;
-    const int row = q0 + r;
-    const float* kmb = km ? km + row0 : nullptr;
-    float mx = -INFINITY;
-    for (int j = lane; j < SPp; j += 32) {
-      const bool keep = j < n_valid && (!causal || j <= row);
-      const float l =
-          keep ? srow[j] * scale + (kmb ? kmb[j] : 0.f) : -INFINITY;
-      srow[j] = l;
-      mx = fmaxf(mx, l);
+  for (int step = 0; step < 2 * tiles; ++step) {
+    cp_async_wait<0>();  // this step's tile (and, at 0, the Q tile) landed
+    __syncthreads();     // ... for every thread; every warp is done with the
+                         // stage the next copy overwrites
+    if (step + 1 < 2 * tiles) load(step + 1);
+    cp_async_commit();
+    if (step == 0 && live) {
+#pragma unroll
+      for (int st = 0; st < kSteps; ++st)
+        ldmatrix_x4(qf[st], Qs + (warp * 16 + (lane & 15)) * LD + st * 16 +
+                                (lane >> 4) * 8);
     }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < SPp; j += 32) {
-      const float p = srow[j] == -INFINITY ? 0.f : expf(srow[j] - mx);
-      srow[j] = p;
-      sum += p;
+    const bool pass2 = step >= tiles;
+    if (step == tiles) {  // the row statistics are final
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mu[r] = m[r] == -INFINITY ? 0.f : m[r];
+        l[r] = quad_sum(l[r]);  // no kept key: 0, and p = 0 / 0
+      }
     }
-    sum = warp_sum(sum);
-    for (int j = lane; j < SPp; j += 32)
-      Ps[r * P_LD + j] = __float2bfloat16(srow[j] / sum);
-  }
-  __syncthreads();
+    const int j0 = (pass2 ? step - tiles : step) * kKTile;
+    // a warp past SP, or (causal) wholly above this key tile, has nothing here
+    if (!live || (causal && j0 > wrow + 15)) continue;
+    const bf16* ks = Ks + (step & 1) * kTile;
+    const bf16* vs = Vs + (step & 1) * kTile;
 
-  constexpr int kColTiles = HD / 16;
-  for (int t = warp; t < qtiles * kColTiles; t += kWarps) {  // O = P V
-    const int i0 = (t / kColTiles) * 16, c0 = (t % kColTiles) * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int k0 = 0; k0 < SPp; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-      wmma::load_matrix_sync(a, Ps + i0 * P_LD + k0, P_LD);
-      wmma::load_matrix_sync(bv, Vs + k0 * QK_LD + c0, QK_LD);
-      wmma::mma_sync(acc, a, bv, acc);
+    // S = Q K^T: 8 n-tiles of 8 keys; one ldmatrix.x4 feeds two
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int st = 0; st < kSteps; ++st) {
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        unsigned bk[4];
+        ldmatrix_x4(bk, ks + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                            st * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * np], qf[st], bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], qf[st], bk[2], bk[3]);
+      }
     }
-    wmma::store_matrix_sync(Ss + i0 * S_LD + c0, acc, S_LD,
-                            wmma::mem_row_major);
-  }
-  __syncthreads();
 
-  const int rows = min(qt, SP - q0);  // the tile's rows that exist
-  bf16* dst = att + (row0 + q0) * D + h * HD;
-  for (int e = tid; e < rows * HD; e += kAttnThreads) {
-    const int r = e / HD, c = e % HD;
-    dst[(size_t)r * D + c] = __float2bfloat16(Ss[r * S_LD + c]);
+    // scale and mask; element e of n-tile n is row rows[e / 2], key
+    // j0 + 8 n + 2 t + e % 2
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = j0 + n * 8 + 2 * t + (e & 1);
+        const bool keep = j < n_valid && (!causal || j <= rows[e >> 1]);
+        s[n][e] =
+            keep ? s[n][e] * scale + (km ? km[row0 + j] : 0.f) : -INFINITY;
+      }
+    }
+
+    if (!pass2) {  // running max and sum, the -inf guard on the max
+      float mt[2] = {m[0], m[1]}, u[2];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mt[e >> 1] = fmaxf(mt[e >> 1], s[n][e]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mt[r] = quad_max(mt[r]);
+        u[r] = mt[r] == -INFINITY ? 0.f : mt[r];
+        l[r] *= expf(m[r] - u[r]);  // 0 while m was -inf
+        m[r] = mt[r];
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          l[e >> 1] += expf(s[n][e] - u[e >> 1]);  // -inf -> 0
+      continue;
+    }
+
+    // O += bf16(p) V with p = exp(logit - m) / l: n-tiles 2 kk and 2 kk + 1
+    // of S are the A fragment of key slice kk; one ldmatrix.x4.trans of V
+    // feeds two 8-column n-tiles of O
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[n][e] = expf(s[n][e] - mu[e >> 1]) / l[e >> 1];
+#pragma unroll
+    for (int kk = 0; kk < kKTile / 16; ++kk) {
+      const unsigned pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < kSteps; ++dp) {
+        unsigned bv[4];
+        ldmatrix_x4_trans(bv, vs + (kk * 16 + (lane & 7) +
+                                    ((lane >> 3) & 1) * 8) * LD +
+                                  dp * 16 + (lane >> 4) * 8);
+        mma_bf16(o[2 * dp], pa, bv[0], bv[1]);
+        mma_bf16(o[2 * dp + 1], pa, bv[2], bv[3]);
+      }
+    }
+  }
+  if (!live) return;
+
+  // O staged in the warp's own 16 rows of the Q tile (no other warp reads
+  // them), then 16-byte stores
+  bf16* os = Qs + warp * 16 * LD;
+#pragma unroll
+  for (int n = 0; n < 2 * kSteps; ++n) {
+    *reinterpret_cast<unsigned*>(os + g * LD + n * 8 + 2 * t) =
+        pack_bf16(o[n][0], o[n][1]);
+    *reinterpret_cast<unsigned*>(os + (g + 8) * LD + n * 8 + 2 * t) =
+        pack_bf16(o[n][2], o[n][3]);
+  }
+  __syncwarp();
+  for (int c = lane; c < 16 * kChunks; c += 32) {
+    const int r = c / kChunks, col = (c % kChunks) * 8;
+    if (wrow + r < SP)
+      *reinterpret_cast<uint4*>(att + (row0 + wrow + r) * D + col0 + col) =
+          *reinterpret_cast<const uint4*>(os + r * LD + col);
   }
 }
 
@@ -173,16 +323,14 @@ cudaError_t launch_attention(const bf16* q, const bf16* k, const bf16* v,
                              bf16* att, int D, int B, int SP, int H,
                              int n_valid, int causal, float scale,
                              cudaStream_t st) {
-  const int spp = (SP + 15) / 16 * 16;
-  using L = AttnLayout<HD>;
-  const size_t smem = L::smem_bytes(spp);
+  constexpr size_t smem = attn_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
       attention_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  attention_kernel<HD><<<dim3(H, B, (spp + L::kQTile - 1) / L::kQTile),
+  attention_kernel<HD><<<dim3((SP + kQTile - 1) / kQTile, H, B),
                          kAttnThreads, smem, st>>>(
-      q, k, v, ldq, ldk, ldv, km, att, D, SP, spp, n_valid, causal, scale);
+      q, k, v, ldq, ldk, ldv, km, att, D, SP, n_valid, causal, scale);
   return cudaGetLastError();
 }
 

@@ -31,12 +31,13 @@
 //   gemm_kernel        bf16 WMMA tiles, f32 accumulation, fused epilogue:
 //                      bias | bias + activation | bias + residual add
 //                      (both in common.cuh, shared with swin_kernels.cu)
-//   attention_kernel   one (head, batch, tile of 64 query rows; 32 at
-//                      head_dim 128) per block, for head_dim 64 or 80 (and
-//                      128 through wt_short_attention) and up to 272 keys:
-//                      K and V of the whole sequence and the Q tile in
-//                      shared memory,
-//                      S = QK^T and O = PV on the tensor cores, f32 softmax
+//   attention_kernel   one (tile of 64 query rows, head, batch) per block,
+//                      for head_dim 64 or 80 (and 128 through
+//                      wt_short_attention) and up to 272 keys: two passes
+//                      over key tiles of 64 (row max and sum online, then
+//                      bf16 of the normalised p into PV), K and V
+//                      double-buffered by cp.async, S = QK^T and O += PV on
+//                      mma.sync with S and P in registers
 //                      (attention.cuh, shared with postln_kernels.cu)
 //   attention_pooled_kernel
 //                      one query row per (batch, head): the pooled last layer

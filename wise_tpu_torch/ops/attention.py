@@ -6,8 +6,9 @@ and v are (B, SP, H * hd) in their natural layout, the output is (B, SP, D).
 It is what a CLIP tower runs between its in- and out-projection when the
 block kernels are off and ``fused_attention`` is on. On a CPU tensor it
 computes the plain version; on a CUDA tensor it launches ``wt_short_attention``
-(csrc/block_kernels.cu: the block kernels' attention kernel, reading three
-tensors) or raises. ``LAUNCHES`` counts the launches.
+(csrc/block_kernels.cu: the block kernels' attention kernel, csrc/
+attention.cuh, reading three tensors) or raises. ``LAUNCHES`` counts the
+launches.
 
 | wrapper               | TPU kernel it replaces                        |
 | --------------------- | --------------------------------------------- |
@@ -17,9 +18,13 @@ The reference admits head_dim 64 only, for a TPU layout reason, and its
 padded-head block (ops/block.py ``fused_attn_block_padded``) calls it on
 128-lane slots; the kernel here is instantiated for 64, 80 and 128
 (``HEAD_DIMS``, a set of its own: the block kernels take 64 and 80 alone).
-The reference pads the token axis to a multiple of 8 and masks the pad
-through ``n_valid``; the kernel pads to 16 itself, so callers pass SP as it
-is.
+The reference holds a whole (SP, SP) logits block per head; the kernel runs
+query tiles of ``Q_TILE`` rows over key tiles of ``KEY_TILE``, S and P in
+registers, in two passes: the first takes each row's max and sum online,
+the second rounds the normalised p to bf16 before the PV product, where the
+reference and the plain version round it. The reference pads the token axis
+to a multiple of 8 and masks the pad through ``n_valid``; the kernel masks
+its ragged tiles itself, so callers pass SP as it is.
 """
 
 from __future__ import annotations
@@ -29,13 +34,15 @@ import math
 import torch
 
 from . import block
-from .block import MAX_SEQ, _require, _stream
+from .block import MAX_SEQ, _stream
 from .build import LaunchCounter, check, load_library, refuse_grad
 
 #: head dims the attention-middle kernel takes: the block kernels' and the
-#: padded-head block's 128-lane slots (a 32-row query tile there keeps K, V
-#: and the tile within a block's shared memory at 272 keys)
+#: padded-head block's 128-lane slots
 HEAD_DIMS = (*block.HEAD_DIMS, block.HEAD_PAD)
+#: the kernel's query rows a block and keys a step of its loop
+#: (csrc/attention.cuh kQTile, kKTile)
+Q_TILE = KEY_TILE = 64
 
 _launches = LaunchCounter("fused_short_attention")
 #: kernel launches since the last reset_launches()
@@ -74,16 +81,20 @@ def _rows(t, b: int, sp: int, d: int, name: str) -> int:
     """The row stride (elements) of a (B, SP, D) bf16 tensor whose rows the
     kernel can walk: unit stride along D, one stride from row to row across
     examples (a contiguous tensor, or a column range of a packed
-    in-projection), 16-byte aligned."""
-    _require(tuple(t.shape) == (b, sp, d) and t.dtype == torch.bfloat16,
-             f"{name}: must be a ({b}, {sp}, {d}) bfloat16 tensor, got "
-             f"{tuple(t.shape)} {t.dtype}")
-    ld = t.stride(1)
-    _require(t.stride(2) == 1 and ld >= d
-             and (b == 1 or t.stride(0) == sp * ld),
-             f"{name}: rows must be evenly strided with unit stride along D")
-    _require(ld % 8 == 0 and t.data_ptr() % 16 == 0,
-             f"{name}: rows must be 16-byte aligned")
+    in-projection), 16-byte aligned. The messages are formatted only on a
+    refusal: at a served batch the kernel takes microseconds, and the checks
+    run on every call."""
+    where = "fused_short_attention " + name
+    if not (t.shape == (b, sp, d) and t.dtype == torch.bfloat16):
+        raise ValueError(f"{where}: must be a ({b}, {sp}, {d}) bfloat16 "
+                         f"tensor, got {tuple(t.shape)} {t.dtype}")
+    st = t.stride()
+    ld = st[1]
+    if not (st[2] == 1 and ld >= d and (b == 1 or st[0] == sp * ld)):
+        raise ValueError(f"{where}: rows must be evenly strided with unit "
+                         "stride along D")
+    if not (ld % 8 == 0 and t.data_ptr() % 16 == 0):
+        raise ValueError(f"{where}: rows must be 16-byte aligned")
     return ld
 
 
@@ -98,17 +109,21 @@ def fused_short_attention(q, k, v, heads: int, n_valid: int,
         return plain_short_attention(q, k, v, heads, n_valid, causal, scale)
     name = "fused_short_attention"
     refuse_grad(name, (q, k, v), NO_TRAIN_RULE)
-    _require(q.dim() == 3, f"{name}: q must be (B, SP, D)")
+    if q.dim() != 3:
+        raise ValueError(f"{name}: q must be (B, SP, D)")
     b, sp, d = q.shape
-    _require(heads >= 1 and d % heads == 0 and d // heads in HEAD_DIMS,
-             f"{name}: head_dim {d / max(heads, 1):g} not in {HEAD_DIMS}")
-    _require(b >= 1 and 1 <= sp <= MAX_SEQ,
-             f"{name}: batch {b} / sequence {sp} outside [1, {MAX_SEQ}]")
-    _require(1 <= n_valid <= sp, f"{name}: n_valid {n_valid} not in [1, {sp}]")
-    _require(k.device == q.device and v.device == q.device,
-             f"{name}: q, k and v must lie on one device")
-    lds = [_rows(t, b, sp, d, f"{name} {n}")
-           for t, n in ((q, "q"), (k, "k"), (v, "v"))]
+    if not (heads >= 1 and d % heads == 0 and d // heads in HEAD_DIMS):
+        raise ValueError(f"{name}: head_dim {d / max(heads, 1):g} not in "
+                         f"{HEAD_DIMS}")
+    if not (b >= 1 and 1 <= sp <= MAX_SEQ):
+        raise ValueError(f"{name}: batch {b} / sequence {sp} outside [1, "
+                         f"{MAX_SEQ}]")
+    if not 1 <= n_valid <= sp:
+        raise ValueError(f"{name}: n_valid {n_valid} not in [1, {sp}]")
+    if not (k.device == q.device and v.device == q.device):
+        raise ValueError(f"{name}: q, k and v must lie on one device")
+    lds = [_rows(q, b, sp, d, "q"), _rows(k, b, sp, d, "k"),
+           _rows(v, b, sp, d, "v")]
     scale = 1.0 / math.sqrt(d // heads) if scale is None else float(scale)
     lib = load_library()
     out = torch.empty((b, sp, d), dtype=torch.bfloat16, device=q.device)

@@ -51,9 +51,10 @@ from .build import LaunchCounter, check, load_library, refuse_grad
 EPS = 1e-5
 #: head dims the attention kernels are instantiated for (csrc/block_kernels.cu)
 HEAD_DIMS = (64, 80)
-#: longest sequence: K and V of one head stay resident in a block's shared
-#: memory (272 keys of head_dim 80 with a 64-row query tile fill 209 KB of
-#: Hopper's 227 KB)
+#: longest sequence the attention kernels take (csrc/attention.cuh kMaxSeq):
+#: the 257 tokens of the /14 towers at 224 px. Not a shared-memory limit (the
+#: kernel's key loop holds 64 keys at a time); a longer tower lifts it
+#: (ROADMAP Queue A 8, SigLIP at 577 tokens)
 MAX_SEQ = 272
 ACTS = {"none": 0, "gelu": 1, "quick_gelu": 2, "gelu_tanh": 3}
 

@@ -9,6 +9,7 @@ gates ship closed: ViT-H/14 on the padded-head block, and the embed fold.
 
     python3 chip_smoke.py                  # env, kernels, every slice
     python3 chip_smoke.py --phase kernels  # env and kernels only
+    python3 chip_smoke.py --phase gemm     # env and the GEMM rows only
     python3 chip_smoke.py --phase vit_h    # env and the ViT-H/14 slice only
     python3 chip_smoke.py --phase xlmr     # env and the default backbone only
     python3 chip_smoke.py --phase hybrid   # env and WISE_FUSED_BLOCK=0 only
@@ -60,6 +61,14 @@ Phases, one line each; any failure exits non-zero:
    beside them (``library_ms``: two library calls, used nowhere in the
    port); planted there: the n_valid mask dropped, ties resolved to the
    higher row, the threshold skip inverted, the last span left unscanned.
+   The GEMM (csrc/common.cuh, behind every block kernel) through its two
+   one-GEMM entries, fused_ln_matmul and fused_residual_matmul, at the main
+   paths' products (GEMM_SHAPES: ViT-H/14's qkv, fc and proj at 256 x 257
+   rows, the XLM-R text embed's M = 512, HTSAT stage 0's K = 96), with
+   ``torch.addmm`` on the same product as ``library_ms``; planted there:
+   the last K step's rows of W zeroed, the last N tile left unwritten; and
+   a W view off a 16-byte boundary, which both the wrapper and the C entry
+   must refuse.
 3. slice: a WiseProject built from seeded synthetic 224x224 uint8 frames,
    embedded by the port's OpenClipExtractor (ViT-B-32, production config,
    random weights) in batches of 256, written through the feature store and
@@ -157,6 +166,9 @@ The line before the last is the kernels' JSON summary ("kernels": those of
 the paths, with their launches there; "off_path": the "single" post-LN MLP
 rows, launches 0); the last is {"ok": true, "device": {...}}. Needs one
 CUDA card; imports no JAX.
+
+``--phase gemm`` runs the env phase and the GEMM rows alone (GEMM_SHAPES;
+the kernels phase runs them too); it prints no summary.
 
 ``--phase profile`` runs the env phase, then breaks one 64-segment audio
 batch, one 256-frame ViT-H/14 batch and one text embed of the default
@@ -378,7 +390,8 @@ def _check_row(torch, results, name, tag, key, x, kernel, plain, base,
     is the call's (operations, bytes): each input read once, each output
     written once. ``library`` is the one PyTorch call that computes the same
     function, where there is one (timed as ``library_ms``, used nowhere in
-    the port); a residual block, or a half of one, has none."""
+    the port); a residual block has none, and the rows of a GEMM or a half
+    of a block carry torch.addmm on their product alone."""
     from wise_tpu_torch.ops.block import (increment_agreement,
                                           output_agreement)
 
@@ -549,6 +562,8 @@ def _block_rows(torch, results, tag, s):
                     "block_skipped": lambda: x},
                    _mlp_work(b * sp, d, f, xb))
         # the first half has no residual: its increment is its whole output
+        with torch.inference_mode():
+            y = K.layer_norm_f32(x, *ln).to(torch.bfloat16)
         _check_row(torch, results, "fused_mlp_fc", tag,
                    ("fused_mlp_fc", sp, d), x,
                    lambda: K.fused_mlp_fc(x, *ln, *fc, act=act),
@@ -556,7 +571,9 @@ def _block_rows(torch, results, tag, s):
                    torch.zeros((), device="cuda"),
                    {"h_not_activated": lambda: K.fused_mlp_fc(
                        x, *ln, *fc, act="none")},
-                   _mlp_work(b * sp, d, f, xb, "fc"))
+                   _mlp_work(b * sp, d, f, xb, "fc"),
+                   library=_addmm(torch, y, *fc))
+        del y
         with torch.inference_mode():
             hid = K.plain_mlp_fc(x, *ln, *fc, act=act)
             raw = K.plain_mlp_fc(x, *ln, *fc, act="none")
@@ -567,7 +584,8 @@ def _block_rows(torch, results, tag, s):
                    {"h_not_activated": lambda: K.fused_mlp_proj(
                        raw, *proj, x),
                     "block_skipped": lambda: x},
-                   _mlp_work(b * sp, d, f, xb, "proj"))
+                   _mlp_work(b * sp, d, f, xb, "proj"),
+                   library=_addmm(torch, hid, *proj))
         del hid, raw
 
     x, ln, w = _block_inputs(torch, b, sp, d, dtype, seed_pool)
@@ -1059,7 +1077,7 @@ def _postln_rows(torch, results, tag, s):
                lambda: P.fused_postln_fc(x, *fc),
                lambda: P.plain_postln_fc(x, *fc), None,
                {"h_not_activated": lambda: P.fused_postln_fc(x, *fc, "none")},
-               _postln_work(b, "fc"))
+               _postln_work(b, "fc"), library=_addmm(torch, x, *fc))
     name, key = "fused_postln_proj", ("fused_postln_proj", sp, d)
     _check_row(torch, results, name, tag, key, x,
                lambda: P.fused_postln_proj(hid, *proj, x, *ln),
@@ -1068,11 +1086,12 @@ def _postln_rows(torch, results, tag, s):
                                                            *ident),
                 "h_not_activated": lambda: P.fused_postln_proj(raw, *proj, x,
                                                                *ln)},
-               _postln_work(b, "proj"))
+               _postln_work(b, "proj"), library=_addmm(torch, hid, *proj))
     _check_row(torch, results, name, f"{tag}-offset", key, x,
                lambda: P.fused_postln_proj(hid, *proj_off, x, *ln),
                lambda: P.plain_postln_proj(hid, *proj_off, x, *ln), None,
-               rounded, _postln_work(b, "proj"))
+               rounded, _postln_work(b, "proj"),
+               library=_addmm(torch, hid, *proj_off))
 
 
 def _last_whole_tile(sp: int) -> int:
@@ -1270,6 +1289,8 @@ def phase_kernels(torch):
     for tag, shape in POSTLN_SHAPES.items():
         _postln_rows(torch, results, tag, shape)
     _short_attention_rows(torch, results)
+    _gemm_rows(torch, results)
+    _gemm_refuses_misaligned(torch)
     _topk_rows(torch, results)
     _require_rows(results)
     _backward_rows(torch)
@@ -2631,6 +2652,143 @@ def _addmm(torch, a, w, b=None):
     return lambda: torch.addmm(bias, a2, w)
 
 
+#: The GEMM at the main paths' shapes, through the two entries that are one
+#: GEMM each: tag -> (entry, B, SP, K, N, f32 stream, act or None for
+#: fused_residual_matmul). ViT-H/14's qkv, fc and out/fc2 products (the f32
+#: stream; the block kernels run the same products inside their chains),
+#: the XLM-R text embed's M = 512 (8 x 64: 128 x 128 tiles for qkv, 64 x 64
+#: for the out-projection, whose 128 x 128 grid would leave over half the
+#: SMs idle), and HTSAT stage 0 at batch 64 (K = 96: a last K step of 32, N
+#: = 288 and 96 ragged against 128-wide tiles).
+GEMM_SHAPES = {
+    "vit_h-qkv": ("fused_ln_matmul", 256, 257, 1280, 3840, True, "none"),
+    "vit_h-fc": ("fused_ln_matmul", 256, 257, 1280, 5120, True, "gelu"),
+    "vit_h-proj": ("fused_residual_matmul", 256, 257, 5120, 1280, True, None),
+    "xlmr-qkv": ("fused_ln_matmul", 8, 64, 1024, 3072, False, "none"),
+    "xlmr-proj": ("fused_residual_matmul", 8, 64, 4096, 1024, False, None),
+    "swin0-qkv": ("fused_ln_matmul", 4096, 64, 96, 288, False, "none"),
+    "swin0-proj": ("fused_residual_matmul", 4096, 64, 96, 96, False, None),
+}
+
+
+def _gemm_rows(torch, results):
+    """The GEMM rows (GEMM_SHAPES): fused_ln_matmul held whole
+    (output_agreement), fused_residual_matmul on its increment over x, with
+    torch.addmm on the same product as ``library_ms``. Planted: the last K
+    step's rows of W zeroed (a mainloop that stopped a stage early), the
+    last N tile's columns left unwritten (an epilogue that dropped the
+    ragged edge). A row whose (entry, SP, D) no path launches stands in
+    ``off_path`` with the block entry that runs its product."""
+    from wise_tpu_torch.ops import block as K
+
+    bf = torch.bfloat16
+    for i, (tag, (entry, b, sp, k, n, f32, act)) in enumerate(
+            GEMM_SHAPES.items()):
+        m, xb = b * sp, 4 if f32 else 2
+        g = torch.Generator(device="cuda").manual_seed(150 + i)
+        dtype = torch.float32 if f32 else bf
+        w = (torch.randn(k, n, generator=g, device="cuda")
+             * k ** -0.5).to(bf)
+        bias = (0.02 * torch.randn(n, generator=g, device="cuda")).to(bf)
+        k_cut = (k - 1) // 64 * 64
+        w_cut = w.clone()
+        w_cut[k_cut:] = 0
+        n_cut = (n - 1) // 128 * 128
+        if act is not None:
+            x = torch.randn(b, sp, k, generator=g, device="cuda").to(dtype)
+            ln = (1.0 + 0.25 * torch.randn(k, generator=g, device="cuda"),
+                  0.25 * torch.randn(k, generator=g, device="cuda"))
+            y = K.layer_norm_f32(x, *ln).to(bf)
+
+            def run(w=w, x=x, ln=ln, bias=bias, act=act):
+                return K.fused_ln_matmul(x, *ln, w, bias, act)
+
+            def edge_dropped(run=run, n_cut=n_cut):
+                out = run().clone()
+                out[..., n_cut:] = 0
+                return out
+
+            _check_row(torch, results, entry, tag, (entry, sp, k), x, run,
+                       lambda x=x, ln=ln, w=w, bias=bias, act=act:
+                       K.plain_ln_matmul(x, *ln, w, bias, act), None,
+                       {"last_k_step_zeroed": lambda run=run, w_cut=w_cut:
+                        run(w_cut),
+                        "last_n_tile_dropped": edge_dropped},
+                       (2 * m * k * n, m * k * xb + 2 * (k * n + n)
+                        + _LN_BYTES * k + m * n * xb),
+                       library=_addmm(torch, y, w, bias))
+            del y
+        else:
+            x = torch.randn(b, sp, n, generator=g, device="cuda").to(dtype)
+            h = torch.randn(b, sp, k, generator=g, device="cuda").to(bf)
+
+            def run(w=w, x=x, h=h, bias=bias):
+                return K.fused_residual_matmul(x, h, w, bias)
+
+            def edge_dropped(run=run, x=x, n_cut=n_cut):
+                out = run().clone()
+                out[..., n_cut:] = x[..., n_cut:]
+                return out
+
+            _check_row(torch, results, entry, tag, (entry, sp, n), x, run,
+                       lambda x=x, h=h, w=w, bias=bias:
+                       K.plain_residual_matmul(x, h, w, bias), x,
+                       {"last_k_step_zeroed": lambda run=run, w_cut=w_cut:
+                        run(w_cut),
+                        "last_n_tile_dropped": edge_dropped},
+                       (2 * m * k * n, 2 * m * k + 2 * (k * n + n)
+                        + 2 * m * n * xb),
+                       library=_addmm(torch, h, w, bias))
+            del h
+        del x, w, w_cut
+        torch.cuda.empty_cache()
+
+
+def _gemm_refuses_misaligned(torch):
+    """A W view 2 bytes off a 16-byte boundary (contiguous, so only the
+    alignment is wrong) must raise in the wrapper, and the C entry must
+    return an error without a launch."""
+    import ctypes
+
+    from wise_tpu_torch.ops import block as K
+    from wise_tpu_torch.ops.build import load_library
+
+    bf = torch.bfloat16
+    k, n, m = 256, 256, 128
+    x = torch.randn(1, m, n, device="cuda")
+    h = torch.randn(1, m, k, device="cuda").to(bf)
+    bias = torch.zeros(n, dtype=bf, device="cuda")
+    flat = torch.randn(k * n + 8, device="cuda").to(bf)
+    w_off = flat[1:1 + k * n].view(k, n)
+    try:
+        K.fused_residual_matmul(x, h, w_off, bias)
+        wrapper = "returned"
+    except ValueError:
+        wrapper = "raised"
+    out = torch.empty_like(x)
+    lib = load_library()
+    err = lib.wt_residual_matmul(
+        h.data_ptr(), w_off.data_ptr(), bias.data_ptr(), x.data_ptr(), 1,
+        out.data_ptr(), m, n, k,
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    torch.cuda.synchronize()
+    ok = wrapper == "raised" and err != 0
+    say("kernels", name="gemm[misaligned-w]", wrapper=wrapper,
+        entry=f"cudaError_t {err}", status="ok" if ok else "FAIL")
+    if not ok:
+        raise PhaseError("a W operand off a 16-byte boundary was not refused")
+
+
+#: (entry, SP, D) keys of GEMM rows no path launches, and the block entry
+#: whose chain runs that product there
+GEMM_OFF_PATH = {
+    ("fused_ln_matmul", 64, 1024): "fused_postln_attn_block (qkv, M = 512)",
+    ("fused_residual_matmul", 64, 1024): "fused_postln_proj (M = 512)",
+    ("fused_ln_matmul", 64, 96): "fused_swin_block (qkv, stage 0)",
+    ("fused_residual_matmul", 64, 96): "fused_swin_block (out-proj, stage 0)",
+}
+
+
 def _padded_rows(torch, results, b, sp, d, heads):
     """The padded block's three kernels at ViT-H/14's vision shape (f32
     stream): fused_ln_matmul (act none, as the block calls it, and gelu) and
@@ -2966,17 +3124,23 @@ def phase_embed_fold(torch, card):
     return launches, results
 
 
-def _off_path(key) -> bool:
-    """Whether a kernel row's wrapper is one that no path may launch at the
-    row's width: the post-LN MLP as "single" where ``postln_mlp_choice``
-    picks the split pair (the XLM-R width, as in the reference's table). Such
-    a row is held against its plain version in the kernels phase alone, and
-    its count over the paths must be 0."""
+def _off_path(key):
+    """Why a kernel row's wrapper is one that no path may launch at the
+    row's shape, or None: the post-LN MLP as "single" where
+    ``postln_mlp_choice`` picks the split pair (the XLM-R width, as in the
+    reference's table), and the GEMM rows whose product a block entry runs
+    on the path (GEMM_OFF_PATH). Such a row is held against its plain
+    version in the kernels phase alone, and its count over the paths must
+    be 0."""
     from wise_tpu_torch.ops.postln_block import postln_mlp_choice
 
+    if key in GEMM_OFF_PATH:
+        return f"a GEMM row; on the path {GEMM_OFF_PATH[key]} runs it"
     name, _, width = key[:3]
-    return (name == "fused_postln_mlp_block"
-            and postln_mlp_choice(width) != "single")
+    if (name == "fused_postln_mlp_block"
+            and postln_mlp_choice(width) != "single"):
+        return "the width's table picks the split pair, as the reference's"
+    return None
 
 
 def _launch_name(key) -> str:
@@ -3198,8 +3362,8 @@ def _encode_rates(torch, extractor, frames, reps: int = 5):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", choices=["all", "kernels", "vit_h", "xlmr",
-                                        "hybrid", "index", "train",
+    ap.add_argument("--phase", choices=["all", "kernels", "gemm", "vit_h",
+                                        "xlmr", "hybrid", "index", "train",
                                         "padded", "embed_fold", "profile"],
                     default="all")
     ap.add_argument("--verbose-build", action="store_true",
@@ -3227,6 +3391,11 @@ def main(argv=None) -> int:
             profile_vit_h(torch, card)
             profile_xlmr_text(torch, card)
             profile_train_step(torch, card)
+            return 0
+        if args.phase == "gemm":
+            rows = []
+            _timed("gemm", _gemm_rows, torch, rows)
+            _require_rows(rows)
             return 0
         if args.phase == "vit_h":
             phase_slice(torch, card, VIT_H_ID, VIT_H_FRAMES, "vit_h",
@@ -3277,7 +3446,8 @@ def main(argv=None) -> int:
             for key, n in counts.items():
                 launches.setdefault(key, n)
             kernels += rows
-        off = {r["key"] for r in kernels if _off_path(r["key"])}
+        off = {r["key"]: _off_path(r["key"]) for r in kernels
+               if _off_path(r["key"])}
         stray = [_launch_name(key) for key in off if launches.get(key)]
         if stray:
             raise PhaseError(f"launched against the port's own choice of "
@@ -3289,8 +3459,7 @@ def main(argv=None) -> int:
                              f"checked: {idle}")
         for key in sorted(off):
             say("kernels", off_path=_launch_name(key), launches=0,
-                reason="the width's table picks the split pair, as the "
-                       "reference's does")
+                reason=repr(off[key]))
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3305,7 +3474,8 @@ def main(argv=None) -> int:
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
 
     # "kernels": the kernels of the paths, each launched there; "off_path":
-    # the variant no path may launch (_off_path), held in the kernels phase
+    # the rows no path launches at their shape (_off_path), held in the
+    # kernels phase
     print(card)
     print(json.dumps({
         "kernels": [row(r) for r in kernels if r["key"] not in off],

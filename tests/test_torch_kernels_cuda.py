@@ -1189,3 +1189,73 @@ def test_padded_and_fold_wrappers_reject_what_they_do_not_take(cuda):
         E.fused_embed_attn_block(args[0].float(), *args[1:], 2, nv)
     assert E.LAUNCHES == {"fused_embed_attn_block": 0}
 
+
+
+# ---------------------------------------------------------------------------
+# the GEMM (csrc/common.cuh gemm_kernel) through its two one-GEMM entries, at
+# shapes that take each of its three tiles, with ragged M, N and K edges
+# ---------------------------------------------------------------------------
+
+#: (B, SP, K, N) and the tile a 132-SM card picks: 128 x 256 where N is a
+#: multiple of 256 and the epilogue has no activation (M = 2,112 = 16 x 128 +
+#: 64: 17 x 10 tiles; with GELU 128 x 128), 128 x 128 (M = N = 1,056: 9 x 9
+#: tiles, both edges ragged by 32), 64 x 64 (M = 130, Swin's N = 96). K = 160
+#: and 96 end in a K step of 32.
+GEMM_CASES = {"tile128x256": (64, 33, 160, 2560),
+              "tile128x128": (32, 33, 96, 1056),
+              "tile64x64": (2, 65, 96, 96)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["none", "gelu"])
+@pytest.mark.parametrize("stream", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(GEMM_CASES))
+def test_gemm_entries_match_plain_on_card(cuda, case, stream, act):
+    b, sp, k, n = GEMM_CASES[case]
+    g = torch.Generator().manual_seed(130)
+    bf = torch.bfloat16
+    x = torch.randn((b, sp, k), generator=g).to(cuda, stream)
+    ln = [(1 + 0.25 * torch.randn(k, generator=g)).to(cuda),
+          (0.25 * torch.randn(k, generator=g)).to(cuda)]
+    w = (torch.randn((k, n), generator=g) * k ** -0.5).to(cuda, bf)
+    bias = (0.02 * torch.randn(n, generator=g)).to(cuda, bf)
+    xr = torch.randn((b, sp, n), generator=g).to(cuda, stream)
+    h = torch.randn((b, sp, k), generator=g).to(cuda, bf)
+    # W with the last K step's rows zeroed: a mainloop one stage short
+    w_cut = w.clone()
+    w_cut[(k - 1) // 64 * 64:] = 0
+    with torch.inference_mode():
+        want = K.plain_ln_matmul(x, *ln, w, bias, act)
+        res_want = K.plain_residual_matmul(xr, h, w, bias)
+        got = K.fused_ln_matmul(x, *ln, w, bias, act)
+        res = K.fused_residual_matmul(xr, h, w, bias)
+        cut = K.fused_ln_matmul(x, *ln, w_cut, bias, act)
+        res_cut = K.fused_residual_matmul(xr, h, w_cut, bias)
+        torch.cuda.synchronize()
+    assert got.dtype == res.dtype == stream
+    assert K.output_agreement(got, want)["ok"]
+    assert K.increment_agreement(res, res_want, xr)["ok"]
+    assert not K.output_agreement(cut, want)["ok"]
+    assert not K.increment_agreement(res_cut, res_want, xr)["ok"]
+
+
+@pytest.mark.cuda
+def test_gemm_refuses_an_operand_off_16_bytes(cuda):
+    """A W view 2 bytes off a 16-byte boundary (contiguous, so only the
+    alignment is wrong): the wrapper raises, and the C entry returns
+    cudaErrorInvalidValue without a launch. No other GEMM takes over."""
+    from wise_tpu_torch.ops.build import load_library
+
+    k, n, m = 64, 128, 8
+    x = torch.randn((1, m, n), device=cuda)
+    h = torch.randn((1, m, k), device=cuda).to(torch.bfloat16)
+    bias = torch.zeros(n, dtype=torch.bfloat16, device=cuda)
+    flat = torch.randn(k * n + 8, device=cuda).to(torch.bfloat16)
+    w = flat[1:1 + k * n].view(k, n)
+    with pytest.raises(ValueError, match="16-byte"):
+        K.fused_residual_matmul(x, h, w, bias)
+    out = torch.empty_like(x)
+    err = load_library().wt_residual_matmul(
+        h.data_ptr(), w.data_ptr(), bias.data_ptr(), x.data_ptr(), 1,
+        out.data_ptr(), m, n, k, torch.cuda.current_stream().cuda_stream)
+    assert err == 1

@@ -28,9 +28,10 @@
 // parallel, so a block here is a chain of launches on one stream:
 //
 //   layernorm_kernel   f32 statistics (E[x^2] - E[x]^2, flax numerics), bf16 out
-//   gemm_kernel        bf16 WMMA tiles, f32 accumulation, fused epilogue:
-//                      bias | bias + activation | bias + residual add
-//                      (both in common.cuh, shared with swin_kernels.cu)
+//   gemm_kernel        TMA-fed wgmma tiles (a producer warp, one or two
+//                      consumer warpgroups), f32 accumulation, fused
+//                      epilogue: bias | bias + activation | bias + residual
+//                      add (both in common.cuh, shared with swin_kernels.cu)
 //   attention_kernel   one (tile of 64 query rows, head, batch) per block,
 //                      for head_dim 64 or 80 (and 128 through
 //                      wt_short_attention) and up to 272 keys: two passes
@@ -40,7 +41,9 @@
 //                      mma.sync with S and P in registers
 //                      (attention.cuh, shared with postln_kernels.cu)
 //   attention_pooled_kernel
-//                      one query row per (batch, head): the pooled last layer
+//                      one query row per (batch, head): the pooled last
+//                      layer, whose q GEMM runs on the pooled rows of LN(x)
+//                      gathered by gather_rows_kernel
 //
 // The MLP has one chain in two halves: wt_mlp_fc (LayerNorm, fc GEMM with the
 // bias + activation epilogue, h to device memory) and wt_mlp_proj (proj GEMM
@@ -89,10 +92,9 @@
 // What bounds them on the H100: the GEMMs hold ~90% of a block's FLOPs and
 // are compute-bound at the towers' batch sizes, so the GEMM's tensor-core rate
 // decides the block's time; the LayerNorm, softmax and epilogues are
-// bandwidth passes over activations. This version keeps the design simple
-// (WMMA 16x16x16 fragments fed by a 4-stage cp.async pipeline, no TMA, no
-// wgmma), so it reaches a fraction of the card's bf16 peak; a TMA + wgmma
-// GEMM is later work.
+// bandwidth passes over activations. The GEMM is built for that rate: TMA
+// loads into a ring of shared-memory stages, wgmma from there, the epilogue
+// from registers (common.cuh).
 //
 // Rounding points follow the TPU kernels: LN(x) rounds to x's dtype and the
 // tensor cores take bf16 operands (DEFAULT-precision MXU dots truncate f32 to
@@ -176,6 +178,23 @@ attention_pooled_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
   }
 }
 
+// dst (B, D) bf16 <- row map_row(g, b) of src (rows of D) for each b, in
+// 16-byte pieces (D % 8 == 0)
+__global__ void __launch_bounds__(kPoolThreads)
+gather_rows_kernel(const bf16* __restrict__ src, RowMap g,
+                   bf16* __restrict__ dst, int D) {
+  const uint4* s =
+      reinterpret_cast<const uint4*>(src + map_row(g, blockIdx.x) * D);
+  uint4* d = reinterpret_cast<uint4*>(dst + (size_t)blockIdx.x * D);
+  for (int i = threadIdx.x; i < D / 8; i += kPoolThreads) d[i] = s[i];
+}
+
+cudaError_t gather_rows(const bf16* src, RowMap g, bf16* dst, int B, int D,
+                        cudaStream_t st) {
+  gather_rows_kernel<<<B, kPoolThreads, 0, st>>>(src, g, dst, D);
+  return cudaGetLastError();
+}
+
 template <int HD>
 cudaError_t launch_attention_pooled(const bf16* q, const bf16* kv, int D,
                                     const int* rows, int row0, bf16* att,
@@ -197,10 +216,10 @@ cudaError_t mlp_fc(const void* x, int x_f32, const float* ln_s,
   cudaError_t err = layernorm(x, x_f32, ln_s, ln_b, y, M, D, st);
   if (err != cudaSuccess) return err;
   if (h_pre)
-    return gemm<bf16, kBiasActPre>(y, D, kNoMap, wfc, F, bfc, h, F, nullptr, 0,
+    return gemm<bf16, kBiasActPre>(y, D, wfc, F, bfc, h, F, nullptr, 0,
                                    kNoMap, M, F, D, act, st, h_pre);
-  return gemm<bf16, kBiasAct>(y, D, kNoMap, wfc, F, bfc, h, F, nullptr, 0,
-                              kNoMap, M, F, D, act, st);
+  return gemm<bf16, kBiasAct>(y, D, wfc, F, bfc, h, F, nullptr, 0, kNoMap, M,
+                              F, D, act, st);
 }
 
 // out = act(LN(x) W + b) in TO (x's dtype); scratch y (M, D) bf16. kBiasAct
@@ -212,16 +231,16 @@ cudaError_t ln_matmul(const void* x, int x_f32, const float* ln_s,
                       cudaStream_t st) {
   cudaError_t err = layernorm(x, x_f32, ln_s, ln_b, y, M, D, st);
   if (err != cudaSuccess) return err;
-  return gemm<TO, kBiasAct>(y, D, kNoMap, w, OW, b, out, OW, nullptr, 0,
-                            kNoMap, M, OW, D, act, st);
+  return gemm<TO, kBiasAct>(y, D, w, OW, b, out, OW, nullptr, 0, kNoMap, M,
+                            OW, D, act, st);
 }
 
 // out = x + (proj(h) + b) in x's dtype
 cudaError_t mlp_proj(const bf16* h, const bf16* wproj, const bf16* bproj,
                      const void* x, int x_f32, void* out, int M, int D, int F,
                      cudaStream_t st) {
-  return gemm_residual(h, F, kNoMap, wproj, D, bproj, out, D, x, D, kNoMap,
-                       x_f32, M, D, F, st);
+  return gemm_residual(h, F, wproj, D, bproj, out, D, x, D, kNoMap, x_f32, M,
+                       D, F, st);
 }
 
 // The attention block's launch chain; qkv (B*SP, 3D) bf16 holds the
@@ -235,12 +254,12 @@ int attn_block(const void* x, int x_f32, const float* ln_s, const float* ln_b,
   const int hd = head_dim(SP, D, H);
   if (!hd) return (int)cudaErrorInvalidValue;
   WT_CHECK(layernorm(x, x_f32, ln_s, ln_b, y, M, D, st));
-  WT_CHECK((gemm<bf16, kBias>(y, D, kNoMap, wqkv, 3 * D, bqkv, qkv, 3 * D,
-                              nullptr, 0, kNoMap, M, 3 * D, D, kNone, st)));
+  WT_CHECK((gemm<bf16, kBias>(y, D, wqkv, 3 * D, bqkv, qkv, 3 * D, nullptr, 0,
+                              kNoMap, M, 3 * D, D, kNone, st)));
   WT_CHECK(attention_packed(hd, qkv, nullptr, att, D, B, SP, H, n_valid,
                             causal, st));
-  WT_CHECK(gemm_residual(att, D, kNoMap, wo, D, bo, out, D, x, D, kNoMap,
-                         x_f32, M, D, D, st));
+  WT_CHECK(gemm_residual(att, D, wo, D, bo, out, D, x, D, kNoMap, x_f32, M, D,
+                         D, st));
   return 0;
 }
 
@@ -372,9 +391,9 @@ int wt_residual_matmul(const bf16* h, const bf16* w, const bf16* b,
 // pixels (row 0 of each example and rows >= n_valid zero), kern (PD, D)
 // bf16, posc (SP, D) f32 (row 0 holds the class embedding), ln_pre (lnp_*)
 // and LN1 (ln_*) f32 -> out (B*SP, D), f32 unless out_f32 is 0 (bf16).
-// PD % 32 == 0 (the wrapper zero-pads K). Scratch: t (B*SP, D) f32, xs
-// (B*SP, D) in out's dtype (the residual stream after ln_pre), and
-// wt_attn_block's y, qkv, att (bf16).
+// PD % 8 == 0 (the GEMM's 16-byte rows; the wrapper zero-pads K to a
+// multiple of 32). Scratch: t (B*SP, D) f32, xs (B*SP, D) in out's dtype (the
+// residual stream after ln_pre), and wt_attn_block's y, qkv, att (bf16).
 int wt_embed_attn_block(const bf16* xp, const bf16* kern, const float* posc,
                         const float* lnp_s, const float* lnp_b,
                         const float* ln_s, const float* ln_b,
@@ -385,9 +404,9 @@ int wt_embed_attn_block(const bf16* xp, const bf16* kern, const float* posc,
                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * SP;
-  if (!head_dim(SP, D, H) || PD % BK != 0) return (int)cudaErrorInvalidValue;
+  if (!head_dim(SP, D, H)) return (int)cudaErrorInvalidValue;
   const RowMap in_example = {nullptr, 0, SP, kRowInExample};
-  WT_CHECK((gemm<float, kBiasResidual>(xp, PD, kNoMap, kern, D, nullptr, t, D,
+  WT_CHECK((gemm<float, kBiasResidual>(xp, PD, kern, D, nullptr, t, D,
                                        posc, D, in_example, M, D, PD, kNone,
                                        st)));
   WT_CHECK(out_f32 ? launch_layernorm<float>(t, lnp_s, lnp_b,
@@ -415,19 +434,21 @@ int wt_attn_block_pooled(const void* x, int x_f32, const float* ln_s,
   if (!hd) return (int)cudaErrorInvalidValue;
   const RowMap pooled = {rows, pool_row, SP, kGatherPooled};
   WT_CHECK(layernorm(x, x_f32, ln_s, ln_b, y, M, D, st));
-  WT_CHECK((gemm<bf16, kBias>(y, D, kNoMap, wqkv + D, 3 * D, bqkv + D, kv,
-                              2 * D, nullptr, 0, kNoMap, M, 2 * D, D, kNone,
-                              st)));
-  WT_CHECK((gemm<bf16, kBias>(y, D, pooled, wqkv, 3 * D, bqkv, q, D, nullptr,
-                              0, kNoMap, B, D, D, kNone, st)));
+  WT_CHECK((gemm<bf16, kBias>(y, D, wqkv + D, 3 * D, bqkv + D, kv, 2 * D,
+                              nullptr, 0, kNoMap, M, 2 * D, D, kNone, st)));
+  // the pooled rows of y, gathered into att (free until the attention
+  // writes it), are the q GEMM's operand
+  WT_CHECK(gather_rows(y, pooled, att, B, D, st));
+  WT_CHECK((gemm<bf16, kBias>(att, D, wqkv, 3 * D, bqkv, q, D, nullptr, 0,
+                              kNoMap, B, D, D, kNone, st)));
   WT_CHECK(hd == 64 ? launch_attention_pooled<64>(q, kv, D, rows, pool_row,
                                                   att, B, SP, H, n_valid,
                                                   causal, st)
                     : launch_attention_pooled<80>(q, kv, D, rows, pool_row,
                                                   att, B, SP, H, n_valid,
                                                   causal, st));
-  WT_CHECK(gemm_residual(att, D, kNoMap, wo, D, bo, out, D, x, D, pooled,
-                         x_f32, B, D, D, st));
+  WT_CHECK(gemm_residual(att, D, wo, D, bo, out, D, x, D, pooled, x_f32, B, D,
+                         D, st));
   return 0;
 }
 

@@ -36,10 +36,10 @@
 // operations and the bound by the weights' bytes (8 MB an attention block,
 // 16 MB an MLP) lie within a factor of two of each other, and both far under
 // the chain's time: 512 rows make 4 x 8 tiles of 128 x 128 for 132 SMs, so
-// launches and occupancy decide there. The f32 sum costs one extra write and
-// read of (M, D) f32 against fusing the LayerNorm into the epilogue, which
-// needs a whole row (1024 columns) in one block: later work, with the
-// TMA + wgmma GEMM.
+// the out-projection takes 64 x 64 tiles there (common.cuh), and launches
+// decide. The f32 sum costs one extra write and read of (M, D) f32
+// against fusing the LayerNorm into the epilogue, which needs a whole row
+// (1024 columns) in one block: later work.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() after each launch.
@@ -55,7 +55,7 @@ cudaError_t residual_layernorm(const bf16* a, int K, const bf16* w,
                                const float* ln_s, const float* ln_b, bf16* out,
                                float* res, int M, int D, cudaStream_t st) {
   cudaError_t err = gemm<float, kBiasResidual, bf16>(
-      a, K, kNoMap, w, D, bias, res, D, x, D, kNoMap, M, D, K, kNone, st);
+      a, K, w, D, bias, res, D, x, D, kNoMap, M, D, K, kNone, st);
   if (err != cudaSuccess) return err;
   return launch_layernorm<float>(res, ln_s, ln_b, out, M, D, st);
 }
@@ -63,8 +63,8 @@ cudaError_t residual_layernorm(const bf16* a, int K, const bf16* w,
 // h = act(x wfc + bfc) as (M, F) bf16: h rounds once, after the activation
 cudaError_t postln_fc(const bf16* x, const bf16* wfc, const bf16* bfc, bf16* h,
                       int M, int D, int F, int act, cudaStream_t st) {
-  return gemm<bf16, kBiasAct>(x, D, kNoMap, wfc, F, bfc, h, F, nullptr, 0,
-                              kNoMap, M, F, D, act, st);
+  return gemm<bf16, kBiasAct>(x, D, wfc, F, bfc, h, F, nullptr, 0, kNoMap, M,
+                              F, D, act, st);
 }
 
 }  // namespace
@@ -84,8 +84,8 @@ int wt_postln_attn_block(const bf16* x, const float* km, const float* ln_s,
   const int M = B * SP;
   const int hd = head_dim(SP, D, H);
   if (!hd) return (int)cudaErrorInvalidValue;
-  WT_CHECK((gemm<bf16, kBias>(x, D, kNoMap, wqkv, 3 * D, bqkv, qkv, 3 * D,
-                              nullptr, 0, kNoMap, M, 3 * D, D, kNone, st)));
+  WT_CHECK((gemm<bf16, kBias>(x, D, wqkv, 3 * D, bqkv, qkv, 3 * D, nullptr, 0,
+                              kNoMap, M, 3 * D, D, kNone, st)));
   WT_CHECK(attention_packed(hd, qkv, km, att, D, B, SP, H, SP, 0, st));
   WT_CHECK(residual_layernorm(att, D, wo, bo, x, ln_s, ln_b, out, res, M, D,
                               st));

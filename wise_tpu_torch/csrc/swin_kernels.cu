@@ -16,21 +16,22 @@
 //                        + residual -> LN2 -> fc1 GEMM + exact GELU ->
 //                        fc2 GEMM + residual, all in the bf16 stream
 //
-// The LayerNorm and the WMMA GEMM with its epilogues are the CLIP blocks'
-// (common.cuh). They take K % 32 == 0 and N % 8 == 0; HTSAT's K and N are
-// 96, 192, 288, ... 3072, so the N edge of a 128-wide tile is masked in the
-// operand load (zero fill) and in the epilogue, and no weight is padded.
+// The LayerNorm and the GEMM with its epilogues are the CLIP blocks'
+// (common.cuh). The GEMM takes 16-byte rows; HTSAT's K and N are 96, 192,
+// 288, ... 3072, so the N edge of a 128-wide tile and the K edge of a 64-deep
+// stage (K = 96) are zero-filled by TMA and masked in the epilogue, and no
+// weight is padded.
 //
 // window_attention_kernel: one block of 4 warps per (window, head); the
 // window index is the grid's x dimension (2^31 - 1), so stage 0 at batch 64
 // (4,096 windows x 4 heads) and larger batches launch in one grid. Q, K and
 // V of the head (L x head_dim) sit in shared memory as f32. head_dim 24 is
-// not a multiple of WMMA's k = 16, and a window's QK^T and PV are 64 x 64 x 24
-// each (0.2 MFLOP per head, ~10% of the block's FLOPs at C = 96 next to its
-// GEMMs), so both products run as scalar f32 FMAs: a warp owns a query row,
-// lane j holds keys j and j + 32 (K rows padded to 33 floats: no bank
-// conflicts), and the softmaxed row is staged in shared memory for PV, where
-// lane c sums column c of V. Logits are f32: QK^T * scale + bias[h] (+ the
+// not a multiple of the tensor cores' k = 16, and a window's QK^T and PV are
+// 64 x 64 x 24 each (0.2 MFLOP per head, ~10% of the block's FLOPs at C = 96
+// next to its GEMMs), so both products run as scalar f32 FMAs: a warp owns a
+// query row, lane j holds keys j and j + 32 (K rows padded to 33 floats: no
+// bank conflicts), and the softmaxed row is staged in shared memory for PV,
+// where lane c sums column c of V. Logits are f32: QK^T * scale + bias[h] (+ the
 // shift mask of window w mod n_win, the period the TPU kernel's index map
 // i % period gives), an f32 softmax, P rounded to bf16 as p.astype(v.dtype)
 // does, and the head's output written back in bf16.
@@ -148,10 +149,10 @@ cudaError_t window_attention(const bf16* qkv, const float* bias,
   return cudaGetLastError();
 }
 
-// The GEMMs' limits: K % 32 == 0, N % 8 == 0, rows within the grid's y.
+// The block's limits: C and F multiples of 32 (the GEMMs take 16-byte
+// rows), and rows to work on.
 bool gemm_shapes_ok(int M, int C, int F) {
-  return C % 32 == 0 && F % 32 == 0 && M >= 1 &&
-         (M + BM - 1) / BM <= 65535;
+  return C % 32 == 0 && F % 32 == 0 && M >= 1;
 }
 
 }  // namespace
@@ -168,11 +169,11 @@ int wt_window_attention(const bf16* x, const bf16* wqkv, const bf16* bqkv,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = N * L;
   if (!gemm_shapes_ok(M, C, C)) return (int)cudaErrorInvalidValue;
-  WT_CHECK((gemm<bf16, kBias>(x, C, kNoMap, wqkv, 3 * C, bqkv, qkv, 3 * C,
-                              nullptr, 0, kNoMap, M, 3 * C, C, kNone, st)));
+  WT_CHECK((gemm<bf16, kBias>(x, C, wqkv, 3 * C, bqkv, qkv, 3 * C, nullptr, 0,
+                              kNoMap, M, 3 * C, C, kNone, st)));
   WT_CHECK(window_attention(qkv, bias, mask, n_win, att, N, L, C, H, st));
-  WT_CHECK((gemm<bf16, kBias>(att, C, kNoMap, wo, C, bo, out, C, nullptr, 0,
-                              kNoMap, M, C, C, kNone, st)));
+  WT_CHECK((gemm<bf16, kBias>(att, C, wo, C, bo, out, C, nullptr, 0, kNoMap,
+                              M, C, C, kNone, st)));
   return 0;
 }
 
@@ -191,16 +192,16 @@ int wt_swin_block(const bf16* x, const float* ln1_s, const float* ln1_b,
   const int M = N * L;
   if (!gemm_shapes_ok(M, C, F)) return (int)cudaErrorInvalidValue;
   WT_CHECK(layernorm(x, 0, ln1_s, ln1_b, y, M, C, st));
-  WT_CHECK((gemm<bf16, kBias>(y, C, kNoMap, wqkv, 3 * C, bqkv, qkv, 3 * C,
-                              nullptr, 0, kNoMap, M, 3 * C, C, kNone, st)));
+  WT_CHECK((gemm<bf16, kBias>(y, C, wqkv, 3 * C, bqkv, qkv, 3 * C, nullptr, 0,
+                              kNoMap, M, 3 * C, C, kNone, st)));
   WT_CHECK(window_attention(qkv, bias, mask, n_win, att, N, L, C, H, st));
-  WT_CHECK(gemm_residual(att, C, kNoMap, wo, C, bo, o, C, x, C, kNoMap, 0, M,
-                         C, C, st));
+  WT_CHECK(gemm_residual(att, C, wo, C, bo, o, C, x, C, kNoMap, 0, M, C, C,
+                         st));
   WT_CHECK(layernorm(o, 0, ln2_s, ln2_b, y, M, C, st));
-  WT_CHECK((gemm<bf16, kBiasAct>(y, C, kNoMap, wfc, F, bfc, h, F, nullptr, 0,
-                                 kNoMap, M, F, C, kGelu, st)));
-  WT_CHECK(gemm_residual(h, F, kNoMap, wproj, C, bproj, out, C, o, C, kNoMap,
-                         0, M, C, F, st));
+  WT_CHECK((gemm<bf16, kBiasAct>(y, C, wfc, F, bfc, h, F, nullptr, 0, kNoMap,
+                                 M, F, C, kGelu, st)));
+  WT_CHECK(gemm_residual(h, F, wproj, C, bproj, out, C, o, C, kNoMap, 0, M, C,
+                         F, st));
   return 0;
 }
 

@@ -362,6 +362,10 @@ def _check_param(t, shape, dtype, device, name):
     _require(t.dtype == dtype, f"{name}: dtype {t.dtype} != {dtype}")
     _require(t.device == device and t.is_contiguous(),
              f"{name}: must be contiguous on {device}")
+    # a matrix may be a GEMM operand, which TMA loads from 16-byte-aligned
+    # addresses (csrc/common.cuh)
+    _require(t.dim() < 2 or t.data_ptr() % 16 == 0,
+             f"{name}: must start on a 16-byte boundary")
 
 
 def _check_attn(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads, n_valid, name):

@@ -20,10 +20,11 @@ counts the launches.
 | ---------------------- | --------------------------------------------- |
 | fused_embed_attn_block | fused_embed_attn_block (embed_block.py:138)   |
 
-The patch GEMM takes K = p*p*3 in steps of 32 and 16-byte rows: 3072 at /32
-and 768 at /16 go as they are, 588 at /14 does not, so the wrapper zero-pads
-K (xp's last axis and kern's rows) to a multiple of 32 on the card. The
-zero columns add nothing to the product.
+The patch GEMM takes K = p*p*3 in 16-byte rows (a multiple of 8) and zero-fills
+its last K step of 64 past K. The wrapper zero-pads K (xp's last axis and
+kern's rows) to a multiple of 32 on the card: 3072 at /32 and 768 at /16 go
+as they are, 588 at /14 becomes 608. The zero columns add nothing to the
+product.
 
 Like the reference, the model does not call the fold: ``supports_embed_fold``
 reads a table that is empty, and a shape enters it only when a measurement
@@ -49,7 +50,8 @@ reset_launches = _launches.reset
 #: (SP, D) shapes on which the fold replaces the split entry. Empty, as the
 #: reference's ``_CALIBRATED_EMBED`` is.
 _CALIBRATED_EMBED: set = set()
-#: the patch GEMM's step along K (csrc/common.cuh BK)
+#: the multiple the wrapper pads K to (the GEMM itself takes any multiple
+#: of 8: csrc/common.cuh)
 _K_STEP = 32
 
 

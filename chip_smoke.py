@@ -53,7 +53,8 @@ Phases, one line each; any failure exits non-zero:
    there too, and the residual sum rounded to bf16 before the LayerNorm
    must fail. The fused scan + top-k kernels at the index phase's database,
    1,048,576 x 512 (TOPK_ROWS: fused_topk_threshold at Q = 1 and 8, k = 10
-   and 100; fused_topk at Q = 64, k = 100; f32 and bf16 storage), each held
+   and 100; fused_topk at Q = 64, k = 100, f32 and bf16 storage, and at
+   Q = 61 on bf16, which pads the queries to 64), each held
    against its plain version twice: on integer-valued vectors with planted
    ties (scores and rows must be identical) and on seeded unit-norm random
    vectors (scores within 2e-6, rows equal except among near-tied entries:
@@ -61,6 +62,8 @@ Phases, one line each; any failure exits non-zero:
    beside them (``library_ms``: two library calls, used nowhere in the
    port); planted there: the n_valid mask dropped, ties resolved to the
    higher row, the threshold skip inverted, the last span left unscanned.
+   The bf16 fused_topk rows also time the path's two kernels apart (CUDA
+   events: the GEMM into Sᵀ, the selection from it) and the merge.
    The GEMM (csrc/common.cuh, behind every block kernel) through its two
    one-GEMM entries, fused_ln_matmul and fused_residual_matmul, at the main
    paths' products (GEMM_SHAPES: ViT-H/14's qkv, fc and proj at 256 x 257
@@ -168,7 +171,8 @@ rows, launches 0); the last is {"ok": true, "device": {...}}. Needs one
 CUDA card; imports no JAX.
 
 ``--phase gemm`` runs the env phase and the GEMM rows alone (GEMM_SHAPES;
-the kernels phase runs them too); it prints no summary.
+the kernels phase runs them too); it prints no summary. ``--phase topk``
+does the same for the top-k rows (TOPK_ROWS).
 
 ``--phase profile`` runs the env phase, then breaks one 64-segment audio
 batch, one 256-frame ViT-H/14 batch and one text embed of the default
@@ -219,9 +223,16 @@ AUDIO_QUERIES = ["a dog barking", "rain on a window", "a violin solo",
 #: the index phase's database, and the top-k kernel rows': vectors x width
 #: (a multiple of the index's group of 4096 rows, so N_pad = N)
 INDEX_N, INDEX_D = 1 << 20, 512
-#: wrapper -> (source, TPU kernel it replaces)
+#: the kernels behind fused_topk: on bf16 storage the GEMM and the
+#: selection (two a chunk), on f32 storage the scan
+TOPK_SOURCES = {
+    "bfloat16": ("wise_tpu_torch/csrc/common.cuh gemm_kernel + "
+                 "wise_tpu_torch/csrc/topk_kernels.cu topk_select_kernel"),
+    "float32": "wise_tpu_torch/csrc/topk_kernels.cu topk_span_kernel"}
+#: wrapper -> (source, TPU kernel it replaces); a row may name its own
+#: source (the fused_topk rows: TOPK_SOURCES by storage)
 KERNELS = {
-    "fused_topk": ("wise_tpu_torch/csrc/topk_kernels.cu",
+    "fused_topk": (" ; ".join(TOPK_SOURCES.values()),
                    "wise_tpu/ops/pallas_topk.py:82"),
     "fused_topk_threshold": ("wise_tpu_torch/csrc/topk_kernels.cu",
                              "wise_tpu/ops/pallas_topk.py:221"),
@@ -1161,7 +1172,8 @@ TOPK_ROWS = [("q1-k10-f32", "fused_topk_threshold", 1, 10, "float32"),
              ("q8-k10-f32", "fused_topk_threshold", 8, 10, "float32"),
              ("q1-k100-f32", "fused_topk_threshold", 1, 100, "float32"),
              ("q64-k100-f32", "fused_topk", 64, 100, "float32"),
-             ("q64-k100-bf16", "fused_topk", 64, 100, "bfloat16")]
+             ("q64-k100-bf16", "fused_topk", 64, 100, "bfloat16"),
+             ("q61-k100-bf16", "fused_topk", 61, 100, "bfloat16")]
 TOPK_GROUP = 4096  # FeatureSearchIndex.GROUP
 
 
@@ -1241,6 +1253,8 @@ def _topk_row(torch, results, data, tag, name, qn, k, storage):
         lq = uq.to(udb.dtype)
         library_ms = _cuda_ms(
             torch, lambda: torch.topk((lq @ udb.T).float(), k), 10)
+        parts = (_topk_parts(torch, FT, uq, udb, n, k, group)
+                 if name == "fused_topk" and storage == "bfloat16" else {})
     caught = not any(c["ok"] for c in planted.values())
     ok = exact["ok"] and check["ok"] and caught
     itemsize = udb.element_size()
@@ -1259,11 +1273,40 @@ def _topk_row(torch, results, data, tag, name, qn, k, storage):
         ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
         bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
         library_ms=f"{library_ms:.4f}", library="torch.topk(q@db.T,k)",
+        **{f: f"{v:.3g}" if f.endswith("err") else f"{v:.4f}"
+           for f, v in parts.items()},
         status="ok" if ok else "FAIL")
     results.append(dict(name=name, tag=tag, key=(name, n, INDEX_D),
                         max_abs_err=check["max_abs_err"], ms=ms,
                         plain_ms=plain_ms, bound_ms=bound_ms,
-                        bound_by=bound_by, library_ms=library_ms, ok=ok))
+                        bound_by=bound_by, library_ms=library_ms, ok=ok,
+                        **({"source": TOPK_SOURCES[storage]}
+                           if name == "fused_topk" else {})))
+
+
+def _topk_parts(torch, FT, q, db, n_valid, k, group) -> dict:
+    """ms of the bf16 fused_topk path's parts on one chunk (every query, all
+    groups: Q <= ops.fused_topk.CHUNK_QUERIES), CUDA events: the GEMM into
+    Sᵀ (wt_topk_gemm), the selection from it (wt_topk_select), the merge of
+    the candidates (torch sorts); and the GEMM's Sᵀ against its plain
+    version (``gemm_max_abs_err``). Not counted as launches."""
+    qn, d = q.shape
+    q_pad = -(-qn // 8) * 8
+    wq = torch.zeros((d, q_pad), dtype=torch.bfloat16, device="cuda")
+    wq[:, :qn] = q.to(torch.bfloat16).T
+    st = torch.empty((db.shape[0], q_pad), device="cuda")
+    out_s = torch.empty((db.shape[0] // group, qn, k), device="cuda")
+    out_r = torch.empty(out_s.shape, dtype=torch.int32, device="cuda")
+    gemm_ms = _cuda_ms(torch, lambda: FT.scores_t_cuda(db, wq, st), 10)
+    select_ms = _cuda_ms(torch, lambda: FT.select_groups_cuda(
+        st, 0, n_valid, k, group, out_s, out_r, 0, qn), 10)
+    merge_ms = _cuda_ms(torch, lambda: FT._merge(out_s, out_r, k), 10)
+    want = torch.empty_like(st)
+    FT.scores_t_plain(db, wq, want)
+    err = float((st - want).abs().max())
+    del want, st
+    return {"gemm_ms": gemm_ms, "select_ms": select_ms, "merge_ms": merge_ms,
+            "gemm_max_abs_err": err}
 
 
 def _topk_rows(torch, results):
@@ -3362,7 +3405,8 @@ def _encode_rates(torch, extractor, frames, reps: int = 5):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", choices=["all", "kernels", "gemm", "vit_h",
+    ap.add_argument("--phase", choices=["all", "kernels", "gemm", "topk",
+                                        "vit_h",
                                         "xlmr", "hybrid", "index", "train",
                                         "padded", "embed_fold", "profile"],
                     default="all")
@@ -3395,6 +3439,11 @@ def main(argv=None) -> int:
         if args.phase == "gemm":
             rows = []
             _timed("gemm", _gemm_rows, torch, rows)
+            _require_rows(rows)
+            return 0
+        if args.phase == "topk":
+            rows = []
+            _timed("topk", _topk_rows, torch, rows)
             _require_rows(rows)
             return 0
         if args.phase == "vit_h":
@@ -3466,7 +3515,7 @@ def main(argv=None) -> int:
 
     def row(r):
         return {"name": f"{r['name']}[{r['tag']}]", "route": "cuda",
-                "source": KERNELS[r["name"]][0],
+                "source": r.get("source", KERNELS[r["name"]][0]),
                 "replaces": KERNELS[r["name"]][1],
                 "launches": launches.get(r["key"], 0),
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -870,6 +870,62 @@ def test_flat_topk_dispatches_to_the_kernels_on_card(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 100, 1024])
+@pytest.mark.parametrize("qn", [1, 7, 61, 64, 200])
+def test_topk_bf16_group_path_with_chunks_forced(cuda, qn, k):
+    """fused_topk's bf16 path (wt_topk_gemm + wt_topk_select): through the
+    wrapper (one launch counted), and with chunks forced small (24 queries,
+    Sᵀ scratch of two groups) so that queries and groups both split;
+    identical to the plain version on integer vectors either way."""
+    n, d, group = 15000, 128, 4096
+    queries, db = _topk_tied(n, d, qn, group, cuda, torch.bfloat16)
+    want = FT.fused_topk_plain(queries, db, n, k, group)
+    FT.reset_launches()
+    got = FT.fused_topk(queries, db, n, k, group)
+    torch.cuda.synchronize()
+    assert FT.LAUNCHES["fused_topk"] == 1
+    check = FT.topk_agreement(got, want)
+    assert check["ok"], check
+    forced = FT.group_topk_chunks(
+        queries, db, n, k, group, FT.scores_t_cuda, FT.select_groups_cuda,
+        chunk_queries=24, scratch_bytes=2 * group * 24 * 4)
+    torch.cuda.synchronize()
+    check = FT.topk_agreement(forced, want)
+    assert check["ok"], check
+
+
+@pytest.mark.cuda
+def test_topk_bf16_halves_match_their_plain_versions(cuda):
+    """The GEMM's Sᵀ equals the plain product on integer vectors (exact
+    sums), and the selection's candidates, sorted per slot, equal the plain
+    selection's; rows >= n_valid never enter."""
+    n, d, group, qn, k = 9000, 64, 1024, 13, 50
+    queries, db = _topk_tied(n, d, qn, group, cuda, torch.bfloat16)
+    wq = torch.zeros((d, 16), dtype=torch.bfloat16, device=cuda)
+    wq[:, :qn] = queries.to(torch.bfloat16).T
+    st = torch.empty((db.shape[0], 16), device=cuda)
+    want_st = torch.empty_like(st)
+    FT.scores_t_cuda(db, wq, st)
+    FT.scores_t_plain(db, wq, want_st)
+    torch.cuda.synchronize()
+    assert torch.equal(st, want_st)
+    groups = db.shape[0] // group
+    outs = [(torch.empty((groups, qn, k), device=cuda),
+             torch.empty((groups, qn, k), dtype=torch.int32, device=cuda))
+            for _ in range(2)]
+    FT.select_groups_cuda(st, 0, n, k, group, *outs[0], 0, qn)
+    FT.select_groups_plain(st, 0, n, k, group, *outs[1], 0, qn)
+    torch.cuda.synchronize()
+    # each slot's candidates are a set (the kernel leaves them unsorted):
+    # compare them in row order (every group holds >= k valid rows)
+    (gs, gr), (ws, wr) = (
+        (torch.gather(s, 2, order), r)
+        for s, (r, order) in ((s, torch.sort(r, dim=2)) for s, r in outs))
+    assert torch.equal(gr, wr) and torch.equal(gs, ws)
+    assert int(gr.max()) < n
+
+
+@pytest.mark.cuda
 def test_topk_wrappers_reject_what_they_do_not_take(cuda):
     q = torch.zeros(1, 16, device=cuda)
     db = torch.zeros(4096, 16, device=cuda)

@@ -36,15 +36,39 @@ FID = f"mlfoundations/open_clip/{MODEL}/slice"
 QUERIES = ["red", "a dog in the snow", "green light"]
 
 
+def native_decoders_ready(timeout: float = 60.0) -> None:
+    """Both packages' FFmpeg decoders loaded, or fail by name. The JAX
+    package links its library in place at first use (``make -C
+    wise_tpu/native``): a worker that loads it while another worker is
+    linking gets a partial file, and its module keeps ``available()`` False
+    for the worker's life, so its drives decode with OpenCV, whose frames
+    differ from FFmpeg's. Such a worker clears the module's attempt and
+    loads again until the link is done (up to ``timeout`` s)."""
+    import time
+
+    from wise_tpu.io import native_decoder as JN
+    from wise_tpu_torch.io import native_decoder as TN
+
+    deadline = time.monotonic() + timeout
+    while (not JN.available() and JN._LIB_PATH.exists()
+           and time.monotonic() < deadline):
+        time.sleep(1.0)
+        JN._lib, JN._load_attempted = None, False
+    assert JN.available(), "the JAX package's native decoder did not load"
+    assert TN.available(), "the port's native decoder did not load"
+
+
 @pytest.fixture(scope="module")
 def env(tmp_path_factory):
-    """Media, the checkpoint, and the environment both drives run under."""
+    """Media, the checkpoint, and the environment both drives run under;
+    both packages decode with their native FFmpeg decoders."""
     import dataclasses
 
     from tests.test_convert_published_keysets import openclip_clip_keyset
     from wise_tpu.models.clip import model as JM
     from wise_tpu_torch.models.clip import config as TC
 
+    native_decoders_ready()
     root = tmp_path_factory.mktemp("slice")
     media = root / "media"
     media.mkdir()

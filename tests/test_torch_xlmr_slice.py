@@ -28,7 +28,7 @@ import numpy as np
 import pytest
 
 from tests.media_fixtures import make_image, make_video
-from tests.test_torch_slice import _rest
+from tests.test_torch_slice import _rest, native_decoders_ready
 
 ROOT = Path(__file__).resolve().parents[1]
 MODEL = "xlm-roberta-large-ViT-H-14"
@@ -75,11 +75,13 @@ def _hf_text_state_dict(rng, width, layers, vocab, embed_dim):
 @pytest.fixture(scope="module")
 def env(tmp_path_factory):
     """Media, the checkpoint, the tiny registry entries and the environment
-    both drives run under."""
+    both drives run under; both packages decode with their native FFmpeg
+    decoders."""
     from tests.test_convert_published_keysets import openclip_clip_keyset
     from wise_tpu.models.clip import model as JM
     from wise_tpu_torch.models.clip import config as TC
 
+    native_decoders_ready()
     root = tmp_path_factory.mktemp("xlmr_slice")
     media = root / "media"
     media.mkdir()

@@ -5,51 +5,72 @@
 // over the groups, a group's extraction skipped unless its max beats the
 // running k-th score).
 //
-// Bound: bytes. A query tile reads every database row once (N * D * itemsize
-// bytes against 2 * Q * N * D operations: 1 to 16 operations a byte at the
-// serve shapes, far under what the card needs to leave the memory bound), so
-// the design spends its effort on keeping loads in flight and keeps the
-// selection off the critical path.
+// Bound: bytes. Every database row is read once (N * D * itemsize bytes
+// against 2 * Q * N * D operations: 1 to 64 operations a byte at the serve
+// shapes, far under the ~295 a byte the card needs to leave the memory
+// bound), so the designs spend their effort on reading the rows once for
+// as many queries as they can and on keeping the selection off the
+// critical path.
 //
-// The TPU kernel walks the groups one after another on one core with one
-// running buffer. Here the grid is (query tiles, row spans): a CTA owns a
-// contiguous span of rows and a tile of up to 8 queries held in shared
-// memory, streams its rows in tiles of kTile, and keeps its span's running
-// top-k per query in shared memory. Nothing carries over between CTAs: each
-// writes its span's k candidates, and the wrapper merges the (spans, Q, k)
+// Two designs:
+//
+// 1. pallas_topk on bf16 storage (wt_topk_gemm + wt_topk_select, the
+//    batched search's path). At 1,048,576 x 512 bf16 the bound is the
+//    database read, 1.07 GB at 3.35 TB/s = 0.32 ms, plus the Sᵀ scratch
+//    below, 256 MB written and read again at Q = 64 (0.16 ms more). The
+//    design reads the database once for up to 64 queries on the tensor
+//    cores: the wrapper (ops/fused_topk.py group_topk_chunks) cuts the work
+//    into chunks of whole groups by at most 64 queries, and for each chunk
+//      - wt_topk_gemm runs the port's GEMM (common.cuh gemm_kernel: TMA +
+//        wgmma, f32 accumulators, bias-free epilogue) on A = the chunk's
+//        database rows as they lie, W = bf16(q)ᵀ (D, Q_pad), into Sᵀ (rows,
+//        Q_pad) f32: bf16 products are exact in f32 and the sums stay f32;
+//      - wt_topk_select (topk_select_kernel) gives one CTA to each (group,
+//        tile of 8 queries): it streams the group's Sᵀ rows (32 contiguous
+//        bytes a row and query tile, one sector) through registers into
+//        shared memory, one tile ahead, sets rows >= n_valid to -inf and
+//        runs the selection below, unchanged.
+//    The next step is the selection fused into the GEMM's epilogue, which
+//    drops the Sᵀ round trip. The selection's own work holds the call,
+//    though (2.2-2.3 of 3.2 ms at Q = 64, k = 100 on an H100 80GB HBM3:
+//    ~471 buffer insertions per query and group, each a find_worst), so
+//    fewer insertions come first.
+//
+// 2. pallas_topk on f32 storage (wt_topk_group) and pallas_topk_threshold
+//    (wt_topk_threshold): f32 storage scores in full f32 (no TF32, which
+//    wgmma would need), so these scan with scalar FMAs. The TPU kernel
+//    walks the groups one after another on one core with one running
+//    buffer. Here the grid is (query tiles, row spans): a CTA owns a
+//    contiguous span of rows and a tile of up to 8 queries held in shared
+//    memory, streams its rows in tiles of kTile, and keeps its span's
+//    running top-k per query in shared memory.
+//      scoring: a warp takes kRows rows at a time; its lanes read the rows
+//        in 16-byte pieces (neighbouring lanes, neighbouring addresses) and
+//        multiply them with the queries from shared memory: f32 FMAs; bf16
+//        storage (the threshold kernel's) meets the query rounded to bf16,
+//        products and sums in f32. The partial sums of the kRows x QT
+//        accumulators are reduced across the warp by a butterfly that
+//        halves the accumulators at each step. Rows >= n_valid (zero
+//        padding, which would outscore negative true scores) and rows past
+//        the span become -inf before any selection.
+//    wt_topk_threshold gives each CTA a span of whole groups, sized by the
+//    caller so that the grid fills the card. wt_topk_group gives each CTA
+//    one group: every group's own top-k, no carry from group to group.
+//
+// The selection (select_tile), shared by both: warp q owns query q's
+// buffer, (score, row) pairs, unsorted, with the worst entry (lowest score,
+// on ties the highest row) known. A tile's scores are compared with the
+// worst entry: where none is better (a ballot) the 32 rows are skipped,
+// which is the threshold skip. A better candidate replaces the worst entry,
+// and the worst is found anew (k / 32 entries a lane and a warp reduction).
+// "Better" is the total order (score descending, row ascending), so the
+// buffer holds the first k in that order whatever the order of insertion:
+// the one intended difference from the TPU threshold kernel, which evicts
+// the first lane among tied worsts. Nothing carries over between CTAs: each
+// writes its k candidates, and the wrapper merges the (slots, Q, k)
 // candidates with torch ops, as the merge is outside both Pallas kernels.
-//
-//   scoring: a warp takes kRows rows at a time; its lanes read the rows in
-//     16-byte pieces (neighbouring lanes, neighbouring addresses) and
-//     multiply them with the queries from shared memory: f32 FMAs, so f32
-//     storage scores in full f32 (no TF32, no bf16 rounding); bf16 storage
-//     meets the query rounded to bf16, products and sums in f32. The partial
-//     sums of the kRows x QT accumulators are reduced across the warp by a
-//     butterfly that halves the accumulators at each step. Rows >= n_valid
-//     (zero padding, which would outscore negative true scores) and rows past
-//     the span become -inf before any selection.
-//   selection: warp q owns query q's buffer, (score, row) pairs, unsorted,
-//     with the worst entry (lowest score, on ties the highest row) known. A
-//     tile's scores are compared with the worst entry: where none is better
-//     (a ballot) the tile is skipped, which is the threshold skip. A better
-//     candidate replaces the worst entry, and the worst is found anew
-//     (k / 32 entries a lane and a warp reduction). "Better" is the total
-//     order (score descending, row ascending), so the buffer holds the span's
-//     first k in that order whatever the order of insertion: the one
-//     intended difference from the TPU threshold kernel, which evicts the
-//     first lane among tied worsts.
-//
-// wt_topk_threshold gives each CTA a span of whole groups, sized by the
-// caller so that the grid fills the card. wt_topk_group gives each CTA one
-// group: every group's own top-k, no carry from group to group.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <limits.h>
-#include <math.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+#include "common.cuh"
 
 namespace {
 
@@ -132,6 +153,35 @@ __device__ __forceinline__ void find_worst(const float* bs, const int* br,
     if (so < s || (so == s && ro > r)) { s = so; r = ro; pos = po; }
   }
   ws = s; wr = r; wpos = pos;
+}
+
+// The selection of one tile for one query, by one warp: the scores
+// my_sc[0, N) (N a multiple of 32) of database rows row0, row0 + 1, ...
+// enter the warp's k-entry buffer (my_bs, my_br) whose worst entry is
+// (ws, wr) at wpos. -inf scores (masked rows) never enter.
+template <int N>
+__device__ __forceinline__ void select_tile(const float* my_sc, int row0,
+                                            int k, int lane, float* my_bs,
+                                            int* my_br, float& ws, int& wr,
+                                            int& wpos) {
+  for (int j = lane; j < N; j += 32) {
+    const float s = my_sc[j];
+    const int row = row0 + j;
+    // the threshold skip: nothing of these 32 rows beats the worst entry
+    unsigned m = __ballot_sync(
+        0xffffffffu, s != -INFINITY && better(s, row, ws, wr));
+    while (m) {
+      const int src = __ffs(m) - 1;
+      m &= m - 1;
+      const float cs = __shfl_sync(0xffffffffu, s, src);
+      const int cr = __shfl_sync(0xffffffffu, row, src);
+      if (better(cs, cr, ws, wr)) {  // the worst may have risen since
+        if (lane == 0) { my_bs[wpos] = cs; my_br[wpos] = cr; }
+        __syncwarp();
+        find_worst(my_bs, my_br, k, lane, ws, wr, wpos);
+      }
+    }
+  }
 }
 
 // One CTA: queries [q0, q0 + QT) against rows [row_begin, row_end), the
@@ -221,27 +271,9 @@ __device__ void scan_span(const float* __restrict__ queries,
     __syncthreads();
 
     // selection: warp q holds query q's buffer
-    if (selects) {
-      const float* my_sc = sc + warp * kTile;
-      for (int j = lane; j < kTile; j += 32) {
-        const float s = my_sc[j];
-        const int row = tile0 + j;
-        // the threshold skip: nothing of these 32 rows beats the worst entry
-        unsigned m = __ballot_sync(
-            0xffffffffu, s != -INFINITY && better(s, row, ws, wr));
-        while (m) {
-          const int src = __ffs(m) - 1;
-          m &= m - 1;
-          const float cs = __shfl_sync(0xffffffffu, s, src);
-          const int cr = __shfl_sync(0xffffffffu, row, src);
-          if (better(cs, cr, ws, wr)) {  // the worst may have risen since
-            if (lane == 0) { my_bs[wpos] = cs; my_br[wpos] = cr; }
-            __syncwarp();
-            find_worst(my_bs, my_br, k, lane, ws, wr, wpos);
-          }
-        }
-      }
-    }
+    if (selects)
+      select_tile<kTile>(sc + warp * kTile, tile0, k, lane, my_bs, my_br, ws,
+                         wr, wpos);
     __syncthreads();
   }
 
@@ -309,6 +341,97 @@ cudaError_t launch(const float* queries, const void* db, int bf16_db,
                                            n_rows, n_valid, k, span_rows, st);
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 group path's selection: Sᵀ (from wt_topk_gemm) -> each group's
+// top-k of each query
+// ---------------------------------------------------------------------------
+
+constexpr int kSelTile = 256;  // Sᵀ rows a selection tile holds
+// a query's row of the tile in shared memory; the pad of 4 floats puts the
+// two halves of a row's 8 scores 16 banks apart, so the transposing stores
+// meet no bank twice
+constexpr int kSelStride = kSelTile + 4;
+// 16-byte loads a thread makes for a tile (4 scores of one row each)
+constexpr int kSelLoads = kSelTile * kMaxQT / 4 / kThreads;
+
+// This thread's 16 bytes of each row of the tile at group row tile0; rows
+// past the group read as zeros (masked when stored)
+__device__ __forceinline__ void load_tile(float4 (&v)[kSelLoads],
+                                          const float* src, int tile0,
+                                          int group, int ld) {
+#pragma unroll
+  for (int i = 0; i < kSelLoads; ++i) {
+    const int row = tile0 + (threadIdx.x >> 1) + i * (kThreads / 2);
+    v[i] = row < group ? __ldg(reinterpret_cast<const float4*>(
+                             src + (size_t)row * ld))
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// One CTA: group blockIdx.x of the chunk against queries [qt, qt + 8) of it,
+// qt = 8 blockIdx.y. Sᵀ is (rows, ld) f32: chunk row r is database row
+// row0 + r, column q is query q0 + q (columns >= qc: padding queries, never
+// selected). Thread t moves 16 bytes of each tile row (t / 2 + 128 i):
+// queries qt + 4 (t % 2) .. + 3, one tile ahead of the selection.
+__global__ void __launch_bounds__(kThreads)
+topk_select_kernel(const float* __restrict__ st, int ld, int row0,
+                   int n_valid, int k, int group, int qc,
+                   float* __restrict__ out_s, int* __restrict__ out_r, int Q,
+                   int q0) {
+  constexpr int QT = kMaxQT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sc = reinterpret_cast<float*>(smem);     // (QT, kSelStride) scores
+  float* bs = sc + QT * kSelStride;               // (QT, k) buffer scores
+  int* br = reinterpret_cast<int*>(bs + QT * k);  // (QT, k) buffer rows
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int qt = blockIdx.y * QT, half = tid & 1;
+  const size_t first = (size_t)blockIdx.x * group;  // the group's chunk row
+  const float* src = st + first * ld + qt + 4 * half;
+  for (int i = tid; i < QT * k; i += kThreads) {
+    bs[i] = -INFINITY;
+    br[i] = INT_MAX;  // an empty slot: worse than every row
+  }
+
+  const bool selects = qt + warp < qc;
+  float ws = -INFINITY;
+  int wr = INT_MAX, wpos = 0;
+  float* my_bs = bs + warp * k;
+  int* my_br = br + warp * k;
+
+  float4 v[kSelLoads];
+  load_tile(v, src, 0, group, ld);
+  for (int tile0 = 0; tile0 < group; tile0 += kSelTile) {
+#pragma unroll
+    for (int i = 0; i < kSelLoads; ++i) {
+      const int r = (tid >> 1) + i * (kThreads / 2), row = tile0 + r;
+      const bool valid = row < group && row0 + (long long)first + row <
+                                            (long long)n_valid;
+      float* d = sc + 4 * half * kSelStride + r;
+      d[0] = valid ? v[i].x : -INFINITY;
+      d[kSelStride] = valid ? v[i].y : -INFINITY;
+      d[2 * kSelStride] = valid ? v[i].z : -INFINITY;
+      d[3 * kSelStride] = valid ? v[i].w : -INFINITY;
+    }
+    __syncthreads();
+    if (tile0 + kSelTile < group)
+      load_tile(v, src, tile0 + kSelTile, group, ld);
+    if (selects)
+      select_tile<kSelTile>(sc + warp * kSelStride, row0 + (int)first + tile0,
+                            k, lane, my_bs, my_br, ws, wr, wpos);
+    __syncthreads();
+  }
+
+  const size_t slot = (size_t)row0 / group + blockIdx.x;
+  for (int i = tid; i < QT * k; i += kThreads) {
+    const int q = qt + i / k;
+    if (q >= qc) continue;
+    const size_t o = (slot * Q + q0 + q) * k + i % k;
+    out_s[o] = bs[i];
+    out_r[o] = br[i] == INT_MAX ? 0 : br[i];  // an empty slot: (-inf, row 0)
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -336,6 +459,47 @@ int wt_topk_group(const float* queries, const void* db, int bf16_db,
     return (int)cudaErrorInvalidValue;
   return (int)launch(queries, db, bf16_db, out_s, out_r, Q, D, n_rows,
                      n_valid, k, group, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 group path's product: Sᵀ (rows, q_pad) f32 = db (rows, D) bf16,
+// the rows as they lie, times wq (D, q_pad) bf16 = bf16(queries)ᵀ, on
+// common.cuh's GEMM with no bias (its epilogue adds none where bias is
+// null). q_pad % 8 == 0 (TMA's 16-byte row stride).
+int wt_topk_gemm(const void* db, int rows, int D, const void* wq, int q_pad,
+                 float* out, void* stream) {
+  if (rows < 1 || D < 8 || D % 8 || q_pad < 8 || q_pad % 8)
+    return (int)cudaErrorInvalidValue;
+  return (int)gemm<float, kBias>(
+      static_cast<const bf16*>(db), D, static_cast<const bf16*>(wq), q_pad,
+      nullptr, out, q_pad, nullptr, 0, kNoMap, rows, q_pad, D, kNone,
+      static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 group path's selection: Sᵀ (rows, ld) f32 of database rows
+// [row0, row0 + rows), whole groups, against queries [q0, q0 + qc) (columns
+// [0, qc) of Sᵀ) -> slots row0 / group .. of out (groups, Q, k): each
+// group's first k by (score descending, row ascending), unsorted, rows >=
+// n_valid left out, a group with fewer than k valid rows filled with (-inf,
+// 0). One CTA per (group, tile of 8 queries).
+int wt_topk_select(const float* st, int ld, int rows, int row0, int n_valid,
+                   int k, int group, int qc, float* out_s, int* out_r, int Q,
+                   int q0, void* stream) {
+  if (ld < 8 || ld % 8 || qc < 1 || qc > ld || group < 1 || rows < group ||
+      rows % group || row0 < 0 || row0 % group || n_valid < 0 || k < 1 ||
+      k > group || k > 1024 || q0 < 0 || q0 + qc > Q || qc > 8 * 65535 ||
+      !aligned(st, 16))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      ((size_t)kMaxQT * kSelStride + 2 * (size_t)kMaxQT * k) * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      topk_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(rows / group, (qc + kMaxQT - 1) / kMaxQT);
+  topk_select_kernel<<<grid, kThreads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      st, ld, row0, n_valid, k, group, qc, out_s, out_r, Q, q0);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

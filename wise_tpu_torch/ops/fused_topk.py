@@ -23,9 +23,26 @@ On a CUDA database a wrapper launches its kernel (csrc/topk_kernels.cu) or
 raises; the candidates of the kernel's spans or groups are merged here with
 torch sorts, as the merge is outside both Pallas kernels. On a CPU database it
 computes the plain version: group by group with a running merge, or each
-group's own top-k and one merge. ``LAUNCHES`` counts the launches, keyed in
+group's own top-k and one merge. ``LAUNCHES`` counts the wrapper calls that
+launched, one a call whatever the number of kernels it enqueued, keyed in
 ``LAUNCHES_BY_SHAPE`` by (wrapper, N_pad, D): the batch is the coalescer's
 choice and is left out of the key.
+
+``fused_topk`` on a bf16 CUDA database (the batched search) replaces
+pallas_topk with two kernels a chunk, driven by :func:`group_topk_chunks`.
+What bounds it is the database read: 1,048,576 x 512 x 2 B = 1.07 GB at
+3.35 TB/s is 0.32 ms, plus the Sᵀ scratch written and read again (256 MB at
+Q = 64). So each chunk of whole groups by at most 64 queries reads its rows
+once, on the tensor cores: ``wt_topk_gemm`` runs the port's GEMM
+(csrc/common.cuh ``gemm_kernel``, TMA + wgmma) on the rows as they lie and
+bf16(q)ᵀ into Sᵀ (rows, Q_pad) f32, and ``wt_topk_select`` keeps each
+group's top-k of each query with the f32 path's selection. The next step is
+the selection fused into the GEMM's epilogue, which drops the Sᵀ round trip;
+but the selection's own work holds the call (2.2-2.3 of 3.2 ms at Q = 64, k
+= 100 on an H100 80GB HBM3: ~471 buffer insertions per query and group), so
+fewer insertions come first. f32 storage and ``fused_topk_threshold`` keep the scalar scan
+(``wt_topk_group`` / ``wt_topk_threshold``): wgmma has no f32 operand, and
+TF32 would change f32 scores.
 """
 
 from __future__ import annotations
@@ -42,6 +59,10 @@ MAX_K = 1024
 MAX_D = 1024
 #: CTAs per SM the threshold kernel's spans are sized for
 _CTAS_PER_SM = 8
+#: queries the bf16 group path scores in one GEMM (before padding to 8)
+CHUNK_QUERIES = 64
+#: the Sᵀ scratch the bf16 group path holds: 1,048,576 rows x 64 queries x 4 B
+CHUNK_SCRATCH_BYTES = 256 << 20
 
 _launches = LaunchCounter("fused_topk", "fused_topk_threshold")
 #: kernel launches since the last reset_launches()
@@ -95,6 +116,91 @@ def fused_topk_plain(queries, db_padded, n_valid: int, k: int,
     vals, rows = torch.cat(vals, dim=1), torch.cat(rows, dim=1)
     top, pos = _stable_topk(vals, k)
     return top, torch.gather(rows, 1, pos)
+
+
+def scores_t_plain(db_rows, wq, out) -> None:
+    """Plain version of the bf16 path's product (``wt_topk_gemm``): out
+    (rows, Q_pad) f32 = Sᵀ of db_rows (rows, D) against the queries held as
+    wq = bf16(q)ᵀ (D, Q_pad), by ``ops.topk._scores``."""
+    out.copy_(_scores(wq.T, db_rows).T)
+
+
+def select_groups_plain(st, row0: int, n_valid: int, k: int, group: int,
+                        out_s, out_r, q0: int, qc: int) -> None:
+    """Plain version of the bf16 path's selection (``wt_topk_select``): Sᵀ
+    (rows, Q_pad) of database rows [row0, row0 + rows), whole groups, against
+    queries [q0, q0 + qc) (its first qc columns) -> slots row0 / group, ...
+    of out_s / out_r (groups, Q, k): each group's first k by (score
+    descending, row ascending), rows >= n_valid at -inf, an entry at -inf
+    leaving as row 0 as the kernel's empty slots do."""
+    rows = st.shape[0]
+    row = torch.arange(row0, row0 + rows, device=st.device)
+    scores = st[:, :qc].T.masked_fill((row >= n_valid)[None, :],
+                                      float("-inf"))
+    vals, pos = torch.sort(scores.reshape(qc, rows // group, group), dim=2,
+                           descending=True, stable=True)
+    vals, pos = vals[:, :, :k], pos[:, :, :k]
+    base = torch.arange(row0, row0 + rows, group, device=st.device)
+    pos = torch.where(vals == float("-inf"), 0, pos + base[None, :, None])
+    slots = slice(row0 // group, row0 // group + rows // group)
+    out_s[slots, q0:q0 + qc] = vals.permute(1, 0, 2)
+    out_r[slots, q0:q0 + qc] = pos.permute(1, 0, 2).to(out_r.dtype)
+
+
+def group_topk_chunks(queries, db_padded, n_valid: int, k: int, group: int,
+                      product, select, chunk_queries: int = CHUNK_QUERIES,
+                      scratch_bytes: int = CHUNK_SCRATCH_BYTES):
+    """The bf16 group path's host side: each group's own top-k of bf16(q) @
+    dbᵀ, then one merge, with the product and the selection as callables
+    (the kernels on the card, :func:`scores_t_plain` and
+    :func:`select_groups_plain` in the CPU tests).
+
+    The queries round to bf16 and go in chunks of at most ``chunk_queries``,
+    each padded with zero queries to a multiple of 8 (the GEMM's TMA map
+    wants a 16-byte row stride) and held as Wq = bf16(q)ᵀ (D, Q_pad). The
+    groups go in chunks of as many whole groups as ``scratch_bytes`` of Sᵀ
+    (rows, Q_pad) f32 hold (one at the least). For each (query chunk, group
+    chunk): ``product(db rows, wq, st)`` writes Sᵀ, ``select(st, row0,
+    n_valid, k, group, out_s, out_r, q0, qc)`` writes the chunk's slots of
+    the (groups, Q, k) candidates, which :func:`_merge` orders."""
+    n_pad, d = db_padded.shape
+    qn, groups, dev = queries.shape[0], n_pad // group, db_padded.device
+    qb = queries.to(device=dev, dtype=torch.bfloat16)
+    out_s = torch.empty((groups, qn, k), dtype=torch.float32, device=dev)
+    out_r = torch.empty((groups, qn, k), dtype=torch.int32, device=dev)
+    width = -(-min(qn, chunk_queries) // 8) * 8
+    chunk_groups = max(1, min(groups, scratch_bytes // (4 * group * width)))
+    scratch = torch.empty(chunk_groups * group * width, dtype=torch.float32,
+                          device=dev)
+    for q0 in range(0, qn, chunk_queries):
+        qc = min(chunk_queries, qn - q0)
+        q_pad = -(-qc // 8) * 8
+        wq = torch.zeros((d, q_pad), dtype=torch.bfloat16, device=dev)
+        wq[:, :qc] = qb[q0:q0 + qc].T
+        for g0 in range(0, groups, chunk_groups):
+            rows = min(chunk_groups, groups - g0) * group
+            st = scratch[:rows * q_pad].view(rows, q_pad)
+            product(db_padded[g0 * group:g0 * group + rows], wq, st)
+            select(st, g0 * group, n_valid, k, group, out_s, out_r, q0, qc)
+    return _merge(out_s, out_r, k)
+
+
+def scores_t_cuda(db_rows, wq, out) -> None:
+    """``wt_topk_gemm`` on CUDA tensors (no checks beyond the C entry's:
+    called by :func:`group_topk_chunks` from ``fused_topk``)."""
+    check(load_library().wt_topk_gemm(
+        db_rows.data_ptr(), db_rows.shape[0], db_rows.shape[1],
+        wq.data_ptr(), wq.shape[1], out.data_ptr(), _stream(out)),
+        "fused_topk (wt_topk_gemm)")
+
+
+def select_groups_cuda(st, row0: int, n_valid: int, k: int, group: int,
+                       out_s, out_r, q0: int, qc: int) -> None:
+    """``wt_topk_select`` on CUDA tensors, as :func:`scores_t_cuda`."""
+    check(load_library().wt_topk_select(
+        st.data_ptr(), st.shape[1], st.shape[0], row0, int(n_valid), k,
+        group, qc, out_s.data_ptr(), out_r.data_ptr(), out_s.shape[1], q0,
+        _stream(st)), "fused_topk (wt_topk_select)")
 
 
 def topk_agreement(got, want, tol: float = 0.0) -> dict:
@@ -162,8 +268,14 @@ def _launch(name, queries, db_padded, n_valid, k, group, threshold):
     dev = db_padded.device
     q = queries.to(device=dev, dtype=torch.float32).contiguous()
     qn, groups = q.shape[0], n_pad // group
-    lib = load_library()
     bf16_db = int(db_padded.dtype == torch.bfloat16)
+    if bf16_db and not threshold:
+        with torch.cuda.device(dev):
+            out = group_topk_chunks(q, db_padded, n_valid, k, int(group),
+                                    scores_t_cuda, select_groups_cuda)
+        _launches.add(name, n_pad, d)
+        return out
+    lib = load_library()
     if threshold:
         # spans of whole groups, as many as fill the card
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -199,8 +311,11 @@ def fused_topk_threshold(queries, db_padded, n_valid: int, k: int,
 
 
 def fused_topk(queries, db_padded, n_valid: int, k: int, group: int = 4096):
-    """Each group's own top-k in one CTA per (group, query tile), then the
-    merge. The batched search's kernel. Exact for k <= group."""
+    """Each group's own top-k, then the merge. The batched search's kernel.
+    Exact for k <= group. f32 storage: one CTA per (group, query tile)
+    scans in f32. bf16 storage: the GEMM writes Sᵀ for up to 64 queries at
+    a time and the selection kernel keeps each group's top-k
+    (:func:`group_topk_chunks`; the module docstring gives the bound)."""
     if not db_padded.is_cuda:
         return fused_topk_plain(queries, db_padded, n_valid, k, group)
     return _launch("fused_topk", queries, db_padded, n_valid, k, group,

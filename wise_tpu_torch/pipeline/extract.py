@@ -178,10 +178,12 @@ class _BatchedEmbedder:
                     self.extractor.preprocess_audio(batch)
                 )
             else:
-                batch = np.stack([x[3] for x in take])
-                feats = self.extractor.extract_image_features(
-                    self.extractor.preprocess_image(batch)
+                # each frame canonicalised before the stack, so that one
+                # batch may mix resolutions (the reference stacks raw frames)
+                batch = np.concatenate(
+                    [self.extractor.preprocess_image(x[3][None]) for x in take]
                 )
+                feats = self.extractor.extract_image_features(batch)
         vectors = [
             VectorMetadata(
                 modality=self.modality,

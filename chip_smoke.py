@@ -61,9 +61,13 @@ Phases, one line each; any failure exits non-zero:
    ops.fused_topk.topk_agreement), with ``torch.topk(q @ db.T, k)`` timed
    beside them (``library_ms``: two library calls, used nowhere in the
    port); planted there: the n_valid mask dropped, ties resolved to the
-   higher row, the threshold skip inverted, the last span left unscanned.
-   The bf16 fused_topk rows also time the path's two kernels apart (CUDA
-   events: the GEMM into Sᵀ, the selection from it) and the merge.
+   higher row, the threshold skip inverted, the last span left unscanned,
+   and on the f32 fused_topk row a TF32-only product (torch ops) in place
+   of the three-term kernel, which must fail the unit rows' 2e-6 check. The
+   fused_topk rows also time the path's two kernels apart (CUDA events: the
+   product into Sᵀ, the selection from it) and the merge, and print how
+   many (query, segment) selections took the overflow branch in one call
+   on each database.
    The GEMM (csrc/common.cuh, behind every block kernel) through its two
    one-GEMM entries, fused_ln_matmul and fused_residual_matmul, at the main
    paths' products (GEMM_SHAPES: ViT-H/14's qkv, fc and proj at 256 x 257
@@ -223,12 +227,14 @@ AUDIO_QUERIES = ["a dog barking", "rain on a window", "a violin solo",
 #: the index phase's database, and the top-k kernel rows': vectors x width
 #: (a multiple of the index's group of 4096 rows, so N_pad = N)
 INDEX_N, INDEX_D = 1 << 20, 512
-#: the kernels behind fused_topk: on bf16 storage the GEMM and the
-#: selection (two a chunk), on f32 storage the scan
+#: the kernels behind fused_topk, two a chunk: the product into Sᵀ (bf16
+#: storage the GEMM, f32 storage the three-term TF32 product) and the
+#: selection, one for both
 TOPK_SOURCES = {
     "bfloat16": ("wise_tpu_torch/csrc/common.cuh gemm_kernel + "
                  "wise_tpu_torch/csrc/topk_kernels.cu topk_select_kernel"),
-    "float32": "wise_tpu_torch/csrc/topk_kernels.cu topk_span_kernel"}
+    "float32": ("wise_tpu_torch/csrc/topk_kernels.cu topk_gemm_f32_kernel + "
+                "wise_tpu_torch/csrc/topk_kernels.cu topk_select_kernel")}
 #: wrapper -> (source, TPU kernel it replaces); a row may name its own
 #: source (the fused_topk rows: TOPK_SOURCES by storage)
 KERNELS = {
@@ -292,8 +298,11 @@ SWIN_STAGES = [("stage0", 4096, 96, 4, None),
 
 #: published dense peaks of one H100 SXM: bf16 operations/s, HBM bytes/s
 PEAK_OPS, PEAK_BYTES = 989e12, 3.35e12
-#: f32 operations/s outside the tensor cores (the top-k kernels on f32 rows)
+#: f32 operations/s outside the tensor cores (the scan kernel on f32 rows)
 PEAK_OPS_F32 = 67e12
+#: TF32 operations/s on the tensor cores (fused_topk's f32 product: three
+#: TF32 products for one f32 one)
+PEAK_OPS_TF32 = 495e12
 
 
 class PhaseError(RuntimeError):
@@ -1205,10 +1214,25 @@ def _topk_inputs(torch):
                      "n_valid": n_valid}}
 
 
+def _tf32_only(FT, q, db, n_valid, k, group):
+    """fused_topk on f32 storage with a TF32-only product (torch ops: both
+    operands rounded to TF32, products exact, sums f32) in place of the
+    three-term kernel, and the real selection: a planted fault that the
+    unit rows' 2e-6 check must catch."""
+    def product(db_rows, qp, st):
+        st.copy_((FT.tf32(qp) @ FT.tf32(db_rows).T).T)
+
+    return FT.group_topk_chunks(q, db, n_valid, k, group, product,
+                                FT.select_groups_cuda)
+
+
 def _topk_row(torch, results, data, tag, name, qn, k, storage):
     """One top-k kernel row: identical to the plain version on the "tied"
     database, within 2e-6 on the "unit" one, every planted fault caught on
-    the "tied" one; times on the "unit" one."""
+    the "tied" one (the TF32-only product of the f32 fused_topk rows on the
+    "unit" one); times on the "unit" one. The fused_topk rows also print how
+    many (query, segment) selections took the overflow branch in one call on
+    each database."""
     from wise_tpu_torch.ops import fused_topk as FT
     from wise_tpu_torch.ops import topk as TK
 
@@ -1217,6 +1241,7 @@ def _topk_row(torch, results, data, tag, name, qn, k, storage):
     tied, unit = data["tied"], data["unit"]
     tdb, tq, nv = tied[storage], tied["q"][:qn], tied["n_valid"]
     udb, uq = unit[storage], unit["q"][:qn]
+    grouped = name == "fused_topk"
 
     def ties_to_the_higher_row():
         """The kernel on the valid rows in reverse, rows mapped back: tied
@@ -1240,28 +1265,44 @@ def _topk_row(torch, results, data, tag, name, qn, k, storage):
         "skip_inverted": skip_inverted,
         "last_span_unscanned": lambda: fn(tq, tdb[:n - group], n - group, k,
                                           group)}
+
+    def overflows(q, db, n_valid):
+        FT.reset_overflows(db.device)
+        fn(q, db, n_valid, k, group)
+        return FT.overflow_count(db.device)
+
     with torch.inference_mode():
         want = plain(tq, tdb, nv, k, group)
         exact = FT.topk_agreement(fn(tq, tdb, nv, k, group), want)
-        check = FT.topk_agreement(fn(uq, udb, n, k, group),
-                                  plain(uq, udb, n, k, group), tol=2e-6)
+        unit_want = plain(uq, udb, n, k, group)
+        check = FT.topk_agreement(fn(uq, udb, n, k, group), unit_want,
+                                  tol=2e-6)
         torch.cuda.synchronize()
         planted = {f: FT.topk_agreement(fault(), want)
                    for f, fault in faults.items()}
+        if grouped and storage == "float32":
+            planted["tf32_only_product"] = FT.topk_agreement(
+                _tf32_only(FT, uq, udb, n, k, group), unit_want,
+                tol=2e-6)
+        more = ({"overflows_unit": overflows(uq, udb, n),
+                 "overflows_tied": overflows(tq, tdb, nv)} if grouped else {})
         ms = _cuda_ms(torch, lambda: fn(uq, udb, n, k, group), 10)
         plain_ms = _cuda_ms(torch, lambda: plain(uq, udb, n, k, group), 5)
         lq = uq.to(udb.dtype)
         library_ms = _cuda_ms(
             torch, lambda: torch.topk((lq @ udb.T).float(), k), 10)
         parts = (_topk_parts(torch, FT, uq, udb, n, k, group)
-                 if name == "fused_topk" and storage == "bfloat16" else {})
+                 if grouped else {})
     caught = not any(c["ok"] for c in planted.values())
     ok = exact["ok"] and check["ok"] and caught
     itemsize = udb.element_size()
+    ops = 2 * qn * n * INDEX_D
+    if grouped and storage == "float32":
+        ops, peak = 3 * ops, PEAK_OPS_TF32
+    else:
+        peak = PEAK_OPS_F32 if storage == "float32" else PEAK_OPS
     bound_ms, bound_by = _bound(
-        2 * qn * n * INDEX_D,
-        n * INDEX_D * itemsize + qn * INDEX_D * 4 + qn * k * 12,
-        PEAK_OPS_F32 if storage == "float32" else PEAK_OPS)
+        ops, n * INDEX_D * itemsize + qn * INDEX_D * 4 + qn * k * 12, peak)
     say("kernels", name=f"{name}[{tag}]", shape=f"{qn}x{n}x{INDEX_D}", k=k,
         dtype=storage, tied_identical=exact["ok"],
         tied_mismatched=exact["mismatched"],
@@ -1273,6 +1314,7 @@ def _topk_row(torch, results, data, tag, name, qn, k, storage):
         ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
         bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
         library_ms=f"{library_ms:.4f}", library="torch.topk(q@db.T,k)",
+        **more,
         **{f: f"{v:.3g}" if f.endswith("err") else f"{v:.4f}"
            for f, v in parts.items()},
         status="ok" if ok else "FAIL")
@@ -1281,28 +1323,35 @@ def _topk_row(torch, results, data, tag, name, qn, k, storage):
                         plain_ms=plain_ms, bound_ms=bound_ms,
                         bound_by=bound_by, library_ms=library_ms, ok=ok,
                         **({"source": TOPK_SOURCES[storage]}
-                           if name == "fused_topk" else {})))
+                           if grouped else {})))
 
 
 def _topk_parts(torch, FT, q, db, n_valid, k, group) -> dict:
-    """ms of the bf16 fused_topk path's parts on one chunk (every query, all
-    groups: Q <= ops.fused_topk.CHUNK_QUERIES), CUDA events: the GEMM into
-    Sᵀ (wt_topk_gemm), the selection from it (wt_topk_select), the merge of
-    the candidates (torch sorts); and the GEMM's Sᵀ against its plain
+    """ms of the fused_topk path's parts on one chunk (every query, all
+    groups: Q <= ops.fused_topk.CHUNK_QUERIES), CUDA events: the product
+    into Sᵀ (wt_topk_gemm on bf16 storage, wt_topk_gemm_f32 with its query
+    split on f32), the selection from it (wt_topk_select), the merge of the
+    candidates (one torch.topk); and the product's Sᵀ against its plain
     version (``gemm_max_abs_err``). Not counted as launches."""
     qn, d = q.shape
     q_pad = -(-qn // 8) * 8
-    wq = torch.zeros((d, q_pad), dtype=torch.bfloat16, device="cuda")
-    wq[:, :qn] = q.to(torch.bfloat16).T
+    if db.dtype == torch.bfloat16:
+        op = torch.zeros((d, q_pad), dtype=torch.bfloat16, device="cuda")
+        op[:, :qn] = q.to(torch.bfloat16).T
+        product, plain = FT.scores_t_cuda, FT.scores_t_plain
+    else:
+        op = torch.zeros((q_pad, d), device="cuda")
+        op[:qn] = q
+        product, plain = FT.scores_t_f32_cuda, FT.scores_t_f32_plain
     st = torch.empty((db.shape[0], q_pad), device="cuda")
     out_s = torch.empty((db.shape[0] // group, qn, k), device="cuda")
     out_r = torch.empty(out_s.shape, dtype=torch.int32, device="cuda")
-    gemm_ms = _cuda_ms(torch, lambda: FT.scores_t_cuda(db, wq, st), 10)
+    gemm_ms = _cuda_ms(torch, lambda: product(db, op, st), 10)
     select_ms = _cuda_ms(torch, lambda: FT.select_groups_cuda(
         st, 0, n_valid, k, group, out_s, out_r, 0, qn), 10)
     merge_ms = _cuda_ms(torch, lambda: FT._merge(out_s, out_r, k), 10)
     want = torch.empty_like(st)
-    FT.scores_t_plain(db, wq, want)
+    plain(db, op, want)
     err = float((st - want).abs().max())
     del want, st
     return {"gemm_ms": gemm_ms, "select_ms": select_ms, "merge_ms": merge_ms,

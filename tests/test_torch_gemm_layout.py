@@ -23,6 +23,17 @@ the three tile shapes the host picks from; the epilogue map must cover a
 64 x N tile exactly once. Planted faults (LBO and SBO swapped, a stage off
 the atom, the K-step of a row of W taken as a column step) must give a wrong
 product.
+
+The same for the f32 group path's product (csrc/topk_kernels.cu
+``topk_gemm_f32_kernel``, constants ``kF32*``): the ring on f32 elements (32
+a swizzled row), each thread's two 16-byte reads of its A rows (chunk (2t +
+c) ^ g), the TF32 split in registers and the m64nNk8 tf32 A fragment, the
+K-major B descriptor on the wrapper's q_hi / q_lo (ops.fused_topk.tf32_split,
+columns permuted to the fragment order), three products a k8 step, and the
+masked stores: it must equal hi(db) q_hi + hi(db) q_lo + lo(db) q_hi exactly
+(values on a 2^-8 grid: every sum exact) at ragged M, N and K; the column
+permutation left out, the reads unswizzled, or the fragment's columns
+swapped must not.
 """
 
 import re
@@ -282,3 +293,208 @@ def test_planted_layout_faults_break_the_product(fault):
           "w_k_step_as_column": dict(w_step=WK * 2)}[fault]
     out, _ = emulate(a, w, 2, 128, **kw)
     assert not np.array_equal(out, a @ w)
+
+
+# ---------------------------------------------------------------------------
+# the f32 group path's product (csrc/topk_kernels.cu topk_gemm_f32_kernel):
+# the same ring and swizzle on f32 elements, A split in registers, three tf32
+# wgmma (m64n64k8, register A, K-major B) a k8 step
+# ---------------------------------------------------------------------------
+
+import torch  # noqa: E402
+
+from wise_tpu_torch.ops import fused_topk as FT  # noqa: E402
+
+TOPK_CU = CUH.parent / "topk_kernels.cu"
+
+
+def _f32_constants():
+    names = dict(C)
+    for name, expr in re.findall(r"constexpr (?:int|size_t) (kF32\w*) =\s*"
+                                 r"([^;]+);", TOPK_CU.read_text()):
+        expr = re.sub(r"\(size_t\)", "", expr).replace("/", "//")
+        names[name] = eval(expr, {}, names)
+    return names
+
+
+F32 = _f32_constants()
+F32_BK, F32_BN, F32_TILES, F32_WG, F32_K = (
+    F32["kF32BK"], F32["kF32BN"], F32["kF32Tiles"], F32["kF32Wg"],
+    F32["kF32WgmmaK"])
+F32_BM = F32["kF32BM"]
+
+
+def test_f32_constants_hang_together():
+    """A stage's K is one swizzled row of f32 (32 values), a k8 step is 32
+    bytes as the bf16 path's k16, the tile is the consumer warpgroups' m64
+    tiles by a 64-query chunk, and the ring (as many stages as fit) holds
+    three at least on the atom and fits one block an SM."""
+    assert F32_BK * 4 == ROW_BYTES and F32_K * 4 == WK * 2
+    assert F32_BM == F32_WG * F32_TILES * WG_ROWS and F32_BN == 64
+    stage = F32["kF32StageBytes"]
+    assert stage == F32_BM * ROW_BYTES + 2 * F32_BN * ROW_BYTES
+    assert stage % ATOM == 0
+    assert F32["kF32Stages"] == (C["kSmemPerSM"] - 1024 - ATOM) // (stage + 16)
+    assert F32["kF32Stages"] >= 3
+    assert F32["kF32Smem"] <= 227 * 1024
+
+
+def tma_box_f32(smem, dst, g, c0, c1, rows):
+    """tma_box on 4-byte elements (32 a 128-byte box row), smem indexed by
+    byte address / 4."""
+    cols = ROW_BYTES // 4
+    r = np.arange(rows)[:, None]
+    c = np.arange(cols)[None, :]
+    gr, gc = c1 + r, c0 + c
+    inside = (gr < g.shape[0]) & (gc < g.shape[1])
+    vals = np.where(inside, g[np.minimum(gr, g.shape[0] - 1),
+                              np.minimum(gc, g.shape[1] - 1)], 0.0)
+    chunk = (c * 4) // 16
+    byte = dst + r * ROW_BYTES + ((chunk ^ (r % 8)) * 16) + (c * 4) % 16
+    smem[byte // 4] = vals
+
+
+def read_b_tf32(smem, d):
+    """The 8 x 64 B fragment (K-major, tf32) a descriptor reads: column n
+    of B is row n of the box, k its 4-byte element."""
+    start, _, sbo, layout = fields(d)
+    assert layout == 1
+    k = np.arange(F32_K)[:, None]
+    n = np.arange(F32_BN)[None, :]
+    addr = (start + (n % 8) * ROW_BYTES + (n // 8) * sbo + (k // 4) * 16
+            + (k % 4) * 4)
+    return smem[swizzle(addr) // 4]
+
+
+def a_fragment_tf32():
+    """(thread, register) -> (row, column) of the m64 x k8 tf32 A fragment:
+    warp w rows 16w ..; a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8,
+    t + 4), g = lane / 4, t = lane % 4."""
+    t = np.arange(128)[:, None]
+    i = np.arange(4)[None, :]
+    row = 16 * (t // 32) + (t % 32) // 4 + 8 * (i % 2)
+    col = (t % 4) + 4 * (i // 2)
+    return row, col
+
+
+def tf32_rna(x):
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32).astype(np.float64)
+
+
+def emulate_f32(db, q, perm=True, swizzle_reads=True, swap_a=False):
+    """The f32 kernel on db (M, K) f32 and q (N, K) f32 -> Sᵀ (M, N): the
+    wrapper's operand (ops.fused_topk.tf32_split), the producer's boxes, the
+    consumers' 16-byte reads of A (chunk (2t + c) ^ g), the split, the k8
+    steps' fragments and descriptors, the D fragment and the masked stores.
+    Keyword arguments plant faults."""
+    m, k = db.shape
+    n = q.shape[0]
+    qs = FT.tf32_split(torch.from_numpy(q))
+    if not perm:  # the wrapper's column order left out
+        d_pad = qs.shape[2]
+        inv = torch.argsort(FT.tf32_permutation(d_pad))
+        qs = qs[:, :, inv]
+    qs = qs.reshape(2 * n, -1).numpy().astype(np.float64)
+    out = np.full((m, n), np.nan)
+    row_d, col_d = d_fragment(F32_BN)
+    a_row, a_col = a_fragment_tf32()
+    tid = np.arange(128)
+    warp, lane = tid // 32, tid % 32
+    g, t4 = lane // 4, lane % 4
+    a_bytes = F32_BM * ROW_BYTES
+    for m0 in range(0, m, F32_BM):
+        acc = np.zeros((F32_WG, F32_TILES, 128, F32_BN // 2))
+        for kt in range(-(-k // F32_BK)):
+            smem = np.full((F32["kF32StageBytes"]) // 4, np.nan)
+            tma_box_f32(smem, 0, db.astype(np.float64), kt * F32_BK, m0,
+                        F32_BM)
+            tma_box_f32(smem, a_bytes, qs, kt * F32_BK, 0, F32_BN)
+            tma_box_f32(smem, a_bytes + F32_BN * ROW_BYTES, qs, kt * F32_BK,
+                        n, F32_BN)
+            for wg in range(F32_WG):
+                for t in range(F32_TILES):
+                    # v[h]: (thread, 8) physical columns 8 t4 .. of row g + 8h
+                    v = []
+                    for h in range(2):
+                        row = (wg * F32_TILES + t) * 64 + warp * 16 + g + 8 * h
+                        cols = []
+                        for c in range(2):
+                            ch = (2 * t4 + c) ^ g if swizzle_reads else \
+                                2 * t4 + c
+                            base = row * ROW_BYTES + ch * 16
+                            cols += [smem[(base + 4 * e) // 4]
+                                     for e in range(4)]
+                        v.append(np.stack(cols, axis=1))
+                    for kk in range(F32_BK // F32_K):
+                        x = np.stack([v[0][:, 2 * kk], v[1][:, 2 * kk],
+                                      v[0][:, 2 * kk + 1],
+                                      v[1][:, 2 * kk + 1]], axis=1)
+                        if swap_a:
+                            x = x[:, [0, 2, 1, 3]]
+                        hi = tf32_rna(x)
+                        lo = tf32_rna((x - hi).astype(np.float32))
+                        # registers -> the logical 64 x 8 A of this step
+                        a_hi = np.zeros((64, F32_K))
+                        a_lo = np.zeros((64, F32_K))
+                        a_hi[a_row, a_col] = hi
+                        a_lo[a_row, a_col] = lo
+                        qh = a_bytes + kk * F32_K * 4
+                        b_hi = read_b_tf32(smem, desc(qh, C["kDescLboA"],
+                                                      C["kDescSboA"]))
+                        b_lo = read_b_tf32(smem, desc(
+                            qh + F32_BN * ROW_BYTES, C["kDescLboA"],
+                            C["kDescSboA"]))
+                        d = a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+                        acc[wg, t] += d[row_d, col_d]
+        for wg in range(F32_WG):
+            for t in range(F32_TILES):
+                regs = acc[wg, t]
+                r = m0 + (wg * F32_TILES + t) * 64 + row_d
+                c = col_d
+                ok = (r < m) & (c < n)
+                out[r[ok], c[ok]] = regs[ok]
+    return out
+
+
+def three_terms(db, q):
+    """hi(db) q_hi + hi(db) q_lo + lo(db) q_hi in float64."""
+    dh = tf32_rna(db)
+    dl = tf32_rna((db - dh).astype(np.float32))
+    qh = tf32_rna(q)
+    ql = tf32_rna((q - qh).astype(np.float32))
+    return dh @ qh.T + dh @ ql.T + dl @ qh.T
+
+
+def _f32_operands(m, n, k, seed):
+    """Values on a grid of 2^-8 below 2^12: hi and lo both non-zero, every
+    product a multiple of 2^-16 and every sum exact in float64, so the
+    emulation must equal three_terms to the last bit whatever the order."""
+    rng = np.random.default_rng(seed)
+    db = (rng.integers(-2 ** 20, 2 ** 20, (m, k)) / 256).astype(np.float32)
+    q = (rng.integers(-2 ** 20, 2 ** 20, (n, k)) / 256).astype(np.float32)
+    return db, q
+
+
+#: (M, N, K): ragged M (a 256-row tile's tail, two tiles), N = the query
+#: chunk's Q_pad (8 to 64), ragged K (72: a block of 32 with 24 zero
+#: columns; 8)
+F32_SHAPES = [(300, 16, 72), (64, 8, 8), (257, 64, 96), (40, 40, 32)]
+
+
+@pytest.mark.parametrize("m,n,k", F32_SHAPES)
+def test_emulated_f32_kernel_equals_the_three_term_product(m, n, k):
+    db, q = _f32_operands(m, n, k, m + n + k)
+    assert tf32_rna(db).tolist() != db.astype(np.float64).tolist()
+    np.testing.assert_array_equal(emulate_f32(db, q), three_terms(db, q))
+
+
+@pytest.mark.parametrize("fault", ["columns_unpermuted", "reads_unswizzled",
+                                   "fragment_columns_swapped"])
+def test_planted_f32_layout_faults_break_the_product(fault):
+    db, q = _f32_operands(300, 16, 72, 9)
+    kw = {"columns_unpermuted": dict(perm=False),
+          "reads_unswizzled": dict(swizzle_reads=False),
+          "fragment_columns_swapped": dict(swap_a=True)}[fault]
+    assert not np.array_equal(emulate_f32(db, q, **kw), three_terms(db, q))

@@ -870,15 +870,17 @@ def test_flat_topk_dispatches_to_the_kernels_on_card(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("storage", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("k", [1, 100, 1024])
 @pytest.mark.parametrize("qn", [1, 7, 61, 64, 200])
-def test_topk_bf16_group_path_with_chunks_forced(cuda, qn, k):
-    """fused_topk's bf16 path (wt_topk_gemm + wt_topk_select): through the
-    wrapper (one launch counted), and with chunks forced small (24 queries,
-    Sᵀ scratch of two groups) so that queries and groups both split;
-    identical to the plain version on integer vectors either way."""
+def test_topk_bf16_group_path_with_chunks_forced(cuda, qn, k, storage):
+    """fused_topk's group path (wt_topk_gemm or wt_topk_gemm_f32, then
+    wt_topk_select), on both storage types: through the wrapper (one launch
+    counted), and with chunks forced small (24 queries, Sᵀ scratch of two
+    groups) so that queries and groups both split; identical to the plain
+    version on integer vectors either way."""
     n, d, group = 15000, 128, 4096
-    queries, db = _topk_tied(n, d, qn, group, cuda, torch.bfloat16)
+    queries, db = _topk_tied(n, d, qn, group, cuda, storage)
     want = FT.fused_topk_plain(queries, db, n, k, group)
     FT.reset_launches()
     got = FT.fused_topk(queries, db, n, k, group)
@@ -886,11 +888,101 @@ def test_topk_bf16_group_path_with_chunks_forced(cuda, qn, k):
     assert FT.LAUNCHES["fused_topk"] == 1
     check = FT.topk_agreement(got, want)
     assert check["ok"], check
+    product = (FT.scores_t_cuda if storage == torch.bfloat16
+               else FT.scores_t_f32_cuda)
     forced = FT.group_topk_chunks(
-        queries, db, n, k, group, FT.scores_t_cuda, FT.select_groups_cuda,
+        queries, db, n, k, group, product, FT.select_groups_cuda,
         chunk_queries=24, scratch_bytes=2 * group * 24 * 4)
     torch.cuda.synchronize()
     check = FT.topk_agreement(forced, want)
+    assert check["ok"], check
+
+
+#: (rows, D, Q_pad): ragged rows (a 256-row tile's tail), ragged D (72 -> a
+#: 32-column block half zero; 8), one and eight 8-query steps, the index's
+#: width
+F32_PRODUCT_CASES = [(1000, 72, 16), (300, 8, 8), (4096, 512, 64),
+                     (2049, 128, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d,q_pad", F32_PRODUCT_CASES)
+def test_topk_f32_product_matches_its_plain_version(cuda, rows, d, q_pad):
+    """wt_topk_gemm_f32: Sᵀ identical to the plain f32 product on integer
+    vectors (lo = 0, every sum exact), within 2e-6 on unit vectors (3xTF32:
+    the dropped terms are ~2^-22 of each product)."""
+    g = torch.Generator().manual_seed(rows + d)
+    for kind in ("integer", "unit"):
+        if kind == "integer":
+            db = torch.randint(-3, 4, (rows, d), generator=g).float()
+            qp = torch.randint(-2, 3, (q_pad, d), generator=g).float()
+        else:
+            db = torch.nn.functional.normalize(torch.randn(rows, d,
+                                                           generator=g))
+            qp = torch.nn.functional.normalize(torch.randn(q_pad, d,
+                                                           generator=g))
+        db, qp = db.to(cuda), qp.to(cuda)
+        st = torch.full((rows, q_pad), float("nan"), device=cuda)
+        want = torch.empty_like(st)
+        FT.scores_t_f32_cuda(db, qp, st)
+        FT.scores_t_f32_plain(db, qp, want)
+        torch.cuda.synchronize()
+        if kind == "integer":
+            assert torch.equal(st, want)
+        else:
+            assert float((st - want).abs().max()) <= 2e-6
+            # a TF32-only product does not meet the bar
+            one = FT.tf32(qp) @ FT.tf32(db).T
+            assert float((one.T - want).abs().max()) > 2e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "tied"])
+def test_topk_selection_branches_match_the_plain_selection(cuda, case):
+    """wt_topk_select on one Sᵀ against select_groups_plain: random scores
+    take the sort of the survivors (no overflow); scores tied everywhere
+    (every row at the lower bound) overflow the buffer and take the
+    insertion; a group of 5000 rows goes in three segments, n_valid ends
+    inside the second group, the last group is all padding."""
+    group, groups, qn, k = 5000, 3, 13, 100
+    g = torch.Generator().manual_seed(3)
+    if case == "random":
+        st = torch.randn(group * groups, 16, generator=g)
+    else:
+        st = torch.randint(0, 2, (group * groups, 16), generator=g).float()
+    st = st.to(cuda)
+    n_valid = group + 1234
+    outs = [(torch.empty((groups, qn, k), device=cuda),
+             torch.empty((groups, qn, k), dtype=torch.int32, device=cuda))
+            for _ in range(2)]
+    FT.reset_overflows(cuda)
+    FT.select_groups_cuda(st, 0, n_valid, k, group, *outs[0], 0, qn)
+    FT.select_groups_plain(st, 0, n_valid, k, group, *outs[1], 0, qn)
+    torch.cuda.synchronize()
+    overflows = FT.overflow_count(cuda)
+    assert (overflows > 0) == (case == "tied"), overflows
+    # both leave each slot sorted by (score descending, row ascending)
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    assert bool((outs[0][0][2] == float("-inf")).all())
+
+
+@pytest.mark.cuda
+def test_flat_topk_on_f32_runs_the_group_kernels(cuda):
+    """flat_topk at Q = 64, k = 100 on an f32 CUDA database: fused_topk (the
+    product and the selection), not the scan kernel of fused_topk_threshold;
+    scores within 2e-6 of the CPU search, rows equal but among near ties."""
+    g = torch.Generator().manual_seed(11)
+    n, d, group = 20000, 512, 4096
+    db = torch.nn.functional.normalize(torch.randn(n, d, generator=g))
+    queries = torch.nn.functional.normalize(torch.randn(64, d, generator=g))
+    pad = TK.pad_rows(db, group)
+    FT.reset_launches()
+    got = TK.flat_topk(queries.to(cuda), pad.to(cuda), n, 100, group)
+    torch.cuda.synchronize()
+    assert FT.LAUNCHES == {"fused_topk": 1, "fused_topk_threshold": 0}
+    want = TK.flat_topk(queries, pad, n, 100, group)
+    check = FT.topk_agreement(tuple(t.cpu() for t in got), want, tol=2e-6)
     assert check["ok"], check
 
 

@@ -1,8 +1,9 @@
-"""The host side of ``fused_topk``'s bf16 path
-(wise_tpu_torch/ops/fused_topk.py ``group_topk_chunks``): query rounding and
-padding, chunks of queries and of whole groups, the Sᵀ scratch layout, the
-n_valid mask and the merge, with the two kernels replaced by their plain
-versions (``scores_t_plain``: Sᵀ from ``ops.topk._scores``;
+"""The host side of ``fused_topk``'s group path
+(wise_tpu_torch/ops/fused_topk.py ``group_topk_chunks``) on both storage
+types: query rounding (bf16 storage only) and padding, chunks of queries and
+of whole groups, the Sᵀ scratch layout, the n_valid mask and the merge, with
+the two kernels replaced by their plain versions (``scores_t_plain`` /
+``scores_t_f32_plain``: Sᵀ from ``ops.topk._scores``;
 ``select_groups_plain``: each group's stable top-k). The kernels themselves
 are held on the card by tests/test_torch_kernels_cuda.py.
 
@@ -25,18 +26,22 @@ from wise_tpu_torch.ops import fused_topk as F
 
 
 def _chunks(queries, db_pad, n_valid, k, group, chunk_queries, chunk_groups,
-            calls=None):
+            calls=None, storage=torch.bfloat16):
     """group_topk_chunks on the plain halves with the chunks forced small:
     ``chunk_queries`` queries and ``chunk_groups`` groups of Sᵀ at a time.
     ``calls`` collects (rows, Q_pad, q0, qc) of every chunk."""
     width = -(-min(queries.shape[0], chunk_queries) // 8) * 8
+    bf16 = storage == torch.bfloat16
 
-    def product(db_rows, wq, st):
-        assert db_rows.dtype == wq.dtype == torch.bfloat16
-        assert wq.shape == (db_pad.shape[1], st.shape[1])
+    def product(db_rows, op, st):
+        assert db_rows.dtype == op.dtype == storage
+        # bf16: Wq = bf16(q)ᵀ (D, Q_pad); f32: the queries as they are
+        shape = (db_pad.shape[1], st.shape[1]) if bf16 else \
+            (st.shape[1], db_pad.shape[1])
+        assert op.shape == shape
         assert st.dtype == torch.float32 and st.is_contiguous()
         assert st.shape[0] == db_rows.shape[0] and st.shape[1] % 8 == 0
-        F.scores_t_plain(db_rows, wq, st)
+        (F.scores_t_plain if bf16 else F.scores_t_f32_plain)(db_rows, op, st)
 
     def select(st, row0, n_valid, k, group, out_s, out_r, q0, qc):
         assert row0 % group == 0 and st.shape[0] % group == 0
@@ -47,7 +52,7 @@ def _chunks(queries, db_pad, n_valid, k, group, chunk_queries, chunk_groups,
                               qc)
 
     return F.group_topk_chunks(
-        torch.from_numpy(queries), torch.from_numpy(db_pad).bfloat16(),
+        torch.from_numpy(queries), torch.from_numpy(db_pad).to(storage),
         n_valid, k, group, product, select, chunk_queries=chunk_queries,
         scratch_bytes=4 * group * width * chunk_groups)
 
@@ -57,13 +62,15 @@ def _same(got, want):
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
 
 
+@pytest.mark.parametrize("storage", ["bfloat16", "float32"])
 @pytest.mark.parametrize("n,d,q,k,group", GROUP_CASES)
-def test_chunks_match_pallas(n, d, q, k, group):
+def test_chunks_match_pallas(n, d, q, k, group, storage):
     queries, db_pad = _distinct_case(n, n, d, q, group)
     want = JP.pallas_topk(jnp.asarray(queries),
-                          jnp.asarray(db_pad, jnp.bfloat16), n_valid=n, k=k,
-                          group=group, interpret=True)
-    _same(_chunks(queries, db_pad, n, k, group, 2, 1), want)
+                          jnp.asarray(db_pad, getattr(jnp, storage)),
+                          n_valid=n, k=k, group=group, interpret=True)
+    _same(_chunks(queries, db_pad, n, k, group, 2, 1,
+                  storage=getattr(torch, storage)), want)
 
 
 @pytest.mark.parametrize("q", [1, 3, 9, 70])

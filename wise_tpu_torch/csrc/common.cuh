@@ -428,6 +428,53 @@ struct Wgmma<256> {
   }
 };
 
+// D += A B on one k8 slice of TF32: A (m64 x k8) from registers, four
+// 32-bit values a thread (the fragment of mma.m16n8k8's tf32 A, warp w of the
+// warpgroup holding rows 16w .. 16w + 15: a0 (g, t), a1 (g + 8, t), a2 (g,
+// t + 4), a3 (g + 8, t + 4) with g = lane / 4, t = lane % 4), B (k8 x n64)
+// K-major from shared memory under its descriptor (tf32 takes no transpose),
+// f32 accumulators as the bf16 forms' D fragment; scale_d 0 starts D at A B.
+// The tensor cores read 19 bits of each 32-bit value: the operands come
+// rounded (tf32_rna).
+struct WgmmaTf32 {
+  static __device__ __forceinline__ void mma(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from zero,
+// as a 32-bit value whose low 13 bits are zero
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// keeps the compiler from reusing the registers of an A fragment that an
+// asynchronous wgmma may still read (the counterpart of fence_acc)
+template <int R>
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
 template <typename T>
 __device__ __forceinline__ void store2(T* p, float a, float b);
 template <>
@@ -650,23 +697,26 @@ bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-// The bf16 matrix of rows x cols at row stride ld (elements) as a TMA map of
-// box_rows x box_cols boxes under the 128-byte swizzle; zeros past its edges
-cudaError_t bf16_tile_map(CUtensorMap* map, const bf16* p, int rows, int cols,
-                          int ld, int box_rows, int box_cols) {
-  if (!aligned(p, 16) || ld % 8 != 0 || ld < cols)
+// The matrix of rows x cols elements of T (bf16 or f32) at row stride ld
+// (elements) as a TMA map of box_rows x box_cols boxes under the 128-byte
+// swizzle (box_cols * sizeof(T) = 128 bytes); zeros past its edges
+template <typename T>
+cudaError_t tile_map(CUtensorMap* map, const T* p, int rows, int cols, int ld,
+                     int box_rows, int box_cols) {
+  if (!aligned(p, 16) || (ld * sizeof(T)) % 16 != 0 || ld < cols)
     return cudaErrorInvalidValue;
   const TensorMapEncodeTiled encode = tensor_map_encoder();
   if (!encode) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * sizeof(bf16)};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * sizeof(T)};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t steps[2] = {1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(p), dims,
-      strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                          : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      2, const_cast<T*>(p), dims, strides, box, steps,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
@@ -703,9 +753,9 @@ cudaError_t launch_gemm(const bf16* A, int lda, const bf16* W, int ldw,
   const long long slots = (long long)T::kBlocks * sm_count();
   const int grid = (int)(tiles < slots ? tiles : slots);
   CUtensorMap map_a, map_w;
-  cudaError_t err = bf16_tile_map(&map_a, A, M, K, lda, T::BM, kGemmBK);
+  cudaError_t err = tile_map<bf16>(&map_a, A, M, K, lda, T::BM, kGemmBK);
   if (err != cudaSuccess) return err;
-  err = bf16_tile_map(&map_w, W, K, N, ldw, kGemmBK, kBoxCols);
+  err = tile_map<bf16>(&map_w, W, K, N, ldw, kGemmBK, kBoxCols);
   if (err != cudaSuccess) return err;
   static const cudaError_t attr = cudaFuncSetAttribute(
       gemm_kernel<TO, EPI, TR, WG, BN>,

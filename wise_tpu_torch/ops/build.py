@@ -61,9 +61,9 @@ SIGNATURES = {
     "wt_swin_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
                       _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "wt_topk_threshold": [_P, _P, _I, _P, _P] + [_I] * 7 + [_P],
-    "wt_topk_group": [_P, _P, _I, _P, _P] + [_I] * 6 + [_P],
     "wt_topk_gemm": [_P, _I, _I, _P, _I, _P, _P],
-    "wt_topk_select": [_P] + [_I] * 7 + [_P, _P, _I, _I, _P],
+    "wt_topk_gemm_f32": [_P, _I, _I, _P, _I, _I, _P, _P],
+    "wt_topk_select": [_P] + [_I] * 7 + [_P, _P, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()

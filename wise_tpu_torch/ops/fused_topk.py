@@ -28,21 +28,26 @@ launched, one a call whatever the number of kernels it enqueued, keyed in
 ``LAUNCHES_BY_SHAPE`` by (wrapper, N_pad, D): the batch is the coalescer's
 choice and is left out of the key.
 
-``fused_topk`` on a bf16 CUDA database (the batched search) replaces
-pallas_topk with two kernels a chunk, driven by :func:`group_topk_chunks`.
-What bounds it is the database read: 1,048,576 x 512 x 2 B = 1.07 GB at
-3.35 TB/s is 0.32 ms, plus the Sᵀ scratch written and read again (256 MB at
-Q = 64). So each chunk of whole groups by at most 64 queries reads its rows
-once, on the tensor cores: ``wt_topk_gemm`` runs the port's GEMM
-(csrc/common.cuh ``gemm_kernel``, TMA + wgmma) on the rows as they lie and
-bf16(q)ᵀ into Sᵀ (rows, Q_pad) f32, and ``wt_topk_select`` keeps each
-group's top-k of each query with the f32 path's selection. The next step is
-the selection fused into the GEMM's epilogue, which drops the Sᵀ round trip;
-but the selection's own work holds the call (2.2-2.3 of 3.2 ms at Q = 64, k
-= 100 on an H100 80GB HBM3: ~471 buffer insertions per query and group), so
-fewer insertions come first. f32 storage and ``fused_topk_threshold`` keep the scalar scan
-(``wt_topk_group`` / ``wt_topk_threshold``): wgmma has no f32 operand, and
-TF32 would change f32 scores.
+``fused_topk`` on a CUDA database (the batched search) replaces pallas_topk
+with two kernels a chunk, driven by :func:`group_topk_chunks`, on either
+storage type. What bounds it is the database read (1,048,576 x 512: 1.07 GB
+bf16, 2.15 GB f32; 0.32 / 0.64 ms at 3.35 TB/s), plus the Sᵀ scratch written
+and read again (256 MB at Q = 64). So each chunk of whole groups by at most
+64 queries reads its rows once, on the tensor cores, into Sᵀ (rows, Q_pad)
+f32: bf16 storage through ``wt_topk_gemm`` (the port's GEMM,
+csrc/common.cuh ``gemm_kernel``, on the rows as they lie and bf16(q)ᵀ); f32
+storage through ``wt_topk_gemm_f32``, which scores to f32 accuracy from three
+TF32 products (3xTF32, :func:`tf32_split`: hi·q_hi + hi·q_lo + lo·q_hi, the
+dropped lo·lo ~2^-22 of each product, each 32-column stage's products summed
+in f32 outside the tensor cores; no TF32-only product). Then
+``wt_topk_select`` keeps each group's top-k of each query: the k-th largest
+of 256 block maxima is a lower bound τ of the group's k-th best score, and
+only the rows >= τ (~3% of a group at random scores) are sorted; ties at τ
+that overflow its buffer take a buffer insertion over those rows alone
+(counted by :func:`overflow_count`). :func:`_merge` then orders the
+candidates with one ``torch.topk`` over an int64 key. The next step is the
+selection fused into the product's epilogue, which drops the Sᵀ round trip.
+``fused_topk_threshold`` keeps the scalar scan (``wt_topk_threshold``).
 """
 
 from __future__ import annotations
@@ -59,9 +64,9 @@ MAX_K = 1024
 MAX_D = 1024
 #: CTAs per SM the threshold kernel's spans are sized for
 _CTAS_PER_SM = 8
-#: queries the bf16 group path scores in one GEMM (before padding to 8)
+#: queries the group path scores in one product (before padding to 8)
 CHUNK_QUERIES = 64
-#: the Sᵀ scratch the bf16 group path holds: 1,048,576 rows x 64 queries x 4 B
+#: the Sᵀ scratch the group path holds: 1,048,576 rows x 64 queries x 4 B
 CHUNK_SCRATCH_BYTES = 256 << 20
 
 _launches = LaunchCounter("fused_topk", "fused_topk_threshold")
@@ -125,9 +130,50 @@ def scores_t_plain(db_rows, wq, out) -> None:
     out.copy_(_scores(wq.T, db_rows).T)
 
 
+def scores_t_f32_plain(db_rows, qp, out) -> None:
+    """Plain version of the f32 path's product (``wt_topk_gemm_f32``): out
+    (rows, Q_pad) f32 = Sᵀ of db_rows (rows, D) f32 against the queries qp
+    (Q_pad, D) f32, in full f32 by ``ops.topk._scores``."""
+    out.copy_(_scores(qp, db_rows).T)
+
+
+def tf32(x):
+    """x (f32) rounded to TF32, to nearest with ties away from zero, as
+    ``cvt.rna.tf32.f32`` does: the low 13 bits of the word cleared after
+    adding half of their range to the magnitude."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_permutation(d_pad: int):
+    """Column order of the f32 kernel's A fragments: in each block of 32
+    columns, logical column 8kk + j (k8 step kk, fragment column j) is
+    physical column 8j + 2kk for j < 4 and 8(j - 4) + 2kk + 1 for j >= 4
+    (csrc/topk_kernels.cu topk_gemm_f32_kernel: a thread reads 8 physical
+    columns of a row as two 16-byte pieces and takes two a k8 step)."""
+    p = torch.arange(32)
+    kk, j = p // 8, p % 8
+    phys = torch.where(j < 4, 8 * j + 2 * kk, 8 * (j - 4) + 2 * kk + 1)
+    return (torch.arange(0, d_pad, 32)[:, None] + phys[None, :]).reshape(-1)
+
+
+def tf32_split(qp):
+    """The f32 path's query operand: qp (Q_pad, D) f32 -> (2, Q_pad, d_pad)
+    f32 = (q_hi, q_lo), q_hi = tf32(q), q_lo = tf32(q - q_hi), zero columns to
+    d_pad = D rounded up to 32, each block of 32 columns in the kernel's
+    fragment order (:func:`tf32_permutation`)."""
+    qn, d = qp.shape
+    d_pad = -(-d // 32) * 32
+    q = torch.nn.functional.pad(qp.float(), (0, d_pad - d))
+    hi = tf32(q)
+    lo = tf32(q - hi)
+    perm = tf32_permutation(d_pad).to(q.device)
+    return torch.stack([hi, lo])[:, :, perm].contiguous()
+
+
 def select_groups_plain(st, row0: int, n_valid: int, k: int, group: int,
                         out_s, out_r, q0: int, qc: int) -> None:
-    """Plain version of the bf16 path's selection (``wt_topk_select``): Sᵀ
+    """Plain version of the group path's selection (``wt_topk_select``): Sᵀ
     (rows, Q_pad) of database rows [row0, row0 + rows), whole groups, against
     queries [q0, q0 + qc) (its first qc columns) -> slots row0 / group, ...
     of out_s / out_r (groups, Q, k): each group's first k by (score
@@ -150,22 +196,25 @@ def select_groups_plain(st, row0: int, n_valid: int, k: int, group: int,
 def group_topk_chunks(queries, db_padded, n_valid: int, k: int, group: int,
                       product, select, chunk_queries: int = CHUNK_QUERIES,
                       scratch_bytes: int = CHUNK_SCRATCH_BYTES):
-    """The bf16 group path's host side: each group's own top-k of bf16(q) @
-    dbᵀ, then one merge, with the product and the selection as callables
-    (the kernels on the card, :func:`scores_t_plain` and
+    """The group path's host side: each group's own top-k of q @ dbᵀ, then
+    one merge, with the product and the selection as callables (the kernels
+    on the card; :func:`scores_t_plain` or :func:`scores_t_f32_plain` and
     :func:`select_groups_plain` in the CPU tests).
 
-    The queries round to bf16 and go in chunks of at most ``chunk_queries``,
-    each padded with zero queries to a multiple of 8 (the GEMM's TMA map
-    wants a 16-byte row stride) and held as Wq = bf16(q)ᵀ (D, Q_pad). The
-    groups go in chunks of as many whole groups as ``scratch_bytes`` of Sᵀ
-    (rows, Q_pad) f32 hold (one at the least). For each (query chunk, group
-    chunk): ``product(db rows, wq, st)`` writes Sᵀ, ``select(st, row0,
-    n_valid, k, group, out_s, out_r, q0, qc)`` writes the chunk's slots of
-    the (groups, Q, k) candidates, which :func:`_merge` orders."""
+    The queries go in chunks of at most ``chunk_queries``, each padded with
+    zero queries to a multiple of 8 (the product's TMA maps want a 16-byte
+    row stride): on bf16 storage rounded to bf16 and held as Wq = bf16(q)ᵀ
+    (D, Q_pad), on f32 storage kept f32 as (Q_pad, D). The groups go in
+    chunks of as many whole groups as ``scratch_bytes`` of Sᵀ (rows, Q_pad)
+    f32 hold (one at the least). For each (query chunk, group chunk):
+    ``product(db rows, queries, st)`` writes Sᵀ, ``select(st, row0, n_valid,
+    k, group, out_s, out_r, q0, qc)`` writes the chunk's slots of the
+    (groups, Q, k) candidates, which :func:`_merge` orders."""
     n_pad, d = db_padded.shape
     qn, groups, dev = queries.shape[0], n_pad // group, db_padded.device
-    qb = queries.to(device=dev, dtype=torch.bfloat16)
+    bf16 = db_padded.dtype == torch.bfloat16
+    qs = queries.to(device=dev,
+                    dtype=torch.bfloat16 if bf16 else torch.float32)
     out_s = torch.empty((groups, qn, k), dtype=torch.float32, device=dev)
     out_r = torch.empty((groups, qn, k), dtype=torch.int32, device=dev)
     width = -(-min(qn, chunk_queries) // 8) * 8
@@ -175,12 +224,14 @@ def group_topk_chunks(queries, db_padded, n_valid: int, k: int, group: int,
     for q0 in range(0, qn, chunk_queries):
         qc = min(chunk_queries, qn - q0)
         q_pad = -(-qc // 8) * 8
-        wq = torch.zeros((d, q_pad), dtype=torch.bfloat16, device=dev)
-        wq[:, :qc] = qb[q0:q0 + qc].T
+        op = torch.zeros((q_pad, d), dtype=qs.dtype, device=dev)
+        op[:qc] = qs[q0:q0 + qc]
+        if bf16:
+            op = op.T.contiguous()
         for g0 in range(0, groups, chunk_groups):
             rows = min(chunk_groups, groups - g0) * group
             st = scratch[:rows * q_pad].view(rows, q_pad)
-            product(db_padded[g0 * group:g0 * group + rows], wq, st)
+            product(db_padded[g0 * group:g0 * group + rows], op, st)
             select(st, g0 * group, n_valid, k, group, out_s, out_r, q0, qc)
     return _merge(out_s, out_r, k)
 
@@ -194,13 +245,48 @@ def scores_t_cuda(db_rows, wq, out) -> None:
         "fused_topk (wt_topk_gemm)")
 
 
+def scores_t_f32_cuda(db_rows, qp, out) -> None:
+    """``wt_topk_gemm_f32`` on CUDA tensors, as :func:`scores_t_cuda`: the
+    queries qp (Q_pad, D) f32 split by :func:`tf32_split`."""
+    qs = tf32_split(qp)
+    check(load_library().wt_topk_gemm_f32(
+        db_rows.data_ptr(), db_rows.shape[0], db_rows.shape[1],
+        qs.data_ptr(), qs.shape[1], qs.shape[2], out.data_ptr(),
+        _stream(out)), "fused_topk (wt_topk_gemm_f32)")
+
+
+_overflows: dict = {}
+
+
+def _overflow_counter(device):
+    """The device int the selection kernel counts its overflows in."""
+    key = torch.device(device)
+    if key.type == "cuda" and key.index is None:
+        key = torch.device("cuda", torch.cuda.current_device())
+    if key not in _overflows:
+        _overflows[key] = torch.zeros(1, dtype=torch.int32, device=key)
+    return _overflows[key]
+
+
+def overflow_count(device) -> int:
+    """(query, segment) selections on ``device`` since the last
+    :func:`reset_overflows` whose survivors overflowed the buffer and took
+    the buffer insertion (ties at the lower bound; it decides no answer)."""
+    return int(_overflow_counter(device).item())
+
+
+def reset_overflows(device) -> None:
+    _overflow_counter(device).zero_()
+
+
 def select_groups_cuda(st, row0: int, n_valid: int, k: int, group: int,
                        out_s, out_r, q0: int, qc: int) -> None:
     """``wt_topk_select`` on CUDA tensors, as :func:`scores_t_cuda`."""
     check(load_library().wt_topk_select(
         st.data_ptr(), st.shape[1], st.shape[0], row0, int(n_valid), k,
         group, qc, out_s.data_ptr(), out_r.data_ptr(), out_s.shape[1], q0,
-        _stream(st)), "fused_topk (wt_topk_select)")
+        _overflow_counter(st.device).data_ptr(), _stream(st)),
+        "fused_topk (wt_topk_select)")
 
 
 def topk_agreement(got, want, tol: float = 0.0) -> dict:
@@ -230,15 +316,27 @@ def topk_agreement(got, want, tol: float = 0.0) -> dict:
     return {"ok": bool(ok), "max_abs_err": err, "mismatched": int(diff.sum())}
 
 
+def order_key(scores, rows):
+    """An int64 whose order is (score descending, row ascending) as larger
+    first: the score's order-preserving bits (-0 taken as +0) in the high
+    word, 2^31 - 1 - row in the low. Built as int32 word pairs viewed as
+    int64 (little-endian: the low word first)."""
+    bits = (scores.float() + 0.0).view(torch.int32)
+    words = torch.empty((*bits.shape, 2), dtype=torch.int32,
+                        device=bits.device)
+    torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits, out=words[..., 1])
+    torch.sub(2 ** 31 - 1, rows, out=words[..., 0])
+    return words.view(torch.int64).squeeze(-1)
+
+
 def _merge(out_s, out_r, k: int):
-    """(slots, Q, k) unsorted candidates -> the first k by (score
-    descending, row ascending): rows first, then a stable score sort."""
+    """(slots, Q, k) candidates -> the first k by (score descending, row
+    ascending): one ``torch.topk`` over :func:`order_key`."""
     qn = out_s.shape[1]
     s = out_s.permute(1, 0, 2).reshape(qn, -1)
     r = out_r.permute(1, 0, 2).reshape(qn, -1)
-    r, order = torch.sort(r, dim=1, stable=True)
-    vals, pos = _stable_topk(torch.gather(s, 1, order), k)
-    return vals, torch.gather(r, 1, pos).long()
+    _, pos = torch.topk(order_key(s, r), k, dim=1)
+    return torch.gather(s, 1, pos), torch.gather(r, 1, pos).long()
 
 
 def _launch(name, queries, db_padded, n_valid, k, group, threshold):
@@ -268,31 +366,27 @@ def _launch(name, queries, db_padded, n_valid, k, group, threshold):
     dev = db_padded.device
     q = queries.to(device=dev, dtype=torch.float32).contiguous()
     qn, groups = q.shape[0], n_pad // group
-    bf16_db = int(db_padded.dtype == torch.bfloat16)
-    if bf16_db and not threshold:
+    if not threshold:
+        product = (scores_t_cuda if db_padded.dtype == torch.bfloat16
+                   else scores_t_f32_cuda)
         with torch.cuda.device(dev):
             out = group_topk_chunks(q, db_padded, n_valid, k, int(group),
-                                    scores_t_cuda, select_groups_cuda)
+                                    product, select_groups_cuda)
         _launches.add(name, n_pad, d)
         return out
-    lib = load_library()
-    if threshold:
-        # spans of whole groups, as many as fill the card
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        tiles = 1 if qn == 1 else -(-qn // 8)
-        span_groups = max(1, groups * tiles // (_CTAS_PER_SM * sms))
-        slots = -(-groups // span_groups)
-    else:
-        slots = groups
+    # spans of whole groups, as many as fill the card
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tiles = 1 if qn == 1 else -(-qn // 8)
+    span_groups = max(1, groups * tiles // (_CTAS_PER_SM * sms))
+    slots = -(-groups // span_groups)
     out_s = torch.empty((slots, qn, k), dtype=torch.float32, device=dev)
     out_r = torch.empty((slots, qn, k), dtype=torch.int32, device=dev)
-    args = (q.data_ptr(), db_padded.data_ptr(), bf16_db, out_s.data_ptr(),
-            out_r.data_ptr(), qn, d, n_pad, int(n_valid), k, int(group))
     with torch.cuda.device(dev):
-        if threshold:
-            err = lib.wt_topk_threshold(*args, span_groups, _stream(q))
-        else:
-            err = lib.wt_topk_group(*args, _stream(q))
+        err = load_library().wt_topk_threshold(
+            q.data_ptr(), db_padded.data_ptr(),
+            int(db_padded.dtype == torch.bfloat16), out_s.data_ptr(),
+            out_r.data_ptr(), qn, d, n_pad, int(n_valid), k, int(group),
+            span_groups, _stream(q))
     check(err, name)
     _launches.add(name, n_pad, d)
     return _merge(out_s, out_r, k)
@@ -312,9 +406,9 @@ def fused_topk_threshold(queries, db_padded, n_valid: int, k: int,
 
 def fused_topk(queries, db_padded, n_valid: int, k: int, group: int = 4096):
     """Each group's own top-k, then the merge. The batched search's kernel.
-    Exact for k <= group. f32 storage: one CTA per (group, query tile)
-    scans in f32. bf16 storage: the GEMM writes Sᵀ for up to 64 queries at
-    a time and the selection kernel keeps each group's top-k
+    Exact for k <= group. Either storage type: the product kernel writes Sᵀ
+    for up to 64 queries at a time (bf16: the GEMM; f32: three TF32
+    products) and the selection kernel keeps each group's top-k
     (:func:`group_topk_chunks`; the module docstring gives the bound)."""
     if not db_padded.is_cuda:
         return fused_topk_plain(queries, db_padded, n_valid, k, group)

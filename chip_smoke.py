@@ -52,9 +52,10 @@ Phases, one line each; any failure exits non-zero:
    whose closing bias carries a common offset of 200: the kernel must pass
    there too, and the residual sum rounded to bf16 before the LayerNorm
    must fail. The fused scan + top-k kernels at the index phase's database,
-   1,048,576 x 512 (TOPK_ROWS: fused_topk_threshold at Q = 1 and 8, k = 10
-   and 100; fused_topk at Q = 64, k = 100, f32 and bf16 storage, and at
-   Q = 61 on bf16, which pads the queries to 64), each held
+   1,048,576 x 512 (TOPK_ROWS: fused_topk_threshold at Q = 1, 8 and 16,
+   k = 10 and 100; fused_topk at Q = 64, k = 100, f32 and bf16 storage, and
+   at Q = 61 on bf16, which pads the queries to 64; both at Q = 32, k = 10
+   on f32, the router's cut), each held
    against its plain version twice: on integer-valued vectors with planted
    ties (scores and rows must be identical) and on seeded unit-norm random
    vectors (scores within 2e-6, rows equal except among near-tied entries:
@@ -65,9 +66,13 @@ Phases, one line each; any failure exits non-zero:
    and on the f32 fused_topk row a TF32-only product (torch ops) in place
    of the three-term kernel, which must fail the unit rows' 2e-6 check. The
    fused_topk rows also time the path's two kernels apart (CUDA events: the
-   product into Sᵀ, the selection from it) and the merge, and print how
-   many (query, segment) selections took the overflow branch in one call
-   on each database.
+   product into Sᵀ, the selection from it) and the merge, the
+   fused_topk_threshold rows the scan without and with the merge by its
+   last CTA, and a merge in torch ops beside it; every top-k row
+   prints what its selection counted in one call on each database
+   (fused_topk: ``overflows_*``, the (query, segment) selections that took
+   the overflow branch; fused_topk_threshold: ``flushes_*``, the query
+   lists that passed their capacity and were flushed).
    The GEMM (csrc/common.cuh, behind every block kernel) through its two
    one-GEMM entries, fused_ln_matmul and fused_residual_matmul, at the main
    paths' products (GEMM_SHAPES: ViT-H/14's qkv, fc and proj at 256 x 257
@@ -240,7 +245,8 @@ TOPK_SOURCES = {
 KERNELS = {
     "fused_topk": (" ; ".join(TOPK_SOURCES.values()),
                    "wise_tpu/ops/pallas_topk.py:82"),
-    "fused_topk_threshold": ("wise_tpu_torch/csrc/topk_kernels.cu",
+    "fused_topk_threshold": ("wise_tpu_torch/csrc/topk_kernels.cu "
+                             "topk_scan_kernel",
                              "wise_tpu/ops/pallas_topk.py:221"),
     "fused_attn_block": ("wise_tpu_torch/csrc/block_kernels.cu",
                          "wise_tpu/ops/block.py:466"),
@@ -1174,12 +1180,17 @@ def _short_attention_rows(torch, results):
 
 
 #: the top-k kernel rows, all at INDEX_N x INDEX_D: (tag, wrapper, Q, k,
-#: storage). The served query (Q = 1), a coalesced burst (Q = 8), a page of
-#: 100, and the batched search
+#: storage). The served query (Q = 1), a coalesced burst (Q = 8, and 16: the
+#: coalescer's max_batch), a page of 100, Q = 32 on both wrappers (where
+#: ops.topk's router cuts between them), and the batched search
 TOPK_ROWS = [("q1-k10-f32", "fused_topk_threshold", 1, 10, "float32"),
              ("q1-k10-bf16", "fused_topk_threshold", 1, 10, "bfloat16"),
              ("q8-k10-f32", "fused_topk_threshold", 8, 10, "float32"),
              ("q1-k100-f32", "fused_topk_threshold", 1, 100, "float32"),
+             ("q16-k10-f32", "fused_topk_threshold", 16, 10, "float32"),
+             ("q16-k10-bf16", "fused_topk_threshold", 16, 10, "bfloat16"),
+             ("q32-k10-f32", "fused_topk_threshold", 32, 10, "float32"),
+             ("q32-k10-f32", "fused_topk", 32, 10, "float32"),
              ("q64-k100-f32", "fused_topk", 64, 100, "float32"),
              ("q64-k100-bf16", "fused_topk", 64, 100, "bfloat16"),
              ("q61-k100-bf16", "fused_topk", 61, 100, "bfloat16")]
@@ -1230,9 +1241,10 @@ def _topk_row(torch, results, data, tag, name, qn, k, storage):
     """One top-k kernel row: identical to the plain version on the "tied"
     database, within 2e-6 on the "unit" one, every planted fault caught on
     the "tied" one (the TF32-only product of the f32 fused_topk rows on the
-    "unit" one); times on the "unit" one. The fused_topk rows also print how
-    many (query, segment) selections took the overflow branch in one call on
-    each database."""
+    "unit" one); times on the "unit" one. Every row also prints what its
+    selection counted in one call on each database (fused_topk:
+    ops.fused_topk.overflow_count; fused_topk_threshold: flush_count), and
+    the time of its parts apart (_topk_parts, _threshold_parts)."""
     from wise_tpu_torch.ops import fused_topk as FT
     from wise_tpu_torch.ops import topk as TK
 
@@ -1266,10 +1278,13 @@ def _topk_row(torch, results, data, tag, name, qn, k, storage):
         "last_span_unscanned": lambda: fn(tq, tdb[:n - group], n - group, k,
                                           group)}
 
-    def overflows(q, db, n_valid):
-        FT.reset_overflows(db.device)
+    counted, reset = ((FT.overflow_count, FT.reset_overflows) if grouped
+                      else (FT.flush_count, FT.reset_flushes))
+
+    def events(q, db, n_valid):
+        reset(db.device)
         fn(q, db, n_valid, k, group)
-        return FT.overflow_count(db.device)
+        return counted(db.device)
 
     with torch.inference_mode():
         want = plain(tq, tdb, nv, k, group)
@@ -1284,15 +1299,17 @@ def _topk_row(torch, results, data, tag, name, qn, k, storage):
             planted["tf32_only_product"] = FT.topk_agreement(
                 _tf32_only(FT, uq, udb, n, k, group), unit_want,
                 tol=2e-6)
-        more = ({"overflows_unit": overflows(uq, udb, n),
-                 "overflows_tied": overflows(tq, tdb, nv)} if grouped else {})
+        what = "overflows" if grouped else "flushes"
+        more = {f"{what}_unit": events(uq, udb, n),
+                f"{what}_tied": events(tq, tdb, nv)}
         ms = _cuda_ms(torch, lambda: fn(uq, udb, n, k, group), 10)
         plain_ms = _cuda_ms(torch, lambda: plain(uq, udb, n, k, group), 5)
         lq = uq.to(udb.dtype)
         library_ms = _cuda_ms(
             torch, lambda: torch.topk((lq @ udb.T).float(), k), 10)
-        parts = (_topk_parts(torch, FT, uq, udb, n, k, group)
-                 if grouped else {})
+        parts = (_topk_parts(torch, FT, uq, udb, n, k, group) if grouped
+                 else _threshold_parts(torch, FT, uq, udb, n, k))
+        parts.pop("flushes", None)  # the row has them as flushes_unit
     caught = not any(c["ok"] for c in planted.values())
     ok = exact["ok"] and check["ok"] and caught
     itemsize = udb.element_size()
@@ -1356,6 +1373,35 @@ def _topk_parts(torch, FT, q, db, n_valid, k, group) -> dict:
     del want, st
     return {"gemm_ms": gemm_ms, "select_ms": select_ms, "merge_ms": merge_ms,
             "gemm_max_abs_err": err}
+
+
+def _threshold_parts(torch, FT, q, db, n_valid, k) -> dict:
+    """ms of fused_topk_threshold's parts, CUDA events: the scan alone
+    (wt_topk_threshold into its (ranges, Q, k) candidates, no merge), the
+    same launch with the merge by the last CTA (``kernel_ms``, what the
+    wrapper launches), the merge's share (their difference), and a merge of
+    the candidates in torch ops (``_merge``: one keyed torch.topk, used by
+    the group path) for comparison, and the lists one call with the merge
+    flushed. Not counted as launches."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    qn = q.shape[0]
+    ranges = FT.scan_plan(db.shape[0], qn, k, sms)[0]
+    out_s = torch.empty((ranges, qn, k), device="cuda")
+    out_r = torch.empty(out_s.shape, dtype=torch.int32, device="cuda")
+    top = (torch.empty((qn, k), device="cuda"),
+           torch.empty((qn, k), dtype=torch.int64, device="cuda"))
+    q = q.float().contiguous()
+    scan_ms = _cuda_ms(torch, lambda: FT.threshold_scan_cuda(
+        q, db, n_valid, k, out_s, out_r), 10)
+    kernel_ms = _cuda_ms(torch, lambda: FT.threshold_scan_cuda(
+        q, db, n_valid, k, out_s, out_r, top), 10)
+    torch_merge_ms = _cuda_ms(torch, lambda: FT._merge(out_s, out_r, k), 10)
+    FT.reset_flushes(db.device)
+    FT.threshold_scan_cuda(q, db, n_valid, k, out_s, out_r, top)
+    return {"scan_ms": scan_ms, "kernel_ms": kernel_ms,
+            "merge_ms": kernel_ms - scan_ms,
+            "torch_merge_ms": torch_merge_ms,
+            "flushes": FT.flush_count(db.device)}
 
 
 def _topk_rows(torch, results):
@@ -2607,6 +2653,19 @@ def phase_index(torch, card, k=10):
                 q64_k100_p50_ms=f"{_p50_ms(lambda: idx.search_batch(q64, 100)):.3f}",
                 **more)
 
+        def scan_alone(idx):
+            """The served query's kernel on the index's own rows, without
+            search_batch's host side: CUDA-event ms of wt_topk_threshold at
+            Q = 1, k = 10 with the merge (the first text query), and the
+            query lists one call flushed. Through the uncounted launcher,
+            so that the path's launch counts stay its own."""
+            db = idx._ensure_device_db()
+            n_valid = int(idx._metadata["count"])
+            q = torch.from_numpy(q64[:1]).cuda()
+            parts = _threshold_parts(torch, FT, q, db, n_valid, k)
+            return {"q1_k10_kernel_ms": f"{parts['kernel_ms']:.4f}",
+                    "q1_k10_flushes": parts["flushes"]}
+
         # f32: the batched search launches fused_topk and agrees with plain
         idx, load_s = load()
         before = counts()
@@ -2624,16 +2683,18 @@ def phase_index(torch, card, k=10):
         f32_10, f32_100 = idx.search_batch(q64, k), got
         f32_ids10, f32_ids100 = f32_10[1], f32_100[1]
         timed(idx, "float32", load_s, q64_max_abs_err=check["max_abs_err"],
-              q64_near_tie_swaps=check["mismatched"])
+              q64_near_tie_swaps=check["mismatched"], **scan_alone(idx))
         del idx
         torch.cuda.empty_cache()
 
-        # bf16: the kernel path on half the bytes
+        # bf16: the kernel path on half the bytes; 64 queries at k = 10
+        # go where the router sends them
         idx, load_s = load(storage_dtype="bfloat16")
         before = counts()
         bf_ids100 = idx.search_batch(q64, 100)[1]
         bf_ids10 = idx.search_batch(q64, k)[1]
-        if counts() != (before[0] + 1, before[1] + 1):
+        to_thr = int(TK.routes_to_threshold(len(q64), k))
+        if counts() != (before[0] + to_thr, before[1] + 2 - to_thr):
             raise PhaseError(f"index: bf16 searches launched {counts()} "
                              f"after {before}")
         bf_recall = _recall(bf_ids100, f32_ids100)
@@ -2642,7 +2703,7 @@ def phase_index(torch, card, k=10):
             raise PhaseError(f"index: bf16 storage recall@100 {bf_recall} "
                              f"top-1 {top1} against f32")
         timed(idx, "bfloat16", load_s, recall100_vs_f32=f"{bf_recall:.4f}",
-              top1_vs_f32=f"{top1:.4f}")
+              top1_vs_f32=f"{top1:.4f}", **scan_alone(idx))
         del idx
         torch.cuda.empty_cache()
 

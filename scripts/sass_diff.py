@@ -34,7 +34,7 @@ def functions(so: str, pattern: str) -> dict:
             name = name if re.search(pattern, name) else None
             if name:
                 funcs[name] = []
-        elif name and re.match(r"\s*/\*[0-9a-f]{4}\*/", line):
+        elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
             # cuobjdump pads the columns to the widest line of its dump
             funcs[name].append(" ".join(line.split()))
     return funcs

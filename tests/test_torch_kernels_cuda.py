@@ -776,10 +776,11 @@ from wise_tpu_torch.ops import topk as TK  # noqa: E402
 
 TOPK_FNS = ["fused_topk", "fused_topk_threshold"]
 #: (n, d, q, k, group): one query, a ragged last group, more than one query
-#: tile, the widest rows and buffer, fewer valid rows than k
+#: tile, the widest rows and buffer, fewer valid rows than k, a full query
+#: tile of the threshold scan (16)
 TOPK_CASES = [(1000, 16, 1, 10, 256), (300, 32, 3, 7, 128),
               (5000, 768, 9, 33, 512), (40000, 1024, 17, 1024, 4096),
-              (3, 8, 2, 10, 64)]
+              (3, 8, 2, 10, 64), (9000, 512, 16, 50, 1024)]
 
 
 def _topk_tied(n, d, q, group, device, storage):
@@ -855,10 +856,13 @@ def test_topk_planted_faults_fail_the_check(cuda):
 @pytest.mark.cuda
 def test_flat_topk_dispatches_to_the_kernels_on_card(cuda):
     n, d, group = 3000, 64, 512
-    queries, db = _topk_tied(n, d, 16, group, cuda, torch.float32)
+    queries, db = _topk_tied(n, d, 32, group, cuda, torch.float32)
     cpu_db = db.cpu()
+    # Q = 32 at k = 10: the router's cut (ops.topk.THRESHOLD_MAX_BATCH)
+    q32 = ("fused_topk_threshold" if TK.THRESHOLD_MAX_BATCH >= 32
+           else "fused_topk")
     for qn, k, name in ((1, 10, "fused_topk_threshold"),
-                        (16, 10, "fused_topk_threshold"),
+                        (16, 10, "fused_topk_threshold"), (32, 10, q32),
                         (16, 100, "fused_topk"), (16, 600, None)):
         FT.reset_launches()
         got = TK.flat_topk(queries[:qn], db, n, k, group)
@@ -867,6 +871,52 @@ def test_flat_topk_dispatches_to_the_kernels_on_card(cuda):
         assert torch.equal(got[0].cpu(), want[0])
         assert FT.LAUNCHES == {
             w: int(w == name) for w in ("fused_topk", "fused_topk_threshold")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qn,k", [(1, 1), (16, 10), (16, 1024), (33, 64)])
+def test_topk_threshold_scan_flushes_on_tied_rows(cuda, qn, k, storage):
+    """wt_topk_threshold on rows that all tie for every query: each range's
+    lists fill and flush (counted by flush_count), the answer is the
+    first k rows. Q = 16 is one query tile of 16 (k = 1024: tiles of 1,
+    as scan_tile keeps the lists in shared memory), Q = 33 three tiles; the
+    8 ranges (12 row blocks) end inside groups of 1,024."""
+    n, d, group = 3000, 64, 1024
+    db = TK.pad_rows(torch.ones(n, d), group).to(cuda, storage)
+    queries = torch.ones(qn, d, device=cuda)
+    queries[0] = -1.0  # every valid row under the zero padding
+    FT.reset_flushes(cuda)
+    out = (torch.empty((8, qn, k), device=cuda),
+           torch.empty((8, qn, k), dtype=torch.int32, device=cuda))
+    got = (torch.empty((qn, k), device=cuda),
+           torch.empty((qn, k), dtype=torch.int64, device=cuda))
+    FT.threshold_scan_cuda(queries, db, n, k, *out, got)
+    torch.cuda.synchronize()
+    # a range's rows all pass τ = 0 until a list of k <= 64 (at most 127
+    # places) fills; a list of k = 1,024 holds a range's 512 rows whole
+    assert (FT.flush_count(cuda) > 0) == (k <= 64)
+    want = FT.fused_topk_threshold_plain(queries, db, n, k, group)
+    check = FT.topk_agreement(got, want)
+    assert check["ok"], check
+    assert torch.equal(got[1][0].cpu(), torch.arange(k))
+    # the merge by the last CTA against the torch merge of the candidates,
+    # twice, then on two side streams at once: each call zeroes its own
+    # tickets
+    for _ in range(2):
+        FT.threshold_scan_cuda(queries, db, n, k, *out, got)
+        assert FT.topk_agreement(got, FT._merge(*out, k))["ok"]
+    torch.cuda.synchronize()
+    answers = []
+    for side in (torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)):
+        with torch.cuda.stream(side):
+            cands = (torch.empty_like(out[0]), torch.empty_like(out[1]))
+            top = (torch.empty_like(got[0]), torch.empty_like(got[1]))
+            FT.threshold_scan_cuda(queries, db, n, k, *cands, top)
+            answers.append(top)
+    torch.cuda.synchronize()
+    for top in answers:
+        assert FT.topk_agreement(top, want)["ok"]
 
 
 @pytest.mark.cuda

@@ -47,306 +47,66 @@
 //    the survivors alone. The next step is the selection fused into the
 //    product's epilogue, which drops the Sᵀ round trip.
 //
-// 2. pallas_topk_threshold (wt_topk_threshold) scans with scalar FMAs: the
-//    served query's path (Q = 1, and small batches). f32 storage scores in
-//    full f32. The TPU kernel walks the groups one after another on one
-//    core with one running buffer. Here the grid is (query tiles, row
-//    spans): a CTA owns a contiguous span of whole groups, sized by the
-//    caller so that the grid fills the card, and a tile of up to 8 queries
-//    held in shared memory, streams its rows in tiles of kTile, and keeps
-//    its span's running top-k per query in shared memory.
-//      scoring: a warp takes kRows rows at a time; its lanes read the rows
-//        in 16-byte pieces (neighbouring lanes, neighbouring addresses) and
-//        multiply them with the queries from shared memory: f32 FMAs; bf16
-//        storage meets the query rounded to bf16, products and sums in f32.
-//        The partial sums of the kRows x QT accumulators are reduced across
-//        the warp by a butterfly that halves the accumulators at each step.
-//        Rows >= n_valid (zero padding, which would outscore negative true
-//        scores) and rows past the span become -inf before any selection.
-//
-// The scan's selection (select_tile): warp q owns query q's buffer, (score,
-// row) pairs, unsorted, with the worst entry (lowest score, on ties the
-// highest row) known. A tile's scores are compared with the worst entry:
-// where none is better (a ballot) the 32 rows are skipped, which is the
-// threshold skip. A better candidate replaces the worst entry, and the worst
-// is found anew (k / 32 entries a lane and a warp reduction). "Better" is the
-// total order (score descending, row ascending), so the buffer holds the
-// first k in that order whatever the order of insertion: the one intended
-// difference from the TPU threshold kernel, which evicts the first lane among
-// tied worsts. Both designs keep that order. Nothing carries over between
-// CTAs: each writes its k candidates, and the wrapper merges the (slots, Q,
-// k) candidates with torch ops, as the merge is outside both Pallas kernels.
-
+// 2. pallas_topk_threshold (wt_topk_threshold, topk_scan_kernel): the
+//    served query's path (Q = 1, and small coalesced batches). f32 storage
+//    scores in full f32 (scalar FMAs); bf16 storage meets the query rounded
+//    to bf16, products exact, sums f32. The TPU kernel walks the groups one
+//    after another on one core with one running buffer. Here one persistent
+//    CTA an SM owns a contiguous range of whole 256-row blocks
+//    (a range may start and end inside a group, which is only the padding
+//    contract) and a tile of 1, 8 or 16 queries, so that a batch of up to 16
+//    reads the database once (ops/fused_topk.py scan_plan chooses the
+//    ranges, the tile and the lists' size):
+//      streaming: one producer thread keeps a ring of 32 KB stages in flight
+//        with 2-D TMA loads (cp.async.bulk.tensor) and mbarriers; a stage is
+//        256 rows x 128 bytes (32 f32 or 64 bf16 columns) under the 128-byte
+//        swizzle, and a block of rows takes D * itemsize / 128 stages, as a
+//        GEMM's K loop does. No barrier across the CTA stops the producer:
+//        each consumer warp arrives on a stage's empty barrier once it has
+//        read it.
+//      scoring: lane l of consumer warp w owns row 32 w + l of every stage.
+//        Scalar (one query, on either storage type): the lane reads
+//        its row's 16-byte chunk j at chunk j ^ (l % 8) (the swizzle: the 8
+//        lanes of a quarter warp meet 8 bank groups), and the queries' same
+//        columns are broadcast reads from shared memory; f32 FMAs into
+//        partials a stage, added to the row's sums once the stage is read.
+//        f32 storage at 8 or 16 queries blocks the same FMAs 4 rows x Q / 4
+//        queries a lane, which halves the shared-memory reads a FMA.
+//        Tensor cores (bf16 storage at 8 or 16 queries, where scalar FMAs
+//        and their query reads would hold the scan): the warp's 32 rows are
+//        two m16 tiles, read by ldmatrix from the swizzled stage, against
+//        the queries as bf16 n8 tiles, mma.sync m16n8k16 from zero each k16
+//        step, each result added to f32 sums; a score buffer in shared
+//        memory turns the fragments (and the blocked sums) back into a row
+//        a lane.
+//      selection, off the scan's critical path: each query has a threshold
+//        τ, the k-th best (score key, ~row) word its list has kept (0 until
+//        k are kept), and a list of p entries: k kept, then p - k candidates
+//        (p a power of two >= max(128, k + max(k, 32))). Once a row block
+//        is scored, a warp compares its 32 rows' words with τ, one vote a
+//        query; the rare warp with a survivor takes the query's lock, appends
+//        its survivors behind the kept entries with one ballot and prefix,
+//        and when they would pass the list's capacity first reduces the list
+//        to its first k by one bitonic sort of the words (a flush, counted in
+//        ``flushes``), which raises τ. The word orders by (score
+//        descending, row ascending), so ties at τ keep the lower row, and a
+//        CTA's range of R rows admits about k + k ln(R / k) survivors.
+//      merge: each CTA writes its range's first k of each query, sorted, to
+//        the (ranges, Q, k) candidates, fences them and takes a ticket (the
+//        call's, zeroed before the launch); the last CTA of a query tile
+//        filters the ranges' lists through the same lists, a lane a range
+//        and all its warps at once, τ starting just under the largest of the
+//        ranges' k-th words (each a lower bound of the k-th best; a range's
+//        list stops at its first entry under τ), and writes the (Q, k)
+//        answer, so that the call is one launch (a merge in torch ops took
+//        0.11-0.19 ms of host-bound launches a call on an H100, against
+//        ~0.69 ms of scan at Q = 1).
+//    At 1,048,576 x 512 the bound is the database read (2.15 GB f32 in 0.64
+//    ms; 1.07 GB bf16 in 0.32 ms); Q = 16 f32 needs 26.8 TFLOP/s of FMAs
+//    beside it.
 #include "common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 128;   // rows scored between two selections
-constexpr int kMaxQT = 8;    // queries a CTA holds
-
-__device__ __forceinline__ bool better(float s, int r, float ws, int wr) {
-  return s > ws || (s == ws && r < wr);
-}
-
-// Sum NACC (a power of two <= 32) accumulators across the warp. On return
-// a[0] of lane l holds the complete sum of accumulator l >> (5 - log2(NACC)).
-// Every index is a compile-time constant once the loops are unrolled, so the
-// accumulators stay in registers.
-template <int NACC>
-__device__ __forceinline__ void warp_reduce_scatter(float (&a)[NACC], int lane) {
-  constexpr int kSteps = NACC == 1 ? 0 : NACC == 2 ? 1 : NACC == 4 ? 2
-                         : NACC == 8 ? 3 : NACC == 16 ? 4 : 5;
-  static_assert((1 << kSteps) == NACC, "NACC must be a power of two <= 32");
-#pragma unroll
-  for (int s = 0; s < kSteps; ++s) {
-    const int half = NACC >> (s + 1), off = 16 >> s;
-    const bool upper = (lane & off) != 0;
-#pragma unroll
-    for (int i = 0; i < NACC / 2; ++i) {
-      if (i < half) {
-        const float send = upper ? a[i] : a[i + half];
-        const float keep = upper ? a[i + half] : a[i];
-        a[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
-      }
-    }
-  }
-#pragma unroll
-  for (int s = kSteps; s < 5; ++s)
-    a[0] += __shfl_xor_sync(0xffffffffu, a[0], 16 >> s);
-}
-
-// 16 bytes of a row as floats: 4 of f32 storage, 8 of bf16 storage.
-template <typename T> struct Piece;
-template <> struct Piece<float> {
-  static constexpr int kElems = 4;
-  float v[4];
-  __device__ __forceinline__ void load(const float* p) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-  }
-};
-template <> struct Piece<bf16> {
-  static constexpr int kElems = 8;
-  float v[8];
-  __device__ __forceinline__ void load(const bf16* p) {
-    const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
-    // a bf16 is the high half of an f32
-    v[0] = __uint_as_float(t.x << 16); v[1] = __uint_as_float(t.x & 0xffff0000u);
-    v[2] = __uint_as_float(t.y << 16); v[3] = __uint_as_float(t.y & 0xffff0000u);
-    v[4] = __uint_as_float(t.z << 16); v[5] = __uint_as_float(t.z & 0xffff0000u);
-    v[6] = __uint_as_float(t.w << 16); v[7] = __uint_as_float(t.w & 0xffff0000u);
-  }
-};
-
-// The worst entry of a k-entry buffer (lowest score, on ties the highest
-// row) and its position, the same in every lane.
-__device__ __forceinline__ void find_worst(const float* bs, const int* br,
-                                           int k, int lane, float& ws,
-                                           int& wr, int& wpos) {
-  float s = INFINITY;
-  int r = -1, pos = 0;
-  for (int i = lane; i < k; i += 32) {
-    const float si = bs[i];
-    const int ri = br[i];
-    if (si < s || (si == s && ri > r)) { s = si; r = ri; pos = i; }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float so = __shfl_xor_sync(0xffffffffu, s, off);
-    const int ro = __shfl_xor_sync(0xffffffffu, r, off);
-    const int po = __shfl_xor_sync(0xffffffffu, pos, off);
-    if (so < s || (so == s && ro > r)) { s = so; r = ro; pos = po; }
-  }
-  ws = s; wr = r; wpos = pos;
-}
-
-// The selection of one tile for one query, by one warp: the scores
-// my_sc[0, N) (N a multiple of 32) of database rows row0, row0 + 1, ...
-// enter the warp's k-entry buffer (my_bs, my_br) whose worst entry is
-// (ws, wr) at wpos. -inf scores (masked rows) never enter.
-template <int N>
-__device__ __forceinline__ void select_tile(const float* my_sc, int row0,
-                                            int k, int lane, float* my_bs,
-                                            int* my_br, float& ws, int& wr,
-                                            int& wpos) {
-  for (int j = lane; j < N; j += 32) {
-    const float s = my_sc[j];
-    const int row = row0 + j;
-    // the threshold skip: nothing of these 32 rows beats the worst entry
-    unsigned m = __ballot_sync(
-        0xffffffffu, s != -INFINITY && better(s, row, ws, wr));
-    while (m) {
-      const int src = __ffs(m) - 1;
-      m &= m - 1;
-      const float cs = __shfl_sync(0xffffffffu, s, src);
-      const int cr = __shfl_sync(0xffffffffu, row, src);
-      if (better(cs, cr, ws, wr)) {  // the worst may have risen since
-        if (lane == 0) { my_bs[wpos] = cs; my_br[wpos] = cr; }
-        __syncwarp();
-        find_worst(my_bs, my_br, k, lane, ws, wr, wpos);
-      }
-    }
-  }
-}
-
-// One CTA: queries [q0, q0 + QT) against rows [row_begin, row_end), the
-// span's top-k of each query written to slot ``slot`` of (slots, Q, k).
-template <typename T, int QT>
-__device__ void scan_span(const float* __restrict__ queries,
-                          const T* __restrict__ db, float* __restrict__ out_s,
-                          int* __restrict__ out_r, int Q, int D, int n_valid,
-                          int k, int q0, int row_begin, int row_end,
-                          int slot) {
-  constexpr int kRows = QT == 1 ? 4 : 2;  // rows a warp scores at a time
-  constexpr int NACC = kRows * QT;
-  constexpr int E = Piece<T>::kElems;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sq = reinterpret_cast<float*>(smem);  // (QT, D) queries
-  float* sc = sq + QT * D;                     // (QT, kTile) scores
-  float* bs = sc + QT * kTile;                 // (QT, k) buffer scores
-  int* br = reinterpret_cast<int*>(bs + QT * k);  // (QT, k) buffer rows
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int i = tid; i < QT * D; i += kThreads) {
-    const int q = q0 + i / D;
-    float v = q < Q ? queries[(size_t)q * D + i % D] : 0.f;
-    if (sizeof(T) == 2) v = __bfloat162float(__float2bfloat16_rn(v));
-    sq[i] = v;
-  }
-  for (int i = tid; i < QT * k; i += kThreads) {
-    bs[i] = -INFINITY;
-    br[i] = INT_MAX;  // an empty slot: worse than every row
-  }
-  __syncthreads();
-
-  // the selecting warps' view of their query's buffer
-  const bool selects = warp < QT && q0 + warp < Q;
-  float ws = -INFINITY;
-  int wr = INT_MAX, wpos = 0;
-  float* my_bs = bs + warp * k;
-  int* my_br = br + warp * k;
-
-  const int pieces = D / E;
-  for (int tile0 = row_begin; tile0 < row_end; tile0 += kTile) {
-    // scoring: warp w takes rows w * kRows .. of each kWarps * kRows rows
-    for (int t = warp * kRows; t < kTile; t += kWarps * kRows) {
-      float acc[NACC];
-#pragma unroll
-      for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
-      const T* rp[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        // rows past the span are read from its last row and masked below
-        const int row = min(tile0 + t + r, row_end - 1);
-        rp[r] = db + (size_t)row * D;
-      }
-#pragma unroll 2
-      for (int c = lane; c < pieces; c += 32) {
-        Piece<T> p[kRows];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) p[r].load(rp[r] + c * E);
-#pragma unroll
-        for (int q = 0; q < QT; ++q) {
-          const float4* qp =
-              reinterpret_cast<const float4*>(sq + q * D + c * E);
-#pragma unroll
-          for (int e = 0; e < E / 4; ++e) {
-            const float4 qv = qp[e];
-#pragma unroll
-            for (int r = 0; r < kRows; ++r) {
-              float a = acc[r * QT + q];
-              a = fmaf(p[r].v[4 * e], qv.x, a);
-              a = fmaf(p[r].v[4 * e + 1], qv.y, a);
-              a = fmaf(p[r].v[4 * e + 2], qv.z, a);
-              a = fmaf(p[r].v[4 * e + 3], qv.w, a);
-              acc[r * QT + q] = a;
-            }
-          }
-        }
-      }
-      warp_reduce_scatter<NACC>(acc, lane);
-      constexpr int kShare = 32 / NACC;  // lanes that hold one sum
-      if (lane % kShare == 0) {
-        const int j = lane / kShare, r = j / QT, q = j % QT;
-        const int row = tile0 + t + r;
-        sc[q * kTile + t + r] =
-            (row < row_end && row < n_valid) ? acc[0] : -INFINITY;
-      }
-    }
-    __syncthreads();
-
-    // selection: warp q holds query q's buffer
-    if (selects)
-      select_tile<kTile>(sc + warp * kTile, tile0, k, lane, my_bs, my_br, ws,
-                         wr, wpos);
-    __syncthreads();
-  }
-
-  for (int i = tid; i < QT * k; i += kThreads) {
-    const int q = q0 + i / k;
-    if (q >= Q) continue;
-    const size_t o = ((size_t)slot * Q + q) * k + i % k;
-    out_s[o] = bs[i];
-    out_r[o] = br[i] == INT_MAX ? 0 : br[i];  // an empty slot: (-inf, row 0)
-  }
-}
-
-template <typename T, int QT>
-__global__ void __launch_bounds__(kThreads)
-topk_span_kernel(const float* __restrict__ queries, const T* __restrict__ db,
-                 float* __restrict__ out_s, int* __restrict__ out_r, int Q,
-                 int D, int n_rows, int n_valid, int k, int span_rows) {
-  const long long begin = (long long)blockIdx.y * span_rows;
-  const int row_begin = (int)begin;
-  const int row_end = (int)min(begin + span_rows, (long long)n_rows);
-  scan_span<T, QT>(queries, db, out_s, out_r, Q, D, n_valid, k,
-                   blockIdx.x * QT, row_begin, row_end, blockIdx.y);
-}
-
-template <typename T, int QT>
-cudaError_t launch_qt(const float* queries, const T* db, float* out_s,
-                      int* out_r, int Q, int D, int n_rows, int n_valid,
-                      int k, int span_rows, cudaStream_t st) {
-  const size_t smem =
-      ((size_t)QT * D + (size_t)QT * kTile + 2 * (size_t)QT * k) * 4;
-  auto kernel = topk_span_kernel<T, QT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int spans = (n_rows + span_rows - 1) / span_rows;
-  const dim3 grid((Q + QT - 1) / QT, spans);
-  kernel<<<grid, kThreads, smem, st>>>(queries, db, out_s, out_r, Q, D,
-                                       n_rows, n_valid, k, span_rows);
-  return cudaGetLastError();
-}
-
-// queries (Q, D) f32, db (n_rows, D) f32 (bf16_db 0) or bf16 (1), rows of 16
-// bytes' alignment -> out_s, out_r (spans, Q, k), spans = ceil(n_rows /
-// span_rows): each span's first k of (score descending, row ascending),
-// unsorted; a span with fewer than k valid rows fills up with (-inf, 0).
-cudaError_t launch(const float* queries, const void* db, int bf16_db,
-                   float* out_s, int* out_r, int Q, int D, int n_rows,
-                   int n_valid, int k, int span_rows, cudaStream_t st) {
-  if (Q < 1 || D < 8 || D % 8 || D > 1024 || n_rows < 1 || k < 1 ||
-      k > 1024 || span_rows < 1 || n_valid < 0 || n_valid > n_rows ||
-      (n_rows + span_rows - 1) / span_rows > 65535)
-    return cudaErrorInvalidValue;
-  if (bf16_db) {
-    const bf16* d = static_cast<const bf16*>(db);
-    return Q == 1 ? launch_qt<bf16, 1>(queries, d, out_s, out_r, Q, D, n_rows,
-                                       n_valid, k, span_rows, st)
-                  : launch_qt<bf16, kMaxQT>(queries, d, out_s, out_r, Q, D,
-                                            n_rows, n_valid, k, span_rows,
-                                            st);
-  }
-  const float* d = static_cast<const float*>(db);
-  return Q == 1 ? launch_qt<float, 1>(queries, d, out_s, out_r, Q, D, n_rows,
-                                      n_valid, k, span_rows, st)
-                : launch_qt<float, kMaxQT>(queries, d, out_s, out_r, Q, D,
-                                           n_rows, n_valid, k, span_rows, st);
-}
 
 // ---------------------------------------------------------------------------
 // The f32 group path's product: Sᵀ (rows, Q_pad) f32 = db q̂ᵀ in three TF32
@@ -706,7 +466,7 @@ __device__ __forceinline__ int append_survivors(
 //      again.
 //   3. If they still do not fit (ties at τ, or k > 256 on a long segment):
 //      the candidates, sorted, give their first k to a k-entry buffer, and
-//      the scan kernels' buffer insertion takes the survivors, each better
+//      a buffer insertion takes the survivors, each better
 //      than the buffer's least entry replacing it. ``overflows`` counts
 //      these.
 // The caller keeps the candidates >= the last τ and sorts them.
@@ -862,22 +622,644 @@ topk_select_kernel(const float* __restrict__ st, int ld, int row0,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// The served query's scan (wt_topk_threshold): a persistent CTA a range of
+// rows streamed through a TMA ring, each row scored against up to 16 queries,
+// the selection by filter, append and flush, and the ranges' merge by the
+// last CTA of a query tile
+// ---------------------------------------------------------------------------
+
+constexpr int kScanWarps = 8;                       // consumer warps
+constexpr int kScanThreads = 32 * kScanWarps + 32;  // + the producer warp
+constexpr int kScanRows = 32 * kScanWarps;  // a stage's rows: a lane a row
+constexpr int kScanStageBytes = kScanRows * kSwzRowBytes;  // 32 KB
+constexpr int kScanMaxStages = 6;
+constexpr int kScanMinStages = 3;
+constexpr int kScanMaxQT = 16;        // queries a CTA scores on one read
+constexpr int kScanSmemMax = 232448;  // a block's most shared memory
+
+// How a query tile scores: on the tensor cores for bf16 storage at 8 or 16
+// queries (mma.sync m16n8k16: bf16 products are exact in f32), with scalar
+// FMAs blocked 4 rows x QT / 4 queries a lane for f32 storage there, else a
+// lane a row. Both tiles of 8 or 16 turn their sums back into a row a lane
+// through a score buffer.
+__host__ __device__ constexpr bool scan_mma(bool bf16_db, int qt) {
+  return bf16_db && qt >= 8;
+}
+__host__ __device__ constexpr bool scan_buffered(int qt) { return qt >= 8; }
+
+// Bytes of the queries in shared memory: f32 (qt, dp), or on the tensor
+// cores bf16 (qt, dp + 8) (the pad puts the 8 rows an ldmatrix reads in 8
+// bank groups); and of the score buffer: (32 rows, qt + 1) f32 a consumer
+// warp.
+__host__ __device__ constexpr int scan_q_bytes(bool mma, int qt, int dp) {
+  return mma ? qt * (dp + 8) * 2 : qt * dp * 4;
+}
+__host__ __device__ constexpr int scan_sb_bytes(int qt) {
+  return scan_buffered(qt) ? kScanWarps * 32 * (qt + 1) * 4 : 0;
+}
+
+// The scan's dynamic shared memory: room to align the ring to the swizzle
+// atom, the ring and its two barriers a stage, the queries, the score
+// buffer, and each query's list of p words, τ, count and lock, and the
+// last-CTA flag.
+size_t scan_smem(bool mma, int qt, int stages, int dp, int p) {
+  return (size_t)kSwzAtomBytes + (size_t)stages * (kScanStageBytes + 16) +
+         scan_q_bytes(mma, qt, dp) + scan_sb_bytes(qt) +
+         (size_t)qt * p * 8 + (size_t)qt * 16 + 16;
+}
+
+// Sort lst[0, p) descending, p a power of two >= 128, by one warp (bitonic),
+// after zeroing lst[used, p) (0 is the empty entry, worse than every row).
+// The scan's own copy of sort_desc, so that the group selection compiles as
+// it did.
+__device__ __noinline__ void scan_sort(uint64_t* lst, int used, int p,
+                                       int lane) {
+  constexpr int kPairs = 4;  // pairs a lane holds at once
+  for (int i = used + lane; i < p; i += 32) lst[i] = 0ull;
+  __syncwarp();
+  for (int size = 2; size <= p; size <<= 1)
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t0 = 0; t0 < p / 2; t0 += 32 * kPairs) {
+        uint64_t a[kPairs], b[kPairs];
+        int ix[kPairs];
+#pragma unroll
+        for (int j = 0; j < kPairs; ++j) {
+          const int t = t0 + lane + 32 * j;
+          ix[j] = ((t & ~(stride - 1)) << 1) | (t & (stride - 1));
+          if (t < p / 2) {
+            a[j] = lst[ix[j]];
+            b[j] = lst[ix[j] + stride];
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kPairs; ++j)
+          if (t0 + lane + 32 * j < p / 2 &&
+              (a[j] < b[j]) == ((ix[j] & size) == 0)) {
+            lst[ix[j]] = b[j];
+            lst[ix[j] + stride] = a[j];
+          }
+      }
+      __syncwarp();
+    }
+}
+
+// One warp's survivors of a query's filter (``key`` > τ, 0 for a lane
+// without one) into the query's list lst: kept entries [0, k), candidates
+// [k, k + cnt), room for ``cap`` candidates. Under the query's lock, since
+// every consumer warp appends to it. Survivors that would pass the capacity
+// first flush the list: one sort keeps its first k, and τ rises to the k-th.
+__device__ __noinline__ void scan_append(uint64_t key, uint64_t* lst,
+                                         volatile uint64_t* tau,
+                                         volatile int* cnt, int* lock, int k,
+                                         int cap, int p, int lane,
+                                         int* flushes) {
+  if (lane == 0)
+    while (atomicCAS(lock, 0, 1) != 0) __nanosleep(32);
+  __syncwarp();
+  __threadfence_block();
+  uint64_t t = *tau;  // τ may have risen since the vote
+  int n = *cnt;
+  unsigned m = __ballot_sync(0xffffffffu, key > t);
+  if (n + __popc(m) > cap) {
+    scan_sort(lst, k + n, p, lane);
+    t = lst[k - 1];
+    n = 0;
+    m = __ballot_sync(0xffffffffu, key > t);  // at most 32 <= cap
+    if (lane == 0) {
+      *tau = t;
+      if (flushes) atomicAdd(flushes, 1);
+    }
+  }
+  if (key > t) lst[k + n + __popc(m & ((1u << lane) - 1u))] = key;
+  if (lane == 0) *cnt = n + __popc(m);
+  __threadfence_block();
+  __syncwarp();
+  if (lane == 0) atomicExch(lock, 0);
+}
+
+// Scalar scoring: this lane's row of one stage (its 128-byte line ``row``,
+// chunk j at j ^ sw) against the QT queries' same columns (sqk: (QT, 128
+// bytes' columns) f32, one broadcast read a chunk and query), into ``part``.
+template <typename T, int QT>
+__device__ __forceinline__ void score_stage(const unsigned char* row, int sw,
+                                            const float* sqk,
+                                            float (&part)[QT]) {
+  constexpr int kCols = kSwzRowBytes / sizeof(T);  // 32 f32, 64 bf16
+  constexpr int E = 16 / sizeof(T);                // columns of a chunk
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const uint4 t = reinterpret_cast<const uint4*>(row)[j ^ sw];
+    float x[8];
+    if constexpr (sizeof(T) == 4) {
+      x[0] = __uint_as_float(t.x);
+      x[1] = __uint_as_float(t.y);
+      x[2] = __uint_as_float(t.z);
+      x[3] = __uint_as_float(t.w);
+    } else {  // a bf16 is the high half of an f32
+      const uint32_t w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        x[2 * i] = __uint_as_float(w[i] << 16);
+        x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < QT; ++q) {
+#pragma unroll
+      for (int h = 0; h < E / 4; ++h) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(sqk + q * kCols + E * j + 4 * h);
+        float a = part[q];
+        a = fmaf(x[4 * h], v.x, a);
+        a = fmaf(x[4 * h + 1], v.y, a);
+        a = fmaf(x[4 * h + 2], v.z, a);
+        a = fmaf(x[4 * h + 3], v.w, a);
+        part[q] = a;
+      }
+    }
+  }
+}
+
+// Blocked scalar scoring of one f32 stage (QT = 8 or 16): lane (u = lane /
+// 8, v = lane % 8) scores the warp's rows v + 8 i, i < 4, against queries
+// QT / 4 u .. + QT / 4 - 1. A chunk's 4 row reads (chunk j of each at j ^ v:
+// 8 bank groups a quarter warp) and QT / 4 query reads (one address a
+// quarter warp: broadcasts) feed 16 QT / 4 FMAs, half the reads a FMA of
+// the lane-a-row form. part[i][g]: row v + 8 i, query QT / 4 u + g.
+template <int QT>
+__device__ __forceinline__ void score_stage_blocked(
+    const unsigned char* stage, int warp, int lane, const float* sqk,
+    float (&part)[4][QT / 4]) {
+  constexpr int QG = QT / 4;
+  const int u = lane >> 3, v = lane & 7;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float4 x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      x[i] = reinterpret_cast<const float4*>(
+          stage + (warp * 32 + v + 8 * i) * kSwzRowBytes)[j ^ v];
+#pragma unroll
+    for (int g = 0; g < QG; ++g) {
+      const float4 w =
+          *reinterpret_cast<const float4*>(sqk + (QG * u + g) * 32 + 4 * j);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float a = part[i][g];
+        a = fmaf(x[i].x, w.x, a);
+        a = fmaf(x[i].y, w.y, a);
+        a = fmaf(x[i].z, w.z, a);
+        a = fmaf(x[i].w, w.w, a);
+        part[i][g] = a;
+      }
+    }
+  }
+}
+
+// four 8x8 b16 matrices from shared memory; lane l gives the address of row
+// l % 8 of matrix l / 8
+__device__ __forceinline__ void scan_ldsm_x4(uint32_t (&r)[4],
+                                             uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d (16x8 f32) = a (16x16 bf16, row) b (16x8 bf16, col), from zero: the
+// products exact, their sum the tensor core's, added to the f32 sums outside
+__device__ __forceinline__ void scan_mma16(float (&d)[4],
+                                           const uint32_t (&a)[4], uint32_t b0,
+                                           uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
+}
+
+// Tensor-core scoring of one bf16 stage (64 columns, 4 k16 steps) for this
+// warp's 32 rows (two m16 tiles) against NT = QT / 8 n8 tiles of queries:
+// acc[m][n][e] += row 16 m + g + 8 (e / 2), query 8 n + 2 t + e % 2 (g =
+// lane / 4, t = lane % 4). ``stage`` is the stage's shared address, ``sqb``
+// the queries' (bf16 (QT, dq), dq = dp + 8) at this stage's first column.
+template <int QT>
+__device__ __forceinline__ void score_stage_mma(uint32_t stage, int warp,
+                                                int lane, uint32_t sqb, int dq,
+                                                float (&acc)[2][QT / 8][4]) {
+  constexpr int NT = QT / 8;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    uint32_t a[2][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      // row lane % 16 of the m16 tile, 16-byte chunk 2 s + lane / 16
+      const int r = warp * 32 + m * 16 + (lane & 15);
+      const int c = (2 * s + (lane >> 4)) ^ (r & 7);
+      scan_ldsm_x4(a[m], stage + r * kSwzRowBytes + (c << 4));
+    }
+    uint32_t b[NT][2];
+    if constexpr (NT == 2) {
+      // query (lane & 7) + 8 (lane / 16), k offset 8 ((lane / 8) & 1)
+      uint32_t r4[4];
+      scan_ldsm_x4(r4, sqb + (((lane & 7) + ((lane >> 4) << 3)) * dq +
+                              16 * s + ((lane >> 3) & 1) * 8) * 2);
+      b[0][0] = r4[0]; b[0][1] = r4[1];
+      b[1][0] = r4[2]; b[1][1] = r4[3];
+    } else {
+      // query lane & 7, k offset 8 ((lane / 8) & 1) (lanes 16-31 the same)
+      uint32_t r4[4];
+      scan_ldsm_x4(r4, sqb + ((lane & 7) * dq + 16 * s +
+                              ((lane >> 3) & 1) * 8) * 2);
+      b[0][0] = r4[0]; b[0][1] = r4[1];
+    }
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        float d[4];
+        scan_mma16(d, a[m], b[n][0], b[n][1]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][n][e] += d[e];
+      }
+  }
+}
+
+// The vote of one query's word ``key`` (0 for a lane without a row) against
+// its τ, and the append of the survivors.
+__device__ __forceinline__ void scan_vote(uint64_t key, int q, uint64_t* lists,
+                                          uint64_t* taus, int* cnts,
+                                          int* locks, int k, int cap, int p,
+                                          int lane, int* flushes) {
+  const uint64_t t = *static_cast<volatile uint64_t*>(taus + q);
+  if (__any_sync(0xffffffffu, key > t))
+    scan_append(key, lists + q * p, taus + q, cnts + q, locks + q, k, cap, p,
+                lane, flushes);
+}
+
+// One CTA: queries [q0, q0 + QT), q0 = QT blockIdx.y, against the row blocks
+// of range blockIdx.x (blocks of kScanRows rows, split evenly over
+// ``ranges``) -> slot blockIdx.x of the candidates (ranges, Q, k): the
+// range's first k of each query by (score descending, row ascending),
+// sorted, empty entries as (-inf, row 0). With top_s, the last CTA of the
+// query tile to finish (a ticket after a fence) merges the ranges'
+// candidates by the same filter and flush into top_s / top_r (Q, k). Warps
+// [0, kScanWarps) consume, the last warp produces.
+// Shared memory: the ring (``stages`` x 32 KB, 1024-aligned), full and empty
+// barriers, the queries (scalar: (dp / cols, QT, cols) f32, a stage's
+// columns of every query together; tensor cores: bf16 (QT, dp + 8)), the
+// score buffer, the lists, τ, counts, locks and the last-CTA flag.
+template <typename T, int QT>
+__global__ void __launch_bounds__(kScanThreads, 1)
+topk_scan_kernel(const __grid_constant__ CUtensorMap tma_db,
+                 const float* __restrict__ queries, float* __restrict__ out_s,
+                 int* __restrict__ out_r, float* __restrict__ top_s,
+                 long long* __restrict__ top_r, int* __restrict__ tickets,
+                 int Q, int D, int n_rows, int n_valid, int k, int ranges,
+                 int stages, int dp, int p, int* __restrict__ flushes) {
+  constexpr int kCols = kSwzRowBytes / sizeof(T);  // columns of a stage
+  constexpr bool kMma = scan_mma(sizeof(T) == 2, QT);
+  constexpr bool kBlocked = sizeof(T) == 4 && scan_buffered(QT);
+  extern __shared__ unsigned char scan_smem_raw[];
+  const uint32_t raw = smem_addr(scan_smem_raw);
+  const uint32_t ring =
+      (raw + kSwzAtomBytes - 1) & ~(uint32_t)(kSwzAtomBytes - 1);
+  const unsigned char* ring_p = scan_smem_raw + (ring - raw);
+  const int S = stages, dq = dp + 8;
+  const uint32_t full = ring + S * kScanStageBytes, empty = full + 8 * S;
+  unsigned char* qarea = scan_smem_raw + (ring - raw) +
+                         (size_t)S * (kScanStageBytes + 16);
+  float* sq = reinterpret_cast<float*>(qarea);
+  bf16* sqb = reinterpret_cast<bf16*>(qarea);
+  float* sbuf = reinterpret_cast<float*>(qarea + scan_q_bytes(kMma, QT, dp));
+  uint64_t* lists = reinterpret_cast<uint64_t*>(
+      qarea + scan_q_bytes(kMma, QT, dp) + scan_sb_bytes(QT));
+  uint64_t* taus = lists + QT * p;
+  int* cnts = reinterpret_cast<int*>(taus + QT);
+  int* locks = cnts + QT;
+  int* last = locks + QT;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = blockIdx.y * QT, kb_n = dp / kCols;
+  const int blocks = (n_rows + kScanRows - 1) / kScanRows;
+  const int b0 = (int)((long long)blockIdx.x * blocks / ranges);
+  const int b1 = (int)((long long)(blockIdx.x + 1) * blocks / ranges);
+
+  for (int i = tid; i < QT * dp; i += kScanThreads) {
+    int q, c;
+    if constexpr (kMma) {
+      q = i / dp;
+      c = i % dp;
+    } else {
+      q = (i / kCols) % QT;
+      c = i / (QT * kCols) * kCols + i % kCols;
+    }
+    float v = q0 + q < Q && c < D ? queries[(size_t)(q0 + q) * D + c] : 0.f;
+    if (sizeof(T) == 2) v = __bfloat162float(__float2bfloat16_rn(v));
+    if constexpr (kMma)
+      sqb[q * dq + c] = __float2bfloat16_rn(v);
+    else
+      sq[i] = v;
+  }
+  for (int i = tid; i < QT * p; i += kScanThreads) lists[i] = 0ull;
+  for (int i = tid; i < QT; i += kScanThreads) {
+    taus[i] = 0ull;
+    cnts[i] = 0;
+    locks[i] = 0;
+  }
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kScanWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kScanWarps) {  // producer
+    if (lane == 0) {
+      const int total = (b1 - b0) * kb_n;
+      for (int it = 0; it < total; ++it) {
+        const int s = it % S;
+        if (it >= S) mbar_wait(empty + 8 * s, (it / S - 1) & 1);
+        mbar_expect_tx(full + 8 * s, kScanStageBytes);
+        tma_load_2d(ring + s * kScanStageBytes, &tma_db, (it % kb_n) * kCols,
+                    (b0 + it / kb_n) * kScanRows, full + 8 * s);
+      }
+    }
+    return;
+  }
+
+  const int rr = warp * 32 + lane;  // this lane's row of every stage
+  const int qn = min(QT, Q - q0), cap = p - k;
+  int it = 0;
+  for (int b = b0; b < b1; ++b) {
+    float sc[QT];  // a lane a row: its scores once the block is read
+    float* wb = sbuf + warp * 32 * (QT + 1);  // the warp's score buffer
+    if constexpr (kMma) {
+      float acc[2][QT / 8][4] = {};
+      for (int kb = 0; kb < kb_n; ++kb, ++it) {
+        const int s = it % S;
+        mbar_wait(full + 8 * s, (it / S) & 1);
+        score_stage_mma<QT>(ring + s * kScanStageBytes, warp, lane,
+                            smem_addr(sqb + kb * kCols), dq, acc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * s);
+      }
+      const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int n = 0; n < QT / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            wb[(16 * m + g + 8 * (e >> 1)) * (QT + 1) + 8 * n + 2 * t +
+               (e & 1)] = acc[m][n][e];
+    } else if constexpr (kBlocked) {
+      float acc[4][QT / 4] = {};
+      for (int kb = 0; kb < kb_n; ++kb, ++it) {
+        const int s = it % S;
+        mbar_wait(full + 8 * s, (it / S) & 1);
+        float part[4][QT / 4] = {};
+        score_stage_blocked<QT>(ring_p + s * kScanStageBytes, warp, lane,
+                                sq + kb * QT * kCols, part);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * s);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int g = 0; g < QT / 4; ++g) acc[i][g] += part[i][g];
+      }
+      const int u = lane >> 3, v = lane & 7;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int g = 0; g < QT / 4; ++g)
+          wb[(v + 8 * i) * (QT + 1) + QT / 4 * u + g] = acc[i][g];
+    } else {
+#pragma unroll
+      for (int q = 0; q < QT; ++q) sc[q] = 0.f;
+      for (int kb = 0; kb < kb_n; ++kb, ++it) {
+        const int s = it % S;
+        mbar_wait(full + 8 * s, (it / S) & 1);
+        float part[QT];
+#pragma unroll
+        for (int q = 0; q < QT; ++q) part[q] = 0.f;
+        score_stage<T, QT>(ring_p + s * kScanStageBytes + rr * kSwzRowBytes,
+                           rr & 7, sq + kb * QT * kCols, part);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * s);
+#pragma unroll
+        for (int q = 0; q < QT; ++q) sc[q] += part[q];
+      }
+    }
+    // the filter: rows >= n_valid (zero padding, which would outscore
+    // negative true scores, and TMA's zeros past n_rows) never survive
+    const int row = b * kScanRows + rr;
+    const bool valid = row < n_valid;
+    if constexpr (scan_buffered(QT)) {
+      // the sums to a row a lane through the buffer, read from it in an
+      // order that starts at query ``warp``, so that the warps, which reach
+      // a block's votes together, take different queries' locks
+      __syncwarp();
+      for (int i = 0; i < qn; ++i) {
+        const int q = (i + warp) % qn;
+        const float v = wb[lane * (QT + 1) + q];
+        scan_vote(valid ? pack(score_key(v), row) : 0ull, q, lists, taus,
+                  cnts, locks, k, cap, p, lane, flushes);
+      }
+      __syncwarp();
+    } else {
+#pragma unroll
+      for (int q = 0; q < QT; ++q)
+        if (q < qn)
+          scan_vote(valid ? pack(score_key(sc[q]), row) : 0ull, q, lists,
+                    taus, cnts, locks, k, cap, p, lane, flushes);
+    }
+  }
+
+  // every consumer's appends are in: each query's list to its first k
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kScanWarps) : "memory");
+  for (int q = warp; q < qn; q += kScanWarps) {
+    uint64_t* lst = lists + q * p;
+    scan_sort(lst, k + cnts[q], p, lane);
+    const size_t o = ((size_t)blockIdx.x * Q + q0 + q) * k;
+    for (int j = lane; j < k; j += 32) {
+      const uint64_t e = lst[j];
+      out_s[o + j] = e ? key_score((uint32_t)(e >> 32)) : -INFINITY;
+      out_r[o + j] = e ? (int)~(uint32_t)e : 0;
+    }
+  }
+  if (!top_s) return;
+
+  // the last CTA of the query tile merges: every range's candidates are
+  // written and fenced before its ticket
+  __threadfence();
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kScanWarps) : "memory");
+  if (tid == 0) *last = atomicAdd(tickets + blockIdx.y, 1) == ranges - 1;
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kScanWarps) : "memory");
+  if (!*last) return;
+  __threadfence();
+  for (int i = tid; i < qn * p; i += 32 * kScanWarps) lists[i] = 0ull;
+  // each range's k-th word is a lower bound of the query's k-th best (k
+  // words of that range are >= it), so the merge's τ starts just under the
+  // largest of them: only words >= it can be in the answer
+  for (int q = warp; q < qn; q += kScanWarps) {
+    uint64_t b = 0ull;
+    for (int r = lane; r < ranges; r += 32) {
+      const size_t o = ((size_t)r * Q + q0 + q) * k + k - 1;
+      const float sv = __ldcg(out_s + o);
+      const uint64_t w =
+          sv != -INFINITY ? pack(score_key(sv), __ldcg(out_r + o)) : 0ull;
+      b = w > b ? w : b;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const uint64_t w = shfl64(b, lane ^ off);
+      b = w > b ? w : b;
+    }
+    if (lane == 0) {
+      taus[q] = b ? b - 1 : 0ull;
+      cnts[q] = 0;
+    }
+  }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kScanWarps) : "memory");
+  // a lane a range: each (query, 32 ranges) item walks the ranges' sorted
+  // candidates kMergeDepth at a time (their loads in flight together), a
+  // lane's range left at its first entry under τ, the item at the depth no
+  // lane passes; the items spread over the warps query first, so that
+  // warps at work together take different queries' locks
+  constexpr int kMergeDepth = 4;
+  const int groups = (ranges + 31) / 32;
+  for (int item = warp; item < qn * groups; item += kScanWarps) {
+    const int q = item % qn, r = item / qn * 32 + lane;
+    const size_t o = ((size_t)r * Q + q0 + q) * k;
+    bool alive = r < ranges;
+    for (int j0 = 0; j0 < k && __any_sync(0xffffffffu, alive);
+         j0 += kMergeDepth) {
+      uint64_t keys[kMergeDepth];
+#pragma unroll
+      for (int d = 0; d < kMergeDepth; ++d) {
+        keys[d] = 0ull;
+        if (alive && j0 + d < k) {
+          const float sv = __ldcg(out_s + o + j0 + d);
+          if (sv != -INFINITY)
+            keys[d] = pack(score_key(sv), __ldcg(out_r + o + j0 + d));
+        }
+      }
+#pragma unroll
+      for (int d = 0; d < kMergeDepth; ++d) {
+        const uint64_t t = *static_cast<volatile uint64_t*>(taus + q);
+        alive = alive && keys[d] > t;
+        if (__any_sync(0xffffffffu, alive))
+          scan_append(alive ? keys[d] : 0ull, lists + q * p, taus + q,
+                      cnts + q, locks + q, k, cap, p, lane, nullptr);
+      }
+    }
+  }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kScanWarps) : "memory");
+  for (int q = warp; q < qn; q += kScanWarps) {
+    uint64_t* lst = lists + q * p;
+    scan_sort(lst, k + cnts[q], p, lane);
+    const size_t o = (size_t)(q0 + q) * k;
+    for (int j = lane; j < k; j += 32) {
+      const uint64_t e = lst[j];
+      top_s[o + j] = e ? key_score((uint32_t)(e >> 32)) : -INFINITY;
+      top_r[o + j] = e ? (long long)(int)~(uint32_t)e : 0;
+    }
+  }
+}
+
+template <typename T, int QT>
+cudaError_t launch_scan(const CUtensorMap& map, const float* queries,
+                        float* out_s, int* out_r, float* top_s,
+                        long long* top_r, int* tickets, int Q, int D,
+                        int n_rows, int n_valid, int k, int ranges,
+                        int stages, int dp, int p, int* flushes,
+                        cudaStream_t st) {
+  const size_t smem =
+      scan_smem(scan_mma(sizeof(T) == 2, QT), QT, stages, dp, p);
+  auto kernel = topk_scan_kernel<T, QT>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(ranges, (Q + QT - 1) / QT);
+  kernel<<<grid, kScanThreads, smem, st>>>(
+      map, queries, out_s, out_r, top_s, top_r, tickets, Q, D, n_rows,
+      n_valid, k, ranges, stages, dp, p, flushes);
+  return cudaGetLastError();
+}
+
+template <typename T, typename... Args>
+cudaError_t launch_scan_qt(int qt, Args... args) {
+  switch (qt) {
+    case 1:
+      return launch_scan<T, 1>(args...);
+    case 8:
+      return launch_scan<T, 8>(args...);
+    default:
+      return launch_scan<T, kScanMaxQT>(args...);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// The running top-k with the threshold skip: each CTA carries its buffer
-// over ``span_groups`` groups of ``group`` rows. out (spans, Q, k).
+// The served query's scan: queries (Q, D) f32, db (n_rows, D) f32 (bf16_db
+// 0) or bf16 (1), 16-byte aligned, against ``ranges`` CTAs' ranges of whole
+// 256-row blocks (range i: blocks [i B / ranges, (i + 1) B / ranges), B =
+// ceil(n_rows / 256)) -> out_s / out_r (ranges, Q, k): each range's first k
+// of each query by (score descending, row ascending), sorted, rows >=
+// n_valid left out, a range with fewer than k valid rows filled with (-inf,
+// 0). With top_s (null: no merge), the first k of them all into top_s (Q, k)
+// f32 and top_r (Q, k) int64, merged in the kernel; ``tickets`` then holds
+// one int for each query tile, zeroed here on ``stream`` before the launch.
+// ``qt`` (1, 8 or 16) queries a CTA share one read of the rows, each with a
+// list of ``p`` entries (a power of two >= 128 and >= k + max(k, 32));
+// ops/fused_topk.py scan_plan chooses ranges, qt and p. ``flushes`` (one
+// device int, or null) counts the lists that passed their capacity and were
+// flushed.
 int wt_topk_threshold(const float* queries, const void* db, int bf16_db,
-                      float* out_s, int* out_r, int Q, int D, int n_rows,
-                      int n_valid, int k, int group, int span_groups,
-                      void* stream) {
-  if (group < 1 || span_groups < 1 || n_rows % group ||
-      (long long)group * span_groups > INT_MAX)
+                      float* out_s, int* out_r, float* top_s,
+                      long long* top_r, int* tickets, int Q, int D,
+                      int n_rows, int n_valid, int k, int ranges, int qt,
+                      int p, int* flushes, void* stream) {
+  if (Q < 1 || D < 8 || D % 8 || D > 1024 || n_rows < 1 || n_valid < 0 ||
+      n_valid > n_rows || k < 1 || k > 1024 || ranges < 1 ||
+      ranges > (n_rows + kScanRows - 1) / kScanRows ||
+      (qt != 1 && qt != 8 && qt != kScanMaxQT) || (Q + qt - 1) / qt > 65535 ||
+      p < 128 || (p & (p - 1)) || p < k + (k > 32 ? k : 32) ||
+      (top_s && (!top_r || !tickets)))
     return (int)cudaErrorInvalidValue;
-  return (int)launch(queries, db, bf16_db, out_s, out_r, Q, D, n_rows,
-                     n_valid, k, group * span_groups,
-                     static_cast<cudaStream_t>(stream));
+  const int cols = bf16_db ? 64 : 32;  // columns of a stage's 128-byte rows
+  const int dp = (D + cols - 1) / cols * cols;
+  const long long room =
+      kScanSmemMax -
+      (long long)scan_smem(scan_mma(bf16_db, qt), qt, 0, dp, p);
+  const long long fit = room / (kScanStageBytes + 16);
+  const int stages = (int)(fit < kScanMaxStages ? fit : kScanMaxStages);
+  if (stages < kScanMinStages) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (top_s)
+    WT_CHECK(cudaMemsetAsync(tickets, 0, sizeof(int) * ((Q + qt - 1) / qt),
+                             st));
+  CUtensorMap map;
+  if (bf16_db) {
+    WT_CHECK(tile_map<bf16>(&map, static_cast<const bf16*>(db), n_rows, D, D,
+                            kScanRows, cols));
+    return (int)launch_scan_qt<bf16>(qt, map, queries, out_s, out_r, top_s,
+                                     top_r, tickets, Q, D, n_rows, n_valid, k,
+                                     ranges, stages, dp, p, flushes, st);
+  }
+  WT_CHECK(tile_map<float>(&map, static_cast<const float*>(db), n_rows, D, D,
+                           kScanRows, cols));
+  return (int)launch_scan_qt<float>(qt, map, queries, out_s, out_r, top_s,
+                                    top_r, tickets, Q, D, n_rows, n_valid, k,
+                                    ranges, stages, dp, p, flushes, st);
 }
 
 // The bf16 group path's product: Sᵀ (rows, q_pad) f32 = db (rows, D) bf16,

@@ -60,7 +60,7 @@ SIGNATURES = {
                             _I, _I, _I, _I, _P],
     "wt_swin_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
                       _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "wt_topk_threshold": [_P, _P, _I, _P, _P] + [_I] * 7 + [_P],
+    "wt_topk_threshold": [_P, _P, _I] + [_P] * 5 + [_I] * 8 + [_P, _P],
     "wt_topk_gemm": [_P, _I, _I, _P, _I, _P, _P],
     "wt_topk_gemm_f32": [_P, _I, _I, _P, _I, _I, _P, _P],
     "wt_topk_select": [_P] + [_I] * 7 + [_P, _P, _I, _I, _P, _P],

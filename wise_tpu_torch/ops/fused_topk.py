@@ -19,14 +19,15 @@ worsts and orders final ties by lane: here the running buffer compares by the
 total order (score, then row), so the worst among tied scores is the highest
 row, and the final ordering sorts ties by row.
 
-On a CUDA database a wrapper launches its kernel (csrc/topk_kernels.cu) or
-raises; the candidates of the kernel's spans or groups are merged here with
-torch sorts, as the merge is outside both Pallas kernels. On a CPU database it
-computes the plain version: group by group with a running merge, or each
-group's own top-k and one merge. ``LAUNCHES`` counts the wrapper calls that
-launched, one a call whatever the number of kernels it enqueued, keyed in
-``LAUNCHES_BY_SHAPE`` by (wrapper, N_pad, D): the batch is the coalescer's
-choice and is left out of the key.
+On a CUDA database a wrapper launches its kernels (csrc/topk_kernels.cu) or
+raises; the group path's candidates are merged here with one keyed
+``torch.topk`` (:func:`_merge`), as the merge is outside both Pallas
+kernels, and the threshold scan merges its row ranges' in the kernel. On a
+CPU database it computes the plain version: group by group with a running
+merge, or each group's own top-k and one merge. ``LAUNCHES`` counts the
+wrapper calls that launched, one a call whatever the number of kernels it
+enqueued, keyed in ``LAUNCHES_BY_SHAPE`` by (wrapper, N_pad, D): the batch
+is the coalescer's choice and is left out of the key.
 
 ``fused_topk`` on a CUDA database (the batched search) replaces pallas_topk
 with two kernels a chunk, driven by :func:`group_topk_chunks`, on either
@@ -47,7 +48,25 @@ that overflow its buffer take a buffer insertion over those rows alone
 (counted by :func:`overflow_count`). :func:`_merge` then orders the
 candidates with one ``torch.topk`` over an int64 key. The next step is the
 selection fused into the product's epilogue, which drops the Sᵀ round trip.
-``fused_topk_threshold`` keeps the scalar scan (``wt_topk_threshold``).
+
+``fused_topk_threshold`` (the served query: Q = 1, and coalesced batches at
+small k) replaces pallas_topk_threshold with one kernel, ``wt_topk_threshold``
+(``topk_scan_kernel``), bound by the same database read. One persistent CTA
+an SM owns a range of whole 256-row blocks (a range may start and end inside
+a group) and a tile of 1, 8 or 16 queries (:func:`scan_plan`), so that a
+coalesced batch of up to 16 reads the rows once: a producer thread streams
+the range through a ring of 32 KB stages by TMA (256 rows x 128 bytes,
+128-byte swizzle), and eight consumer warps score them as they land, f32
+FMAs against the queries in shared memory. The selection is off the scan's
+critical path: each query keeps a threshold τ, the k-th best (score key,
+~row) word so far; a row block's rows are voted against τ, and the few
+survivors appended to the query's list (:func:`scan_tile` sizes it), which,
+when full, is flushed to its first k by one bitonic sort, raising τ (counted
+by :func:`flush_count`). bf16 storage at 8 or 16 queries scores on the
+tensor cores instead (mma.sync m16n8k16: exact bf16 products, each k16
+step's sum added in f32). Each range leaves its first k of each query in
+(ranges, Q, k) candidates, and the last CTA of each query tile to finish
+merges them through the same lists, so that a call is one launch.
 """
 
 from __future__ import annotations
@@ -62,8 +81,14 @@ from .topk import _scores, _stable_topk, running_topk
 MAX_K = 1024
 #: the widest rows the kernels' query tile holds
 MAX_D = 1024
-#: CTAs per SM the threshold kernel's spans are sized for
-_CTAS_PER_SM = 8
+#: rows of one block of the threshold scan: a stage of its ring holds 128
+#: bytes of each, and a CTA's range is whole blocks
+SCAN_BLOCK_ROWS = 256
+#: queries the threshold scan scores on one read of the rows
+SCAN_QUERIES = 16
+#: the most list entries a threshold scan CTA holds for its query tile
+#: (32 KB of shared memory)
+SCAN_LIST_WORDS = 4096
 #: queries the group path scores in one product (before padding to 8)
 CHUNK_QUERIES = 64
 #: the Sᵀ scratch the group path holds: 1,048,576 rows x 64 queries x 4 B
@@ -255,28 +280,44 @@ def scores_t_f32_cuda(db_rows, qp, out) -> None:
         _stream(out)), "fused_topk (wt_topk_gemm_f32)")
 
 
-_overflows: dict = {}
+_counters: dict = {}
 
 
-def _overflow_counter(device):
-    """The device int the selection kernel counts its overflows in."""
+def _counter(name: str, device):
+    """The device int the kernels count ``name`` in: a normal tensor even
+    when first asked for under ``torch.inference_mode``, so that it may be
+    zeroed in either mode."""
     key = torch.device(device)
     if key.type == "cuda" and key.index is None:
         key = torch.device("cuda", torch.cuda.current_device())
-    if key not in _overflows:
-        _overflows[key] = torch.zeros(1, dtype=torch.int32, device=key)
-    return _overflows[key]
+    if (name, key) not in _counters:
+        with torch.inference_mode(False):
+            _counters[name, key] = torch.zeros(1, dtype=torch.int32,
+                                               device=key)
+    return _counters[name, key]
 
 
 def overflow_count(device) -> int:
-    """(query, segment) selections on ``device`` since the last
-    :func:`reset_overflows` whose survivors overflowed the buffer and took
-    the buffer insertion (ties at the lower bound; it decides no answer)."""
-    return int(_overflow_counter(device).item())
+    """The group selection's (query, segment) selections on ``device``
+    since the last :func:`reset_overflows` whose survivors overflowed the
+    buffer and took the buffer insertion (ties at the lower bound; it
+    decides no answer)."""
+    return int(_counter("overflows", device).item())
 
 
 def reset_overflows(device) -> None:
-    _overflow_counter(device).zero_()
+    _counter("overflows", device).zero_()
+
+
+def flush_count(device) -> int:
+    """The threshold scan's query lists on ``device`` since the last
+    :func:`reset_flushes` that passed their capacity and were flushed to
+    their first k (routine: a flush is how τ rises)."""
+    return int(_counter("flushes", device).item())
+
+
+def reset_flushes(device) -> None:
+    _counter("flushes", device).zero_()
 
 
 def select_groups_cuda(st, row0: int, n_valid: int, k: int, group: int,
@@ -285,8 +326,63 @@ def select_groups_cuda(st, row0: int, n_valid: int, k: int, group: int,
     check(load_library().wt_topk_select(
         st.data_ptr(), st.shape[1], st.shape[0], row0, int(n_valid), k,
         group, qc, out_s.data_ptr(), out_r.data_ptr(), out_s.shape[1], q0,
-        _overflow_counter(st.device).data_ptr(), _stream(st)),
+        _counter("overflows", st.device).data_ptr(), _stream(st)),
         "fused_topk (wt_topk_select)")
+
+
+def scan_tile(qn: int, k: int) -> tuple[int, int]:
+    """The threshold scan's query tile and list size for Q = ``qn`` queries
+    at ``k``: (qt, p). A CTA scores qt = 1, 8 or 16 queries on one read of
+    its rows (the least that holds the batch), each with a list of p
+    entries, the k kept and then room for max(k, 32) candidates at the
+    least (a warp's survivors always fit after a flush), p a power of two
+    >= 128 (the bitonic sort that flushes it). At large k the tile shrinks
+    until its lists fit SCAN_LIST_WORDS, which leaves the ring its three
+    stages at any D up to MAX_D."""
+    p = 128
+    while p < k + max(k, 32):
+        p *= 2
+    qt = 1 if qn <= 1 else 8 if qn <= 8 else SCAN_QUERIES
+    while qt > 1 and qt * p > SCAN_LIST_WORDS:
+        qt = 8 if qt == SCAN_QUERIES else 1
+    return qt, p
+
+
+def scan_plan(n_pad: int, qn: int, k: int, sms: int) -> tuple[int, int, int]:
+    """The threshold scan's launch on ``sms`` SMs: (ranges, qt, p). The
+    ceil(Q / qt) query tiles share the SMs, one CTA an SM, and the B =
+    ceil(n_pad / SCAN_BLOCK_ROWS) row blocks go evenly to ``ranges`` CTAs a
+    tile (range i: blocks [i B / ranges, (i + 1) B / ranges), none empty,
+    whatever the group); ``ranges`` is also the candidates' slots."""
+    qt, p = scan_tile(qn, k)
+    blocks = -(-n_pad // SCAN_BLOCK_ROWS)
+    ranges = max(1, min(blocks, sms // -(-qn // qt)))
+    return ranges, qt, p
+
+
+def threshold_scan_cuda(q, db_padded, n_valid: int, k: int, out_s, out_r,
+                        top=None) -> None:
+    """``wt_topk_threshold`` on CUDA tensors (no checks beyond the C
+    entry's: called by ``fused_topk_threshold``): q (Q, D) f32 against the
+    rows -> out_s / out_r (ranges, Q, k), ranges from :func:`scan_plan`,
+    each range's first k sorted; with ``top`` = (scores (Q, k) f32, rows
+    (Q, k) int64), also their first k, merged by the kernel's last CTA of
+    each query tile (its tickets are the call's own). Flushes count in
+    :func:`flush_count`."""
+    qn = q.shape[0]
+    qt, p = scan_tile(qn, k)
+    top_s, top_r = top if top is not None else (None, None)
+    tickets = (torch.empty(-(-qn // qt), dtype=torch.int32, device=q.device)
+               if top else None)
+    check(load_library().wt_topk_threshold(
+        q.data_ptr(), db_padded.data_ptr(),
+        int(db_padded.dtype == torch.bfloat16), out_s.data_ptr(),
+        out_r.data_ptr(), top_s.data_ptr() if top else None,
+        top_r.data_ptr() if top else None,
+        tickets.data_ptr() if top else None, qn, q.shape[1],
+        db_padded.shape[0], int(n_valid), k, out_s.shape[0], qt, p,
+        _counter("flushes", db_padded.device).data_ptr(), _stream(q)),
+        "fused_topk_threshold")
 
 
 def topk_agreement(got, want, tol: float = 0.0) -> dict:
@@ -365,7 +461,6 @@ def _launch(name, queries, db_padded, n_valid, k, group, threshold):
              f"{name}: db must be 16-byte aligned")
     dev = db_padded.device
     q = queries.to(device=dev, dtype=torch.float32).contiguous()
-    qn, groups = q.shape[0], n_pad // group
     if not threshold:
         product = (scores_t_cuda if db_padded.dtype == torch.bfloat16
                    else scores_t_f32_cuda)
@@ -374,28 +469,24 @@ def _launch(name, queries, db_padded, n_valid, k, group, threshold):
                                     product, select_groups_cuda)
         _launches.add(name, n_pad, d)
         return out
-    # spans of whole groups, as many as fill the card
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    tiles = 1 if qn == 1 else -(-qn // 8)
-    span_groups = max(1, groups * tiles // (_CTAS_PER_SM * sms))
-    slots = -(-groups // span_groups)
-    out_s = torch.empty((slots, qn, k), dtype=torch.float32, device=dev)
-    out_r = torch.empty((slots, qn, k), dtype=torch.int32, device=dev)
+    qn = q.shape[0]
+    ranges = scan_plan(n_pad, qn, k, sms)[0]
+    out_s = torch.empty((ranges, qn, k), dtype=torch.float32, device=dev)
+    out_r = torch.empty((ranges, qn, k), dtype=torch.int32, device=dev)
+    top = (torch.empty((qn, k), dtype=torch.float32, device=dev),
+           torch.empty((qn, k), dtype=torch.int64, device=dev))
     with torch.cuda.device(dev):
-        err = load_library().wt_topk_threshold(
-            q.data_ptr(), db_padded.data_ptr(),
-            int(db_padded.dtype == torch.bfloat16), out_s.data_ptr(),
-            out_r.data_ptr(), qn, d, n_pad, int(n_valid), k, int(group),
-            span_groups, _stream(q))
-    check(err, name)
+        threshold_scan_cuda(q, db_padded, n_valid, k, out_s, out_r, top)
     _launches.add(name, n_pad, d)
-    return _merge(out_s, out_r, k)
+    return top
 
 
 def fused_topk_threshold(queries, db_padded, n_valid: int, k: int,
                          group: int = 4096):
-    """The running top-k with the threshold skip: a CTA carries its buffer
-    over a span of groups and looks only at rows that beat its k-th entry.
+    """The running top-k with the threshold skip: each CTA scans a range of
+    rows for up to 16 queries at once and keeps only rows that beat its k-th
+    entry (:func:`scan_plan`; the module docstring gives the design).
     The served query's kernel (Q = 1, and coalesced batches at small k)."""
     if not db_padded.is_cuda:
         return fused_topk_threshold_plain(queries, db_padded, n_valid, k,

@@ -6,11 +6,13 @@ ascending), the faiss order; rows ``>= n_valid`` (zero padding, which would
 outscore negative true scores) are set to -inf before any selection.
 
 - A CUDA database runs the hand-written kernels of ``ops/fused_topk.py``
-  (csrc/topk_kernels.cu), by the reference dispatcher's rule: one query, or
-  up to 128 with k <= 50, goes to ``fused_topk_threshold`` (the fused form of
-  ``two_stage_topk``: a running top-k that only looks at rows that can beat
-  its k-th score); a larger batch or k goes to ``fused_topk`` (the fused form
-  of ``hier_topk``: each group's own top-k, then a merge). Neither
+  (csrc/topk_kernels.cu), by :func:`routes_to_threshold`: one query, or a
+  batch of up to ``THRESHOLD_MAX_BATCH`` with k <= 50, goes to
+  ``fused_topk_threshold`` (the fused form of ``two_stage_topk``: a running
+  top-k that only looks at rows that can beat its k-th score, one read of
+  the database for up to 16 queries); a larger batch or k goes to
+  ``fused_topk`` (the fused form of ``hier_topk``: each group's own top-k,
+  then a merge, one read for up to 64 queries). Neither
   materialises the (Q, N) score matrix. k beyond a group, or beyond the
   kernels' buffer (``fused_topk.MAX_K``), takes one stable sort over the
   whole score matrix in plain torch ops, the arm the reference leaves to XLA
@@ -132,6 +134,25 @@ def _block_max_topk(scores, kb: int, k: int, group: int):
     return vals, torch.gather(base, 1, pos)
 
 
+#: the largest batch that goes to ``fused_topk_threshold`` at k <= 50 (one
+#: query goes there at any k). The reference's dispatcher sends up to 128;
+#: the port's threshold scan reads the database once for 16 queries and
+#: the group path once for 64. At 1,048,576 x 512 on an NVIDIA H100 80GB
+#: HBM3 (700 W), chip_smoke.py's ``q32-k10-f32`` rows took 1.50-1.52 ms on
+#: the threshold scan (two reads) against 1.07-1.13 on ``fused_topk``, and
+#: its ``q16-k10-f32`` row 0.90-0.92 on the scan (PERF.md §6)
+THRESHOLD_MAX_BATCH = 16
+#: the largest k a batch of more than one query takes to the threshold scan
+THRESHOLD_MAX_K = 50
+
+
+def routes_to_threshold(qn: int, k: int) -> bool:
+    """Whether ``flat_topk`` on a CUDA database sends Q = ``qn`` queries at
+    ``k`` (within the kernels' range) to ``fused_topk_threshold`` rather
+    than to ``fused_topk``."""
+    return qn <= 1 or (k <= THRESHOLD_MAX_K and qn <= THRESHOLD_MAX_BATCH)
+
+
 def flat_topk(queries, db_padded, n_valid: int, k: int, group: int = 4096):
     """queries (Q, D), db_padded (N_pad, D) with N_pad % group == 0 ->
     (scores (Q, k'), rows (Q, k')) with k' = min(k, n_valid)."""
@@ -143,8 +164,7 @@ def flat_topk(queries, db_padded, n_valid: int, k: int, group: int = 4096):
         from . import fused_topk as F  # imports this module: not at the top
 
         if k <= min(group, F.MAX_K):
-            qn = queries.shape[0]
-            if qn <= 1 or (k <= 50 and qn <= 128):
+            if routes_to_threshold(queries.shape[0], k):
                 return F.fused_topk_threshold(queries, db_padded, n_valid, k,
                                               group)
             return F.fused_topk(queries, db_padded, n_valid, k, group)

@@ -10,6 +10,8 @@ gates ship closed: ViT-H/14 on the padded-head block, and the embed fold.
     python3 chip_smoke.py                  # env, kernels, every slice
     python3 chip_smoke.py --phase kernels  # env and kernels only
     python3 chip_smoke.py --phase gemm     # env and the GEMM rows only
+    python3 chip_smoke.py --phase swin     # env, the Swin rows, the audio
+                                           # batch's breakdown
     python3 chip_smoke.py --phase vit_h    # env and the ViT-H/14 slice only
     python3 chip_smoke.py --phase xlmr     # env and the default backbone only
     python3 chip_smoke.py --phase hybrid   # env and WISE_FUSED_BLOCK=0 only
@@ -36,9 +38,14 @@ Phases, one line each; any failure exits non-zero:
    head_dim-64 softmax scale, a query tile left unwritten, h not activated.
    Each row also carries the least time the card could take for its work
    (``bound_ms``: the larger of its operations over 989 TFLOP/s and its
-   bytes over 3.35 TB/s, from the shapes). The Swin kernels at HTSAT's four stages at batch 64, with the relative-bias
-   table at std 1 and the planted faults zeroed logits, the shift mask
-   dropped (shifted blocks) and the relative bias dropped. The post-LN
+   bytes over 3.35 TB/s, from the shapes). The Swin kernels at HTSAT's
+   four stages at batch 64, with the relative-bias table at std 1 and the
+   planted faults zeroed logits, the shift mask dropped and rolled by one
+   window (shifted blocks) and the relative bias dropped; each Swin row
+   also carries the window-attention kernel's own device ms
+   (``part_ms``, torch.profiler) and byte bound, and as ``library_ms``
+   ``F.scaled_dot_product_attention`` with the additive f32 bias + mask on
+   the same q, k, v (the attention part alone). The post-LN
    blocks (attention block, MLP as "single" and as the split pair, each
    half) at the XLM-R shape 64 x 1024 at batch 8 and 256, and
    fused_short_attention at ViT-B/32's vision and text shapes and at 64 x 257
@@ -181,7 +188,9 @@ CUDA card; imports no JAX.
 
 ``--phase gemm`` runs the env phase and the GEMM rows alone (GEMM_SHAPES;
 the kernels phase runs them too); it prints no summary. ``--phase topk``
-does the same for the top-k rows (TOPK_ROWS).
+does the same for the top-k rows (TOPK_ROWS), ``--phase swin`` for the Swin
+rows (SWIN_STAGES), followed by the 64-segment audio batch's breakdown of
+``--phase profile``.
 
 ``--phase profile`` runs the env phase, then breaks one 64-segment audio
 batch, one 256-frame ViT-H/14 batch and one text embed of the default
@@ -404,7 +413,7 @@ def _bound(ops: float, nbytes: float, peak_ops: float = PEAK_OPS):
 
 
 def _check_row(torch, results, name, tag, key, x, kernel, plain, base,
-               faults, work, library=None):
+               faults, work, library=None, part=None):
     """Hold ``kernel()`` against ``plain()`` on their increment over
     ``base`` (ops.block.increment_agreement), or with ``base`` None on the
     whole output (ops.block.output_agreement: a post-LN block, the attention
@@ -417,7 +426,11 @@ def _check_row(torch, results, name, tag, key, x, kernel, plain, base,
     written once. ``library`` is the one PyTorch call that computes the same
     function, where there is one (timed as ``library_ms``, used nowhere in
     the port); a residual block has none, and the rows of a GEMM or a half
-    of a block carry torch.addmm on their product alone."""
+    of a block carry torch.addmm on their product alone. ``part`` is a
+    ``(kernel name, (operations, bytes))`` of one kernel inside the call,
+    whose device ms a call (torch.profiler's self time, _device_kernels)
+    and bound stand on the row beside the call's (``part_ms``,
+    ``part_bound_ms``)."""
     from wise_tpu_torch.ops.block import (increment_agreement,
                                           output_agreement)
 
@@ -448,6 +461,18 @@ def _check_row(torch, results, name, tag, key, x, kernel, plain, base,
                      for c in planted.values())
     ok = check["ok"] and caught
     bound_ms, bound_by = _bound(*work)
+    more = {}
+    if part:
+        kname, part_work = part
+        for _ in range(3):  # a profile may now and then record no kernel
+            part_ms = sum(k[0] for k in _device_kernels(torch, kernel)
+                          if kname in k[2])
+            if part_ms:
+                break
+        part_bound, part_by = _bound(*part_work)
+        more = dict(part=kname, part_ms=(f"{part_ms:.4f}" if part_ms
+                                         else "not measured"),
+                    part_bound_ms=f"{part_bound:.4f}", part_bound_by=part_by)
     say("kernels", name=f"{name}[{tag}]",
         shape="x".join(map(str, x.shape)), dtype=str(x.dtype)[6:],
         max_abs_err=f"{check['max_abs_err']:.6g}",
@@ -459,7 +484,7 @@ def _check_row(torch, results, name, tag, key, x, kernel, plain, base,
         ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
         bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
         library_ms="none" if library_ms is None else f"{library_ms:.4f}",
-        status="ok" if ok else "FAIL")
+        **more, status="ok" if ok else "FAIL")
     results.append(dict(name=name, tag=tag, key=key,
                         max_abs_err=check["max_abs_err"], ms=ms,
                         plain_ms=plain_ms, bound_ms=bound_ms,
@@ -675,15 +700,38 @@ def _swin_inputs(torch, n, c, heads, n_win, seed):
     return x, attn, bias.contiguous(), mask, ln, mlp
 
 
+def _sdpa_inputs(y, wqkv, bqkv, bias, mask, heads):
+    """q, k, v (B, n_win·H, L, hd) of the window batch y (N, L, C), N = B x
+    n_win windows (n_win 1 without a mask), and the additive f32 mask
+    bias[h] + mask[r] (1, n_win·H, L, L) that broadcasts over the examples:
+    the window attention as one scaled_dot_product_attention call."""
+    n, l, c = y.shape
+    n_win = 1 if mask is None else mask.shape[0]
+    qkv = (y @ wqkv + bqkv).reshape(n // n_win, n_win, l, 3, heads,
+                                     c // heads)
+    q, k, v = (qkv[:, :, :, i].permute(0, 1, 3, 2, 4).reshape(
+        n // n_win, n_win * heads, l, c // heads).contiguous()
+        for i in range(3))
+    add = bias[None] if mask is None else bias[None] + mask[:, None]
+    return q, k, v, add.reshape(1, n_win * heads, l, l).contiguous()
+
+
 def _swin_rows(torch, results):
     """Both Swin kernels at HTSAT's window batches (batch 64). Planted
     faults: zeroed logits (q weights, relative bias and mask all zero:
     uniform attention), the relative bias dropped, and on shifted blocks
-    the shift mask dropped. The window attention has no residual: its
-    increment is its whole output."""
+    the shift mask dropped and the mask rolled by one window (window w
+    takes w - 1's). The window attention has no residual: its increment is
+    its whole output. Each row also carries the window-attention kernel's
+    own device ms (``part_ms``) and byte bound, and as ``library_ms``
+    ``F.scaled_dot_product_attention`` on the same q, k, v with the
+    additive f32 mask bias[h] + mask[r] (built outside the timed call):
+    the attention part alone, used nowhere in the port."""
     from wise_tpu_torch.ops import swin_attention as SA
     from wise_tpu_torch.ops import swin_block as SB
+    from wise_tpu_torch.ops.block import layer_norm_f32
 
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     for i, (tag, n, c, heads, n_win) in enumerate(SWIN_STAGES):
         x, attn, bias, mask, ln, mlp = _swin_inputs(torch, n, c, heads,
                                                     n_win, 20 + i)
@@ -708,21 +756,34 @@ def _swin_rows(torch, results):
             if mask is not None:
                 faults["mask_dropped"] = lambda k=kernel_fn: call(k,
                                                                   mask=None)
+                faults["mask_rolled"] = lambda k=kernel_fn: call(
+                    k, mask=mask.roll(1, 0))
             # 64-token windows: qkv + out-proj GEMMs and the attention, the
             # block also its MLP (F = 4C); bf16 stream, f32 bias and mask
             m = n * 64
             ops = 8 * m * c * c + 4 * m * 64 * c
-            nbytes = (2 * m * c * 2 + (4 * c * c + 4 * c) * 2
-                      + bias.numel() * 4
+            tables = (bias.numel() * 4
                       + (mask.numel() * 4 if mask is not None else 0))
+            nbytes = 2 * m * c * 2 + (4 * c * c + 4 * c) * 2 + tables
             if block:
                 ops += 16 * m * c * c
                 nbytes += (8 * c * c + 5 * c) * 2 + 2 * _LN_BYTES * c
+            # the attention part: qkv in, att out (bf16), bias and mask once
+            part = ("window_attention_kernel",
+                    (4 * m * 64 * c, 2 * m * 3 * c + 2 * m * c + tables))
+            with torch.inference_mode():
+                y = (layer_norm_f32(x, *ln[:2]).to(torch.bfloat16) if block
+                     else x)
+                qkv_mask = _sdpa_inputs(y, attn[0], attn[1], bias, mask,
+                                        heads)
             _check_row(torch, results, name, tag,
                        (name, 64, c, n_win is not None), x,
                        lambda k=kernel_fn: call(k),
                        lambda p=plain_fn: call(p), base, faults,
-                       (ops, nbytes))
+                       (ops, nbytes),
+                       library=lambda a=qkv_mask: sdpa(*a[:3],
+                                                       attn_mask=a[3]),
+                       part=part)
 
 
 #: the training forwards' shapes: ViT-B/32's towers at the training batch
@@ -3516,7 +3577,7 @@ def _encode_rates(torch, extractor, frames, reps: int = 5):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", choices=["all", "kernels", "gemm", "topk",
-                                        "vit_h",
+                                        "swin", "vit_h",
                                         "xlmr", "hybrid", "index", "train",
                                         "padded", "embed_fold", "profile"],
                     default="all")
@@ -3555,6 +3616,12 @@ def main(argv=None) -> int:
             rows = []
             _timed("topk", _topk_rows, torch, rows)
             _require_rows(rows)
+            return 0
+        if args.phase == "swin":
+            rows = []
+            _timed("swin", _swin_rows, torch, rows)
+            _require_rows(rows)
+            phase_profile(torch, card)
             return 0
         if args.phase == "vit_h":
             phase_slice(torch, card, VIT_H_ID, VIT_H_FRAMES, "vit_h",

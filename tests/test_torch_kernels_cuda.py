@@ -148,10 +148,13 @@ from wise_tpu_torch.models.clap.model import (  # noqa: E402
 from wise_tpu_torch.ops import swin_attention as SA  # noqa: E402
 from wise_tpu_torch.ops import swin_block as SB  # noqa: E402
 
-#: (window, C, heads, res, batch): a tiny one, and HTSAT stage 0 (head_dim
-#: 24, 64 windows an example) and stage 3 (one window, 32 heads)
+#: (window, C, heads, res, batch): a tiny one (head_dim 16, 16 tokens),
+#: HTSAT stage 0 (head_dim 24, 64 windows an example) and stage 3 (one
+#: window, 32 heads), window 7 (49 tokens: ragged key tiles and a warp
+#: without rows), and head_dim 8 and 32 (the k8 step alone, two k16 steps)
 SWIN_SHAPES = {"tiny": (4, 32, 2, 8, 2), "stage0": (8, 96, 4, 64, 2),
-               "stage3": (8, 768, 32, 8, 4)}
+               "stage3": (8, 768, 32, 8, 4), "l49": (7, 96, 4, 14, 2),
+               "hd8": (8, 32, 4, 16, 2), "hd32": (8, 128, 4, 16, 2)}
 
 
 def _swin_inputs(shape, masked, device, seed=70):
@@ -190,7 +193,9 @@ def _swin_call(block, x, attn, bias, mask, ln, mlp, heads, fused=True):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,masked", [
     ("tiny", False), ("tiny", True), ("stage0", False), ("stage0", True),
-    ("stage3", False)])   # stage 3: one window, no shifted block
+    ("stage3", False),    # stage 3: one window, no shifted block
+    ("l49", False), ("l49", True), ("hd8", False), ("hd8", True),
+    ("hd32", False), ("hd32", True)])
 @pytest.mark.parametrize("block", [False, True], ids=["attention", "block"])
 def test_swin_kernel_matches_plain_on_card(cuda, block, shape, masked):
     x, attn, bias, mask, ln, mlp, heads = _swin_inputs(shape, masked, cuda)
@@ -209,7 +214,7 @@ def test_swin_kernel_matches_plain_on_card(cuda, block, shape, masked):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("fault", ["logits_zeroed", "mask_dropped",
-                                   "bias_dropped"])
+                                   "bias_dropped", "mask_rolled"])
 @pytest.mark.parametrize("block", [False, True], ids=["attention", "block"])
 def test_swin_planted_fault_fails_the_check(cuda, block, fault):
     x, attn, bias, mask, ln, mlp, heads = _swin_inputs("stage0", True, cuda)
@@ -222,6 +227,8 @@ def test_swin_planted_fault_fails_the_check(cuda, block, fault):
             None
     elif fault == "mask_dropped":
         mask = None
+    elif fault == "mask_rolled":  # window w takes the mask of w - 1
+        mask = mask.roll(1, 0)
     else:
         bias = torch.zeros_like(bias)
     bad = _swin_call(block, x, attn, bias, mask, ln, mlp, heads)

@@ -42,10 +42,14 @@ Phases, one line each; any failure exits non-zero:
    four stages at batch 64, with the relative-bias table at std 1 and the
    planted faults zeroed logits, the shift mask dropped and rolled by one
    window (shifted blocks) and the relative bias dropped; each Swin row
-   also carries the window-attention kernel's own device ms
-   (``part_ms``, torch.profiler) and byte bound, and as ``library_ms``
-   ``F.scaled_dot_product_attention`` with the additive f32 bias + mask on
-   the same q, k, v (the attention part alone). The post-LN
+   also carries each of its kernels' own device ms (``part_ms``,
+   torch.profiler) and bound (stages 0-2: swin_attn_kernel and, for the
+   block, swin_mlp_kernel; stage 3's chain: the window attention), and as
+   ``library_ms`` ``F.scaled_dot_product_attention`` with the additive f32
+   bias + mask on the same q, k, v (the attention part alone); each
+   shifted stage's block also stands as a ``-map`` row on spatial rows
+   through the block's token map (planted: the map rolled by one row, one
+   F chunk of kernel B dropped). The post-LN
    blocks (attention block, MLP as "single" and as the split pair, each
    half) at the XLM-R shape 64 x 1024 at batch 8 and 256, and
    fused_short_attention at ViT-B/32's vision and text shapes and at 64 x 257
@@ -98,7 +102,9 @@ Phases, one line each; any failure exits non-zero:
 4. audio: the same for 1,024 seeded synthetic 4 s segments at 48 kHz,
    embedded by the port's ClapExtractor (microsoft/clap/2023, production
    config: HTSAT + GPT2 at full width and depth, random weights) in the
-   pipeline's audio batches of 32, searched with ``search_in=audio``. Then
+   pipeline's audio batches of 32, searched with ``search_in=audio``; the
+   Swin blocks must have launched two kernels each at stages 0-2 and the
+   seven-launch chain at stage 3. Then
    one 64-segment batch through the HTSAT path of WISE_FUSED_SWIN_BLOCK=0,
    which must launch the window-attention kernel at every stage and agree
    with the block-kernel embeddings (cosine >= 0.999).
@@ -196,7 +202,8 @@ rows (SWIN_STAGES), followed by the 64-segment audio batch's breakdown of
 batch, one 256-frame ViT-H/14 batch and one text embed of the default
 backbone on the kernel path, and one ViT-B/32 train step, down on
 ``[profile]`` lines (see phase_profile, profile_vit_h, profile_xlmr_text,
-profile_train_step); it checks nothing and prints no summary.
+profile_train_step); it checks only that no roll, permute or copy kernel
+runs inside the audio batch's Swin blocks, and prints no summary.
 """
 
 from __future__ import annotations
@@ -309,6 +316,15 @@ SWIN_STAGES = [("stage0", 4096, 96, 4, None),
                ("stage1-shifted", 1024, 192, 8, 16),
                ("stage2-shifted", 256, 384, 16, 4),
                ("stage3", 64, 768, 32, None)]
+#: the kernels one HTSAT block must launch, by whether its C is at most
+#: 384: two on stages 0-2, the seven-launch chain on stage 3 (PERF.md)
+SWIN_BLOCK_KERNELS = {
+    True: {"swin_attn_kernel": 1, "swin_mlp_kernel": 1},
+    False: {"layernorm_kernel": 2, "gemm_kernel": 4,
+            "window_attention_kernel": 1}}
+#: kernel B's F columns a chunk (csrc/swin_kernels.cu kMlpChunk): the
+#: planted fault drops the second chunk
+SWIN_MLP_CHUNK = 64
 
 
 #: published dense peaks of one H100 SXM: bf16 operations/s, HBM bytes/s
@@ -413,7 +429,7 @@ def _bound(ops: float, nbytes: float, peak_ops: float = PEAK_OPS):
 
 
 def _check_row(torch, results, name, tag, key, x, kernel, plain, base,
-               faults, work, library=None, part=None):
+               faults, work, library=None, parts=()):
     """Hold ``kernel()`` against ``plain()`` on their increment over
     ``base`` (ops.block.increment_agreement), or with ``base`` None on the
     whole output (ops.block.output_agreement: a post-LN block, the attention
@@ -426,11 +442,11 @@ def _check_row(torch, results, name, tag, key, x, kernel, plain, base,
     written once. ``library`` is the one PyTorch call that computes the same
     function, where there is one (timed as ``library_ms``, used nowhere in
     the port); a residual block has none, and the rows of a GEMM or a half
-    of a block carry torch.addmm on their product alone. ``part`` is a
-    ``(kernel name, (operations, bytes))`` of one kernel inside the call,
-    whose device ms a call (torch.profiler's self time, _device_kernels)
+    of a block carry torch.addmm on their product alone. ``parts`` are
+    ``(kernel name, (operations, bytes))`` of kernels inside the call, each
+    of whose device ms a call (torch.profiler's self time, _device_kernels)
     and bound stand on the row beside the call's (``part_ms``,
-    ``part_bound_ms``)."""
+    ``part_bound_ms``, in the order of ``part``)."""
     from wise_tpu_torch.ops.block import (increment_agreement,
                                           output_agreement)
 
@@ -462,17 +478,19 @@ def _check_row(torch, results, name, tag, key, x, kernel, plain, base,
     ok = check["ok"] and caught
     bound_ms, bound_by = _bound(*work)
     more = {}
-    if part:
-        kname, part_work = part
+    if parts:
         for _ in range(3):  # a profile may now and then record no kernel
-            part_ms = sum(k[0] for k in _device_kernels(torch, kernel)
-                          if kname in k[2])
-            if part_ms:
+            found = _device_kernels(torch, kernel)
+            part_ms = [sum(k[0] for k in found if kname in k[2])
+                       for kname, _ in parts]
+            if all(part_ms):
                 break
-        part_bound, part_by = _bound(*part_work)
-        more = dict(part=kname, part_ms=(f"{part_ms:.4f}" if part_ms
-                                         else "not measured"),
-                    part_bound_ms=f"{part_bound:.4f}", part_bound_by=part_by)
+        bounds = [_bound(*work) for _, work in parts]
+        more = dict(part=",".join(kname for kname, _ in parts),
+                    part_ms=",".join(f"{v:.4f}" if v else "not measured"
+                                     for v in part_ms),
+                    part_bound_ms=",".join(f"{b:.4f}" for b, _ in bounds),
+                    part_bound_by=",".join(by for _, by in bounds))
     say("kernels", name=f"{name}[{tag}]",
         shape="x".join(map(str, x.shape)), dtype=str(x.dtype)[6:],
         max_abs_err=f"{check['max_abs_err']:.6g}",
@@ -716,26 +734,62 @@ def _sdpa_inputs(y, wqkv, bqkv, bias, mask, heads):
     return q, k, v, add.reshape(1, n_win * heads, l, l).contiguous()
 
 
+def _swin_parts(name, m, c, tables, route):
+    """(kernel, (operations, bytes)) of the kernels one Swin call launches
+    (64-token windows, bf16 stream, f32 bias and mask): on the fused route
+    kernel A (qkv and out-proj products and the attention; x in, out or o
+    out, its weights, LN1's and the tables) and, for the block, kernel B
+    (fc1 and fc2; o in, out out, its weights, LN2's); on the chain the
+    window attention alone (qkv in, att out, the tables)."""
+    att_ops = 4 * m * 64 * c
+    if route == "chain":
+        return [("window_attention_kernel",
+                 (att_ops, 2 * m * 3 * c + 2 * m * c + tables))]
+    block = name == "fused_swin_block"
+    a = (8 * m * c * c + att_ops, 2 * m * c * 2 + (4 * c * c + 4 * c) * 2
+         + tables + (_LN_BYTES * c if block else 0))
+    parts = [("swin_attn_kernel", a)]
+    if block:
+        parts.append(("swin_mlp_kernel", (16 * m * c * c, 2 * m * c * 2
+                                          + (8 * c * c + 5 * c) * 2
+                                          + _LN_BYTES * c)))
+    return parts
+
+
 def _swin_rows(torch, results):
     """Both Swin kernels at HTSAT's window batches (batch 64). Planted
     faults: zeroed logits (q weights, relative bias and mask all zero:
     uniform attention), the relative bias dropped, and on shifted blocks
     the shift mask dropped and the mask rolled by one window (window w
     takes w - 1's). The window attention has no residual: its increment is
-    its whole output. Each row also carries the window-attention kernel's
-    own device ms (``part_ms``) and byte bound, and as ``library_ms``
+    its whole output. Each row also carries each of its kernels' own
+    device ms (``part_ms``) and bound, and as ``library_ms``
     ``F.scaled_dot_product_attention`` on the same q, k, v with the
     additive f32 mask bias[h] + mask[r] (built outside the timed call):
-    the attention part alone, used nowhere in the port."""
+    the attention part alone, used nowhere in the port. Each shifted stage
+    also has a ``-map`` row of the block: x as the stage's spatial rows
+    (64 images), the shift's roll and window partition read through the
+    block's token map, against the plain version through the map; planted
+    there: the map rolled by one row, and one F chunk of kernel B dropped
+    (Wproj's rows of the second chunk zeroed)."""
     from wise_tpu_torch.ops import swin_attention as SA
     from wise_tpu_torch.ops import swin_block as SB
     from wise_tpu_torch.ops.block import layer_norm_f32
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    src = "wise_tpu_torch/csrc/swin_kernels.cu "
+    sources = {  # (block, route) -> the kernels' sources
+        (True, "fused"): src + "swin_attn_kernel + swin_mlp_kernel",
+        (False, "fused"): src + "swin_attn_kernel",
+        (True, "chain"): (src + "window_attention_kernel + wise_tpu_torch/"
+                          "csrc/common.cuh gemm_kernel, layernorm_kernel"),
+        (False, "chain"): (src + "window_attention_kernel + wise_tpu_torch/"
+                           "csrc/common.cuh gemm_kernel")}
     for i, (tag, n, c, heads, n_win) in enumerate(SWIN_STAGES):
         x, attn, bias, mask, ln, mlp = _swin_inputs(torch, n, c, heads,
                                                     n_win, 20 + i)
         no_bias = torch.zeros_like(bias)
+        route = SA.swin_route(c)
         for name, kernel_fn, plain_fn, base in (
                 ("fused_window_attention", SA.fused_window_attention,
                  SA.plain_window_attention, torch.zeros((), device="cuda")),
@@ -768,22 +822,44 @@ def _swin_rows(torch, results):
             if block:
                 ops += 16 * m * c * c
                 nbytes += (8 * c * c + 5 * c) * 2 + 2 * _LN_BYTES * c
-            # the attention part: qkv in, att out (bf16), bias and mask once
-            part = ("window_attention_kernel",
-                    (4 * m * 64 * c, 2 * m * 3 * c + 2 * m * c + tables))
             with torch.inference_mode():
                 y = (layer_norm_f32(x, *ln[:2]).to(torch.bfloat16) if block
                      else x)
                 qkv_mask = _sdpa_inputs(y, attn[0], attn[1], bias, mask,
                                         heads)
+            library = (lambda a=qkv_mask: sdpa(*a[:3], attn_mask=a[3]))
             _check_row(torch, results, name, tag,
                        (name, 64, c, n_win is not None), x,
                        lambda k=kernel_fn: call(k),
                        lambda p=plain_fn: call(p), base, faults,
-                       (ops, nbytes),
-                       library=lambda a=qkv_mask: sdpa(*a[:3],
-                                                       attn_mask=a[3]),
-                       part=part)
+                       (ops, nbytes), library=library,
+                       parts=_swin_parts(name, m, c, tables, route))
+            results[-1]["source"] = sources[block, route]
+            if not block or mask is None:
+                continue
+            # the block path's entry: spatial rows through the token map
+            res = 8 * math.isqrt(n_win)
+            tmap = SB.token_map(res, res, 8, 4).cuda()
+            xs = x.reshape(n // n_win, res * res, c)
+            wproj = mlp[2].clone()
+            wproj[SWIN_MLP_CHUNK:2 * SWIN_MLP_CHUNK] = 0
+
+            def mapped(fn, tmap=tmap, mlp=mlp):
+                return fn(xs, *ln[:2], *attn, bias, mask, *ln[2:], *mlp,
+                          heads=heads, token_map=tmap)
+
+            _check_row(torch, results, name, f"{tag}-map",
+                       (name, 64, c, True), xs,
+                       lambda: mapped(SB.fused_swin_block),
+                       lambda: mapped(SB.plain_swin_block), xs,
+                       {"map_rolled": lambda: mapped(SB.fused_swin_block,
+                                                     tmap=tmap.roll(1)),
+                        "chunk_dropped": lambda: mapped(
+                            SB.fused_swin_block,
+                            mlp=(*mlp[:2], wproj, mlp[3]))},
+                       (ops, nbytes + 4 * tmap.numel()), library=library,
+                       parts=_swin_parts(name, m, c, tables, route))
+            results[-1]["source"] = sources[block, route]
 
 
 #: the training forwards' shapes: ViT-B/32's towers at the training batch
@@ -2387,6 +2463,7 @@ def phase_audio(torch, card, k=10):
     from wise_tpu_torch.models.clap.extractor import ClapExtractor
     from wise_tpu_torch.models.clap.model import SwinBlock
     from wise_tpu_torch.ops import block as K
+    from wise_tpu_torch.ops import swin_attention as SA
     from wise_tpu_torch.ops import swin_block as SB
 
     #: the environment of the fully plain path: with WISE_FUSED_BLOCK=0 alone
@@ -2420,6 +2497,20 @@ def phase_audio(torch, card, k=10):
         served, lat = _serve_queries(project_dir, config, AUDIO_QUERIES, k,
                                      media="audio")
         launches = {**K.LAUNCHES_BY_SHAPE, **SB.LAUNCHES_BY_SHAPE}
+        # the kernels under the block calls, as the C entry counted them
+        # where it launched each: two a block up to C 384, the
+        # seven-launch chain wider (stage 3)
+        kernels = dict(SA.KERNEL_LAUNCHES_BY_SHAPE)
+        off = []
+        for key in swin_keys:
+            want = SWIN_BLOCK_KERNELS[key[1] <= 384]
+            blocks = launches.get(("fused_swin_block", *key), 0)
+            got = {k: kernels.get((k, *key), 0) for k in SA.KERNELS}
+            if got != {k: want.get(k, 0) * blocks for k in SA.KERNELS}:
+                off.append((key, blocks, got))
+        if off:
+            raise PhaseError(f"Swin kernels off their route's count: {off}")
+        launches.update(kernels)
         path = [("fused_swin_block", *key) for key in swin_keys] + [
             (name, c.context_length, c.text_width)
             for name in ("fused_attn_block", "fused_mlp_block",
@@ -3490,10 +3581,14 @@ def phase_profile(torch, card, batch: int = 64, reps: int = 5):
     the input the tower gives it) and the projection; one caption's text
     embed; the extractor's host-to-host ms on a 32-segment ingest batch
     (median); and the device ms per CUDA kernel over three batches
-    (torch.profiler, kernels only: each kernel's self device time)."""
+    (torch.profiler, kernels only: each kernel's self device time). Fails
+    if a roll, permute or copy kernel runs inside a Swin block on the block
+    path (each block profiled on its input in the tower): the shift's roll
+    and the window partition are read through the block's token map."""
     import numpy as np
 
     from wise_tpu_torch.models.clap.extractor import ClapExtractor
+    from wise_tpu_torch.models.clap.model import SwinBlock
 
     segs = _segments(torch, batch, seed=7)
     fe = ClapExtractor(AUDIO_ID)
@@ -3524,6 +3619,29 @@ def phase_profile(torch, card, batch: int = 64, reps: int = 5):
                 modules[name] = cuda_ms(lambda m=mod, h=h: m(h))
                 h = mod(h)
         modules["norm_pool"] = cuda_ms(lambda: enc.norm(h).mean(dim=1))
+        layout, h = {}, enc.embed(mel)
+        for names in enc.stages:
+            for name in names:
+                mod = getattr(enc, name)
+                if isinstance(mod, SwinBlock) and mod.block_path:
+                    for _ in range(3):  # a profile may record no kernel
+                        seen = [k[2] for k in _device_kernels(
+                            torch, lambda m=mod, h=h: m(h), 1)]
+                        if any("attn" in k or "attention" in k
+                               for k in seen):
+                            break
+                    else:
+                        raise PhaseError(f"{name}: no attention kernel in "
+                                         f"its profile: {seen}")
+                    layout[name] = [k[:80] for k in seen if any(
+                        w in k.lower() for w in ("roll", "copy", "permute"))]
+                h = mod(h)
+    copies = {k: v for k, v in layout.items() if v}
+    say("profile", swin_blocks_profiled=len(layout),
+        swin_layout_copies=json.dumps(copies) if copies else "none")
+    if copies:
+        raise PhaseError(f"layout copies inside Swin blocks on the block "
+                         f"path: {copies}")
     host = []
     for _ in range(reps):
         t0 = time.perf_counter()

@@ -149,10 +149,12 @@ from wise_tpu_torch.ops import swin_attention as SA  # noqa: E402
 from wise_tpu_torch.ops import swin_block as SB  # noqa: E402
 
 #: (window, C, heads, res, batch): a tiny one (head_dim 16, 16 tokens),
-#: HTSAT stage 0 (head_dim 24, 64 windows an example) and stage 3 (one
-#: window, 32 heads), window 7 (49 tokens: ragged key tiles and a warp
+#: HTSAT's stages 0-2 (head_dim 24, 64, 16 and 4 windows an example: the
+#: two fused kernels, kernel B's three tiles) and stage 3 (one window, 32
+#: heads: the chain), window 7 (49 tokens: ragged key tiles and a warp
 #: without rows), and head_dim 8 and 32 (the k8 step alone, two k16 steps)
 SWIN_SHAPES = {"tiny": (4, 32, 2, 8, 2), "stage0": (8, 96, 4, 64, 2),
+               "stage1": (8, 192, 8, 32, 2), "stage2": (8, 384, 16, 16, 2),
                "stage3": (8, 768, 32, 8, 4), "l49": (7, 96, 4, 14, 2),
                "hd8": (8, 32, 4, 16, 2), "hd32": (8, 128, 4, 16, 2)}
 
@@ -190,9 +192,24 @@ def _swin_call(block, x, attn, bias, mask, ln, mlp, heads, fused=True):
     return fn(x, *attn, bias, mask, heads=heads)
 
 
+#: the kernels one call launches, by (block, C <= 384): two a block (one
+#: for the attention) up to C 384, the chain wider
+SWIN_CALL_KERNELS = {
+    (True, True): {"swin_attn_kernel": 1, "swin_mlp_kernel": 1},
+    (False, True): {"swin_attn_kernel": 1},
+    (True, False): {"layernorm_kernel": 2, "gemm_kernel": 4,
+                    "window_attention_kernel": 1},
+    (False, False): {"gemm_kernel": 2, "window_attention_kernel": 1}}
+
+
+def _swin_kernels_launched():
+    return {k: v for k, v in SA.KERNEL_LAUNCHES.items() if v}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,masked", [
     ("tiny", False), ("tiny", True), ("stage0", False), ("stage0", True),
+    ("stage1", False), ("stage1", True), ("stage2", False), ("stage2", True),
     ("stage3", False),    # stage 3: one window, no shifted block
     ("l49", False), ("l49", True), ("hd8", False), ("hd8", True),
     ("hd32", False), ("hd32", True)])
@@ -205,6 +222,10 @@ def test_swin_kernel_matches_plain_on_card(cuda, block, shape, masked):
     got = _swin_call(block, x, attn, bias, mask, ln, mlp, heads)
     torch.cuda.synchronize()
     assert mod.LAUNCHES_BY_SHAPE == {(name, x.shape[1], x.shape[2], masked): 1}
+    # the kernels the C entry reports it launched
+    fused = x.shape[2] <= 384
+    assert _swin_kernels_launched() == SWIN_CALL_KERNELS[block, fused]
+    assert SA.swin_route(x.shape[2]) == ("fused" if fused else "chain")
     want = _swin_call(block, x, attn, bias, mask, ln, mlp, heads, False)
     assert got.dtype == want.dtype and got.shape == want.shape
     check = K.increment_agreement(got, want, x if block else torch.zeros(
@@ -236,6 +257,53 @@ def test_swin_planted_fault_fails_the_check(cuda, block, fault):
     assert not K.increment_agreement(bad, want, base)["ok"]
 
 
+def _spatial(x, mask, res, window, masked):
+    """x (N, L, C) as spatial rows (B, res^2, C), and the block's map."""
+    b = x.shape[0] * x.shape[1] // (res * res)
+    tmap = SB.token_map(res, res, window, window // 2 if masked else 0)
+    return x.reshape(b, res * res, x.shape[2]), tmap.to(x.device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,masked", [
+    ("tiny", True), ("stage0", False), ("stage0", True), ("stage1", True),
+    ("stage2", False), ("stage2", True), ("l49", True)])
+def test_swin_block_token_map_matches_window_layout(cuda, shape, masked):
+    """The map's entry (spatial rows in and out) against the window-layout
+    entry on the gathered rows, scattered back: the same kernels on the
+    same rows, so the same bits; and against the plain version through the
+    map. Planted: the map rolled by one row, one F chunk of kernel B
+    dropped (Wproj's rows of the second chunk zeroed)."""
+    window, _, _, res, _ = SWIN_SHAPES[shape]
+    x, attn, bias, mask, ln, mlp, heads = _swin_inputs(shape, masked, cuda)
+    xs, tmap = _spatial(x, mask, res, window, masked)
+    c = xs.shape[2]
+    SB.reset_launches()
+    got = SB.fused_swin_block(xs, *ln[:2], *attn, bias, mask, *ln[2:], *mlp,
+                              heads=heads, token_map=tmap)
+    torch.cuda.synchronize()
+    assert _swin_kernels_launched() == SWIN_CALL_KERNELS[True, True]
+    rows = SB._map_rows(tmap, xs.numel() // c, cuda)
+    xw = xs.reshape(-1, c)[rows].reshape(x.shape)
+    win = SB.fused_swin_block(xw, *ln[:2], *attn, bias, mask, *ln[2:], *mlp,
+                              heads=heads)
+    assert torch.equal(got.reshape(-1, c)[rows].reshape(x.shape), win)
+    want = SB.plain_swin_block(xs, *ln[:2], *attn, bias, mask, *ln[2:], *mlp,
+                               heads=heads, token_map=tmap)
+    check = K.increment_agreement(got, want, xs)
+    assert check["ok"], check
+    bad = SB.fused_swin_block(xs, *ln[:2], *attn, bias, mask, *ln[2:], *mlp,
+                              heads=heads, token_map=tmap.roll(1))
+    assert not K.increment_agreement(bad, want, xs)["ok"]
+    chunk = 64      # kernel B's F columns a chunk (kMlpChunk)
+    wproj = mlp[2].clone()
+    wproj[chunk:2 * chunk] = 0
+    bad = SB.fused_swin_block(xs, *ln[:2], *attn, bias, mask, *ln[2:],
+                              *mlp[:2], wproj, mlp[3], heads=heads,
+                              token_map=tmap)
+    assert not K.increment_agreement(bad, want, xs)["ok"]
+
+
 @pytest.mark.cuda
 def test_swin_wrappers_reject_what_they_do_not_take(cuda):
     x, attn, bias, mask, ln, mlp, heads = _swin_inputs("stage0", True, cuda)
@@ -251,6 +319,12 @@ def test_swin_wrappers_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="hidden width"):
         SB.fused_swin_block(x, *ln[:2], *attn, bias, mask, *ln[2:], wfc, bfc,
                             wproj, mlp[3], heads=heads)
+    # C 768 runs the chain, on window layout only
+    x, attn, bias, _, ln, mlp, heads = _swin_inputs("stage3", False, cuda)
+    tmap = SB.token_map(8, 8, 8, 0).to(cuda)
+    with pytest.raises(ValueError, match="takes no token_map"):
+        SB.fused_swin_block(x, *ln[:2], *attn, bias, None, *ln[2:], *mlp,
+                            heads=heads, token_map=tmap)
 
 
 @pytest.mark.cuda

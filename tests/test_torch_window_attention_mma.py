@@ -1,6 +1,7 @@
 """The arithmetic of the port's window attention kernel (wise_tpu_torch/csrc/
-swin_kernels.cu, ``window_attention_kernel<HD>``, behind both
-``fused_window_attention`` and ``fused_swin_block``), rehearsed on the CPU.
+swin_kernels.cu, ``window_attention_kernel<HD>``, in the chain of both
+``fused_window_attention`` and ``fused_swin_block`` at C > 384; their fused
+``swin_attn_kernel`` runs the same arithmetic), rehearsed on the CPU.
 
 The kernel cannot run here, so this file holds a numpy model of what it
 computes, step for step:

@@ -10,10 +10,12 @@ embeddings are stored in the compute dtype; LayerNorm parameters, the
 relative-position bias tables and the bn0 affine stay f32.
 
 Numerics follow the reference. In bf16 with ``fused_swin_block`` (the
-production path) every HTSAT block runs as one whole-block op on
-window-layout activations in the bf16 stream (ops/swin_block.py), with roll,
-window partition and reverse as layout ops around it; otherwise the block
-keeps an f32 stream around a window-attention op (ops/swin_attention.py).
+production path) every HTSAT block runs as one whole-block op in the bf16
+stream (ops/swin_block.py) on spatial rows, the shift's roll and the window
+partition read through the block's token map (built once, at init);
+otherwise the block keeps an f32 stream around a window-attention op
+(ops/swin_attention.py), with roll, window partition and reverse as layout
+ops around it.
 The caption tower is the port's CLIP ``Transformer`` (gelu_tanh, causal,
 the last layer computed only at each caption's last real token).
 """
@@ -102,16 +104,20 @@ class WindowAttention(nn.Module):
         self.proj = Dense(dim, dim, dtype)
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window - 1) ** 2, heads))
+        n = window * window
+        # bias[h, i, j] = table[index[i, j], h]: its flat offsets in the
+        # (entries, heads) table, so the bias is one gather and no copy
+        index = relative_position_index(window).reshape(1, n, n)
         self.register_buffer(
             "relative_position_index",
-            torch.from_numpy(relative_position_index(window).reshape(-1)),
+            torch.from_numpy(index * heads
+                             + np.arange(heads).reshape(heads, 1, 1)),
             persistent=False)
 
     def bias(self):
         """(heads, L, L) f32 relative-position bias."""
-        n = self.window * self.window
-        table = self.relative_position_bias_table[self.relative_position_index]
-        return table.reshape(n, n, self.heads).permute(2, 0, 1).contiguous()
+        return torch.take(self.relative_position_bias_table,
+                          self.relative_position_index)
 
     def forward(self, x, mask=None):
         """x (nW * B, w * w, C); mask (nW, w * w, w * w) or None."""
@@ -144,6 +150,12 @@ class SwinBlock(nn.Module):
                                                  self.shift))
                 if self.shift else None)
         self.register_buffer("attn_mask", mask, persistent=False)
+        # the block path's window-layout row -> spatial row of an image; None
+        # where that is the identity (one window over the whole map)
+        tmap = SB.token_map(hres, wres, window, self.shift)
+        if np.array_equal(tmap.numpy(), np.arange(tmap.numel())):
+            tmap = None
+        self.register_buffer("token_map", tmap, persistent=False)
 
     def _roll(self, x, sign: int):
         s = sign * self.shift
@@ -154,21 +166,22 @@ class SwinBlock(nn.Module):
         (hres, wres), w = self.resolution, self.window
         b, l, c = x.shape
         if self.block_path:
-            # the whole block on window-layout activations in the bf16
-            # stream; LN, attention, MLP and the residuals commute with the
-            # token permutation, so only roll/partition/reverse see space
-            xs = self._roll(x.to(self.mlp_fc1.kernel.dtype)
-                            .reshape(b, hres, wres, c), -1)
+            # the whole block in the bf16 stream on spatial rows; LN,
+            # attention, MLP and the residuals commute with the token
+            # permutation, so the roll and the partition are the map's
+            # gather and their reverse its scatter
+            xs = x.to(self.mlp_fc1.kernel.dtype)
+            if self.token_map is None:
+                xs = xs.reshape(-1, w * w, c)
             fn = SB.fused_swin_block if self.kernel else SB.plain_swin_block
             a = self.attn
-            out = fn(window_partition(xs, w), self.norm1.scale,
-                     self.norm1.bias, a.qkv.kernel, a.qkv.bias,
-                     a.proj.kernel, a.proj.bias, a.bias(), self.attn_mask,
-                     self.norm2.scale, self.norm2.bias, self.mlp_fc1.kernel,
-                     self.mlp_fc1.bias, self.mlp_fc2.kernel,
-                     self.mlp_fc2.bias, heads=self.heads)
-            return self._roll(window_reverse(out, w, hres, wres),
-                              1).reshape(b, l, c)
+            out = fn(xs, self.norm1.scale, self.norm1.bias, a.qkv.kernel,
+                     a.qkv.bias, a.proj.kernel, a.proj.bias, a.bias(),
+                     self.attn_mask, self.norm2.scale, self.norm2.bias,
+                     self.mlp_fc1.kernel, self.mlp_fc1.bias,
+                     self.mlp_fc2.kernel, self.mlp_fc2.bias, heads=self.heads,
+                     token_map=self.token_map)
+            return out.reshape(b, l, c)
         y = self._roll(self.norm1(x).reshape(b, hres, wres, c), -1)
         y = self.attn(window_partition(y, w), self.attn_mask)
         y = self._roll(window_reverse(y, w, hres, wres), 1)
@@ -262,7 +275,10 @@ class HTSATEncoder(nn.Module):
         chunk = c.spec_frames // c.freq_ratio
         x = mel.reshape(b, c.freq_ratio, chunk, c.n_mels).permute(0, 2, 1, 3)
         x = self.patch_embed(x.reshape(b, chunk, c.freq_ratio * c.n_mels))
-        return self.patch_norm(x)
+        x = self.patch_norm(x)
+        # the block path's stream is bf16 from the first block on
+        first = getattr(self, self.stages[0][0])
+        return x.to(c.torch_dtype) if first.block_path else x
 
     def forward(self, mel):
         """mel (B, frames, n_mels) f32 log-mel -> (B, 8 * embed_dim) f32."""

@@ -56,10 +56,11 @@ SIGNATURES = {
     "wt_postln_mlp_block": [_P] * 10 + [_I] * 4 + [_P],
     "wt_postln_fc": [_P] * 4 + [_I] * 4 + [_P],
     "wt_postln_proj": [_P] * 8 + [_I] * 3 + [_P],
+    "wt_swin_fused_max_width": [],
     "wt_window_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
-                            _I, _I, _I, _I, _P],
-    "wt_swin_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
-                      _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+                            _I, _I, _I, _I, _P, _P],
+    "wt_swin_block": [_P, _P, _I] + [_P] * 8 + [_I] + [_P] * 12 + [_I] * 5
+                     + [_P, _P],
     "wt_topk_threshold": [_P, _P, _I] + [_P] * 5 + [_I] * 8 + [_P, _P],
     "wt_topk_gemm": [_P, _I, _I, _P, _I, _P, _P],
     "wt_topk_gemm_f32": [_P, _I, _I, _P, _I, _I, _P, _P],

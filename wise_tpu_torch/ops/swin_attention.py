@@ -10,11 +10,19 @@ layout (wqkv (C, 3C), wo (C, C)) with biases in the weight dtype, the
 relative-position bias (heads, L, L) f32 and the shift mask (n_win, L, L) f32
 or None, window w taking mask[w % n_win]. On a CPU tensor it computes its
 plain version; on a CUDA tensor it launches ``wt_window_attention``
-(csrc/swin_kernels.cu) or raises. ``LAUNCHES`` counts the launches.
+(csrc/swin_kernels.cu) or raises. ``LAUNCHES`` counts the calls that
+launched. Which kernels a call launches the C entry picks by C alone
+(``swin_route`` asks it): up to its ``kSwinFusedMaxC`` one,
+``swin_attn_kernel`` (also kernel A of the block, ops/swin_block.py);
+wider, the chain of the qkv GEMM, the window attention and the out-proj
+GEMM. ``KERNEL_LAUNCHES`` counts those kernels for both Swin wrappers, as
+the C entries report them: each adds one to a kernel's entry of the call's
+``launched`` array where it launched that kernel.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -24,6 +32,10 @@ from .build import LaunchCounter, check, load_library, refuse_grad
 
 MAX_WINDOW_TOKENS = 64
 MAX_HEAD_DIM = 32
+#: the kernels the C entries count, in the order of their ``launched``
+#: array (csrc/swin_kernels.cu ``SwinKernel``)
+KERNELS = ("swin_attn_kernel", "swin_mlp_kernel", "window_attention_kernel",
+           "gemm_kernel", "layernorm_kernel")
 
 _launches = LaunchCounter("fused_window_attention")
 #: kernel launches per wrapper since the last reset_launches()
@@ -31,7 +43,40 @@ LAUNCHES = _launches.counts
 #: the same launches keyed by (wrapper, L, C, masked): one stage's count,
 #: shifted blocks (with a shift mask) apart from the others
 LAUNCHES_BY_SHAPE = _launches.by_shape
-reset_launches = _launches.reset
+_kernels = LaunchCounter(*KERNELS)
+#: launches of each kernel both Swin wrappers launched, since the last
+#: reset_launches() of either module
+KERNEL_LAUNCHES = _kernels.counts
+#: the same keyed by (kernel, L, C, masked)
+KERNEL_LAUNCHES_BY_SHAPE = _kernels.by_shape
+
+
+def reset_launches() -> None:
+    _launches.reset()
+    _kernels.reset()
+
+
+def swin_route(width: int) -> str:
+    """"fused" where the C entries run their fused kernels at C (up to
+    csrc/swin_kernels.cu kSwinFusedMaxC: HTSAT's stages 0-2), else "chain"
+    (stage 3, C 768: the source records the bytes that keep it there). Asks
+    the library, so it needs the card's build."""
+    return ("fused" if width <= load_library().wt_swin_fused_max_width()
+            else "chain")
+
+
+def launched_array():
+    """The ``launched`` array a C entry fills: one int a kernel of
+    ``KERNELS``, zeroed."""
+    return (ctypes.c_int * len(KERNELS))()
+
+
+def count_launched(launched, l: int, c: int, masked: bool) -> None:
+    """Add the kernels a C entry reported in ``launched`` to
+    ``KERNEL_LAUNCHES``, keyed by the call's (L, C, masked)."""
+    for name, times in zip(KERNELS, launched):
+        for _ in range(times):
+            _kernels.add(name, l, c, masked)
 
 
 def supports_swin_kernels(seq: int, width: int, heads: int) -> bool:
@@ -106,13 +151,19 @@ def fused_window_attention(x, wqkv, bqkv, wo, bo, bias, mask, heads: int):
     check_dense(wo, bo, (c, c), x.device, f"{name} proj")
     lib = load_library()
     m = n * l
-    scratch = dict(dtype=torch.bfloat16, device=x.device)
-    qkv = torch.empty((m, 3 * c), **scratch)
-    att = torch.empty((m, c), **scratch)
+    # the chain's scratch (bf16): qkv (M, 3C) and att (M, C)
+    scratch = []
+    if swin_route(c) == "chain":
+        scratch = [torch.empty((m, w), dtype=torch.bfloat16, device=x.device)
+                   for w in (3 * c, c)]
+    qkv, att = _ptrs(*scratch) if scratch else (None, None)
     out = torch.empty_like(x)
+    launched = launched_array()
     check(lib.wt_window_attention(
         *_ptrs(x, wqkv, bqkv, wo, bo, bias),
         None if mask is None else mask.data_ptr(), n_win,
-        *_ptrs(out, qkv, att), n, l, c, heads, _stream(x)), name)
+        out.data_ptr(), qkv, att, n, l, c, heads, ctypes.addressof(launched),
+        _stream(x)), name)
     _launches.add(name, l, c, n_win > 0)
+    count_launched(launched, l, c, n_win > 0)
     return out

@@ -143,7 +143,15 @@ Phases, one line each; any failure exits non-zero:
    the launch counter) and fused_topk in a ``search_batch`` of 64 vectors
    at k = 100. Then the same index under bf16 and int8 storage, the
    approximate scan at recall target 0.95, and IndexIVFFlat built from the
-   same store and searched at nprobe 1024.
+   same store and searched at nprobe 1024. Last IndexIVFPQ from the same
+   store at the reference's defaults (M 8, OPQ, int8 refine codes, rerank
+   of 4 x k ADC candidates) at nprobe 1024: its plain-torch paged ADC
+   (``ivfpq_search_paged``, no kernel: no top-k kernel may launch in the
+   leg) must return the numpy host ADC's candidates for 8 queries, up to
+   swaps between scores within 1e-5; recall@10 against the flat result with
+   the flat-sibling rerank, with the int8 refine rerank and with none, the
+   first at least the last; every perturbed stored frame's source found in
+   its top 10 (R1@10 >= 0.9).
 
 10. train: CLIP fine-tuning through the port's CLIPTrainer at full width
    and depth. ViT-B/32 (``training_clip_config("ViT-B-32", "bfloat16")``:
@@ -2908,6 +2916,9 @@ def phase_index(torch, card, k=10):
                              f"at nprobe 1024")
         del idx
         torch.cuda.empty_cache()
+
+        _ivfpq_leg(torch, card, project_dir, load, create_index, q64,
+                   f32_ids10, k)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     launches = {key: n for key, n in FT.LAUNCHES_BY_SHAPE.items() if n}
@@ -2916,6 +2927,125 @@ def phase_index(torch, card, k=10):
                              in sorted(launches.items())},
                             separators=(",", ":")))
     return launches
+
+
+def _ivfpq_leg(torch, card, project_dir, load, create_index, q64, flat_ids,
+               k, nprobe=1024):
+    """IndexIVFPQ built by the create-index CLI from the index phase's
+    store, at the reference's defaults. The paged ADC is plain torch and no
+    top-k kernel may launch. Held: 8 queries' ADC candidates (no rerank)
+    against the numpy host ADC on the same file; recall@10 against the
+    flat ids ``flat_ids`` of ``q64`` with each rerank and none; R1@10 over
+    the perturbed stored frames (``q64[8:]``)."""
+    import numpy as np
+    from wise_tpu_torch.eval.index_recall import recall_at_k, top1_recall_at_n
+    from wise_tpu_torch.ops import fused_topk as FT
+    from wise_tpu_torch.ops.ivf_paged import ivfpq_search_paged
+
+    launched = dict(FT.LAUNCHES_BY_SHAPE)
+    t0 = time.perf_counter()
+    if create_index.main(["--project-dir", str(project_dir),
+                          "--index-type", "IndexIVFPQ"]) != 0:
+        raise PhaseError("create-index IndexIVFPQ failed")
+    build_s = time.perf_counter() - t0
+
+    def recalls(ids):
+        return (recall_at_k(flat_ids, ids, k),
+                top1_recall_at_n(flat_ids[8:], ids[8:], k))
+
+    # the default search: ADC candidates, reranked from the IndexFlatIP file
+    idx, load_s = load("IndexIVFPQ", nprobe=nprobe)
+    if idx._ensure_flat_sibling() is None:
+        raise PhaseError("index: IVF-PQ found no IndexFlatIP sibling")
+    pg = idx._ensure_pq_paged()
+    if pg["paged"].dtype != torch.uint8 or not pg["paged"].is_cuda:
+        raise PhaseError(f"index: IVF-PQ codes {pg['paged'].dtype} on "
+                         f"{pg['paged'].device}")
+    resident = sum(t.numel() * t.element_size() for t in pg.values()
+                   if isinstance(t, torch.Tensor))
+    flat_r10, flat_r1 = recalls(idx.search_batch(q64, k)[1])
+    q1_ms = _p50_ms(lambda: idx.search_batch(q64[:1], k), 10)
+    q64_ms = _p50_ms(lambda: idx.search_batch(q64, k), 5, 1)
+    meta = dict(idx._metadata)
+    opq = "opq_rotation" in idx._arrays
+    flat_file = idx.index_path("IndexFlatIP")
+    del idx
+
+    # the ADC alone, against the numpy host ADC on the same file
+    idx, _ = load("IndexIVFPQ", nprobe=nprobe, pq_exact_rerank=False)
+    q8 = q64[:8]
+    got = idx.search_batch(q8, k)
+    hv, hr = idx._search_ivfpq_host(q8, k, nprobe)
+    check = FT.topk_agreement(
+        tuple(map(torch.from_numpy, got)),
+        (torch.from_numpy(hv), torch.from_numpy(idx._rows_to_ids(hv, hr))),
+        tol=1e-5)
+    if not check["ok"]:
+        raise PhaseError(f"index: IVF-PQ ADC off the host ADC: {check}")
+    adc_r10, adc_r1 = recalls(idx.search_batch(q64, k)[1])
+
+    # ivfpq_search_paged alone at the rerank's 4 x k candidates: CUDA-event
+    # ms a call (mean), its kernels' device ms and launches a call
+    # (torch.profiler), the pages a query may probe and the chunk
+    centroids, _ = idx._ensure_ivf_coarse()
+    kc = idx.config.pq_rerank_mult * k
+    paged = {}
+    for qn in (1, 64):
+        q = torch.from_numpy(idx._rotate_q_pq(q64[:qn])).cuda()
+        budget, chunk = idx._paged_plan(pg, nprobe, nq=qn, pq=True)
+
+        def adc(q=q, budget=budget, chunk=chunk):
+            return ivfpq_search_paged(
+                q, centroids, pg["page_first"], pg["page_count"],
+                pg["paged"], pg["page_rows"], pg["codebooks"], nprobe=nprobe,
+                budget=budget, chunk=chunk, k=kc)
+
+        kernels = _device_kernels(torch, adc, reps=3 if qn == 1 else 1)
+        paged[qn] = {
+            "ms": f"{_cuda_ms(torch, adc, 20 if qn == 1 else 3):.3f}",
+            "kernel_ms": f"{sum(e[0] for e in kernels):.3f}",
+            "launches": f"{sum(e[1] for e in kernels):g}", "chunk": chunk,
+            "budget_pages": budget}
+    del idx
+
+    # the int8 refine rerank: the flat file out of sight for this load
+    hidden = flat_file.with_suffix(".hidden")
+    flat_file.rename(hidden)
+    try:
+        idx, _ = load("IndexIVFPQ", nprobe=nprobe)
+        if idx._ensure_flat_sibling() is not None:
+            raise PhaseError("index: the IndexFlatIP file was not hidden")
+        refine_r10, refine_r1 = recalls(idx.search_batch(q64, k)[1])
+        refine_q1_ms = _p50_ms(lambda: idx.search_batch(q64[:1], k), 10)
+        del idx
+    finally:
+        hidden.rename(flat_file)
+    torch.cuda.empty_cache()
+
+    say("index", card=repr(card), path="IndexIVFPQ",
+        build_s=f"{build_s:.1f}", load_s=f"{load_s:.1f}",
+        nlist=meta["nlist"], pq_m=meta["pq_m"], opq=opq, nprobe=nprobe,
+        codes_device_bytes=pg["paged"].numel(),
+        resident_device_bytes=resident,
+        recall10_vs_flat=f"{flat_r10:.4f}",
+        recall10_vs_flat_refine=f"{refine_r10:.4f}",
+        recall10_vs_flat_adc=f"{adc_r10:.4f}",
+        r1_at10_near=f"{flat_r1:.4f}", r1_at10_near_refine=f"{refine_r1:.4f}",
+        r1_at10_near_adc=f"{adc_r1:.4f}",
+        adc_vs_host_max_abs_err=check["max_abs_err"],
+        adc_vs_host_swaps=check["mismatched"],
+        q1_k10_p50_ms=f"{q1_ms:.3f}", q64_k10_p50_ms=f"{q64_ms:.3f}",
+        q1_k10_refine_p50_ms=f"{refine_q1_ms:.3f}",
+        **{f"paged_adc_q{qn}_{key}": val for qn, row in paged.items()
+           for key, val in row.items()})
+    if dict(FT.LAUNCHES_BY_SHAPE) != launched:
+        raise PhaseError("index: a top-k kernel launched in the IVF-PQ leg")
+    if flat_r10 < adc_r10:
+        raise PhaseError(f"index: IVF-PQ recall@10 with the flat rerank "
+                         f"{flat_r10} under the ADC's alone {adc_r10}")
+    if min(flat_r1, refine_r1) < 0.9:
+        raise PhaseError(f"index: IVF-PQ R1@10 on perturbed frames {flat_r1} "
+                         f"(flat rerank), {refine_r1} (refine) < 0.9")
 
 
 #: the padded-head phase (ViT-H/14's vision tower with the padded-head block

@@ -4,9 +4,9 @@ package's on the same feature store.
 One project is extracted once (the numpy fake extractor
 ``wise/random_features/32``, identical in both packages) and copied, so both
 packages index the same store. Each then runs its own ``create-index`` CLI
-for IndexFlatIP and IndexIVFFlat, its ``search`` CLI (CSV) for both index
-types and for the storage types and the approximate scan the port now
-serves, and its engine through the REST server.
+for IndexFlatIP, IndexIVFFlat and IndexIVFPQ, its ``search`` CLI (CSV) for
+the three index types and for the storage types and the approximate scan the
+port serves, and its engine through the REST server.
 
 Tolerance: the result rows (file, times, vector ids' order) must be equal;
 scores are printed to 3 decimals and may differ by one unit in the last
@@ -32,6 +32,7 @@ VARIANTS = {
                   "bfloat16"],
     "flat-int8": ["--index-type", "IndexFlatIP", "--storage-dtype", "int8"],
     "ivf": ["--index-type", "IndexIVFFlat"],
+    "ivfpq": ["--index-type", "IndexIVFPQ"],
 }
 
 
@@ -51,8 +52,8 @@ def _search(pkg, proj, root, query, tag, extra, k=10):
 
 @pytest.fixture(scope="module")
 def projects(tmp_path_factory):
-    """{package: project dir} over one extracted store, both index types
-    built by each package's own create-index CLI."""
+    """{package: project dir} over one extracted store, the three index
+    types built by each package's own create-index CLI."""
     root = tmp_path_factory.mktemp("indexslice")
     media = root / "media"
     media.mkdir()
@@ -69,7 +70,7 @@ def projects(tmp_path_factory):
         for pkg in ("wise_tpu", "wise_tpu_torch"):
             proj = root / pkg / "proj"
             shutil.copytree(seed, proj)
-            for index_type in ("IndexFlatIP", "IndexIVFFlat"):
+            for index_type in ("IndexFlatIP", "IndexIVFFlat", "IndexIVFPQ"):
                 assert _cli(pkg, "create_index")([
                     "--project-dir", str(proj), "--index-type", index_type,
                     "--media-type", "video"]) == 0
@@ -115,7 +116,8 @@ def test_approx_search_cli_recall(projects):
     assert hits / total >= 0.9
 
 
-@pytest.mark.parametrize("index_type", ["IndexFlatIP", "IndexIVFFlat"])
+@pytest.mark.parametrize("index_type", ["IndexFlatIP", "IndexIVFFlat",
+                                        "IndexIVFPQ"])
 def test_rest_matches_jax(projects, index_type):
     out = {}
     for pkg in ("wise_tpu", "wise_tpu_torch"):
@@ -129,10 +131,3 @@ def test_rest_matches_jax(projects, index_type):
     assert out["wise_tpu_torch"][0] == out["wise_tpu"][0]
     for g, w in zip(out["wise_tpu_torch"][1], out["wise_tpu"][1]):
         assert abs(g - w) <= 1.001e-3
-
-
-def test_ivfpq_cli_raises_and_names_the_roadmap(projects):
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        _cli("wise_tpu_torch", "create_index")([
-            "--project-dir", str(projects["wise_tpu_torch"]),
-            "--index-type", "IndexIVFPQ", "--media-type", "video"])

@@ -12,6 +12,8 @@ Tolerances:
 - ``.widx`` files: an IVF-Flat file built by either package holds the same
   arrays (ids, cell_offsets equal; centroids within 1e-5) and is searched by
   the other with identical ids.
+- IndexIVFPQ through both packages' CLIs: the same result rows, scores as
+  printed (3 decimals) within one unit of the last digit.
 """
 
 
@@ -184,12 +186,54 @@ def test_ivf_pads_short_results_and_warns_on_int8(tmp_path, caplog):
     assert any("int8 only applies" in r.message for r in caplog.records)
 
 
-def test_ivfpq_still_raises(tmp_path):
+def test_unsupported_index_type_raises(tmp_path):
     asset, _, _ = _build_project_store(tmp_path, n=40, dim=32, seed=1)
-    idx = _index("torch", asset)
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        idx.create_index("IndexIVFPQ", overwrite=True)
-    with pytest.raises(NotImplementedError, match="IVF-PQ"):
-        idx.load_index("IndexIVFPQ")
     with pytest.raises(ValueError, match="unsupported"):
-        idx.create_index("IndexHNSW")
+        _index("torch", asset).create_index("IndexHNSW")
+
+
+@pytest.mark.parametrize("rerank", ["flat", "refine"])
+def test_ivfpq_cli_build_and_search_match_jax(tmp_path, rerank):
+    """IndexIVFPQ through each package's create-index and search CLIs on one
+    project (a copy each): the same result rows (file, times, ids' order),
+    with the flat-sibling rerank and, without the flat file, the int8
+    refine rerank."""
+    import csv
+    import importlib
+    import shutil
+
+    from tests.media_fixtures import make_video
+
+    media = tmp_path / "media"
+    media.mkdir()
+    for i in range(3):
+        make_video(media / f"v{i}.mp4", seconds=8, fps=10)
+    fid = "wise/random_features/32/ivfpq"
+    seed = tmp_path / "seed"
+    assert importlib.import_module(
+        "wise_tpu_torch.cli.extract_features").main([
+            str(media), "--project-dir", str(seed), "--video-feature-id", fid,
+            "--image-feature-id", fid, "--audio-feature-id", fid]) == 0
+    rows = {}
+    for pkg in ("wise_tpu", "wise_tpu_torch"):
+        proj = tmp_path / pkg
+        shutil.copytree(seed, proj)
+        cli = {name: importlib.import_module(f"{pkg}.cli.{name}").main
+               for name in ("create_index", "search")}
+        types = ["IndexIVFPQ"] + (["IndexFlatIP"] if rerank == "flat" else [])
+        for index_type in types:
+            assert cli["create_index"]([
+                "--project-dir", str(proj), "--index-type", index_type,
+                "--media-type", "video"]) == 0
+        out = tmp_path / f"{pkg}.csv"
+        assert cli["search"]([
+            "--project-dir", str(proj), "--query", "skiing", "--in",
+            "video", "--topk", "10", "--no-merge", "--result-format", "csv",
+            "--save-to-file", str(out), "--index-type", "IndexIVFPQ"]) == 0
+        with open(out) as f:
+            rows[pkg] = list(csv.reader(f))
+    got, want = rows["wise_tpu_torch"], rows["wise_tpu"]
+    assert len(got) == len(want) == 11
+    assert [r[:-1] for r in got] == [r[:-1] for r in want]
+    for g, w in zip(got[1:], want[1:]):
+        assert abs(float(g[-1]) - float(w[-1])) <= 1.001e-3

@@ -34,6 +34,11 @@ TRAINING = ["parallel/__init__.py", "parallel/train.py", "cli/train.py",
 #: the embed fold and the copy of the exact (PIL) preprocessing, which the
 #: walk over SOURCES must reach as well
 EMBED_AND_EXACT = ["ops/embed_block.py", "models/clip/preprocess.py"]
+#: IVF-PQ's training and encoding, the evaluation tools and the two small
+#: CLIs, which the walk over SOURCES must reach as well
+PQ_AND_EVAL = ["ops/pq.py", "eval/__init__.py", "eval/retrieval.py",
+               "eval/index_recall.py", "cli/merge_projects.py",
+               "io/__main__.py"]
 #: the host modules the port copied from the JAX package, path for path
 COPIED = """config data_models utils project db db.repository store
 store.feature_store store.factory store.npz_store store.tar_store io
@@ -43,7 +48,8 @@ models.feature_extractor models.random_features models.clip.tokenizer
 models.clip.convert models.clap.tokenizer models.clap.convert
 pipeline.extract api.models api.coalesce api.engine api.server
 cli.extract_features cli.create_index cli.search cli.serve cli.metadata
-pipeline.train_data""".split()
+pipeline.train_data ops.pq eval eval.retrieval eval.index_recall
+cli.merge_projects io.__main__""".split()
 
 
 def _rel(path):
@@ -91,6 +97,11 @@ def test_walk_reaches_the_embed_fold_and_the_exact_preprocessing():
                 if f"wise_tpu_torch/{m}" not in walked]
     assert "wise_tpu/models/clip/preprocess.py" in (
         preprocess_images_exact.__doc__ or ""), "the copy names its origin"
+
+
+def test_walk_reaches_the_pq_and_eval_modules():
+    walked = {_rel(p) for p in SOURCES}
+    assert not [m for m in PQ_AND_EVAL if f"wise_tpu_torch/{m}" not in walked]
 
 
 def test_train_cli_imports_without_the_jax_stack():

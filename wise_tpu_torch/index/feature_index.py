@@ -1,8 +1,9 @@
 """Vector search index over a feature store, on the port's device ops.
 
-Two index types with an ``.widx`` on-disk format that the JAX package reads
-and writes alike: the exact flat index (IndexFlatIP semantics) and IVF-Flat
-(k-means coarse quantizer, cell-sorted storage, nprobe search). The host half
+Three index types with an ``.widx`` on-disk format that the JAX package reads
+and writes alike: the exact flat index (IndexFlatIP semantics), IVF-Flat
+(k-means coarse quantizer, cell-sorted storage, nprobe search) and IVF-PQ
+(the same cells over product-quantized residual codes). The host half
 (``.widx`` build and load, the streaming build of a store larger than RAM, id
 mapping, reconstruction, ``search`` and ``search_batch*``) is numpy; the
 device half is PyTorch on one card:
@@ -16,14 +17,20 @@ device half is PyTorch on one card:
   re-scores in f32 from the memmapped index.
 - IndexIVFFlat: the paged layout of ``ops/ivf_paged.py`` on the card (f32, or
   bf16 with ``storage_dtype="bfloat16"``), searched at ``nprobe`` cells.
+- IndexIVFPQ: the paged layout over the uint8 codes and the f32 codebooks on
+  the card, searched by ADC (``ivfpq_search_paged``) at ``nprobe`` cells, with
+  an OPQ rotation of the query where the file has one. With
+  ``pq_exact_rerank`` the ADC proposes ``pq_rerank_mult * k`` candidates,
+  which the host re-scores from the asset's IndexFlatIP file when it exists,
+  else from the file's int8 refine codes.
 
 Heuristics of the reference (feature_search_index.py:53-59): nlist =
 3*sqrt(N) if N < 200k else 10*sqrt(N); train on min(N, 100*nlist) samples.
 Query prompts per modality are the reference's
 (ox-vgg/WISE/src/index/feature_search_index.py:24-28).
 
-IndexIVFPQ is not ported yet and raises ``NotImplementedError``; the paths
-that shard an index over several cards are not ported either.
+The paths that shard an index over several cards are not ported (ROADMAP
+Queue A item 12).
 
 The host half is copied from ``wise_tpu/index/feature_index.py``.
 """
@@ -55,11 +62,8 @@ QUERY_PROMPTS = {
 }
 
 
-def _unported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet: IVF-PQ (ops/pq.py, the paged "
-        f"ADC core, OPQ and the refine and rerank paths) is ROADMAP Queue A "
-        f"item 7")
+#: ``_flat_sibling`` before the asset's IndexFlatIP file was looked for
+_UNREAD = object()
 
 
 def _host(x) -> np.ndarray:
@@ -82,7 +86,8 @@ class FeatureSearchIndex(SearchIndex):
         self._arrays = None
         self._metadata = None
         self._device_db = self._int8_db = None
-        self._ivf_dev = self._ivf_paged = None
+        self._ivf_dev = self._ivf_paged = self._pq_paged = None
+        self._flat_sibling = _UNREAD
 
     # ------------------------------------------------------------------
     def index_path(self, index_type: str) -> Path:
@@ -127,9 +132,7 @@ class FeatureSearchIndex(SearchIndex):
         return nlist, min(n, cfg.ivf_train_per_cell * nlist)
 
     def create_index(self, index_type: str, overwrite: bool = False) -> bool:
-        if index_type == "IndexIVFPQ":
-            raise _unported(index_type)
-        if index_type not in ("IndexFlatIP", "IndexIVFFlat"):
+        if index_type not in ("IndexFlatIP", "IndexIVFFlat", "IndexIVFPQ"):
             raise ValueError(f"unsupported index_type {index_type}")
         out = self.index_path(index_type)
         if out.exists() and not overwrite:
@@ -145,38 +148,85 @@ class FeatureSearchIndex(SearchIndex):
         if index_type == "IndexFlatIP":
             write_index_file(out, {"ids": ids, "vectors": vecs},
                              {"index_type": "IndexFlatIP", **meta})
-        else:
-            from ..ops.kmeans import assign_cells, kmeans
+            logger.info(f"wrote {out}")
+            return True
 
-            nlist, train_count = self._ivf_params(n)
-            rng = np.random.default_rng(0)
-            train_idx = rng.permutation(n)[:train_count]
-            logger.info(f"IVF training: nlist={nlist} "
-                        f"train_count={train_count}")
-            centroids, _ = kmeans(vecs[train_idx], nlist, iters=20, seed=0,
-                                  device=self.device)
-            assign = assign_cells(vecs, centroids, self.device)
-            perm = np.argsort(assign, kind="stable")
-            counts = np.bincount(assign, minlength=nlist)
-            offsets = np.zeros(nlist + 1, dtype=np.int64)
-            np.cumsum(counts, out=offsets[1:])
+        from ..ops.kmeans import assign_cells, kmeans
+
+        cfg = self.config
+        nlist, train_count = self._ivf_params(n)
+        rng = np.random.default_rng(0)
+        train_idx = rng.permutation(n)[:train_count]
+        logger.info(f"IVF training: nlist={nlist} train_count={train_count}")
+        centroids, _ = kmeans(vecs[train_idx], nlist, iters=20, seed=0,
+                              device=self.device)
+        assign = assign_cells(vecs, centroids, self.device)
+        perm = np.argsort(assign, kind="stable")
+        counts = np.bincount(assign, minlength=nlist)
+        offsets = np.zeros(nlist + 1, dtype=np.int64)
+        np.cumsum(counts, out=offsets[1:])
+        meta["nlist"] = int(nlist)
+        if index_type == "IndexIVFFlat":
             write_index_file(
                 out,
                 {"ids": ids[perm], "vectors": vecs[perm],
                  "centroids": centroids, "cell_offsets": offsets},
-                {"index_type": "IndexIVFFlat", **meta, "nlist": int(nlist)},
+                {"index_type": "IndexIVFFlat", **meta},
             )
+            logger.info(f"wrote {out}")
+            return True
+
+        from ..ops.pq import encode_pq
+
+        residuals = vecs - centroids[assign]
+        pq_train = residuals[
+            rng.permutation(n)[: min(n, cfg.pq_train_samples)]]
+        rot, codebooks = self._train_pq(pq_train)
+        arrays = {}
+        centroids_out = centroids
+        if rot is not None:
+            residuals = residuals @ rot
+            centroids_out = (centroids @ rot).astype(np.float32)
+            arrays["opq_rotation"] = rot
+        codes = encode_pq(residuals, codebooks)
+        if cfg.pq_refine == "int8":
+            # int8 refine codes in the ORIGINAL basis (the rerank scores
+            # q . x directly; the OPQ rotation applies to the ADC only)
+            rcodes, rscales = quantize_rows_int8(vecs)
+            arrays["refine_codes"] = rcodes[perm]
+            arrays["refine_scales"] = rscales[perm]
+        write_index_file(
+            out,
+            {"ids": ids[perm], "codes": codes[perm],
+             "centroids": centroids_out, "pq_codebooks": codebooks,
+             "cell_offsets": offsets, **arrays},
+            {"index_type": "IndexIVFPQ", "pq_m": int(cfg.pq_m), **meta},
+        )
         logger.info(f"wrote {out}")
         return True
 
+    def _train_pq(self, residuals):
+        """PQ (or OPQ, with ``pq_opq``) on coarse-cell residuals -> (rotation
+        (D, D) f32 or None, codebooks (M, ksub, D/M) f32)."""
+        from ..ops.pq import train_opq, train_pq
+
+        cfg = self.config
+        logger.info(f"PQ training: M={cfg.pq_m} ksub={cfg.pq_ksub} "
+                    f"on {len(residuals)} residuals (opq={cfg.pq_opq})")
+        if cfg.pq_opq:
+            return train_opq(residuals, cfg.pq_m, cfg.pq_ksub,
+                             opq_iters=cfg.pq_opq_iters, device=self.device)
+        return None, train_pq(residuals, cfg.pq_m, cfg.pq_ksub,
+                              device=self.device)
+
     # ------------------------------------------------------------------
     # streaming (> RAM) build: never materialises the (N, D) f32 matrix.
-    # Flat is a single sequential pass. IVF-Flat: pass 1 gathers bounded
-    # training samples, pass 2 assigns cells batch by batch (device matmul),
-    # pass 3 scatter-writes each row to its cell-sorted destination through
-    # IndexFileWriter (sequential read, seek-write). RAM stays O(N) ints +
-    # O(train) vectors. Readers cannot tell the files from the in-memory
-    # path's.
+    # Flat is a single sequential pass. IVF-Flat and IVF-PQ: pass 1 gathers
+    # bounded training samples, pass 2 assigns cells batch by batch (device
+    # matmul), pass 3 scatter-writes each row (or its codes) to its
+    # cell-sorted destination through IndexFileWriter (sequential read,
+    # seek-write). RAM stays O(N) ints + O(train) vectors. Readers cannot
+    # tell the files from the in-memory path's.
     # ------------------------------------------------------------------
     def _create_index_streaming(self, index_type, out, store, n, d) -> bool:
         logger.info(f"streaming index build: type={index_type} n={n} d={d}")
@@ -198,12 +248,16 @@ class FeatureSearchIndex(SearchIndex):
 
         from ..ops.kmeans import assign_cells, kmeans
 
+        cfg = self.config
+        pq = index_type == "IndexIVFPQ"
         nlist, train_count = self._ivf_params(n)
-        train_count = min(train_count, self.config.ivf_stream_train_max)
+        train_count = min(train_count, cfg.ivf_stream_train_max)
         rng = np.random.default_rng(0)
-        train_idx = rng.permutation(n)[:train_count]
+        samples = [rng.permutation(n)[:train_count]]
+        if pq:
+            samples.append(rng.permutation(n)[: min(n, cfg.pq_train_samples)])
         logger.info(f"IVF training: nlist={nlist} train_count={train_count}")
-        sampled = self._gather_rows(store, [train_idx], d)
+        sampled = self._gather_rows(store, samples, d)
         centroids, _ = kmeans(sampled[0], nlist, iters=20, seed=0,
                               device=self.device)
 
@@ -224,24 +278,68 @@ class FeatureSearchIndex(SearchIndex):
         order = np.argsort(assign, kind="stable")
         dest = np.empty(n, dtype=np.int64)
         dest[order] = np.arange(n)
-        specs = {
-            "ids": (np.int64, (n,)),
-            "vectors": (np.float32, (n, d)),
-            "centroids": (np.float32, centroids.shape),
-            "cell_offsets": (np.int64, (nlist + 1,)),
-        }
-        header = {"index_type": "IndexIVFFlat", **meta, "nlist": int(nlist)}
+        meta["nlist"] = int(nlist)
 
-        # pass 3: scatter rows to their cell-sorted destinations
+        rot = None
+        refine = pq and cfg.pq_refine == "int8"
+        centroids_out = centroids
+        if pq:
+            from ..ops.pq import encode_pq
+
+            pq_rows = sampled[1]
+            pq_assign = assign_cells(pq_rows, centroids, self.device)
+            rot, codebooks = self._train_pq(pq_rows - centroids[pq_assign])
+            if rot is not None:
+                centroids_out = (centroids @ rot).astype(np.float32)
+            specs = {
+                "ids": (np.int64, (n,)),
+                "codes": (np.uint8, (n, cfg.pq_m)),
+                "centroids": (np.float32, centroids.shape),
+                "pq_codebooks": (np.float32, codebooks.shape),
+                "cell_offsets": (np.int64, (nlist + 1,)),
+            }
+            if rot is not None:
+                specs["opq_rotation"] = (np.float32, rot.shape)
+            if refine:
+                specs["refine_codes"] = (np.int8, (n, d))
+                specs["refine_scales"] = (np.float32, (n,))
+            header = {"index_type": "IndexIVFPQ", "pq_m": int(cfg.pq_m),
+                      **meta}
+        else:
+            specs = {
+                "ids": (np.int64, (n,)),
+                "vectors": (np.float32, (n, d)),
+                "centroids": (np.float32, centroids.shape),
+                "cell_offsets": (np.int64, (nlist + 1,)),
+            }
+            header = {"index_type": "IndexIVFFlat", **meta}
+
+        # pass 3: scatter rows (or codes) to their cell-sorted destinations
         with IndexFileWriter(out, specs, header) as w:
             w.write_rows("ids", 0, ids[order])
-            w.write_rows("centroids", 0, centroids)
+            w.write_rows("centroids", 0, centroids_out)
             w.write_rows("cell_offsets", 0, offsets)
+            if pq:
+                w.write_rows("pq_codebooks", 0, codebooks)
+            if rot is not None:
+                w.write_rows("opq_rotation", 0, rot)
             row = 0
             for _, batch in store.iter_batch(self.STREAM_BATCH):
                 batch = batch.reshape(-1, d)
                 m = batch.shape[0]
-                self._scatter_rows(w, "vectors", dest[row : row + m], batch)
+                to = dest[row : row + m]
+                if refine:
+                    rcodes, rscales = quantize_rows_int8(batch)
+                    self._scatter_rows(w, "refine_codes", to, rcodes)
+                    self._scatter_rows(w, "refine_scales", to, rscales)
+                if pq:
+                    resid = batch - centroids[assign[row : row + m]]
+                    if rot is not None:
+                        resid = resid @ rot
+                    self._scatter_rows(w, "codes", to,
+                                       encode_pq(resid, codebooks))
+                else:
+                    self._scatter_rows(w, "vectors", to, batch)
                 row += m
         logger.info(f"wrote {out} (streamed)")
         return True
@@ -282,8 +380,6 @@ class FeatureSearchIndex(SearchIndex):
 
     # ------------------------------------------------------------------
     def load_index(self, index_type: str) -> bool:
-        if index_type == "IndexIVFPQ":
-            raise _unported(index_type)
         path = self.index_path(index_type)
         if not path.exists():
             return False
@@ -291,7 +387,8 @@ class FeatureSearchIndex(SearchIndex):
         self._index_type = self._metadata["index_type"]
         # drop stale device copies
         self._device_db = self._int8_db = None
-        self._ivf_dev = self._ivf_paged = None
+        self._ivf_dev = self._ivf_paged = self._pq_paged = None
+        self._flat_sibling = _UNREAD
         return True
 
     def _ensure_device_db(self):
@@ -405,7 +502,7 @@ class FeatureSearchIndex(SearchIndex):
         if self._index_type == "IndexIVFFlat":
             return self._search_ivf_device(qvec, topk, self.config.nprobe)
         if self._index_type == "IndexIVFPQ":
-            raise _unported(self._index_type)
+            return self._search_ivfpq(qvec, topk, self.config.nprobe)
         raise ValueError(f"unknown index type {self._index_type}")
 
     # ------------------------------------------------------------------
@@ -418,39 +515,38 @@ class FeatureSearchIndex(SearchIndex):
                              torch.from_numpy(offsets).to(self.device))
         return self._ivf_dev
 
-    def _ensure_paged(self):
+    def _ensure_paged(self, attr, array_name, lpad, cast_bf16):
         """Device-resident paged layout (ops/ivf_paged.py) over the
-        cell-sorted rows, built once per load; bf16 with
-        ``storage_dtype="bfloat16"``."""
-        if self._ivf_paged is None:
+        cell-sorted ``array_name`` rows (``vectors`` or the uint8 ``codes``),
+        built once per load and kept in ``attr``; with ``cast_bf16`` and
+        ``storage_dtype="bfloat16"`` the pages are bf16."""
+        if getattr(self, attr) is None:
             from ..ops.ivf_paged import build_paged_layout
 
             lay = build_paged_layout(
-                np.asarray(self._arrays["vectors"]),
-                np.asarray(self._arrays["cell_offsets"]),
-                self.config.ivf_page_rows,
-            )
+                np.asarray(self._arrays[array_name]),
+                np.asarray(self._arrays["cell_offsets"]), lpad)
             paged = torch.from_numpy(lay["paged"]).to(self.device)
-            if self.config.storage_dtype == "bfloat16":
+            if cast_bf16 and self.config.storage_dtype == "bfloat16":
                 paged = paged.to(torch.bfloat16)
-            self._ivf_paged = {
+            setattr(self, attr, {
                 "paged": paged,
-                "page_rows": torch.from_numpy(lay["page_rows"]).to(
-                    self.device),
-                "page_first": torch.from_numpy(lay["page_first"]).to(
-                    self.device),
-                "page_count": torch.from_numpy(lay["page_count"]).to(
-                    self.device),
+                **{name: torch.from_numpy(lay[name]).to(self.device)
+                   for name in ("page_rows", "page_first", "page_count")},
                 "page_count_host": lay["page_count"],
-            }
-        return self._ivf_paged
+            })
+        return getattr(self, attr)
 
-    def _paged_plan(self, pg, nprobe, nq=1):
+    def _paged_plan(self, pg, nprobe, nq=1, pq=False):
         from ..ops.ivf_paged import default_chunk, paged_budget
 
         budget = paged_budget(pg["page_count_host"], nprobe)
         lpad = pg["paged"].shape[1]
-        chunk = default_chunk(lpad, int(self._metadata["dim"]), budget,
+        dim = int(self._metadata["dim"])
+        # PQ keeps the reference's sizing, max(D, 256) f32 a lane for its
+        # one-hot ADC; the gather ADC holds ~20 M bytes a lane (the widened
+        # codes, the gather's int64 indices, its f32 entries), 160 at M = 8
+        chunk = default_chunk(lpad, max(dim, 256) if pq else dim, budget,
                               nq=nq)
         return budget, chunk
 
@@ -470,7 +566,8 @@ class FeatureSearchIndex(SearchIndex):
         from ..ops.ivf_paged import ivf_search_paged
 
         centroids, _ = self._ensure_ivf_coarse()
-        pg = self._ensure_paged()
+        pg = self._ensure_paged("_ivf_paged", "vectors",
+                                self.config.ivf_page_rows, cast_bf16=True)
         nprobe = min(int(nprobe), centroids.shape[0])
         budget, chunk = self._paged_plan(pg, nprobe, nq=qvec.shape[0])
         q = torch.from_numpy(np.ascontiguousarray(qvec, dtype=np.float32))
@@ -480,6 +577,177 @@ class FeatureSearchIndex(SearchIndex):
             k=int(topk),
         )
         return self._pad_device_topk(vals, rows, topk)
+
+    # ------------------------------------------------------------------
+    def _rotate_q_pq(self, qvec: np.ndarray) -> np.ndarray:
+        """OPQ: the .widx stores ROTATED centroids + codebooks trained in
+        rotated space; one orthogonal rotation of the query puts probe and
+        ADC in that space (inner products invariant)."""
+        if "opq_rotation" in self._arrays:
+            rot = np.asarray(self._arrays["opq_rotation"], np.float32)
+            return (qvec.astype(np.float32) @ rot).astype(np.float32)
+        return qvec
+
+    def _search_ivfpq(self, qvec, topk, nprobe):
+        """IVF+PQ on one card: the ADC (``_search_ivfpq_device``), then the
+        rerank backstop (``pq_exact_rerank``, on by default): the ADC
+        proposes ``pq_rerank_mult * k`` candidates, which the host re-scores
+        from the best source there is: the asset's IndexFlatIP file (exact
+        f32 rows) where it exists, else the file's int8 refine codes
+        (``pq_refine``; D bytes a row against the flat file's 4D). PQ's
+        error then decides which candidates are considered, not their order
+        beyond the rescore's precision (exact for flat, ~1e-3 for int8)."""
+        k = int(topk)
+        rerank = None
+        if self.config.pq_exact_rerank:
+            if self._ensure_flat_sibling() is not None:
+                rerank = "flat"
+            elif "refine_codes" in self._arrays:
+                rerank = "refine"
+        k_ask = k
+        if rerank is not None:
+            k_ask = min(self.config.pq_rerank_mult * k,
+                        len(self._arrays["ids"]))
+        vals, rows = self._search_ivfpq_device(qvec, k_ask, nprobe)
+        if rerank == "flat":
+            return self._rerank_pq_candidates(qvec, vals, rows, k)
+        if rerank == "refine":
+            return self._rerank_refine_candidates(qvec, vals, rows, k)
+        return vals, rows
+
+    def _ensure_flat_sibling(self):
+        """(memmapped vectors, sorted ids, argsort(ids)) of the same asset's
+        IndexFlatIP file, or None when it doesn't exist. The reference sorts
+        the ids anew at every rerank, a gather of every id; here once a
+        load."""
+        if self._flat_sibling is _UNREAD:
+            path = self.index_path("IndexFlatIP")
+            if not path.exists():
+                self._flat_sibling = None
+            else:
+                _, arrays = read_index_file(path)
+                fids = np.asarray(arrays["ids"])
+                order = np.argsort(fids)
+                self._flat_sibling = (arrays["vectors"], fids[order], order)
+        return self._flat_sibling
+
+    def _rerank_pq_candidates(self, qvec, vals, rows, k: int):
+        """Exact host rescoring of ADC candidates from the flat sibling:
+        PQ rows -> vector ids -> flat rows -> f32 dot; ties prefer the
+        lower vector id. Returns (scores, rows) in PQ row space."""
+        vecs, sorted_ids, order = self._flat_sibling
+        pq_ids = np.asarray(self._arrays["ids"])
+        q32 = np.asarray(qvec, dtype=np.float32)
+        out_v = np.full((q32.shape[0], k), -np.inf, np.float32)
+        out_r = np.zeros((q32.shape[0], k), np.int64)
+        for qi in range(q32.shape[0]):
+            keep = ~np.isneginf(vals[qi])
+            prows = np.unique(np.asarray(rows[qi])[keep]).astype(np.int64)
+            if not len(prows):
+                continue
+            ids = pq_ids[prows]
+            pos = np.searchsorted(sorted_ids, ids)
+            pos = np.minimum(pos, len(sorted_ids) - 1)
+            ok = sorted_ids[pos] == ids
+            prows, ids, pos = prows[ok], ids[ok], pos[ok]
+            frows = order[pos]
+            scores = np.asarray(vecs[frows], np.float32) @ q32[qi]
+            sel = np.lexsort((ids, -scores))[:k]
+            out_v[qi, : len(sel)] = scores[sel]
+            out_r[qi, : len(sel)] = prows[sel]
+        return out_v, out_r
+
+    def _rerank_refine_candidates(self, qvec, vals, rows, k: int):
+        """Host rescoring of ADC candidates from the in-file int8 refine
+        codes: score = (codes[row] . q) * scale[row] ~ x[row] . q to int8
+        precision. Candidates are PQ rows already, so the gather is a
+        direct memmap read (~kc * D bytes). Ties prefer the lower vector
+        id, matching the flat-sibling rerank."""
+        codes = self._arrays["refine_codes"]  # memmap (N, D) int8
+        scales = self._arrays["refine_scales"]
+        pq_ids = np.asarray(self._arrays["ids"])
+        q32 = np.asarray(qvec, dtype=np.float32)
+        out_v = np.full((q32.shape[0], k), -np.inf, np.float32)
+        out_r = np.zeros((q32.shape[0], k), np.int64)
+        for qi in range(q32.shape[0]):
+            keep = ~np.isneginf(vals[qi])
+            prows = np.unique(np.asarray(rows[qi])[keep]).astype(np.int64)
+            if not len(prows):
+                continue
+            cand = np.asarray(codes[prows], np.float32)
+            scores = (cand @ q32[qi]) * np.asarray(scales[prows], np.float32)
+            ids = pq_ids[prows]
+            sel = np.lexsort((ids, -scores))[:k]
+            out_v[qi, : len(sel)] = scores[sel]
+            out_r[qi, : len(sel)] = prows[sel]
+        return out_v, out_r
+
+    def _ensure_pq_paged(self):
+        """The paged uint8 codes (never bf16) and the f32 codebooks on the
+        device, built once per load."""
+        pg = self._ensure_paged("_pq_paged", "codes",
+                                self.config.ivfpq_page_rows, cast_bf16=False)
+        if "codebooks" not in pg:
+            pg["codebooks"] = torch.from_numpy(np.array(
+                self._arrays["pq_codebooks"], np.float32)).to(self.device)
+        return pg
+
+    def _search_ivfpq_device(self, qvec, topk, nprobe):
+        from ..ops.ivf_paged import ivfpq_search_paged
+
+        qvec = self._rotate_q_pq(qvec)
+        centroids, _ = self._ensure_ivf_coarse()
+        pg = self._ensure_pq_paged()
+        nprobe = min(int(nprobe), centroids.shape[0])
+        budget, chunk = self._paged_plan(pg, nprobe, nq=qvec.shape[0],
+                                         pq=True)
+        q = torch.from_numpy(np.ascontiguousarray(qvec, dtype=np.float32))
+        vals, rows = ivfpq_search_paged(
+            q, centroids, pg["page_first"], pg["page_count"], pg["paged"],
+            pg["page_rows"], pg["codebooks"], nprobe=nprobe, budget=budget,
+            chunk=chunk, k=int(topk),
+        )
+        return self._pad_device_topk(vals, rows, topk)
+
+    def _search_ivfpq_host(self, qvec, topk, nprobe):
+        """IVF+PQ asymmetric-distance search in numpy (``ops/pq.py``): score
+        = q . cell_centroid + sum_m LUT[m, code_m] over the probed cells.
+        The device path is held to it."""
+        from ..ops.pq import adc_scores, adc_tables
+
+        qvec = self._rotate_q_pq(qvec)
+        centroids = np.asarray(self._arrays["centroids"])
+        offsets = np.asarray(self._arrays["cell_offsets"])
+        codebooks = np.asarray(self._arrays["pq_codebooks"])
+        codes = self._arrays["codes"]  # memmap
+        nlist = centroids.shape[0]
+        nprobe = min(int(nprobe), nlist)
+        cscores = qvec.astype(np.float32) @ centroids.T
+        probe_cells = np.argsort(-cscores, axis=1, kind="stable")[:, :nprobe]
+
+        out_scores = np.full((qvec.shape[0], topk), -np.inf, dtype=np.float32)
+        out_rows = np.zeros((qvec.shape[0], topk), dtype=np.int64)
+        for qi in range(qvec.shape[0]):
+            tables = adc_tables(qvec[qi], codebooks)
+            cand_scores = []
+            cand_rows = []
+            for c in np.sort(probe_cells[qi]):
+                a, b = int(offsets[c]), int(offsets[c + 1])
+                if b <= a:
+                    continue
+                s = adc_scores(np.asarray(codes[a:b]), tables)
+                s += cscores[qi, c]
+                cand_scores.append(s)
+                cand_rows.append(np.arange(a, b, dtype=np.int64))
+            if not cand_scores:
+                continue
+            s = np.concatenate(cand_scores)
+            r = np.concatenate(cand_rows)
+            k = min(int(topk), len(s))
+            order = np.argsort(-s, kind="stable")[:k]
+            out_scores[qi, :k] = s[order]
+            out_rows[qi, :k] = r[order]
+        return out_scores, out_rows
 
     # ------------------------------------------------------------------
     def search_batch(
@@ -497,7 +765,7 @@ class FeatureSearchIndex(SearchIndex):
         (the serve default) the handle holds the unrealised device tensors,
         so the caller's critical section costs the enqueue and readbacks
         overlap across requester threads. The other paths (int8 rerank,
-        approximate flat, IVF-Flat) compute here; their handle is
+        approximate flat, IVF-Flat, IVF-PQ) compute here; their handle is
         already-realised numpy and finalize is a cheap slice."""
         qvec = np.atleast_2d(np.asarray(query_vectors, dtype=np.float32))
         if (
@@ -516,6 +784,28 @@ class FeatureSearchIndex(SearchIndex):
         return v[0], self._rows_to_ids(v, r)[0]
 
     def reconstruct_rows(self, rows) -> np.ndarray:
-        """Stored vectors by row (faiss reconstruct_batch parity)."""
+        """Stored vectors by row (faiss reconstruct_batch parity). Flat and
+        IVF-Flat return exact rows; IVF-PQ with an int8 refine stage
+        reconstructs from the refine codes (~1e-3 relative error, far
+        closer than a PQ decode); codes-only IVF-PQ decodes cell_centroid +
+        per-subspace codebook entries (lossy, like faiss), un-rotating
+        OPQ-space reconstructions back to the original basis."""
         rows = np.atleast_1d(np.asarray(rows, dtype=np.int64))
-        return np.asarray(self._arrays["vectors"][rows], np.float32)
+        if "vectors" in self._arrays:
+            return np.asarray(self._arrays["vectors"][rows], np.float32)
+        if "refine_codes" in self._arrays:
+            cand = np.asarray(self._arrays["refine_codes"][rows], np.float32)
+            scales = np.asarray(self._arrays["refine_scales"][rows],
+                                np.float32)
+            return cand * scales[:, None]
+        from ..ops.pq import decode_pq
+
+        codes = np.asarray(self._arrays["codes"][rows])
+        centroids = np.asarray(self._arrays["centroids"])
+        offsets = np.asarray(self._arrays["cell_offsets"])
+        cells = np.searchsorted(offsets, rows, side="right") - 1
+        out = centroids[cells] + decode_pq(
+            codes, np.asarray(self._arrays["pq_codebooks"]))
+        if "opq_rotation" in self._arrays:
+            out = out @ np.asarray(self._arrays["opq_rotation"], np.float32).T
+        return out.astype(np.float32)

@@ -1,5 +1,5 @@
-"""Paged IVF-Flat search: coarse probe + page gather + chunked matmul
-(wise_tpu/ops/ivf_paged.py, the IVF-Flat half).
+"""Paged IVF search: coarse probe + page gather + chunked scoring
+(wise_tpu/ops/ivf_paged.py, the single-card half).
 
 - **Paged layout** (built once at load): the cell-sorted rows are re-packed
   so every cell starts on a page boundary and occupies an integral number of
@@ -10,8 +10,11 @@
   re-sorted ascending, their page counts cumsummed, and each of ``budget``
   slots finds its cell with a batched ``searchsorted``.
 - **Chunked scan**: the page list is processed ``chunk`` pages at a time, a
-  Python loop of budget / chunk steps; each step is one gather (Q, chunk,
-  lpad, D), one einsum and a running top-k merge.
+  Python loop of budget / chunk steps (``_scan_pages``); each step is one
+  page gather, the chunk's scores and a running top-k merge. IVF-Flat scores
+  a chunk with one einsum over the gathered (Q, chunk, lpad, D) rows;
+  IVF-PQ gathers (Q, chunk, lpad, M) uint8 codes and sums their entries of
+  the query's ADC tables.
 
 ``budget`` is the worst-case page count for the given nprobe
 (``paged_budget``); queries that probe fewer pages pad with the dummy page.
@@ -22,11 +25,15 @@ earlier chunks hold lower rows; every selection is a stable sort, which keeps
 the first occurrence (``torch.topk`` does not promise to).
 
 Plain torch ops: the reference leaves this path to XLA. ``build_paged_layout``
-is numpy, copied from the reference. The IVF-PQ core and the multi-chip
-partitioning are not ported yet.
+is numpy, copied from the reference. The reference's IVF-PQ core scores
+codes by one-hot matmuls, because gathers are what a TPU does slowly; here
+the ADC is its plain form, a ``torch.gather`` of table entries. The
+multi-chip partitioning (``shard_paged_layout``) is not ported yet.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -111,6 +118,27 @@ def _probe_pages(q, centroids, page_first, page_count, nprobe, budget, dummy):
     return page, torch.gather(pscores, 1, ci)
 
 
+def _pad_cols(x, chunk, fill):
+    pad = (-x.shape[1]) % chunk
+    return torch.nn.functional.pad(x, (0, pad), value=fill) if pad else x
+
+
+def _scan_pages(pages, chunk: int, k: int, score_chunk):
+    """Walk the (Q, budget) page list ``chunk`` pages at a time with a
+    running (Q, k) top-k. ``score_chunk(lo, pg)`` gives the scores and
+    cell-sorted rows (both (Q, chunk * lpad)) of pages ``pg`` = ``pages[:,
+    lo:lo + chunk]``, padding lanes at -inf."""
+    nq = pages.shape[0]
+    best_v = torch.full((nq, k), float("-inf"), device=pages.device)
+    best_r = torch.zeros((nq, k), dtype=torch.int64, device=pages.device)
+    for lo in range(0, pages.shape[1], chunk):
+        s, rows = score_chunk(lo, pages[:, lo:lo + chunk])
+        v, pos = _stable_topk(s, min(k, s.shape[1]))
+        best_v, best_r = _merge_topk(best_v, best_r, v,
+                                     torch.gather(rows, 1, pos), k)
+    return best_v, best_r
+
+
 def paged_flat_core(queries, centroids, page_first, page_count, paged_db,
                     page_rows, nprobe: int, budget: int, chunk: int, k: int):
     """IVF-Flat paged search. queries (Q, D) f32; centroids (nlist, D) f32;
@@ -123,26 +151,79 @@ def paged_flat_core(queries, centroids, page_first, page_count, paged_db,
     lpad = paged_db.shape[1]
     pages, _ = _probe_pages(q, centroids, page_first, page_count, nprobe,
                             budget, dummy)
-    pad = (-pages.shape[1]) % chunk
-    if pad:
-        pages = torch.nn.functional.pad(pages, (0, pad), value=dummy)
+    pages = _pad_cols(pages, chunk, dummy)
     bf16 = paged_db.dtype == torch.bfloat16
     # bf16 storage: bf16 query operand, f32 products and sums
     qd = q.to(torch.bfloat16).float() if bf16 else q
 
-    best_v = torch.full((nq, k), float("-inf"), device=q.device)
-    best_r = torch.zeros((nq, k), dtype=torch.int64, device=q.device)
-    for lo in range(0, pages.shape[1], chunk):
-        pg = pages[:, lo:lo + chunk]                 # (Q, chunk)
+    def score(lo, pg):
         blocks = paged_db[pg].float()                # (Q, chunk, lpad, D)
         rows = page_rows[pg].long()                  # (Q, chunk, lpad)
         s = torch.einsum("qd,qcld->qcl", qd, blocks)
         s = s.masked_fill(rows < 0, float("-inf"))
-        s, rows = s.reshape(nq, chunk * lpad), rows.reshape(nq, chunk * lpad)
-        v, pos = _stable_topk(s, min(k, s.shape[1]))
-        best_v, best_r = _merge_topk(best_v, best_r, v,
-                                     torch.gather(rows, 1, pos), k)
-    return best_v, best_r
+        return s.reshape(nq, -1), rows.reshape(nq, -1)
+
+    return _scan_pages(pages, chunk, k, score)
 
 
 ivf_search_paged = paged_flat_core
+
+
+@contextlib.contextmanager
+def _ieee_f32():
+    """f32 products without TF32 inside the block, whatever the process set
+    (``torch.backends.cuda.matmul.allow_tf32``), restored after it."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def paged_pq_core(queries, centroids, page_first, page_count, paged_codes,
+                  page_rows, codebooks, nprobe: int, budget: int, chunk: int,
+                  k: int):
+    """IVF-PQ paged search by ADC over residual codes: score = q . centroid
+    + sum_m tables[q, m, code_m], tables[q, m] = q_m . codebooks[m] (f32, no
+    TF32). queries (Q, D) f32 (OPQ-rotated by the caller where the index
+    has a rotation); centroids, page_first, page_count, page_rows as
+    ``paged_flat_core``; paged_codes (T+1, lpad, M) uint8, last page dummy;
+    codebooks (M, ksub, D/M) f32 -> (scores (Q, k), cell-sorted rows (Q,
+    k)); empty slots score -inf.
+
+    A row's M table entries are summed in f32 in the order m = 0 .. M-1,
+    then the probe score is added, as the reference's loop does, so that
+    scores agree to rounding and near-ties break alike."""
+    q = queries.to(device=paged_codes.device, dtype=torch.float32)
+    nq = q.shape[0]
+    dummy = paged_codes.shape[0] - 1
+    m, ksub, dsub = codebooks.shape
+    with _ieee_f32():
+        pages, slot_ps = _probe_pages(q, centroids, page_first, page_count,
+                                      nprobe, budget, dummy)
+        tables = torch.einsum("qmd,mkd->qmk", q.reshape(nq, m, dsub),
+                              codebooks.float())
+    pages = _pad_cols(pages, chunk, dummy)
+    slot_ps = _pad_cols(slot_ps, chunk, 0.0)
+    flat_tables = tables.reshape(nq, m * ksub)
+    book_base = torch.arange(m, device=q.device) * ksub      # (M,)
+
+    def score(lo, pg):
+        codes = paged_codes[pg].long()               # (Q, chunk, lpad, M)
+        rows = page_rows[pg].long()                  # (Q, chunk, lpad)
+        lanes = codes.shape[1] * codes.shape[2]
+        ent = torch.gather(flat_tables, 1,
+                           (codes + book_base).reshape(nq, lanes * m))
+        ent = ent.reshape(nq, codes.shape[1], codes.shape[2], m)
+        s = ent[..., 0]
+        for mi in range(1, m):
+            s = s + ent[..., mi]
+        s = s + slot_ps[:, lo:lo + pg.shape[1], None]
+        s = s.masked_fill(rows < 0, float("-inf"))
+        return s.reshape(nq, -1), rows.reshape(nq, -1)
+
+    return _scan_pages(pages, chunk, k, score)
+
+
+ivfpq_search_paged = paged_pq_core

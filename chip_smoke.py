@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths once on one NVIDIA GPU. Serving:
-OpenCLIP ViT-B/32, ViT-H/14 and the default backbone
-xlm-roberta-large-ViT-H-14 (video frames, with one batch of ViT-L/14 and
-ViT-B/16), CLAP 2023 (audio segments), and the production configuration with
+OpenCLIP ViT-B/32, ViT-H/14, SigLIP ViT-L-16-SigLIP-384 and the default
+backbone xlm-roberta-large-ViT-H-14 (video frames, with one batch each of
+ViT-L/14, ViT-B/16, ViT-L/14 at 336 px and ViT-B-16-SigLIP-256), CLAP 2023
+(audio segments), and the production configuration with
 WISE_FUSED_BLOCK=0. Training: CLIP fine-tuning steps of ViT-B/32 and
 ViT-L/14 on the saved-activation block kernels. Then the two paths whose
 gates ship closed: ViT-H/14 on the padded-head block, and the embed fold.
@@ -13,6 +14,8 @@ gates ship closed: ViT-H/14 on the padded-head block, and the embed fold.
     python3 chip_smoke.py --phase swin     # env, the Swin rows, the audio
                                            # batch's breakdown
     python3 chip_smoke.py --phase vit_h    # env and the ViT-H/14 slice only
+    python3 chip_smoke.py --phase siglip   # env, the SigLIP-384 slice and its
+                                           # batch's breakdown
     python3 chip_smoke.py --phase xlmr     # env and the default backbone only
     python3 chip_smoke.py --phase hybrid   # env and WISE_FUSED_BLOCK=0 only
     python3 chip_smoke.py --phase index    # env and the 1M-vector index only
@@ -34,8 +37,15 @@ Phases, one line each; any failure exits non-zero:
    CLIP block kernels at the ViT-B/32 vision, CLIP text and CLAP caption
    shapes, at ViT-H/14's vision (256 x 257 x 1280, head_dim 80) and text
    (8 x 77 x 1024) shapes with the split MLP pair and each of its halves,
-   and the attention block at ViT-L/14's and ViT-B/16's; planted there: the
-   head_dim-64 softmax scale, a query tile left unwritten, h not activated.
+   and the attention block at ViT-L/14's and ViT-B/16's; the SigLIP-384
+   vision blocks (256 x 576 x 1024, bf16 stream, gelu_tanh, the split MLP
+   and its halves; no pooled block) and text blocks (8 x 64 x 1024,
+   non-causal, pooled at row 63), and ViT-L/14 at 336 px (64 x 577 x 1024,
+   f32 stream, pooled at row 0); planted there: the head_dim-64 softmax
+   scale, a query tile left unwritten (and a ragged last one), the keys
+   past 272 dropped, h not activated. The SigLIP and 336 px attention rows
+   carry F.scaled_dot_product_attention on the block's own q, k and v as
+   ``library_ms`` (the attention part alone).
    Each row also carries the least time the card could take for its work
    (``bound_ms``: the larger of its operations over 989 TFLOP/s and its
    bytes over 3.35 TB/s, from the shapes). The Swin kernels at HTSAT's
@@ -52,13 +62,15 @@ Phases, one line each; any failure exits non-zero:
    F chunk of kernel B dropped). The post-LN
    blocks (attention block, MLP as "single" and as the split pair, each
    half) at the XLM-R shape 64 x 1024 at batch 8 and 256, and
-   fused_short_attention at ViT-B/32's vision and text shapes and at 64 x 257
-   tokens of width 1024 and 1280, with ``F.scaled_dot_product_attention``
+   fused_short_attention at ViT-B/32's vision and text shapes, at 64 x 257
+   tokens of width 1024 and 1280 and at 64 x 576 and 64 x 577 of width
+   1024, with ``F.scaled_dot_product_attention``
    timed beside it (``library_ms``): these have no residual under their
    output and are held on the whole output (cosine >= 0.999, max abs error
    <= 4 bf16 ulps of the output's max abs); planted there: the key mask
    dropped, half the softmax scale, the LayerNorm's scale and bias left
-   out, h not activated, the causal mask dropped. Every post-LN row that
+   out, h not activated, the causal mask dropped, the keys past 272
+   dropped. Every post-LN row that
    closes with the LayerNorm stands a second time ("-offset") on inputs
    whose closing bias carries a common offset of 200: the kernel must pass
    there too, and the residual sum rounded to bf16 before the LayerNorm
@@ -109,17 +121,26 @@ Phases, one line each; any failure exits non-zero:
    which must launch the window-attention kernel at every stage and agree
    with the block-kernel embeddings (cosine >= 0.999).
 
-5. families: one 64-frame batch through the port's extractor for ViT-L/14
-   and ViT-B/16 (full width and depth, random weights), embeddings against
-   the plain-PyTorch path (cosine >= 0.999), kernels launched at their
-   shapes.
-6. vit_h: phase 3 for OpenCLIP ViT-H/14 (vision 257 tokens x 1280, head_dim
+5. families: one 64-frame batch through the port's extractor for ViT-L/14,
+   ViT-B/16, ViT-L/14 at 336 px (577 tokens) and ViT-B-16-SigLIP-256 (256
+   tokens, MAP-pooled, width 768), full width and depth, random weights,
+   frames at each model's size; embeddings against the plain-PyTorch path
+   (cosine >= 0.999), kernels launched at their shapes.
+6. siglip: phase 3 for ViT-L-16-SigLIP-384, upstream WISE's integration-test
+   model (vision 576 tokens x 1024, 24 layers, bf16 stream, MAP pooling;
+   text 64 x 1024, 12 bidirectional layers pooled at the last token, biased
+   head; 32,000-token vocabulary through the hash tokenizer) on 512 frames
+   at 384 px in batches of 256: the ingest must launch exactly batches x 24
+   attention blocks and split MLPs and no pooled block; a text batch 11 of
+   each and one pooled block at row 63. One 64-frame batch also runs the
+   path of WISE_FUSED_BLOCK=0.
+7. vit_h: phase 3 for OpenCLIP ViT-H/14 (vision 257 tokens x 1280, head_dim
    80, 32 layers; text 77 x 1024, 24 layers; 1024-d joint space) on 512
    frames in batches of 256; the launch counts of the ingest must equal
    batches x (layers - 1) for the attention block and the split MLP, and
    batches for the pooled block. One 64-frame batch also runs the path of
    WISE_FUSED_BLOCK=0 (as does each tower of phase 5).
-7. xlmr: phase 3 for the reference's default backbone,
+8. xlmr: phase 3 for the reference's default backbone,
    xlm-roberta-large-ViT-H-14 (ViT-H/14's vision tower; the XLM-R large text
    tower: 64 tokens x 1024, 24 post-LN layers, 250,002-token vocabulary,
    the "mlp" projection head), 1,024 frames; a text batch must launch 24
@@ -127,13 +148,13 @@ Phases, one line each; any failure exits non-zero:
    from the launch counters. The MLP as "single" is held in phase 2 alone:
    at width 1024 the port's table, like the reference's, picks the split
    pair, so the path must launch it no time and the summary says 0.
-8. hybrid: the production configuration with WISE_FUSED_BLOCK=0 (block
+9. hybrid: the production configuration with WISE_FUSED_BLOCK=0 (block
    kernels off, the attention middle a kernel) for ViT-B/32: one 256-frame
    batch and the 8 queries against the fully plain twin (min embedding
    cosine >= 0.9995); fused_short_attention must launch once for every
    non-pooled layer.
 
-9. index: the index and query leg at deployment size. A WiseProject of
+10. index: the index and query leg at deployment size. A WiseProject of
    1,048,576 vectors of 512 dimensions (256 ViT-B/32 embeddings of one
    seeded clip, the rest seeded synthetic unit vectors clustered by clip)
    written through the port's feature store and DB; ``create-index``
@@ -153,7 +174,7 @@ Phases, one line each; any failure exits non-zero:
    first at least the last; every perturbed stored frame's source found in
    its top 10 (R1@10 >= 0.9).
 
-10. train: CLIP fine-tuning through the port's CLIPTrainer at full width
+11. train: CLIP fine-tuning through the port's CLIPTrainer at full width
    and depth. ViT-B/32 (``training_clip_config("ViT-B-32", "bfloat16")``:
    block kernels, pooled last layer, f32 master weights) on a batch of 256
    seeded synthetic frames and hash-tokenised captions: three steps on the
@@ -174,7 +195,7 @@ Phases, one line each; any failure exits non-zero:
    events (forward, backward, optimizer; median) for both paths, and the
    peak device memory.
 
-11. padded: ViT-H/14's vision tower (production config, random weights
+12. padded: ViT-H/14's vision tower (production config, random weights
    from seed 0) on one 64-frame batch with the padded-head block opened for
    its shape (head_dim 80 in 128-lane slots: three fused_ln_matmul, the
    attention middle at head_dim 128, fused_residual_matmul a layer): the
@@ -184,7 +205,7 @@ Phases, one line each; any failure exits non-zero:
    fused_attn_block; the training rule's gradients at 32 x 257 x 1280
    against autograd through the plain block (cosine >= 0.999 per tensor);
    and the three kernels' rows (phase_padded).
-12. embed_fold: fused_embed_attn_block at ViT-B/32's geometry (512 x 50
+13. embed_fold: fused_embed_attn_block at ViT-B/32's geometry (512 x 50
    tokens, patch 32, width 768): one counted call, the kernel against its
    plain version with the stream in f32 and bf16, and timed against the
    split entry (phase_embed_fold).
@@ -209,8 +230,9 @@ rows (SWIN_STAGES), followed by the 64-segment audio batch's breakdown of
 ``--phase profile`` runs the env phase, then breaks one 64-segment audio
 batch, one 256-frame ViT-H/14 batch and one text embed of the default
 backbone on the kernel path, and one ViT-B/32 train step, down on
-``[profile]`` lines (see phase_profile, profile_vit_h, profile_xlmr_text,
-profile_train_step); it checks only that no roll, permute or copy kernel
+``[profile]`` lines (see phase_profile, profile_image_batch,
+profile_xlmr_text, profile_train_step); ``--phase siglip`` ends with a
+256-frame SigLIP-384 batch's; it checks only that no roll, permute or copy kernel
 runs inside the audio batch's Swin blocks, and prints no summary.
 """
 
@@ -240,9 +262,16 @@ VIT_H_FRAMES = 512
 XLMR_ID = ("mlfoundations/open_clip/xlm-roberta-large-ViT-H-14/"
            "frozen_laion5b_s13b_b90k")
 XLMR_FRAMES = 1024
-#: further towers the extended attention kernels open: one batch each
+#: upstream WISE's integration-test model: MAP-pooled vision at 576 tokens,
+#: the bidirectional last-token text tower; two batches of 256 at 384 px
+SIGLIP_ID = "mlfoundations/open_clip/ViT-L-16-SigLIP-384/webli"
+SIGLIP_FRAMES = 512
+#: further towers the extended attention kernels open: one batch each, at
+#: each model's own frame size
 FAMILY_IDS = ["mlfoundations/open_clip/ViT-L-14/laion2b_s32b_b82k",
-              "mlfoundations/open_clip/ViT-B-16/laion2b_s34b_b88k"]
+              "mlfoundations/open_clip/ViT-B-16/laion2b_s34b_b88k",
+              "mlfoundations/open_clip/ViT-L-14-336/openai",
+              "mlfoundations/open_clip/ViT-B-16-SigLIP-256/webli"]
 QUERIES = ["a dog running on the beach", "people cooking in a kitchen",
            "a red car at night", "snow on the mountains", "a cat asleep",
            "children playing football", "a city street in the rain",
@@ -400,9 +429,9 @@ def _cuda_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _block_inputs(torch, b, sp, d, dtype, seed, mlp=False):
-    """x ~ N(0, 1); kernels at 1/sqrt(fan_in), as init_random_ draws them,
-    so that each block adds about as much as x carries; biases and the
+def _block_inputs(torch, b, sp, d, dtype, seed, mlp=False, x_std=1.0):
+    """x ~ N(0, x_std²); kernels at 1/sqrt(fan_in), as init_random_ draws
+    them, so that each block adds about as much as x carries; biases and the
     LayerNorm offsets N(0, 0.02)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -411,7 +440,7 @@ def _block_inputs(torch, b, sp, d, dtype, seed, mlp=False):
 
     f = 4 * d if mlp else d
     first = (d, 4 * d) if mlp else (d, 3 * d)
-    x = r(b, sp, d, scale=1.0).to(dtype)
+    x = r(b, sp, d, scale=x_std).to(dtype)
     ln = (1.0 + r(d), r(d))
     w = (r(*first, scale=d ** -0.5), r(first[1]), r(f, d, scale=f ** -0.5),
          r(d))
@@ -521,7 +550,19 @@ def _check_row(torch, results, name, tag, key, x, kernel, plain, base,
 #: stream), CLIP text and the CLAP caption tower (B=8, SP=77, bf16 stream,
 #: causal). ViT-H/14: vision (257 tokens, head_dim 80) and text (width
 #: 1024), whose MLP is the split pair. ViT-L/14 and ViT-B/16: the attention
-#: block alone, at the batch the families phase runs.
+#: block alone, at the batch the families phase runs. SigLIP-384: vision
+#: (576 tokens, bf16 stream, gelu_tanh; no pooled layer: ``pooled`` False)
+#: and text (64 tokens, non-causal, pooled at the static row 63); ViT-L/14 at
+#: 336 px (577 tokens: the last query tile holds one row) at the families
+#: batch. Rows with ``sdpa`` carry F.scaled_dot_product_attention on the
+#: block's own q, k and v as ``library_ms``: the attention part alone.
+#: ``x_std``: the stream's scale. The LayerNorm makes a block's increment
+#: independent of it, and over 576 keys the attention averages ~200 of them:
+#: at x ~ N(0, 1) the increment's max is ~1/10 of x's, so 5% of it falls
+#: under one bf16 ulp of the output at |x| >= 4 (0.031), where a bf16
+#: stream's kernel and plain version, which round the residual sum at other
+#: points, part by that ulp. SigLIP's rows draw x at std 0.25, which brings
+#: the increment back to about the scale of x.
 BLOCK_SHAPES = {
     "vision": dict(b=256, sp=50, d=768, heads=12, f32=True, causal=False,
                    act="gelu", seeds=(1, 11, 3)),
@@ -537,7 +578,18 @@ BLOCK_SHAPES = {
                   act="gelu", seeds=(37, 0, 0), only_attn=True),
     "vit_b16": dict(b=64, sp=197, d=768, heads=12, f32=True, causal=False,
                     act="gelu", seeds=(38, 0, 0), only_attn=True),
+    "siglip": dict(b=256, sp=576, d=1024, heads=16, f32=False, causal=False,
+                   act="gelu_tanh", seeds=(61, 62, 0), pooled=False,
+                   sdpa=True, x_std=0.25),
+    "siglip_text": dict(b=8, sp=64, d=1024, heads=16, f32=False,
+                        causal=False, act="gelu_tanh", seeds=(63, 64, 65),
+                        pool_row=63, sdpa=True),
+    "vit_l336": dict(b=64, sp=577, d=1024, heads=16, f32=True, causal=False,
+                     act="gelu", seeds=(66, 67, 68), sdpa=True),
 }
+#: the gate before SigLIP: rows over it plant a kernel that drops the keys
+#: past it
+OLD_MAX_SEQ = 272
 #: bytes of one LayerNorm's f32 scale and bias, per channel
 _LN_BYTES = 8
 
@@ -577,31 +629,53 @@ def _wrong_scale(w, d, hd):
     return (wqkv, bqkv, *w[2:])
 
 
+def _sdpa_of_block(torch, x, ln, w, heads, causal, row=None):
+    """F.scaled_dot_product_attention on the attention block's own q, k, v
+    (the post-bias in-projection of LN(x), as (B, H, SP, hd) views; with
+    ``row`` q of that row alone): the library call for the attention part
+    of a block row."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from wise_tpu_torch.ops import block as K
+
+    with torch.inference_mode():
+        qkv = K.qkv_stage(x, *ln, *w[:2])
+    b, sp, d3 = qkv.shape
+    q, k, v = (t.reshape(b, sp, heads, d3 // 3 // heads).transpose(1, 2)
+               for t in qkv.split(d3 // 3, dim=-1))
+    if row is not None:
+        q = q[:, :, row:row + 1]
+    return lambda: sdpa(q, k, v, is_causal=causal)
+
+
 def _block_rows(torch, results, tag, s):
     """The attention and MLP blocks at one shape, and its pooled block
-    (static row 0 for vision, per-example rows for the causal towers); the
-    MLP is the wrapper ``mlp_choice`` gives the width, and the split pair
-    also goes half by half. Planted faults: the kernel with its logits
-    zeroed (for the MLP: its activation dropped), a block that returns its
-    residual input; at head_dim 80 the head_dim-64 softmax scale; over 64
-    tokens a query tile (rows 64..127) left as the residual input."""
+    (static row 0 for vision, or ``pool_row``; per-example rows for the
+    causal towers; none with ``pooled`` False); the MLP is the wrapper
+    ``mlp_choice`` gives the width, and the split pair also goes half by
+    half. Planted faults: the kernel with its logits zeroed (for the MLP:
+    its activation dropped), a block that returns its residual input; at
+    head_dim 80 the head_dim-64 softmax scale; over 64 tokens a query tile
+    (rows 64..127) left as the residual input, and a ragged last query tile
+    so left; over OLD_MAX_SEQ tokens the keys past it dropped."""
     from wise_tpu_torch.ops import block as K
 
     b, sp, d, h, causal = s["b"], s["sp"], s["d"], s["heads"], s["causal"]
     dtype = torch.float32 if s["f32"] else torch.bfloat16
     xb = 4 if s["f32"] else 2
     seed_attn, seed_mlp, seed_pool = s["seeds"]
+    x_std = s.get("x_std", 1.0)
     kw = dict(heads=h, n_valid=sp, causal=causal)
     keys = (sp + 1) / 2 if causal else sp
 
-    x, ln, w = _block_inputs(torch, b, sp, d, dtype, seed_attn)
+    x, ln, w = _block_inputs(torch, b, sp, d, dtype, seed_attn, x_std=x_std)
 
-    def attn(w=w):
-        return K.fused_attn_block(x, *ln, *w, **kw)
+    def attn(w=w, n_valid=sp):
+        return K.fused_attn_block(x, *ln, *w, **{**kw, "n_valid": n_valid})
 
-    def tile_dropped():
+    def rows_left(lo, hi):
         out = attn().clone()
-        out[:, 64:128] = x[:, 64:128]
+        out[:, lo:hi] = x[:, lo:hi]
         return out
 
     faults = {"faulted_kernel": lambda: attn(_zero_q(w, d)),
@@ -609,15 +683,23 @@ def _block_rows(torch, results, tag, s):
     if d // h != 64:
         faults["scale_of_hd64"] = lambda: attn(_wrong_scale(w, d, d // h))
     if sp > 64:
-        faults["tile_dropped"] = tile_dropped
+        faults["tile_dropped"] = lambda: rows_left(64, 128)
+    if sp > 64 and sp % 64:
+        faults["last_tile_dropped"] = lambda: rows_left(sp - sp % 64, sp)
+    if sp > OLD_MAX_SEQ:
+        faults["keys_past_272_dropped"] = lambda: attn(n_valid=OLD_MAX_SEQ)
+    library = (_sdpa_of_block(torch, x, ln, w, h, causal) if s.get("sdpa")
+               else None)
     _check_row(torch, results, "fused_attn_block", tag,
                ("fused_attn_block", sp, d), x, attn,
                lambda: K.plain_attn_block(x, *ln, *w, **kw), x, faults,
-               _attn_work(b, sp, d, xb, keys))
+               _attn_work(b, sp, d, xb, keys), library=library)
+    del library
     if s.get("only_attn"):
         return
 
-    x, ln, w = _block_inputs(torch, b, sp, d, dtype, seed_mlp, mlp=True)
+    x, ln, w = _block_inputs(torch, b, sp, d, dtype, seed_mlp, mlp=True,
+                             x_std=x_std)
     act, f = s["act"], 4 * d
     if K.mlp_choice(d) == "single":
         _check_row(torch, results, "fused_mlp_block", tag,
@@ -665,7 +747,11 @@ def _block_rows(torch, results, tag, s):
                    library=_addmm(torch, hid, *proj))
         del hid, raw
 
-    x, ln, w = _block_inputs(torch, b, sp, d, dtype, seed_pool)
+    if s.get("pooled", True) is False:
+        return
+    x, ln, w = _block_inputs(torch, b, sp, d, dtype, seed_pool, x_std=x_std)
+    row = s.get("pool_row", 0)
+    library = None
     if causal:
         name = "fused_attn_block_pooled_dyn"
         rows = torch.tensor([3, 76, 0, 40, 11, 76, 25, 7], dtype=torch.int32,
@@ -679,20 +765,27 @@ def _block_rows(torch, results, tag, s):
         def plain():
             return K.plain_attn_block_pooled_dyn(x, rows, *ln, *w, **kw)
     else:
-        name, base = "fused_attn_block_pooled", x[:, 0]
+        name, base = "fused_attn_block_pooled", x[:, row]
 
-        def pooled(w=w):
-            return K.fused_attn_block_pooled(x, *ln, *w, pool_row=0, **kw)
+        def pooled(w=w, n_valid=sp):
+            return K.fused_attn_block_pooled(
+                x, *ln, *w, pool_row=row, **{**kw, "n_valid": n_valid})
 
         def plain():
-            return K.plain_attn_block_pooled(x, *ln, *w, pool_row=0, **kw)
+            return K.plain_attn_block_pooled(x, *ln, *w, pool_row=row, **kw)
+
+        if s.get("sdpa"):
+            library = _sdpa_of_block(torch, x, ln, w, h, causal, row)
 
     faults = {"faulted_kernel": lambda: pooled(_zero_q(w, d)),
               "block_skipped": lambda: base}
     if d // h != 64:
         faults["scale_of_hd64"] = lambda: pooled(_wrong_scale(w, d, d // h))
+    if sp > OLD_MAX_SEQ:
+        faults["keys_past_272_dropped"] = lambda: pooled(n_valid=OLD_MAX_SEQ)
     _check_row(torch, results, name, tag, (name, sp, d), x, pooled, plain,
-               base, faults, _attn_work(b, sp, d, xb, keys, pooled=True))
+               base, faults, _attn_work(b, sp, d, xb, keys, pooled=True),
+               library=library)
 
 
 def _swin_inputs(torch, n, c, heads, n_win, seed):
@@ -1115,11 +1208,15 @@ POSTLN_SHAPES = {"query": dict(b=8, seeds=(41, 42)),
                  "ingest": dict(b=256, seeds=(43, 44))}
 POSTLN_SP, POSTLN_D, POSTLN_HEADS = 64, 1024, 16
 #: fused_short_attention's shapes: (B, SP, D, heads, causal) of ViT-B/32's
-#: vision and text towers, ViT-L/14's and ViT-H/14's (head_dim 80) vision
+#: vision and text towers, ViT-L/14's and ViT-H/14's (head_dim 80) vision,
+#: SigLIP-384's (576 tokens) and ViT-L/14's at 336 px (577), at the batch of
+#: the WISE_FUSED_BLOCK=0 batches that launch them
 SHORT_ATTN_SHAPES = {"vit_b32": (256, 50, 768, 12, False),
                      "text": (8, 77, 512, 8, True),
                      "vit_l": (64, 257, 1024, 16, False),
-                     "vit_h": (64, 257, 1280, 16, False)}
+                     "vit_h": (64, 257, 1280, 16, False),
+                     "siglip": (64, 576, 1024, 16, False),
+                     "vit_l336": (64, 577, 1024, 16, False)}
 
 
 def _postln_inputs(torch, b, seed, mlp=False):
@@ -1278,9 +1375,10 @@ def _short_attention_rows(torch, results):
     and v being the three column ranges of one packed (B, SP, 3D) bf16
     in-projection ~ N(0, 1), as the model hands them over. Planted faults:
     the softmax at half its scale, the key mask dropped (n_valid = SP where
-    the reference masks the last 7 keys), the causal mask dropped, and over
+    the reference masks the last 7 keys), the causal mask dropped, over
     one key tile the last tile unscanned (the kernel at n_valid cut to the
-    last whole tile, against the reference at SP). The
+    last whole tile, against the reference at SP), and over OLD_MAX_SEQ
+    tokens the keys past it dropped. The
     library call that computes the same function is
     ``F.scaled_dot_product_attention`` on the same q, k and v as (B, H, SP,
     hd) views."""
@@ -1314,6 +1412,9 @@ def _short_attention_rows(torch, results):
         if sp > A.KEY_TILE:
             faults["last_tile_unscanned"] = lambda: call(
                 A.fused_short_attention, n_valid=_last_whole_tile(sp))
+        if sp > OLD_MAX_SEQ:
+            faults["keys_past_272_dropped"] = lambda: call(
+                A.fused_short_attention, n_valid=OLD_MAX_SEQ)
         keys = (sp + 1) / 2 if causal else sp
         _check_row(torch, results, "fused_short_attention", tag,
                    ("fused_short_attention", sp, d), q,
@@ -1679,7 +1780,8 @@ def _served_top(resp, k: int, media: str = "video"):
 def _check_against_plain(served_ids, served_d, plain_scores, ids, k, tol):
     """The served top-k against the plain run's ranking: the same ids up to
     swaps between scores within ``tol``, distances within ``tol`` (plus the
-    response's 3-decimal rounding) of the plain scores."""
+    response's 3-decimal rounding) of the plain scores. Returns the largest
+    distance gap, that rounding included."""
     import numpy as np
 
     by_id = dict(zip(ids.tolist(), plain_scores.tolist()))
@@ -1690,8 +1792,10 @@ def _check_against_plain(served_ids, served_d, plain_scores, ids, k, tol):
         raise PhaseError(
             f"served ids {served_ids} are not the plain top-{k} "
             f"{ids[order].tolist()} (plain scores {got} vs {plain_top})")
-    if np.abs(got - np.array(served_d)).max() > tol + 5e-4:
+    gap = float(np.abs(got - np.array(served_d)).max())
+    if gap > tol + 5e-4:
         raise PhaseError(f"served distances {served_d} vs plain {got}")
+    return gap
 
 
 def _serve_queries(project_dir: Path, config, queries, k: int,
@@ -1810,23 +1914,35 @@ def _block_launches():
     return counts
 
 
+def _vision_tokens(config) -> int:
+    """The vision tower's tokens: the patches, and the class token unless
+    the tower is MAP-pooled (SigLIP)."""
+    c = config
+    return (c.image_size // c.patch_size) ** 2 + int(c.vision_pool == "cls")
+
+
 def _tower_keys(config):
     """(vision keys, text keys) of the launch counters a CLIP config's
     towers reach: (wrapper, tokens, width) of the attention block, the MLP
-    wrapper its width takes, and the pooled last layer; for the XLM-R text
-    tower the post-LN attention block and the MLP variant its width takes
-    (every layer runs whole: the tower pools by a mean)."""
+    wrapper its width takes, and the pooled last layer (none for a
+    MAP-pooled vision tower, whose every layer runs whole; the static-row
+    block for SigLIP's last-token text tower, the per-example one for EOT
+    pooling); for the XLM-R text tower the post-LN attention block and the
+    MLP variant its width takes (every layer runs whole: the tower pools by
+    a mean)."""
     from wise_tpu_torch.ops.block import mlp_choice
     from wise_tpu_torch.ops.postln_block import postln_mlp_choice
 
     def keys(sp, d, pooled):
         mlp = ("fused_mlp_block" if mlp_choice(d) == "single"
                else "fused_mlp_split")
-        return [("fused_attn_block", sp, d), (mlp, sp, d), (pooled, sp, d)]
+        return [("fused_attn_block", sp, d), (mlp, sp, d)] + (
+            [(pooled, sp, d)] if pooled else [])
 
     c = config
-    n_tok = (c.image_size // c.patch_size) ** 2 + 1
-    vision = keys(n_tok, c.vision_width, "fused_attn_block_pooled")
+    vision = keys(_vision_tokens(c), c.vision_width,
+                  "fused_attn_block_pooled" if c.vision_pool == "cls"
+                  else None)
     if c.text_tower == "hf_xlm_roberta":
         mlp = ("fused_postln_mlp_block"
                if postln_mlp_choice(c.text_width) == "single"
@@ -1834,7 +1950,8 @@ def _tower_keys(config):
         return vision, [("fused_postln_attn_block", c.context_length,
                          c.text_width), (mlp, c.context_length, c.text_width)]
     return vision, keys(c.context_length, c.text_width,
-                        "fused_attn_block_pooled_dyn")
+                        "fused_attn_block_pooled" if c.text_pool == "last"
+                        else "fused_attn_block_pooled_dyn")
 
 
 @contextlib.contextmanager
@@ -1890,9 +2007,9 @@ def _hybrid_batch(torch, extractor, plain, frames, queries=()):
     A.reset_launches()
     before = _block_launches()
     got = [hybrid.extract_image_features(frames)]
-    n_tok = (c.image_size // c.patch_size) ** 2 + 1
-    expect = {("fused_short_attention", n_tok, c.vision_width):
-              c.vision_layers - int(c.pool_last_block)}
+    expect = {("fused_short_attention", _vision_tokens(c), c.vision_width):
+              c.vision_layers - int(c.pool_last_block
+                                    and c.vision_pool == "cls")}
     if queries:
         got.append(hybrid.extract_text_features(list(queries)))
         expect[("fused_short_attention", c.context_length, c.text_width)] = (
@@ -1919,9 +2036,11 @@ def phase_slice(torch, card, model_id=MODEL_ID, n_frames=FRAMES,
     """Ingest -> IndexFlatIP -> REST on the port; returns the launch counts
     of the main path's run, keyed by (wrapper, SP, D). The vision tower's
     counts must be exact: batches x (layers - 1) for the attention block and
-    the MLP, batches for the pooled last layer; the text tower's must fit
-    the count of text batches served (_text_batches, _check_text_launches).
-    With ``hybrid_frames`` that many frames also go through the path of
+    the MLP, batches for the pooled last layer (a MAP-pooled tower: batches
+    x layers and no pooled layer); the text tower's must fit the count of
+    text batches served (_text_batches, _check_text_launches). Frames are
+    ``size`` px, the model's input, so no host resize runs. With
+    ``hybrid_frames`` that many frames also go through the path of
     WISE_FUSED_BLOCK=0 (_hybrid_batch)."""
     import numpy as np
     from wise_tpu_torch import project
@@ -1949,9 +2068,8 @@ def phase_slice(torch, card, model_id=MODEL_ID, n_frames=FRAMES,
         if n != n_frames:
             raise PhaseError(f"embedded {n} of {n_frames} frames")
         vision, text = _tower_keys(extractor.config)
-        layers = extractor.config.vision_layers
-        want = dict(zip(vision, [len(clips) * (layers - 1)] * 2
-                        + [len(clips)]))
+        whole = extractor.config.vision_layers - int(len(vision) == 3)
+        want = dict(zip(vision, [len(clips) * whole] * 2 + [len(clips)]))
         launches = _block_launches()
         got = {key: launches.get(key, 0) for key in vision}
         if got != want:
@@ -1980,10 +2098,12 @@ def phase_slice(torch, card, model_id=MODEL_ID, n_frames=FRAMES,
         if _block_launches() != launches:
             raise PhaseError(f"{phase}: the plain run launched kernels")
         prefix = config.search.query_prefix
+        gap = 0.0
         for q in QUERIES:
             qv = plain.extract_text_features([f"{prefix} {q}".strip()])[0]
             scores = (torch.from_numpy(vecs) @ torch.from_numpy(qv)).numpy()
-            _check_against_plain(*served[q], scores, ids, k, 1e-3)
+            gap = max(gap, _check_against_plain(*served[q], scores, ids, k,
+                                                1e-3))
 
         fields, extra = {}, []
         if hybrid_frames:
@@ -2028,7 +2148,7 @@ def phase_slice(torch, card, model_id=MODEL_ID, n_frames=FRAMES,
         launches=json.dumps({_launch_name(key): c for key, c
                              in sorted(launches.items())},
                             separators=(",", ":")),
-        vs_plain="ok")
+        vs_plain="ok", served_gap_max=f"{gap:.6f}")
     for line in extra:
         say(phase, card=repr(card), **line)
     for name, (fps, tower_ms) in rates.items():
@@ -2041,15 +2161,16 @@ def phase_slice(torch, card, model_id=MODEL_ID, n_frames=FRAMES,
 
 def phase_families(torch, card, batch: int = 64):
     """One batch of frames through the port's extractor for each further
-    tower the attention kernels take (FAMILY_IDS), at full width and depth:
-    embeddings against the plain path, every vision kernel launched.
-    Returns the launch counts keyed by (wrapper, SP, D)."""
+    tower the attention kernels take (FAMILY_IDS), at full width and depth
+    and the model's frame size: embeddings against the plain path, every
+    vision kernel launched. Returns the launch counts keyed by (wrapper, SP,
+    D)."""
     from wise_tpu_torch.models.clip.extractor import OpenClipExtractor
 
-    frames = _frames(99, batch, 224)
     launches = {}
     for model_id in FAMILY_IDS:
         extractor = OpenClipExtractor(model_id)
+        frames = _frames(99, batch, extractor.config.image_size)
         _reset_launches()
         got = torch.from_numpy(extractor.extract_image_features(frames))
         counts = _block_launches()
@@ -2082,6 +2203,17 @@ def phase_families(torch, card, batch: int = 64):
         del extractor, plain
         torch.cuda.empty_cache()
     return launches
+
+
+def phase_siglip(torch, card):
+    """phase_slice for ViT-L-16-SigLIP-384, upstream WISE's integration-test
+    model: 512 frames at 384 px in 2 batches (the MAP-pooled vision tower,
+    576 tokens a frame: exactly 24 attention blocks and 24 split MLPs a
+    batch and no pooled block), IndexFlatIP, the 8 queries over REST on the
+    bidirectional text tower (the pooled block at row 63); one 64-frame
+    batch also runs the path of WISE_FUSED_BLOCK=0."""
+    return phase_slice(torch, card, SIGLIP_ID, SIGLIP_FRAMES, "siglip",
+                       topk_1m=False, size=384, hybrid_frames=64)
 
 
 def phase_hybrid(torch, card, batch: int = 256):
@@ -2538,9 +2670,11 @@ def phase_audio(torch, card, k=10):
         vecs = np.concatenate([plain.extract_audio_features(segs[i:i + 64])
                                for i in range(0, SEGMENTS, 64)])
         prefix = config.search.audio_query_prefix
+        gap = 0.0
         for q in AUDIO_QUERIES:
             qv = plain.extract_text_features([f"{prefix} {q}".strip()])[0]
-            _check_against_plain(*served[q], vecs @ qv, ids, k, 1e-3)
+            gap = max(gap, _check_against_plain(*served[q], vecs @ qv, ids,
+                                                k, 1e-3))
 
         batch = torch.from_numpy(segs[:64]).to(extractor.device)
         window, cos = _window_attention_run(torch, extractor, batch)
@@ -2562,7 +2696,7 @@ def phase_audio(torch, card, k=10):
         launches=json.dumps({_launch_name(key): v for key, v
                              in sorted(launches.items())},
                             separators=(",", ":")),
-        vs_plain="ok")
+        vs_plain="ok", served_gap_max=f"{gap:.6f}")
     say("slice", card=repr(card), media="audio",
         path="WISE_FUSED_SWIN_BLOCK=0", batch=len(batch),
         window_attention_launches=json.dumps(
@@ -3621,33 +3755,37 @@ def _say_kernels(kernels, top: int = 16, **tag):
             kernel=key[:100])
 
 
-def profile_vit_h(torch, card, batch: int = 256):
-    """Where one ViT-H/14 batch's time goes on the kernel path: device ms
-    (CUDA events, mean of 3 calls) of preprocess + image tower on 256
-    frames, of one text embed, and the device ms per CUDA kernel of the
-    image batch (torch.profiler, mean of 2 batches)."""
+def profile_image_batch(torch, card, model_id: str = VIT_H_ID,
+                        batch: int = 256):
+    """Where one image batch's time goes on the kernel path (ViT-H/14 unless
+    ``model_id`` says otherwise): device ms (CUDA events, mean of 3 calls)
+    of preprocess + image tower on 256 frames at the model's size, of one
+    text embed, and the device ms per CUDA kernel of the image batch
+    (torch.profiler, mean of 2 batches)."""
     from wise_tpu_torch.models.clip.extractor import OpenClipExtractor
 
-    fe = OpenClipExtractor(VIT_H_ID)
-    frames = _frames(0, batch, 224)
+    fe = OpenClipExtractor(model_id)
+    size = fe.config.image_size
+    frames = _frames(0, batch, size)
     x = torch.from_numpy(frames).to(fe.device)
+    model = model_id.split("/")[2]
 
     def tower():
-        fe.model.encode_image(fe.preprocess_frames(x, 224))
+        fe.model.encode_image(fe.preprocess_frames(x, size))
 
     with torch.inference_mode():
         fe.extract_image_features(frames[:8])  # first use
         fe.extract_text_features(["warm up"])
         ms = dict(
             batch=_cuda_ms(torch, tower, 3),
-            preprocess=_cuda_ms(torch, lambda: fe.preprocess_frames(x, 224),
+            preprocess=_cuda_ms(torch, lambda: fe.preprocess_frames(x, size),
                                 3),
             text_embed_1=_cuda_ms(
                 torch, lambda: fe.extract_text_features_dispatch(
                     ["a dog barking"]), 3))
-    say("profile", card=repr(card), model="ViT-H-14", batch=batch,
+    say("profile", card=repr(card), model=model, batch=batch,
         **{f"{k}_ms": f"{v:.4f}" for k, v in ms.items()})
-    _say_kernels(_device_kernels(torch, tower, 2), model="ViT-H-14")
+    _say_kernels(_device_kernels(torch, tower, 2), model=model)
 
 
 def profile_xlmr_text(torch, card, reps: int = 5):
@@ -3825,7 +3963,7 @@ def _encode_rates(torch, extractor, frames, reps: int = 5):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", choices=["all", "kernels", "gemm", "topk",
-                                        "swin", "vit_h",
+                                        "swin", "vit_h", "siglip",
                                         "xlmr", "hybrid", "index", "train",
                                         "padded", "embed_fold", "profile"],
                     default="all")
@@ -3851,7 +3989,7 @@ def main(argv=None) -> int:
         card = phase_env(torch, args.verbose_build)
         if args.phase == "profile":
             phase_profile(torch, card)
-            profile_vit_h(torch, card)
+            profile_image_batch(torch, card)
             profile_xlmr_text(torch, card)
             profile_train_step(torch, card)
             return 0
@@ -3874,6 +4012,10 @@ def main(argv=None) -> int:
         if args.phase == "vit_h":
             phase_slice(torch, card, VIT_H_ID, VIT_H_FRAMES, "vit_h",
                         topk_1m=False, hybrid_frames=64)
+            return 0
+        if args.phase == "siglip":
+            _timed("siglip", phase_siglip, torch, card)
+            profile_image_batch(torch, card, model_id=SIGLIP_ID)
             return 0
         if args.phase == "xlmr":
             phase_slice(torch, card, XLMR_ID, XLMR_FRAMES, "xlmr",
@@ -3900,6 +4042,7 @@ def main(argv=None) -> int:
         launches = _timed("slice", phase_slice, torch, card)
         launches.update(_timed("audio", phase_audio, torch, card))
         launches.update(_timed("families", phase_families, torch, card))
+        launches.update(_timed("siglip", phase_siglip, torch, card))
         launches.update(_timed(
             "vit_h", phase_slice, torch, card, VIT_H_ID, VIT_H_FRAMES,
             "vit_h", topk_1m=False, hybrid_frames=64))

@@ -197,5 +197,7 @@ def test_supports_fused_block_gate():
     assert K.supports_fused_block(77, 512, 8)      # CLIP text
     assert K.supports_fused_block(257, 1024, 16)   # ViT-L/14: 257 tokens
     assert K.supports_fused_block(257, 1280, 16)   # ViT-H/14: head_dim 80
-    assert not K.supports_fused_block(577, 1024, 16)  # ViT-L/14 at 336 px
+    assert K.supports_fused_block(577, 1024, 16)   # ViT-L/14 at 336 px
+    assert K.supports_fused_block(576, 1024, 16)   # SigLIP at 384 px
+    assert not K.supports_fused_block(K.MAX_SEQ + 1, 1024, 16)
     assert not K.supports_fused_block(50, 576, 8)     # head_dim 72

@@ -242,9 +242,12 @@ def test_mlp_choice_is_the_reference_calibration():
     (257, 1280, 16, True),    # ViT-H/14 vision: head_dim 80
     (197, 768, 12, True),     # ViT-B/16 vision
     (77, 1024, 16, True),     # ViT-H/14 text
-    (272, 1280, 16, True),    # the longest sequence: K and V resident
+    (272, 1280, 16, True),    # the gate before SigLIP
+    (576, 1024, 16, True),    # SigLIP at 384 px: 24 x 24 patches
+    (577, 1024, 16, True),    # ViT-L/14 at 336 px
+    (640, 1280, 16, True),    # the longest sequence: ten key tiles
     (257, 1152, 16, False),   # head_dim 72
-    (273, 1280, 16, False),   # over the resident K and V
+    (641, 1280, 16, False),   # past MAX_SEQ
     (0, 768, 12, False),
     (50, 770, 12, False)])
 def test_wide_gate(seq, width, heads, ok):

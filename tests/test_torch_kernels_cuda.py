@@ -352,14 +352,17 @@ def test_swin_model_raises_outside_the_kernels_shapes(cuda, swin_block):
 
 # ---------------------------------------------------------------------------
 # The wide shapes (ViT-H/14's traits): head_dim 80, sequences over one
-# 64-row query tile up to the 272-key limit, and the split MLP pair
+# 64-row query tile up to the 640-key limit (SigLIP-384's 576 tokens,
+# ViT-L/14's 577 at 336 px), and the split MLP pair
 # ---------------------------------------------------------------------------
 
 #: (B, SP, n_valid, D, heads)
 WIDE_SHAPES = {
     "vit_h": (3, 257, 257, 320, 4),      # head_dim 80, 257 tokens
     "masked": (2, 257, 250, 160, 2),     # keys masked inside the last tile
-    "longest": (2, 272, 272, 160, 2),    # K and V fill the shared memory
+    "longest": (2, 640, 640, 160, 2),    # ten key tiles: MAX_SEQ
+    "siglip": (2, 576, 576, 128, 2),     # SigLIP-384: 24 x 24 patches
+    "vit_l336": (2, 577, 577, 128, 2),   # a one-row last query tile
     "tile+1": (2, 65, 65, 128, 2),       # one row into a second query tile
     "vit_b16": (2, 197, 197, 128, 2),    # head_dim 64 over 128 tokens
     "one": (2, 1, 1, 160, 2),
@@ -367,13 +370,20 @@ WIDE_SHAPES = {
 
 
 def _wide_inputs(shape, seed, device, stream, mlp=False):
+    """x ~ N(0, 1), or N(0, 0.25²) past 272 tokens: the LayerNorm makes a
+    block's increment independent of x's scale, and over ~600 keys the
+    attention averages so many of them that at unit x the increment's max
+    is ~1/10 of x's; 5% of it then falls under one bf16 ulp of a bf16
+    stream's output at |x| >= 4, where the kernel and the plain version,
+    which round the residual sum at other points, part by that ulp."""
     b, sp, _, d, _ = WIDE_SHAPES[shape]
     g = torch.Generator().manual_seed(seed)
 
     def w(*s, std=0.02):
         return (std * torch.randn(s, generator=g)).to(device)
 
-    x = torch.randn((b, sp, d), generator=g).to(device, stream)
+    x_std = 0.25 if sp > 272 else 1.0
+    x = (x_std * torch.randn((b, sp, d), generator=g)).to(device, stream)
     ln = [1.0 + w(d), w(d)]
     f = 4 * d if mlp else d
     first = (d, 4 * d) if mlp else (d, 3 * d)
@@ -488,10 +498,12 @@ def test_wide_wrappers_reject_what_they_do_not_take(cuda):
 
     with pytest.raises(ValueError, match="head_dim"):   # head_dim 72
         K.fused_attn_block(*attn_args(16, 288), heads=4, n_valid=16)
-    with pytest.raises(ValueError, match="sequence"):   # over K/V's room
-        K.fused_attn_block(*attn_args(273, 160), heads=2, n_valid=273)
+    over = K.MAX_SEQ + 1
+    with pytest.raises(ValueError, match="sequence"):   # past the gate
+        K.fused_attn_block(*attn_args(over, 160), heads=2, n_valid=over)
     with pytest.raises(ValueError, match="sequence"):
-        K.fused_attn_block_pooled(*attn_args(273, 160), heads=2, n_valid=273)
+        K.fused_attn_block_pooled(*attn_args(over, 160), heads=2,
+                                  n_valid=over)
     x, ln, w = _wide_inputs("tile+1", 94, cuda, torch.float32, mlp=True)
     h = K.fused_mlp_fc(x, *ln, *w[:2])
     with pytest.raises(ValueError, match="dtype"):      # h must be bf16
@@ -505,7 +517,7 @@ def test_wide_wrappers_reject_what_they_do_not_take(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("width,heads,seq,match", [
     (288, 4, 16, "head_dim"),     # head_dim 72
-    (128, 2, 273, "sequence"),    # one key over the resident K and V
+    (128, 2, K.MAX_SEQ + 1, "sequence"),    # one key past the gate
 ])
 def test_clip_model_raises_outside_the_kernels_shapes(cuda, width, heads, seq,
                                                       match):
@@ -681,9 +693,10 @@ def test_postln_wrappers_reject_what_they_do_not_take(cuda):
         P.fused_postln_attn_block(x, km[:, 0], *ln, *w, heads)
     with pytest.raises(ValueError, match="contiguous"):
         P.fused_postln_attn_block(x.transpose(0, 1), km, *ln, *w, heads)
-    long = torch.zeros(1, 273, 128, dtype=torch.bfloat16, device=cuda)
+    over = K.MAX_SEQ + 1
+    long = torch.zeros(1, over, 128, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="sequence"):
-        P.fused_postln_attn_block(long, torch.zeros(1, 1, 273, device=cuda),
+        P.fused_postln_attn_block(long, torch.zeros(1, 1, over, device=cuda),
                                   *ln, *w, heads)
     x, _, ln, w = _postln_inputs("tiny", 104, cuda, mlp=True)
     with pytest.raises(ValueError, match="variant"):
@@ -710,11 +723,13 @@ SHORT_CASES = {
     "vit_b32": (4, 50, 768, 12, 50, False, None),
     "text": (2, 77, 512, 8, 77, True, None),
     "vit_h": (2, 257, 320, 4, 257, False, None),
-    "longest": (2, 272, 160, 2, 270, True, None),
+    "longest": (2, 640, 160, 2, 638, True, None),
+    "siglip": (2, 576, 128, 2, 576, False, None),
+    "vit_l336": (2, 577, 128, 2, 577, False, None),
     "one": (2, 1, 128, 2, 1, False, None),
     # head_dim 128: the padded-head block's slots, at head_dim 80's scale
     "head_dim_128": (3, 257, 256, 2, 250, True, 80 ** -0.5),
-    "longest_128": (2, 272, 256, 2, 272, False, None),
+    "longest_128": (2, 640, 256, 2, 640, False, None),
     # the key loop's edges: a 2-key last tile, causal tiles skipped with
     # n_valid < SP, a last tile of 250 - 192 keys at head_dim 80
     "ragged_tile": (2, 130, 128, 2, 130, False, None),
@@ -775,8 +790,9 @@ def test_short_attention_rejects_what_it_does_not_take(cuda):
     A.reset_launches()
     with pytest.raises(ValueError, match="head_dim"):    # head_dim 72
         A.fused_short_attention(*qkv(1, 16, 288), 4, 16)
-    with pytest.raises(ValueError, match="sequence"):    # over K/V's room
-        A.fused_short_attention(*qkv(1, 273, 128), 2, 273)
+    over = K.MAX_SEQ + 1
+    with pytest.raises(ValueError, match="sequence"):    # past the gate
+        A.fused_short_attention(*qkv(1, over, 128), 2, over)
     with pytest.raises(ValueError, match="bfloat16"):
         A.fused_short_attention(*qkv(1, 16, 128, torch.float32), 2, 16)
     with pytest.raises(ValueError, match="n_valid"):
@@ -846,6 +862,46 @@ def test_hybrid_block_runs_the_attention_kernel_on_card(cuda):
     assert not any(K.LAUNCHES.values())
     check = K.increment_agreement(got, want, x)
     assert check["ok"], check
+
+
+@pytest.mark.cuda
+def test_siglip_towers_run_the_kernels_on_card(cuda):
+    """A small SigLIP CLIP (head_dim 64, 64 px at patch 8: 64 tokens; 12
+    text tokens) on the kernel path against its plain twin: every vision
+    layer whole (no pooled block), the text tower non-causal with the
+    pooled block at row 11; embeddings agree (cosine >= 0.999)."""
+    import dataclasses
+
+    from wise_tpu_torch.models.clip import config as TC
+    from wise_tpu_torch.models.clip import model as TM
+
+    cfg = dataclasses.replace(
+        TC.get_clip_config("ViT-L-16-SigLIP-384"), embed_dim=96,
+        image_size=64, patch_size=8, vision_width=128, vision_heads=2,
+        vision_layers=3, context_length=12, vocab_size=4096, text_width=128,
+        text_heads=2, text_layers=2, dtype="bfloat16", fused_block=True,
+        pool_last_block=True)
+    fused = TM.init_random_(TM.CLIP(cfg), seed=2).eval()
+    plain = TM.CLIP(dataclasses.replace(cfg, fused_block=False)).eval()
+    plain.load_state_dict(fused.state_dict())
+    fused, plain = fused.to(cuda), plain.to(cuda)
+    g = torch.Generator().manual_seed(120)
+    images = torch.randn((4, 64, 64, 3), generator=g).to(cuda)
+    tokens = torch.randint(1, 4096, (5, 12), generator=g).to(cuda)
+    K.reset_launches()
+    with torch.no_grad():
+        got_i = fused.encode_image(images)
+        vision = dict(K.LAUNCHES_BY_SHAPE)
+        got_t = fused.encode_text(tokens)
+        want_i, want_t = plain.encode_image(images), plain.encode_text(tokens)
+    assert vision == {("fused_attn_block", 64, 128): 3,
+                      ("fused_mlp_block", 64, 128): 3}
+    assert {k: v for k, v in K.LAUNCHES_BY_SHAPE.items() if k[1] == 12} == {
+        ("fused_attn_block", 12, 128): 1, ("fused_mlp_block", 12, 128): 1,
+        ("fused_attn_block_pooled", 12, 128): 1}
+    for got, want in ((got_i, want_i), (got_t, want_t)):
+        cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+        assert bool(torch.isfinite(got).all()) and cos.min().item() >= 0.999
 
 
 # ---------------------------------------------------------------------------

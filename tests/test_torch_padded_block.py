@@ -184,13 +184,13 @@ def test_padded_gate_requires_calibration():
     assert not K.supports_fused_block_padded(264, 1280, 16)
     try:
         K._CALIBRATED_PAD.update({(257, 1280), (56, 768), (257, 2048),
-                                  (300, 1280)})
+                                  (700, 1280)})
         assert K.supports_fused_block_padded(257, 1280, 16)
         assert not K.supports_fused_block_padded(257, 1024, 16)  # not in it
         assert not K.supports_fused_block_padded(56, 768, 12)    # head_dim 64
         assert not K.supports_fused_block_padded(257, 2048, 16)  # 128
         assert not K.supports_fused_block_padded(257, 1280, 0)
-        assert not K.supports_fused_block_padded(300, 1280, 16)  # > MAX_SEQ
+        assert not K.supports_fused_block_padded(700, 1280, 16)  # > MAX_SEQ
     finally:
         K._CALIBRATED_PAD.clear()
     # the JAX gate stays closed on the CPU whatever its table says

@@ -49,11 +49,11 @@
 namespace {
 
 // The longest sequence the attention kernels take: the gates (head_dim(),
-// short_head_dim(), ops/block.py MAX_SEQ) apply it. It is no longer a
-// shared-memory limit (the key loop's memory does not grow with SP); it
-// covers the 257 tokens of the /14 towers at 224 px, and a longer tower
-// (SigLIP at 384 px, 577 tokens: ROADMAP Queue A 8) lifts it.
-constexpr int kMaxSeq = 272;
+// short_head_dim(), ops/block.py MAX_SEQ) apply it. It is not a
+// shared-memory limit (the key loop's memory does not grow with SP): ten key
+// tiles, which cover the 576 tokens of SigLIP at 384 px (24 x 24 patches, no
+// class token) and the 577 of ViT-L/14 at 336 px.
+constexpr int kMaxSeq = 640;
 constexpr int kQTile = 64, kKTile = 64, kAttnWarps = kQTile / 16;
 constexpr int kAttnThreads = 32 * kAttnWarps;
 

@@ -34,7 +34,7 @@
 //                      add (both in common.cuh, shared with swin_kernels.cu)
 //   attention_kernel   one (tile of 64 query rows, head, batch) per block,
 //                      for head_dim 64 or 80 (and 128 through
-//                      wt_short_attention) and up to 272 keys: two passes
+//                      wt_short_attention) and up to 640 keys: two passes
 //                      over key tiles of 64 (row max and sum online, then
 //                      bf16 of the normalised p into PV), K and V
 //                      double-buffered by cp.async, S = QK^T and O += PV on

@@ -3,9 +3,11 @@
 The fields and registry entries of wise_tpu/models/clip/model.py
 (``CLIPConfig``, ``CLIP_CONFIGS``) with ``dtype`` as a name ("float32" or
 "bfloat16") in place of a jnp dtype. The port builds the OpenCLIP towers
-(class-token vision, causal argmax-pooled text) and the XLM-RoBERTa text
-tower of the default backbone; the other families of the reference registry
-wait for the port of their towers (ROADMAP Queue A 8).
+(class-token vision, causal argmax-pooled text), the SigLIP towers
+(MAP-pooled vision, bidirectional last-token text) and the XLM-RoBERTa text
+tower of the default backbone. The registry holds every entry of the
+reference's but ViT-g-14 and ViT-bigG-14, whose head dims (88 and 104) the
+attention kernels do not take yet (``PENDING``).
 """
 
 from __future__ import annotations
@@ -87,6 +89,27 @@ CLIP_CONFIGS = {
         text_width=1024, text_heads=16, text_layers=24,
         text_tower="hf_xlm_roberta", hf_proj_type="mlp",
     ),
+    "ViT-L-14-336": CLIPConfig(
+        embed_dim=768, image_size=336, patch_size=14, vision_width=1024,
+        vision_layers=24, vision_heads=16, text_width=768, text_heads=12,
+        text_layers=12,
+    ),
+    # SigLIP (upstream WISE's integration test runs ViT-L-16-SigLIP-384):
+    # MAP-pooled vision, non-causal last-pooled text
+    "ViT-L-16-SigLIP-384": CLIPConfig(
+        embed_dim=1024, image_size=384, patch_size=16, vision_width=1024,
+        vision_layers=24, vision_heads=16, context_length=64,
+        vocab_size=32000, text_width=1024, text_heads=16, text_layers=12,
+        vision_pool="map", text_causal=False, text_pool="last",
+        act="gelu_tanh", text_proj_bias=True,
+    ),
+    "ViT-B-16-SigLIP-256": CLIPConfig(
+        embed_dim=768, image_size=256, patch_size=16, vision_width=768,
+        vision_layers=12, vision_heads=12, context_length=64,
+        vocab_size=32000, text_width=768, text_heads=12, text_layers=12,
+        vision_pool="map", text_causal=False, text_pool="last",
+        act="gelu_tanh", text_proj_bias=True,
+    ),
     "ViT-Test-Tiny": CLIPConfig(
         embed_dim=32, image_size=32, patch_size=16, vision_width=64,
         vision_layers=2, vision_heads=4, context_length=16,
@@ -94,15 +117,32 @@ CLIP_CONFIGS = {
     ),
     "ViT-B-32-quickgelu": CLIPConfig(quick_gelu=True),
     "ViT-B-16-quickgelu": CLIPConfig(patch_size=16, quick_gelu=True),
+    "ViT-L-14-quickgelu": CLIPConfig(
+        embed_dim=768, patch_size=14, vision_width=1024, vision_layers=24,
+        vision_heads=16, text_width=768, text_heads=12, text_layers=12,
+        quick_gelu=True,
+    ),
+    "ViT-H-14-quickgelu": CLIPConfig(
+        embed_dim=1024, patch_size=14, vision_width=1280, vision_layers=32,
+        vision_heads=16, text_width=1024, text_heads=16, text_layers=24,
+        quick_gelu=True,
+    ),
 }
+#: the reference's entries the port does not build yet: vision head dims 88
+#: and 104, which the attention kernels do not take (ROADMAP Queue A 17)
+PENDING = ("ViT-g-14", "ViT-bigG-14")
 
 
 def get_clip_config(model_name: str) -> CLIPConfig:
     if model_name in CLIP_CONFIGS:
         return CLIP_CONFIGS[model_name]
+    if model_name in PENDING:
+        raise ValueError(
+            f"CLIP model {model_name} is not ported yet: its vision head_dim "
+            f"is not one the attention kernels take (ROADMAP Queue A item 17)")
     raise ValueError(
         f"unknown CLIP model {model_name}; the port knows "
-        f"{sorted(CLIP_CONFIGS)} (other families: ROADMAP Queue A item 8)"
+        f"{sorted(CLIP_CONFIGS)}"
     )
 
 

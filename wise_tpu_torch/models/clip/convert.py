@@ -4,8 +4,10 @@ Maps open_clip's CLIP state-dict naming (the checkpoints the reference loads
 through open_clip.create_model_and_transforms,
 src/feature/mlfoundation_openclip.py:38) onto the reference's parameter tree
 as numpy arrays: pure numpy transposes, no torch ops beyond deserialise.
-``from_flax_params`` is the one function that carries such a tree (from the
-converters here, or from the JAX package's ``CLIP.init``) onto the port's
+A SigLIP checkpoint (timm trunk under ``visual.trunk``) goes through
+``convert_siglip_state_dict`` into the MAP-pooled tree. ``from_flax_params``
+is the one function that carries such a tree (from the converters here, or
+from the JAX package's ``CLIP.init``, SigLIP's included) onto the port's
 state_dict: the port's keys are the flax paths joined by dots, so the map is
 a flatten. ``load_openclip_state_dict`` and ``load_checkpoint`` end in it.
 

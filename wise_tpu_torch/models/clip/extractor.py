@@ -11,7 +11,11 @@ open_clip file serves the newest of them, as the reference serves its
 trainer's orbax checkpoints; an orbax ``step_*`` directory itself raises,
 since the port cannot read orbax. Without a checkpoint the towers take seeded
 random weights, with a warning. Frames move to the
-device as uint8; preprocessing and both towers run there.
+device as uint8; preprocessing and both towers run there. SigLIP ids
+(``ViT-L-16-SigLIP-384``, ``ViT-B-16-SigLIP-256``) serve as the reference's
+do offline: frames canonicalised to the model's size on the host, the OpenAI
+mean and std on the card, and the hash tokenizer for their 32,000-token
+vocabulary (``get_tokenizer``: no sentencepiece vocabulary is staged).
 """
 
 from __future__ import annotations

@@ -15,14 +15,23 @@ cast into the f32 master.
 Numerics follow the reference's production path: f32 LayerNorms, bf16
 GEMMs, an f32 vision residual stream after ``ln_pre`` (bf16 with
 ``bf16_stream``), a bf16 text stream, the last layer computed only at the
-pooled row (cls / EOT argmax), the last layer's MLP as plain (B, D) ops.
+pooled row (cls, EOT argmax, or SigLIP's last token), the last layer's MLP
+as plain (B, D) ops. A SigLIP vision tower (``vision_pool="map"``) has no
+class token and no ``ln_pre``: its stream stays in the compute dtype, every
+layer runs whole, and ``MAPHead`` pools the tokens after ``ln_post``; its
+text tower attends both ways (``text_causal=False``) and adds
+``text_projection_bias``.
 Residual blocks go through ops/block.py. With ``fused_block`` set (and
 bf16 GEMMs) every block calls the kernel wrappers, which launch the CUDA
 kernels on CUDA tensors and compute their plain versions on CPU tensors.
-The kernels take head_dim 64 or 80 and at most 272 tokens
-(``ops.block.supports_fused_block``), which covers ViT-B/32, B/16, L/14 and
-H/14 at 224 px and their text towers; any other tower raises on the card
-unless ``fused_block`` is off. A shape the monolithic block does not take
+The kernels take head_dim 64 or 80 and at most 640 tokens
+(``ops.block.supports_fused_block``), which covers every tower of the
+registry: ViT-B/32, B/16, L/14 and H/14 at 224 px, ViT-L/14 at 336 px (577
+tokens), SigLIP at 256 and 384 px (256 and 576) and their text towers; any
+other tower raises on the card unless ``fused_block`` is off. The SigLIP
+text tower runs the kernels too (non-causal, pooled at row 63): the
+reference keeps it on plain XLA only because its TPU padding would move that
+row, and the port pads nothing. A shape the monolithic block does not take
 and ``ops.block.supports_fused_block_padded`` does takes the padded-head
 block; that gate's table is empty, so no tower does unless a caller fills
 it. The MLP takes ``fused_mlp_block`` up to width
@@ -216,15 +225,18 @@ class Transformer(nn.Module):
 
 
 class PatchEmbed(nn.Module):
-    """The patch convolution's kernel in flax HWIO layout (p, p, 3, D),
-    applied as patchify + one GEMM."""
+    """The patch convolution's kernel in flax HWIO layout (p, p, 3, D), and
+    its bias where ``bias`` (SigLIP's), applied as patchify + one GEMM."""
 
     def __init__(self, patch: int, width: int, dtype: torch.dtype,
-                 param_dtype=None):
+                 param_dtype=None, bias: bool = False):
         super().__init__()
         self.dtype = dtype
+        pdt = param_dtype or dtype
         self.kernel = nn.Parameter(
-            torch.zeros(patch, patch, 3, width, dtype=param_dtype or dtype))
+            torch.zeros(patch, patch, 3, width, dtype=pdt))
+        self.bias = (nn.Parameter(torch.zeros(width, dtype=pdt)) if bias
+                     else None)
 
     def forward(self, images):
         p, width = self.kernel.shape[0], self.kernel.shape[-1]
@@ -232,29 +244,78 @@ class PatchEmbed(nn.Module):
         gh, gw = h // p, w // p
         x = images.to(self.dtype).reshape(b, gh, p, gw, p, 3)
         x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, gh * gw, p * p * 3)
-        return x @ self.kernel.to(self.dtype).reshape(p * p * 3, width)
+        x = x @ self.kernel.to(self.dtype).reshape(p * p * 3, width)
+        return x if self.bias is None else x + self.bias.to(self.dtype)
+
+
+class MAPHead(nn.Module):
+    """SigLIP's attention-pool head (wise_tpu/models/clip/model.py MAPHead):
+    a learned probe attends over every token, then an MLP with a pre-LN
+    residual. Plain PyTorch, as the reference computes it in XLA: the
+    einsums in the compute dtype, the softmax in f32 and cast back, f32
+    LayerNorm. The probe's query is one row, (1, D), shared by the batch."""
+
+    def __init__(self, width: int, heads: int, act: str, dtype: torch.dtype,
+                 param_dtype=None):
+        super().__init__()
+        self.width, self.heads, self.act, self.dtype = width, heads, act, dtype
+        self.probe = nn.Parameter(
+            torch.zeros(1, width, dtype=param_dtype or dtype))
+        self.q_proj = Dense(width, width, dtype, param_dtype=param_dtype)
+        self.kv_proj = Dense(width, 2 * width, dtype, param_dtype=param_dtype)
+        self.out_proj = Dense(width, width, dtype, param_dtype=param_dtype)
+        self.norm = LayerNorm(width)
+        self.mlp_fc = Dense(width, 4 * width, dtype, param_dtype=param_dtype)
+        self.mlp_proj = Dense(4 * width, width, dtype,
+                              param_dtype=param_dtype)
+
+    def forward(self, tokens):
+        """tokens (B, S, D) -> (B, D) in the compute dtype."""
+        b, s, d = tokens.shape
+        hd = d // self.heads
+        q = self.q_proj(self.probe.to(self.dtype)).reshape(self.heads, hd)
+        k, v = self.kv_proj(tokens).split(d, dim=-1)
+        logits = torch.einsum("hd,bkhd->bhk", q,
+                              k.reshape(b, s, self.heads, hd))
+        p = torch.softmax(logits.float() / math.sqrt(hd), dim=-1)
+        out = torch.einsum("bhk,bkhd->bhd", p.to(self.dtype),
+                           v.reshape(b, s, self.heads, hd)).reshape(b, d)
+        out = self.out_proj(out)
+        h = K.activation(self.mlp_fc(self.norm(out)).float(), self.act)
+        return out + self.mlp_proj(h.to(self.dtype))
 
 
 class VisionTransformer(nn.Module):
+    """The class-token tower (``vision_pool="cls"``: ``ln_pre``, the last
+    layer pooled at row 0) or SigLIP's (``"map"``: a biased patch embed, no
+    class token or ``ln_pre``, every layer whole, ``ln_post`` over every
+    token, then ``attn_pool``)."""
+
     def __init__(self, c: CLIPConfig, param_dtype=None):
         super().__init__()
-        if c.vision_pool != "cls":
-            raise NotImplementedError(
-                "MAP-pooled vision towers: ROADMAP Queue A item 8")
+        if c.vision_pool not in ("cls", "map"):
+            raise ValueError(f"unknown vision_pool {c.vision_pool!r}")
         self.config = c
         dt, w = c.torch_dtype, c.vision_width
         pdt = param_dtype or dt
-        n_tok = (c.image_size // c.patch_size) ** 2 + 1
-        self.conv1 = PatchEmbed(c.patch_size, w, dt, param_dtype)
-        self.class_embedding = nn.Parameter(torch.zeros(w, dtype=pdt))
+        cls = c.vision_pool == "cls"
+        n_tok = (c.image_size // c.patch_size) ** 2 + int(cls)
+        self.conv1 = PatchEmbed(c.patch_size, w, dt, param_dtype,
+                                bias=not cls)
+        if cls:
+            self.class_embedding = nn.Parameter(torch.zeros(w, dtype=pdt))
         self.positional_embedding = nn.Parameter(
             torch.zeros(n_tok, w, dtype=pdt))
-        self.ln_pre = LayerNorm(w)
+        if cls:
+            self.ln_pre = LayerNorm(w)
         self.transformer = Transformer(w, c.vision_layers, c.vision_heads,
                                        c.act_name, dt, c.fused_block,
                                        c.fused_attention, c.remat,
                                        param_dtype)
         self.ln_post = LayerNorm(w)
+        if not cls:
+            self.attn_pool = MAPHead(w, c.vision_heads, c.act_name, dt,
+                                     param_dtype)
         self.proj = nn.Parameter(torch.zeros(w, c.embed_dim, dtype=pdt))
 
     def forward(self, images):
@@ -262,6 +323,11 @@ class VisionTransformer(nn.Module):
         c = self.config
         dt = c.torch_dtype
         x = self.conv1(images)
+        if c.vision_pool == "map":
+            x = self.transformer(x + self.positional_embedding.to(dt),
+                                 x.shape[1])
+            x = self.attn_pool(self.ln_post(x).to(dt))
+            return (x @ self.proj.to(dt)).float()
         cls = self.class_embedding.to(dt).expand(x.shape[0], 1, -1)
         x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(dt)
         x = self.ln_pre(x)
@@ -276,11 +342,16 @@ class VisionTransformer(nn.Module):
 
 
 class TextTransformer(nn.Module):
+    """The causal tower pooled at the EOT argmax (``text_pool="argmax"``) or
+    SigLIP's (``"last"``: pooled at the static row context_length - 1,
+    bidirectional with ``text_causal=False``, a biased head with
+    ``text_proj_bias``)."""
+
     def __init__(self, c: CLIPConfig, param_dtype=None):
         super().__init__()
-        if c.text_tower != "clip" or c.text_pool != "argmax":
-            raise NotImplementedError(
-                "last-pooled text towers: ROADMAP Queue A item 8")
+        if c.text_tower != "clip" or c.text_pool not in ("argmax", "last"):
+            raise ValueError(f"not a CLIP text tower: text_tower "
+                             f"{c.text_tower!r}, text_pool {c.text_pool!r}")
         self.config = c
         dt, w = c.torch_dtype, c.text_width
         pdt = param_dtype or dt
@@ -295,12 +366,16 @@ class TextTransformer(nn.Module):
         self.ln_final = LayerNorm(w)
         self.text_projection = nn.Parameter(
             torch.zeros(w, c.embed_dim, dtype=pdt))
+        if c.text_proj_bias:
+            self.text_projection_bias = nn.Parameter(
+                torch.zeros(c.embed_dim, dtype=pdt))
 
     def forward(self, tokens):
         """tokens (B, context_length) int -> (B, embed_dim) f32, pooled at
-        the argmax token (EOT has the highest id, as in open_clip). Ids
-        outside the vocabulary raise: the reference's gather clamps them
-        without a word, and an index error from the card names nothing."""
+        the argmax token (EOT has the highest id, as in open_clip) or at the
+        last. Ids outside the vocabulary raise: the reference's gather clamps
+        them without a word, and an index error from the card names
+        nothing."""
         c = self.config
         dt = c.torch_dtype
         lo, hi = (int(v) for v in torch.stack(torch.aminmax(tokens)).tolist())
@@ -310,15 +385,21 @@ class TextTransformer(nn.Module):
                 f"[0, {c.vocab_size})")
         x = (self.token_embedding[tokens].to(dt)
              + self.positional_embedding.to(dt))
-        eot = tokens.argmax(dim=-1)
         n = x.shape[1]
+        eot = None if c.text_pool == "last" else tokens.argmax(dim=-1)
         if c.pool_last_block:
             pooled = self.ln_final(self.transformer(
-                x, n, causal=c.text_causal, pool_rows=eot.to(torch.int32)))
+                x, n, causal=c.text_causal,
+                pool_row=n - 1 if eot is None else None,
+                pool_rows=None if eot is None else eot.to(torch.int32)))
         else:
             x = self.ln_final(self.transformer(x, n, causal=c.text_causal))
-            pooled = x[torch.arange(x.shape[0], device=x.device), eot]
-        return (pooled.to(dt) @ self.text_projection.to(dt)).float()
+            pooled = (x[:, -1] if eot is None
+                      else x[torch.arange(x.shape[0], device=x.device), eot])
+        out = pooled.to(dt) @ self.text_projection.to(dt)
+        if c.text_proj_bias:
+            out = out + self.text_projection_bias.to(dt)
+        return out.float()
 
 
 def _l2_normalize(x):
@@ -366,16 +447,17 @@ class CLIP(nn.Module):
 def init_random_(model: CLIP, seed: int = 0) -> CLIP:
     """Seeded random weights, drawn on the CPU from torch.Generator(seed) in
     the reference's initialiser families: lecun-normal kernels, N(0, 0.02)
-    embeddings and projections (the CLIP text positions N(0, 0.01)), zero
-    biases, unit LayerNorm scales; the XLM-R tower's names fall into the
-    same families. One parameter is drawn at a time, so the host never
-    holds more than the largest table in f32."""
+    embeddings, projections and SigLIP's probe (the CLIP text positions
+    N(0, 0.01)), zero biases (the SigLIP patch embed's and text head's too),
+    unit LayerNorm scales; the XLM-R tower's names fall into the same
+    families. One parameter is drawn at a time, so the host never holds more
+    than the largest table in f32."""
     g = torch.Generator().manual_seed(seed)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "scale" or name == "logit_scale":
             continue  # LayerNorm scales stay 1, logit_scale log(1 / 0.07)
-        if leaf == "bias":
+        if leaf in ("bias", "text_projection_bias"):
             p.zero_()
             continue
         if leaf == "kernel":

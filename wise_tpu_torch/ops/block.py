@@ -51,11 +51,11 @@ from .build import LaunchCounter, check, load_library, refuse_grad
 EPS = 1e-5
 #: head dims the attention kernels are instantiated for (csrc/block_kernels.cu)
 HEAD_DIMS = (64, 80)
-#: longest sequence the attention kernels take (csrc/attention.cuh kMaxSeq):
-#: the 257 tokens of the /14 towers at 224 px. Not a shared-memory limit (the
-#: kernel's key loop holds 64 keys at a time); a longer tower lifts it
-#: (ROADMAP Queue A 8, SigLIP at 577 tokens)
-MAX_SEQ = 272
+#: longest sequence the attention kernels take (csrc/attention.cuh kMaxSeq,
+#: kept equal): ten 64-key tiles, for the 576 tokens of SigLIP at 384 px and
+#: the 577 of ViT-L/14 at 336 px. Not a shared-memory limit (the kernel's key
+#: loop holds 64 keys at a time, the pooled kernel SP floats of logits)
+MAX_SEQ = 640
 ACTS = {"none": 0, "gelu": 1, "quick_gelu": 2, "gelu_tanh": 3}
 
 _launches = LaunchCounter("fused_attn_block", "fused_mlp_block",

@@ -5,8 +5,11 @@ backbone xlm-roberta-large-ViT-H-14 (video frames, with one batch each of
 ViT-L/14, ViT-B/16, ViT-L/14 at 336 px and ViT-B-16-SigLIP-256), CLAP 2023
 (audio segments), and the production configuration with
 WISE_FUSED_BLOCK=0. Training: CLIP fine-tuning steps of ViT-B/32 and
-ViT-L/14 on the saved-activation block kernels. Then the two paths whose
-gates ship closed: ViT-H/14 on the padded-head block, and the embed fold.
+ViT-L/14 on the saved-activation block kernels, of the default backbone at
+full width (ViT-H/14 and XLM-R large, the post-LN rules) and of ViT-B/32
+with WISE_FUSED_BLOCK=0 (the attention middle's rule), and the train CLI on
+the default backbone. Then the two paths whose gates ship closed: ViT-H/14
+on the padded-head block, and the embed fold.
 
     python3 chip_smoke.py                  # env, kernels, every slice
     python3 chip_smoke.py --phase kernels  # env and kernels only
@@ -43,9 +46,11 @@ Phases, one line each; any failure exits non-zero:
    non-causal, pooled at row 63), and ViT-L/14 at 336 px (64 x 577 x 1024,
    f32 stream, pooled at row 0); planted there: the head_dim-64 softmax
    scale, a query tile left unwritten (and a ragged last one), the keys
-   past 272 dropped, h not activated. The SigLIP and 336 px attention rows
-   carry F.scaled_dot_product_attention on the block's own q, k and v as
-   ``library_ms`` (the attention part alone).
+   past 272 dropped, h not activated. Every attention-block row (pooled
+   ones, and the post-LN block with its key mask, included) carries
+   F.scaled_dot_product_attention on the block's own q, k and v as
+   ``library_ms`` (the attention part alone), every MLP-block row (the
+   post-LN one included) torch.addmm on each of its two products.
    Each row also carries the least time the card could take for its work
    (``bound_ms``: the larger of its operations over 989 TFLOP/s and its
    bytes over 3.35 TB/s, from the shapes). The Swin kernels at HTSAT's
@@ -61,8 +66,9 @@ Phases, one line each; any failure exits non-zero:
    through the block's token map (planted: the map rolled by one row, one
    F chunk of kernel B dropped). The post-LN
    blocks (attention block, MLP as "single" and as the split pair, each
-   half) at the XLM-R shape 64 x 1024 at batch 8 and 256, and
-   fused_short_attention at ViT-B/32's vision and text shapes, at 64 x 257
+   half) at the XLM-R shape 64 x 1024 at batch 8, 32 (training) and 256,
+   and fused_short_attention at ViT-B/32's vision and text shapes (the text
+   at batch 8 and at the training batch, 256), at 64 x 257
    tokens of width 1024 and 1280 and at 64 x 576 and 64 x 577 of width
    1024, with ``F.scaled_dot_product_attention``
    timed beside it (``library_ms``): these have no residual under their
@@ -178,8 +184,8 @@ Phases, one line each; any failure exits non-zero:
    and depth. ViT-B/32 (``training_clip_config("ViT-B-32", "bfloat16")``:
    block kernels, pooled last layer, f32 master weights) on a batch of 256
    seeded synthetic frames and hash-tokenised captions: three steps on the
-   kernel path and on a plain twin (``fused_block`` and ``pool_last_block``
-   off) from one master tree, losses within 5e-2 step by step and the first
+   kernel path and on a plain twin (``fused_block``, ``pool_last_block``
+   and ``fused_attention`` off) from one master tree, losses within 5e-2 step by step and the first
    step's gradients per parameter (cosine >= 0.95 each, >= 0.99 over the
    whole tree); a step must launch exactly 22 fused_attn_block_res, 22
    fused_mlp_block_res, one of each pooled kernel and no serve twin, the
@@ -193,7 +199,25 @@ Phases, one line each; any failure exits non-zero:
    fused_attn_block_res, 23 fused_mlp_fc_res and fused_mlp_proj, 11
    fused_mlp_block_res and the two pooled kernels a step. ms a step by CUDA
    events (forward, backward, optimizer; median) for both paths, and the
-   peak device memory.
+   peak device memory. Then the default backbone at full width
+   (``training_clip_config("xlm-roberta-large-ViT-H-14")``: ViT-H/14, 32
+   layers at 257 x 1280, and XLM-R large, 24 post-LN layers at 64 x 1024,
+   1.19 B f32 masters) at batch 32, and ViT-B/32 under WISE_FUSED_BLOCK=0
+   (the attention middle a kernel, everything else plain) at batch 256:
+   three steps each against a plain twin from one master tree, one trainer
+   on the card at a time (the master tree and the first step's gradients
+   wait on the host), with the same bars; a default-backbone step must
+   launch exactly 24 fused_postln_attn_block, 24 fused_postln_fc and
+   fused_postln_proj, 31 fused_attn_block_res, 31 fused_mlp_fc_res and
+   fused_mlp_proj, and one fused_attn_block_pooled, a WISE_FUSED_BLOCK=0
+   step 11 fused_short_attention a tower; ms a step, peak device memory and
+   a step's launches by (wrapper, SP, D) for each path. Last the train CLI
+   (``wise_tpu_torch.cli.train.main``) on the default backbone, 3 steps at
+   batch 32 (its captions' segments and frames from seeded stand-ins for
+   the metadata table and the decoder): exactly 3 steps' launches, and the
+   port's extractor serves its checkpoint (every tensor the checkpoint's,
+   cast to bf16; finite unit embeddings; the queries' text embeddings moved
+   from the seed-0 weights').
 
 12. padded: ViT-H/14's vision tower (production config, random weights
    from seed 0) on one 64-frame batch with the padded-head block opened for
@@ -211,10 +235,16 @@ Phases, one line each; any failure exits non-zero:
    split entry (phase_embed_fold).
 
 The kernels phase also holds the three training forwards at the training
-shapes (TRAIN_SHAPES), output and residual, with the faults "residual
-written after the activation" and "residual left unwritten" planted, and the
-five autograd rules' gradients against autograd through the plain blocks
-(``[backward]`` lines; planted: a backward that ignores the saved residual).
+shapes (TRAIN_SHAPES, ViT-H/14's at 32 x 257 x 1280 among them), output and
+residual, with the faults "residual written after the activation" and
+"residual left unwritten" planted, and the autograd rules' gradients against
+autograd through the plain blocks (``[backward]`` lines, with the bound of
+scripts/train_bounds.py): the five block rules, ViT-H/14's attention and
+split-MLP rules, the two post-LN rules at 32 x 64 x 1024 and the attention
+middle's at 256 x 50 x 768 and, causal, 256 x 77 x 512. Planted: a backward
+that ignores the saved residual; for the recompute rules one that ignores
+the saved input, one with the key mask (or the causal mask) dropped, and
+for the post-LN MLP one without its activation.
 
 The line before the last is the kernels' JSON summary ("kernels": those of
 the paths, with their launches there; "off_path": the "single" post-LN MLP
@@ -229,7 +259,8 @@ rows (SWIN_STAGES), followed by the 64-segment audio batch's breakdown of
 
 ``--phase profile`` runs the env phase, then breaks one 64-segment audio
 batch, one 256-frame ViT-H/14 batch and one text embed of the default
-backbone on the kernel path, and one ViT-B/32 train step, down on
+backbone on the kernel path, and one train step each of ViT-B/32 (batch
+256) and of the default backbone (batch 32), down on
 ``[profile]`` lines (see phase_profile, profile_image_batch,
 profile_xlmr_text, profile_train_step); ``--phase siglip`` ends with a
 256-frame SigLIP-384 batch's; it checks only that no roll, permute or copy kernel
@@ -262,6 +293,7 @@ VIT_H_FRAMES = 512
 XLMR_ID = ("mlfoundations/open_clip/xlm-roberta-large-ViT-H-14/"
            "frozen_laion5b_s13b_b90k")
 XLMR_FRAMES = 1024
+XLMR_MODEL = "xlm-roberta-large-ViT-H-14"
 #: upstream WISE's integration-test model: MAP-pooled vision at 576 tokens,
 #: the bidirectional last-token text tower; two batches of 256 at 384 px
 SIGLIP_ID = "mlfoundations/open_clip/ViT-L-16-SigLIP-384/webli"
@@ -554,8 +586,11 @@ def _check_row(torch, results, name, tag, key, x, kernel, plain, base,
 #: (576 tokens, bf16 stream, gelu_tanh; no pooled layer: ``pooled`` False)
 #: and text (64 tokens, non-causal, pooled at the static row 63); ViT-L/14 at
 #: 336 px (577 tokens: the last query tile holds one row) at the families
-#: batch. Rows with ``sdpa`` carry F.scaled_dot_product_attention on the
-#: block's own q, k and v as ``library_ms``: the attention part alone.
+#: batch. Every attention-block row carries F.scaled_dot_product_attention
+#: on the block's own q, k and v as ``library_ms`` (the attention part
+#: alone; for the per-example pooled block with each example's row and its
+#: causal mask), and every MLP-block row torch.addmm on each of its two
+#: products (the products alone, one after the other).
 #: ``x_std``: the stream's scale. The LayerNorm makes a block's increment
 #: independent of it, and over 576 keys the attention averages ~200 of them:
 #: at x ~ N(0, 1) the increment's max is ~1/10 of x's, so 5% of it falls
@@ -580,12 +615,12 @@ BLOCK_SHAPES = {
                     act="gelu", seeds=(38, 0, 0), only_attn=True),
     "siglip": dict(b=256, sp=576, d=1024, heads=16, f32=False, causal=False,
                    act="gelu_tanh", seeds=(61, 62, 0), pooled=False,
-                   sdpa=True, x_std=0.25),
+                   x_std=0.25),
     "siglip_text": dict(b=8, sp=64, d=1024, heads=16, f32=False,
                         causal=False, act="gelu_tanh", seeds=(63, 64, 65),
-                        pool_row=63, sdpa=True),
+                        pool_row=63),
     "vit_l336": dict(b=64, sp=577, d=1024, heads=16, f32=True, causal=False,
-                     act="gelu", seeds=(66, 67, 68), sdpa=True),
+                     act="gelu", seeds=(66, 67, 68)),
 }
 #: the gate before SigLIP: rows over it plant a kernel that drops the keys
 #: past it
@@ -629,23 +664,55 @@ def _wrong_scale(w, d, hd):
     return (wqkv, bqkv, *w[2:])
 
 
-def _sdpa_of_block(torch, x, ln, w, heads, causal, row=None):
+def _sdpa_of_block(torch, x, ln, w, heads, causal, row=None, rows=None,
+                   km=None):
     """F.scaled_dot_product_attention on the attention block's own q, k, v
     (the post-bias in-projection of LN(x), as (B, H, SP, hd) views; with
-    ``row`` q of that row alone): the library call for the attention part
-    of a block row."""
+    ``row`` q of that row alone, with ``rows`` (B,) q of each example's row
+    and the keys up to it): the library call for the attention part of a
+    block row. With ``km`` (B, 1, SP), a post-LN block's additive key mask,
+    the in-projection is of x itself and the mask goes in as a boolean."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from wise_tpu_torch.ops import block as K
 
     with torch.inference_mode():
-        qkv = K.qkv_stage(x, *ln, *w[:2])
+        qkv = (x @ w[0] + w[1] if km is not None
+               else K.qkv_stage(x, *ln, *w[:2]))
     b, sp, d3 = qkv.shape
     q, k, v = (t.reshape(b, sp, heads, d3 // 3 // heads).transpose(1, 2)
                for t in qkv.split(d3 // 3, dim=-1))
+    mask = None
+    if km is not None:
+        mask = (km == 0)[:, None]
     if row is not None:
         q = q[:, :, row:row + 1]
-    return lambda: sdpa(q, k, v, is_causal=causal)
+    if rows is not None:
+        q = q[torch.arange(b, device=x.device), :, rows.long()][:, :, None]
+        mask = (torch.arange(sp, device=x.device)[None, :]
+                <= rows.long()[:, None])[:, None, None]
+        causal = False
+    return lambda: sdpa(q, k, v, attn_mask=mask, is_causal=causal)
+
+
+def _sdpa_bshd(torch, q, k, v, heads, causal):
+    """F.scaled_dot_product_attention on (B, SP, D) q, k, v as (B, H, SP,
+    hd) views, back as (B, SP, D): the attention middle's library call."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    b, sp, d = q.shape
+    q4, k4, v4 = (t.view(b, sp, heads, d // heads).transpose(1, 2)
+                  for t in (q, k, v))
+    return sdpa(q4, k4, v4, is_causal=causal).transpose(1, 2).reshape(
+        b, sp, d)
+
+
+def _addmm_pair(torch, y, fc, h, proj):
+    """The library yardstick of an MLP row: torch.addmm on each of its two
+    products (y @ wfc + bfc, then h @ wproj + bproj, on the block's own
+    bf16 operands), the products alone."""
+    first, second = _addmm(torch, y, *fc), _addmm(torch, h, *proj)
+    return lambda: (first(), second())
 
 
 def _block_rows(torch, results, tag, s):
@@ -688,8 +755,7 @@ def _block_rows(torch, results, tag, s):
         faults["last_tile_dropped"] = lambda: rows_left(sp - sp % 64, sp)
     if sp > OLD_MAX_SEQ:
         faults["keys_past_272_dropped"] = lambda: attn(n_valid=OLD_MAX_SEQ)
-    library = (_sdpa_of_block(torch, x, ln, w, h, causal) if s.get("sdpa")
-               else None)
+    library = _sdpa_of_block(torch, x, ln, w, h, causal)
     _check_row(torch, results, "fused_attn_block", tag,
                ("fused_attn_block", sp, d), x, attn,
                lambda: K.plain_attn_block(x, *ln, *w, **kw), x, faults,
@@ -701,6 +767,11 @@ def _block_rows(torch, results, tag, s):
     x, ln, w = _block_inputs(torch, b, sp, d, dtype, seed_mlp, mlp=True,
                              x_std=x_std)
     act, f = s["act"], 4 * d
+    fc, proj = w[:2], w[2:]
+    with torch.inference_mode():
+        y = K.layer_norm_f32(x, *ln).to(torch.bfloat16)
+        hid = K.plain_mlp_fc(x, *ln, *fc, act=act)
+    library = _addmm_pair(torch, y, fc, hid, proj)
     if K.mlp_choice(d) == "single":
         _check_row(torch, results, "fused_mlp_block", tag,
                    ("fused_mlp_block", sp, d), x,
@@ -709,9 +780,8 @@ def _block_rows(torch, results, tag, s):
                    {"faulted_kernel": lambda: K.fused_mlp_block(
                        x, *ln, *w, act="none"),
                     "block_skipped": lambda: x},
-                   _mlp_work(b * sp, d, f, xb))
+                   _mlp_work(b * sp, d, f, xb), library=library)
     else:
-        fc, proj = w[:2], w[2:]
         _check_row(torch, results, "fused_mlp_split", tag,
                    ("fused_mlp_split", sp, d), x,
                    lambda: K.fused_mlp_split(x, *ln, *w, act=act),
@@ -719,10 +789,8 @@ def _block_rows(torch, results, tag, s):
                    {"h_not_activated": lambda: K.fused_mlp_split(
                        x, *ln, *w, act="none"),
                     "block_skipped": lambda: x},
-                   _mlp_work(b * sp, d, f, xb))
+                   _mlp_work(b * sp, d, f, xb), library=library)
         # the first half has no residual: its increment is its whole output
-        with torch.inference_mode():
-            y = K.layer_norm_f32(x, *ln).to(torch.bfloat16)
         _check_row(torch, results, "fused_mlp_fc", tag,
                    ("fused_mlp_fc", sp, d), x,
                    lambda: K.fused_mlp_fc(x, *ln, *fc, act=act),
@@ -732,9 +800,7 @@ def _block_rows(torch, results, tag, s):
                        x, *ln, *fc, act="none")},
                    _mlp_work(b * sp, d, f, xb, "fc"),
                    library=_addmm(torch, y, *fc))
-        del y
         with torch.inference_mode():
-            hid = K.plain_mlp_fc(x, *ln, *fc, act=act)
             raw = K.plain_mlp_fc(x, *ln, *fc, act="none")
         _check_row(torch, results, "fused_mlp_proj", tag,
                    ("fused_mlp_proj", sp, d), x,
@@ -745,13 +811,13 @@ def _block_rows(torch, results, tag, s):
                     "block_skipped": lambda: x},
                    _mlp_work(b * sp, d, f, xb, "proj"),
                    library=_addmm(torch, hid, *proj))
-        del hid, raw
+        del raw
+    del y, hid, library
 
     if s.get("pooled", True) is False:
         return
     x, ln, w = _block_inputs(torch, b, sp, d, dtype, seed_pool, x_std=x_std)
     row = s.get("pool_row", 0)
-    library = None
     if causal:
         name = "fused_attn_block_pooled_dyn"
         rows = torch.tensor([3, 76, 0, 40, 11, 76, 25, 7], dtype=torch.int32,
@@ -764,6 +830,8 @@ def _block_rows(torch, results, tag, s):
 
         def plain():
             return K.plain_attn_block_pooled_dyn(x, rows, *ln, *w, **kw)
+
+        library = _sdpa_of_block(torch, x, ln, w, h, causal, rows=rows)
     else:
         name, base = "fused_attn_block_pooled", x[:, row]
 
@@ -774,8 +842,7 @@ def _block_rows(torch, results, tag, s):
         def plain():
             return K.plain_attn_block_pooled(x, *ln, *w, pool_row=row, **kw)
 
-        if s.get("sdpa"):
-            library = _sdpa_of_block(torch, x, ln, w, h, causal, row)
+        library = _sdpa_of_block(torch, x, ln, w, h, causal, row)
 
     faults = {"faulted_kernel": lambda: pooled(_zero_q(w, d)),
               "block_skipped": lambda: base}
@@ -964,8 +1031,9 @@ def _swin_rows(torch, results):
 
 
 #: the training forwards' shapes: ViT-B/32's towers at the training batch
-#: (as many captions as frames) and ViT-L/14's vision tower at batch 32,
-#: whose width takes the split pair
+#: (as many captions as frames), ViT-L/14's vision tower at batch 32, whose
+#: width takes the split pair, and ViT-H/14's (the default backbone's
+#: vision tower, head_dim 80) at batch 32
 TRAIN_SHAPES = {
     "train-vision": dict(b=256, sp=50, d=768, heads=12, f32=True,
                          causal=False, act="gelu", seeds=(61, 62)),
@@ -973,6 +1041,8 @@ TRAIN_SHAPES = {
                        act="gelu", seeds=(63, 64)),
     "train-vit_l": dict(b=32, sp=257, d=1024, heads=16, f32=True,
                         causal=False, act="gelu", seeds=(65, 66)),
+    "train-vit_h": dict(b=32, sp=257, d=1280, heads=16, f32=True,
+                        causal=False, act="gelu", seeds=(67, 68)),
 }
 
 
@@ -1096,15 +1166,30 @@ def _flat_cos(a, b) -> float:
 
 
 def _backward_rows(torch):
-    """Each of the five autograd rules on the card: the gradients of a
-    seeded scalar loss (sum of the output times a fixed N(0, 1) tensor) with
-    respect to x and every parameter, against autograd through the plain
-    block on the same tensors: per-tensor cosine >= GRAD_COS_MIN and max abs
-    error <= GRAD_ERR_SHARE of the plain gradient's max abs. Planted, for
-    the two saved-activation rules: a backward that ignores the saved
-    residual (the forward's residual replaced by zeros) must fail. Times a
-    forward + backward of both (CUDA events, 10 calls after 3)."""
+    """Each autograd rule on the card: the gradients of a seeded scalar loss
+    (sum of the output times a fixed N(0, 1) tensor) with respect to x (or
+    q, k, v) and every parameter, against autograd through the plain block
+    on the same tensors: per-tensor cosine >= GRAD_COS_MIN and max abs error
+    <= GRAD_ERR_SHARE of the plain gradient's max abs. The five block rules
+    at ViT-B/32's and ViT-L/14's training shapes, and the default
+    backbone's: ViT-H/14's attention block and split MLP at 32 x 257 x 1280,
+    the post-LN rules at XLM-R's 32 x 64 x 1024 (each example's keys cut at
+    another length), and the attention middle of WISE_FUSED_BLOCK=0 at
+    ViT-B/32's 256 x 50 x 768 and, causal, 256 x 77 x 512. Planted, each of
+    which must fail: for the saved-activation rules a backward that ignores
+    the saved residual (the forward's residual replaced by zeros); for the
+    recompute rules (the post-LN blocks, the attention middle) a recompute
+    that ignores the saved input (x or q times 0) and, where the rule masks
+    keys, one with the mask dropped (km 0; the causal mask off), and for
+    the post-LN MLP one without its activation. Times a forward + backward
+    of both (CUDA events, 10 calls after 3) beside the bound of
+    scripts/train_bounds.py and, for the attention middle, the library
+    call's: F.scaled_dot_product_attention forward and backward on the same
+    q, k and v (``library_fwd_bwd_ms``; no one call computes a block)."""
+    from scripts.train_bounds import work
+    from wise_tpu_torch.ops import attention as A
     from wise_tpu_torch.ops import block as K
+    from wise_tpu_torch.ops import postln_block as P
 
     def zeroed(fn):
         def call(*a, **kw):
@@ -1112,90 +1197,164 @@ def _backward_rows(torch):
             return out, torch.zeros_like(res)
         return call
 
+    def block_args(s, seed, mlp):
+        dtype = torch.float32 if s["f32"] else torch.bfloat16
+        x, ln, w = _block_inputs(torch, s["b"], s["sp"], s["d"], dtype,
+                                 seed, mlp=mlp)
+        return [t.requires_grad_() for t in (x, *ln, *w)], None
+
+    def postln_args(s, seed, mlp):
+        x, km, ln, w = _postln_inputs(torch, s["b"], seed, mlp=mlp)
+        return [t.requires_grad_() for t in (x, *ln, *w)], km
+
+    def qkv_args(s, seed, mlp):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        qkv = torch.randn(s["b"], s["sp"], 3 * s["d"], generator=g,
+                          device="cuda").to(torch.bfloat16)
+        return [t.contiguous().requires_grad_()
+                for t in qkv.split(s["d"], dim=-1)], None
+
     bad = []
-    vis, txt, vit_l = (TRAIN_SHAPES[k] for k in ("train-vision", "train-text",
-                                                 "train-vit_l"))
+    vis, txt, vit_l, vit_h = (TRAIN_SHAPES[k] for k in (
+        "train-vision", "train-text", "train-vit_l", "train-vit_h"))
+    xlmr = dict(b=POSTLN_SHAPES["train"]["b"], sp=POSTLN_SP, d=POSTLN_D,
+                heads=POSTLN_HEADS, f32=False, causal=False, act="gelu")
     rows_of = torch.randint(1, 77, (txt["b"],), dtype=torch.int32,
                             device="cuda",
                             generator=torch.Generator("cuda").manual_seed(70))
+    real_pa, real_pm = P.plain_postln_attn_block, P.plain_postln_mlp_block
+    real_sa = A.plain_short_attention
+    attn_rule = (
+        lambda a, s, e: K.fused_attn_block_train(*a, s["heads"], s["sp"],
+                                                 s["causal"]),
+        lambda a, s, e: K.plain_attn_block(*a, s["heads"], s["sp"],
+                                           s["causal"]))
+    split_rule = (lambda a, s, e: K.fused_mlp_split_train(*a, s["act"]),
+                  lambda a, s, e: K.plain_mlp_split(*a, s["act"]))
+    short_rule = (
+        lambda a, s, e: A.fused_attention_trainable(*a, s["heads"], s["sp"],
+                                                    s["causal"]),
+        lambda a, s, e: real_sa(*a, s["heads"], s["sp"], s["causal"]))
+    q_ignored = {"input_ignored": (A, "plain_short_attention",
+                                   lambda q, *r: real_sa(q * 0, *r))}
+    # name, tag, shape, make the inputs, (rule, plain), planted faults
+    # {name: residual wrapper to zero} or {name: (module, attr, stand-in)},
+    # (kind, stream bytes) for scripts/train_bounds.py
     cases = [
-        ("fused_attn_block_train", "train-vision", vis, False,
-         lambda a, s: K.fused_attn_block_train(*a, s["heads"], s["sp"],
-                                               s["causal"]),
-         lambda a, s: K.plain_attn_block(*a, s["heads"], s["sp"],
-                                         s["causal"]),
-         "fused_attn_block_res"),
-        ("fused_attn_block_train", "train-text", txt, False,
-         lambda a, s: K.fused_attn_block_train(*a, s["heads"], s["sp"],
-                                               s["causal"]),
-         lambda a, s: K.plain_attn_block(*a, s["heads"], s["sp"],
-                                         s["causal"]),
-         "fused_attn_block_res"),
-        ("fused_mlp_block_train", "train-vision", vis, True,
-         lambda a, s: K.fused_mlp_block_train(*a, s["act"]),
-         lambda a, s: K.plain_mlp_block(*a, s["act"]),
-         "fused_mlp_block_res"),
-        ("fused_mlp_split_train", "train-vit_l", vit_l, True,
-         lambda a, s: K.fused_mlp_split_train(*a, s["act"]),
-         lambda a, s: K.plain_mlp_split(*a, s["act"]),
-         "fused_mlp_fc_res"),
-        ("fused_attn_block_pooled_train", "train-vision", vis, False,
-         lambda a, s: K.fused_attn_block_pooled_train(
+        ("fused_attn_block_train", "train-vision", vis, block_args, False,
+         attn_rule, {"res_zeroed": "fused_attn_block_res"}, ("attn", 4)),
+        ("fused_attn_block_train", "train-text", txt, block_args, False,
+         attn_rule, {"res_zeroed": "fused_attn_block_res"}, ("attn", 2)),
+        ("fused_mlp_block_train", "train-vision", vis, block_args, True,
+         (lambda a, s, e: K.fused_mlp_block_train(*a, s["act"]),
+          lambda a, s, e: K.plain_mlp_block(*a, s["act"])),
+         {"res_zeroed": "fused_mlp_block_res"}, ("mlp", 4)),
+        ("fused_mlp_split_train", "train-vit_l", vit_l, block_args, True,
+         split_rule, {"res_zeroed": "fused_mlp_fc_res"}, ("mlp", 4)),
+        ("fused_attn_block_pooled_train", "train-vision", vis, block_args,
+         False,
+         (lambda a, s, e: K.fused_attn_block_pooled_train(
              *a, s["heads"], s["sp"], 0, s["causal"]),
-         lambda a, s: K.plain_attn_block_pooled(
-             *a, s["heads"], s["sp"], 0, s["causal"]), None),
-        ("fused_attn_block_pooled_dyn_train", "train-text", txt, False,
-         lambda a, s: K.fused_attn_block_pooled_dyn_train(
+          lambda a, s, e: K.plain_attn_block_pooled(
+              *a, s["heads"], s["sp"], 0, s["causal"])), {}, ("pooled", 4)),
+        ("fused_attn_block_pooled_dyn_train", "train-text", txt, block_args,
+         False,
+         (lambda a, s, e: K.fused_attn_block_pooled_dyn_train(
              a[0], rows_of, *a[1:], s["heads"], s["sp"], s["causal"]),
-         lambda a, s: K.plain_attn_block_pooled_dyn(
-             a[0], rows_of, *a[1:], s["heads"], s["sp"], s["causal"]), None),
+          lambda a, s, e: K.plain_attn_block_pooled_dyn(
+              a[0], rows_of, *a[1:], s["heads"], s["sp"], s["causal"])), {},
+         ("pooled", 2)),
+        ("fused_attn_block_train", "train-vit_h", vit_h, block_args, False,
+         attn_rule, {"res_zeroed": "fused_attn_block_res"}, ("attn", 4)),
+        ("fused_mlp_split_train", "train-vit_h", vit_h, block_args, True,
+         split_rule, {"res_zeroed": "fused_mlp_fc_res"}, ("mlp", 4)),
+        ("fused_postln_attn_block_train", "train-xlmr", xlmr, postln_args,
+         False,
+         (lambda a, s, km: P.fused_postln_attn_block_train(
+             a[0], km, *a[1:], s["heads"]),
+          lambda a, s, km: real_pa(a[0], km, *a[1:], s["heads"])),
+         {"input_ignored": (P, "plain_postln_attn_block",
+                            lambda x, *r: real_pa(x * 0, *r)),
+          "mask_dropped": (P, "plain_postln_attn_block",
+                           lambda x, km, *r: real_pa(
+                               x, torch.zeros_like(km), *r))},
+         ("postln_attn", 2)),
+        ("fused_postln_mlp_block_train", "train-xlmr", xlmr, postln_args,
+         True,
+         (lambda a, s, e: P.fused_postln_mlp_block_train(*a, s["act"]),
+          lambda a, s, e: real_pm(*a, s["act"])),
+         {"input_ignored": (P, "plain_postln_mlp_block",
+                            lambda x, *r: real_pm(x * 0, *r)),
+          "activation_dropped": (P, "plain_postln_mlp_block",
+                                 lambda *r: real_pm(*r[:7], "none"))},
+         ("postln_mlp", 2)),
+        ("fused_attention_trainable", "train-vision", vis, qkv_args, False,
+         short_rule, q_ignored, ("attention", 2)),
+        ("fused_attention_trainable", "train-text", txt, qkv_args, False,
+         short_rule, {**q_ignored, "mask_dropped": (
+             A, "plain_short_attention",
+             lambda q, k, v, h, n, c, scale=None: real_sa(q, k, v, h, n,
+                                                          False))},
+         ("attention", 2)),
     ]
     names = {False: ("x", "ln_s", "ln_b", "wqkv", "bqkv", "wo", "bo"),
              True: ("x", "ln_s", "ln_b", "wfc", "bfc", "wproj", "bproj")}
-    for i, (name, tag, s, mlp, rule, plain, res_name) in enumerate(cases):
-        dtype = torch.float32 if s["f32"] else torch.bfloat16
-        x, ln, w = _block_inputs(torch, s["b"], s["sp"], s["d"], dtype,
-                                 80 + i, mlp=mlp)
-        args = [t.requires_grad_() for t in (x, *ln, *w)]
+    for i, (name, tag, s, make, mlp, (rule, plain), faults,
+            (kind, xb)) in enumerate(cases):
+        args, extra = make(s, 80 + i, mlp)
         g = torch.Generator(device="cuda").manual_seed(90 + i)
         with torch.no_grad():
-            shape = rule(args, s).shape
+            shape = rule(args, s, extra).shape
         weight = torch.randn(shape, generator=g, device="cuda")
 
         def grads(fn):
-            return torch.autograd.grad((fn(args, s).float() * weight).sum(),
-                                       args)
+            return torch.autograd.grad(
+                (fn(args, s, extra).float() * weight).sum(), args)
 
         got, want = grads(rule), grads(plain)
         torch.cuda.synchronize()
         check = _grad_agreement(got, want)
-        per = {n: _flat_cos(a, b) for n, a, b in zip(names[mlp], got, want)}
-        planted = None
-        if res_name:
-            real = getattr(K, res_name)
-            setattr(K, res_name, zeroed(real))
+        labels = ("q", "k", "v") if make is qkv_args else names[mlp]
+        per = {n: _flat_cos(a, b) for n, a, b in zip(labels, got, want)}
+        planted = {}
+        for fault, how in faults.items():
+            mod, attr, stand_in = ((K, how, zeroed(getattr(K, how)))
+                                   if isinstance(how, str) else how)
+            real = getattr(mod, attr)
+            setattr(mod, attr, stand_in)
             try:
-                planted = _grad_agreement(grads(rule), want)
+                planted[fault] = _grad_agreement(grads(rule), want)
             finally:
-                setattr(K, res_name, real)
+                setattr(mod, attr, real)
         ms = _cuda_ms(torch, lambda: grads(rule), 10)
         plain_ms = _cuda_ms(torch, lambda: grads(plain), 10)
-        ok = check["ok"] and not (planted and planted["ok"])
+        library_ms = None
+        if make is qkv_args:
+            library_ms = _cuda_ms(torch, lambda: grads(
+                lambda a, s, e: _sdpa_bshd(torch, *a, s["heads"],
+                                           s["causal"])), 10)
+        ops, nbytes = work(kind, s["b"], s["sp"], s["d"], xb, s["causal"])
+        bound_ms, bound_by = _bound(ops, nbytes)
+        ok = check["ok"] and not any(p["ok"] for p in planted.values())
         say("backward", name=f"{name}[{tag}]",
-            shape="x".join(map(str, x.shape)), dtype=str(x.dtype)[6:],
+            shape="x".join(map(str, args[0].shape)),
+            dtype=str(args[0].dtype)[6:],
             min_cos=f"{check['min_cos']:.6f}", cos_bar=GRAD_COS_MIN,
             max_rel_err=f"{check['max_rel_err']:.6g}",
             err_bar=GRAD_ERR_SHARE,
             cos=",".join(f"{n}:{c:.6f}" for n, c in per.items()),
-            planted_res_zeroed=("none" if planted is None else
-                                f"min_cos:{planted['min_cos']:.4f},"
-                                + ("PASSED(wrong)" if planted["ok"]
-                                   else "FAIL(expected)")),
+            planted=",".join(
+                f"{k}:min_cos:{p['min_cos']:.4f}:"
+                + ("PASSED(wrong)" if p["ok"] else "FAIL(expected)")
+                for k, p in planted.items()) or "none",
             fwd_bwd_ms=f"{ms:.4f}", plain_fwd_bwd_ms=f"{plain_ms:.4f}",
+            bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+            library_fwd_bwd_ms=("none" if library_ms is None
+                                else f"{library_ms:.4f}"),
             status="ok" if ok else "FAIL")
         if not ok:
             bad.append(f"{name}[{tag}]")
-        del args, got, want, weight
+        del args, extra, got, want, weight
     torch.cuda.empty_cache()
     if bad:
         raise PhaseError(f"autograd rules off the plain blocks' gradients, "
@@ -1203,16 +1362,20 @@ def _backward_rows(torch):
 
 
 #: the XLM-R tower's shape (64 tokens x 1024, 16 heads, F = 4096) at a
-#: served query batch and at the batch the reference calibrated its kernels
+#: served query batch, at the default backbone's training batch and at the
+#: batch the reference calibrated its kernels
 POSTLN_SHAPES = {"query": dict(b=8, seeds=(41, 42)),
+                 "train": dict(b=32, seeds=(45, 46)),
                  "ingest": dict(b=256, seeds=(43, 44))}
 POSTLN_SP, POSTLN_D, POSTLN_HEADS = 64, 1024, 16
 #: fused_short_attention's shapes: (B, SP, D, heads, causal) of ViT-B/32's
 #: vision and text towers, ViT-L/14's and ViT-H/14's (head_dim 80) vision,
 #: SigLIP-384's (576 tokens) and ViT-L/14's at 336 px (577), at the batch of
-#: the WISE_FUSED_BLOCK=0 batches that launch them
+#: the WISE_FUSED_BLOCK=0 batches that launch them; ViT-B/32's text tower
+#: also at the training batch (256 captions)
 SHORT_ATTN_SHAPES = {"vit_b32": (256, 50, 768, 12, False),
                      "text": (8, 77, 512, 8, True),
+                     "train_text": (256, 77, 512, 8, True),
                      "vit_l": (64, 257, 1024, 16, False),
                      "vit_h": (64, 257, 1280, 16, False),
                      "siglip": (64, 576, 1024, 16, False),
@@ -1301,12 +1464,13 @@ def _postln_rows(torch, results, tag, s):
     half_q[0][:, :d] *= 0.5
     half_q[1][:d] *= 0.5
     name, key = "fused_postln_attn_block", ("fused_postln_attn_block", sp, d)
+    library = _sdpa_of_block(torch, x, None, w, heads, False, km=km)
     _check_row(torch, results, name, tag, key, x, attn,
                lambda: P.plain_postln_attn_block(x, km, *ln, *w, heads), None,
                {"mask_dropped": lambda: attn(km=torch.zeros_like(km)),
                 "half_scale": lambda: attn(half_q),
                 "ln_identity": lambda: attn(ln=ident)},
-               _postln_work(b, attn=True))
+               _postln_work(b, attn=True), library=library)
     _check_row(torch, results, name, f"{tag}-offset", key, x,
                lambda: attn(w_off),
                lambda: P.plain_postln_attn_block(x, km, *ln, *w_off, heads),
@@ -1314,7 +1478,8 @@ def _postln_rows(torch, results, tag, s):
                {"sum_rounded_bf16": lambda: sum_rounded(
                    P.plain_postln_attention(x, km, *w[:2], heads), w[2],
                    w_off[3], x, ln)},
-               _postln_work(b, attn=True))
+               _postln_work(b, attn=True), library=library)
+    del library
 
     x, _, ln, w = _postln_inputs(torch, b, seed_mlp, mlp=True)
     fc, proj = w[:2], w[2:]
@@ -1323,6 +1488,7 @@ def _postln_rows(torch, results, tag, s):
         hid = P.plain_postln_fc(x, *fc)
         raw = P.plain_postln_fc(x, *fc, "none")
     rounded = {"sum_rounded_bf16": lambda: sum_rounded(hid, *proj_off, x, ln)}
+    library = _addmm_pair(torch, x, fc, hid, proj)
 
     for name, variant in (("fused_postln_mlp_block", "single"),
                           ("fused_postln_mlp_split", "split")):
@@ -1335,11 +1501,11 @@ def _postln_rows(torch, results, tag, s):
                    lambda: P.plain_postln_mlp_block(x, *ln, *w), None,
                    {"ln_identity": lambda m=mlp: m(ln=ident),
                     "h_not_activated": lambda m=mlp: m(act="none")},
-                   _postln_work(b))
+                   _postln_work(b), library=library)
         _check_row(torch, results, name, f"{tag}-offset", (name, sp, d), x,
                    lambda m=mlp: m(proj=proj_off),
                    lambda: P.plain_postln_mlp_block(x, *ln, *fc, *proj_off),
-                   None, rounded, _postln_work(b))
+                   None, rounded, _postln_work(b), library=library)
     _check_row(torch, results, "fused_postln_fc", tag,
                ("fused_postln_fc", sp, d), x,
                lambda: P.fused_postln_fc(x, *fc),
@@ -2267,11 +2433,11 @@ def _train_batch(torch, config, seed: int, n: int):
     """(images (n, S, S, 3) f32 in [0, 1], tokens (n, ctx) int64) on the
     card: what pipeline/train_data.py ``caption_batches`` yields, made from
     seeded synthetic frames and captions instead of decoded video (the
-    card's machine has no cv2)."""
-    from wise_tpu_torch.models.clip.tokenizer import get_tokenizer
+    card's machine has no cv2), tokenised as the train CLI tokenises them
+    (the XLM-R tower's captions padded with its pad id, 1)."""
+    from wise_tpu_torch.cli.train import training_tokenizer
 
-    tokenizer = get_tokenizer(None, vocab_size=config.vocab_size,
-                              context_length=config.context_length)
+    tokenizer = training_tokenizer(config)
     frames = _frames(seed, n, config.image_size).astype("float32") / 255.0
     tokens = tokenizer(_captions(seed, n))
     return (torch.from_numpy(frames).cuda(),
@@ -2301,15 +2467,23 @@ def _step_ms(torch, trainer, images, tokens, steps: int = 5):
                 optimizer_ms=f"{opt:.3f}", step_ms=f"{fwd + bwd + opt:.3f}")
 
 
+def _launches_by_name():
+    """The block, post-LN and attention-middle wrappers' launches since the
+    counters were last reset, by wrapper (those that launched)."""
+    from wise_tpu_torch.ops import attention as A
+    from wise_tpu_torch.ops import block as K
+    from wise_tpu_torch.ops import postln_block as P
+
+    return {k: v for mod in (K, P, A) for k, v in mod.LAUNCHES.items() if v}
+
+
 def _counted_step(trainer, images, tokens):
     """One train step with every launch counter at 0 before it: (loss,
     launches by wrapper, launches by (wrapper, SP, D))."""
-    from wise_tpu_torch.ops import block as K
-
     _reset_launches()
     loss = float(trainer.train_step(images, tokens))
-    by_name = {k: v for k, v in K.LAUNCHES.items() if v}
-    return loss, by_name, {k: v for k, v in _block_launches().items() if v}
+    return (loss, _launches_by_name(),
+            {k: v for k, v in _block_launches().items() if v})
 
 
 def _add_counts(total, counts):
@@ -2318,25 +2492,253 @@ def _add_counts(total, counts):
 
 
 def _step_launches(config):
-    """What one train step of ``config`` launches, by wrapper: every
-    non-pooled layer of both towers its attention block and its MLP (the
-    wrapper ``mlp_choice`` gives the tower's width), with their residuals,
-    and each tower's pooled last layer."""
+    """What one train step of ``config`` launches, by wrapper. With
+    ``fused_block``: every non-pooled layer of a CLIP tower its attention
+    block and its MLP (the wrapper ``mlp_choice`` gives the tower's width)
+    with their residuals, and the pooled last layer its pooled kernel; every
+    layer of an XLM-R tower its post-LN attention block and MLP (the variant
+    ``postln_mlp_choice`` gives). With ``fused_attention`` alone: every
+    non-pooled layer of a CLIP tower the attention middle; the pooled last
+    layer and the XLM-R tower are plain."""
     from wise_tpu_torch.ops.block import mlp_choice
+    from wise_tpu_torch.ops.postln_block import postln_mlp_choice
 
-    want = {"fused_attn_block_pooled": 1, "fused_attn_block_pooled_dyn": 1}
-    for width, layers in ((config.vision_width, config.vision_layers),
-                          (config.text_width, config.text_layers)):
-        names = ["fused_attn_block_res"] + (
-            ["fused_mlp_block_res"] if mlp_choice(width) == "single"
-            else ["fused_mlp_fc_res", "fused_mlp_proj"])
-        for name in names:
-            want[name] = want.get(name, 0) + layers - 1
+    c, want = config, {}
+
+    def add(name, n):
+        if n:
+            want[name] = want.get(name, 0) + n
+
+    towers = [(c.vision_width, c.vision_layers,
+               "fused_attn_block_pooled" if c.vision_pool == "cls" else None)]
+    if c.text_tower == "hf_xlm_roberta":
+        if c.fused_block:
+            add("fused_postln_attn_block", c.text_layers)
+            for name in (["fused_postln_mlp_block"]
+                         if postln_mlp_choice(c.text_width) == "single"
+                         else ["fused_postln_fc", "fused_postln_proj"]):
+                add(name, c.text_layers)
+    else:
+        towers.append((c.text_width, c.text_layers,
+                       "fused_attn_block_pooled" if c.text_pool == "last"
+                       else "fused_attn_block_pooled_dyn"))
+    for width, layers, pooled in towers:
+        whole = layers - int(bool(c.pool_last_block and pooled))
+        if c.fused_block:
+            add(pooled, layers - whole)
+            for name in ["fused_attn_block_res"] + (
+                    ["fused_mlp_block_res"] if mlp_choice(width) == "single"
+                    else ["fused_mlp_fc_res", "fused_mlp_proj"]):
+                add(name, whole)
+        elif c.fused_attention:
+            add("fused_short_attention", whole)
     return want
 
 
+def _check_first_grads(card, model, batch, gk, gp):
+    """The first step's gradients of the kernel path (``gk``) against the
+    plain twin's (``gp``), by parameter name: cosine >= 0.95 on every
+    parameter whose plain gradient is not ~0 (1e-6 of the tree's norm), >=
+    0.99 over the whole tree, all finite. Either dict may live on the card
+    or on the host; the tree's sums are taken a tensor at a time, in f64."""
+    import torch
+
+    def dot(a, b):
+        return float(torch.dot(a.flatten().double(), b.flatten().double()))
+
+    norms = {k: dot(g, g) for k, g in gp.items()}
+    floor = 1e-6 * math.sqrt(sum(norms.values()))
+    cos = {k: _flat_cos(gk[k], g) for k, g in gp.items()
+           if math.sqrt(norms[k]) > floor}
+    worst = min(cos, key=cos.get)
+    whole = sum(dot(gk[k], g) for k, g in gp.items()) / math.sqrt(
+        sum(norms.values()) * sum(dot(g, g) for g in gk.values()))
+    say("train", card=repr(card), model=model, batch=batch,
+        check="first_step_gradients", parameters=len(gp), compared=len(cos),
+        min_cos=f"{cos[worst]:.6f}", min_cos_at=worst, per_parameter_bar=0.95,
+        whole_tree_cos=f"{whole:.6f}", whole_tree_bar=0.99)
+    if not (cos[worst] >= 0.95 and whole >= 0.99
+            and all(bool(g.isfinite().all()) for g in gk.values())):
+        raise PhaseError(f"train: {model} kernel-path gradients off the "
+                         f"plain twin's (min cos {cos[worst]:.4f} at "
+                         f"{worst}, whole tree {whole:.4f})")
+
+
+def _train_against_twin(torch, card, model, cfg, plain_cfg, batch, seed):
+    """Three steps of ``cfg`` on its kernels and of ``plain_cfg`` (no
+    kernel) from one f32 master tree, at the train CLI's learning rate and
+    clip: the first step's gradients within the bars (_check_first_grads),
+    the losses within 0.05 step by step, every kernel step's launches
+    exactly ``_step_launches(cfg)`` and the twin's none; ms a step (forward,
+    backward, optimizer apart), peak device memory and the launches of a
+    step by (wrapper, SP, D). One trainer lives at a time: the master tree
+    and the kernel path's first gradients wait on the host while the twin
+    runs, so the card holds one tree, its gradients, its AdamW moments and
+    one step's activations (the default backbone's two trainers would not
+    fit side by side; ViT-B/32's comparison in phase_train keeps both to
+    time them in turns). Returns the kernel steps' launches by (wrapper,
+    SP, D)."""
+    import gc
+
+    from wise_tpu_torch.parallel.train import CLIPTrainer
+
+    kw = dict(learning_rate=1e-5, grad_clip=1.0)
+    batches = [_train_batch(torch, cfg, seed + i, batch) for i in range(3)]
+    want = _step_launches(cfg)
+    master, grads, losses, launches = None, {}, {}, {}
+    for path, c in (("kernels", cfg), ("plain", plain_cfg)):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        trainer = CLIPTrainer(c, **kw)
+        trainer.init(seed=0) if master is None else trainer.init(
+            params=master)
+        if master is None:
+            master = {k: v.detach().to("cpu", copy=True)
+                      for k, v in trainer.params.items()}
+        if any(p.dtype != torch.float32 for p in trainer.model.parameters()):
+            raise PhaseError(f"train: a {model} master weight is not f32")
+        init_s = time.time() - t0
+        expect = want if path == "kernels" else {}
+        _reset_launches()
+        trainer.optimizer.zero_grad()
+        trainer.loss(*batches[0]).backward()
+        grads[path] = {k: p.grad.detach().to("cpu", copy=True)
+                       for k, p in trainer.model.named_parameters()}
+        if _launches_by_name() != expect:
+            raise PhaseError(f"train: {model} {path} launched "
+                             f"{_launches_by_name()}, expected {expect}")
+        losses[path] = []
+        for i, b in enumerate(batches):
+            loss, by_name, by_shape = _counted_step(trainer, *b)
+            if by_name != expect:
+                raise PhaseError(f"train: a {model} {path} step launched "
+                                 f"{by_name}, expected exactly {expect}")
+            if path == "kernels":
+                _add_counts(launches, by_shape)
+                if i == 0:
+                    step_shapes = by_shape
+            losses[path].append(loss)
+        say("train", card=repr(card), model=model, batch=batch, path=path,
+            init_s=f"{init_s:.1f}", **_step_ms(torch, trainer, *batches[1],
+                                                steps=3),
+            peak_device_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    _check_first_grads(card, model, batch, grads["kernels"], grads["plain"])
+    del grads, master
+    gap = max(abs(a - b) for a, b in zip(losses["kernels"], losses["plain"]))
+    say("train", card=repr(card), model=model, check="losses",
+        kernels=",".join(f"{v:.5f}" for v in losses["kernels"]),
+        plain=",".join(f"{v:.5f}" for v in losses["plain"]),
+        max_gap=f"{gap:.5f}", bar=0.05,
+        launches_per_step=json.dumps(want, separators=(",", ":")),
+        launches_per_step_by_shape=",".join(
+            f"{n}:{sp}x{d}={v}" for (n, sp, d), v in sorted(
+                step_shapes.items())))
+    if not (gap <= 0.05 and all(math.isfinite(v) for v in
+                                losses["kernels"] + losses["plain"])):
+        raise PhaseError(f"train: {model} losses differ step by step: "
+                         f"{losses}")
+    return launches
+
+
+def _train_cli(torch, card, model: str = XLMR_MODEL, steps: int = 3,
+               batch: int = 32):
+    """The train CLI on the card (``python -m wise_tpu_torch.cli.train
+    --model <model>`` through its ``main``): its captions' segments and
+    their frames come from seeded stand-ins for the metadata table and the
+    decoder (the card's machine has none), everything else is the CLI's
+    own: the training config, the tokenizer, CLIPTrainer, the checkpoint.
+    Its steps must launch exactly steps x ``_step_launches``; then the
+    port's extractor loads the checkpoint (every tensor the checkpoint's
+    f32 master cast to the serving dtype) and serves finite unit
+    embeddings, the text embeddings of the queries away from the seed-0
+    weights'. Returns the CLI's launches by (wrapper, SP, D)."""
+    import gc
+
+    import numpy as np
+
+    from wise_tpu_torch.cli import train as cli
+    from wise_tpu_torch.models.clip.extractor import OpenClipExtractor
+    from wise_tpu_torch.parallel.train import STATE_FILE
+    from wise_tpu_torch.pipeline import train_data
+
+    cfg = cli.training_clip_config(model)
+    captions = _captions(500, 2 * batch)
+    frames = _frames(500, len(captions), cfg.image_size)
+    segments = [(f"clip{i}.mp4", float(i), c) for i, c in enumerate(captions)]
+    want = {k: steps * v for k, v in _step_launches(cfg).items()}
+    real = train_data.load_caption_segments, train_data.sample_frame
+    train_data.load_caption_segments = lambda *a: segments
+    train_data.sample_frame = lambda path, t, size: frames[int(t)]
+    try:
+        with tempfile.TemporaryDirectory(prefix="wise_smoke_cli_") as tmp:
+            (Path(tmp) / "proj").mkdir()
+            ckpt = Path(tmp) / "ckpt" / model / "finetuned"
+            _reset_launches()
+            t0 = time.time()
+            rc = cli.main(["--project-dir", str(Path(tmp) / "proj"),
+                           "--metadata-id", "S/smoke/train",
+                           "--caption-column", "caption", "--model", model,
+                           "--steps", str(steps), "--batch-size", str(batch),
+                           "--learning-rate", "1e-4",
+                           "--checkpoint-dir", str(ckpt)])
+            cli_s = time.time() - t0
+            got, by_shape = _launches_by_name(), dict(_block_launches())
+            gc.collect()
+            torch.cuda.empty_cache()
+            if rc != 0 or got != want:
+                raise PhaseError(f"train: the {model} train CLI returned "
+                                 f"{rc} and launched {got}, expected {want}")
+            state = ckpt / f"step_{steps:08d}" / STATE_FILE
+            ckpt_gb = state.stat().st_size / 1e9
+            os.environ["WISE_CHECKPOINT_DIR"] = str(Path(tmp) / "ckpt")
+            try:
+                served = OpenClipExtractor(
+                    f"mlfoundations/open_clip/{model}/finetuned")
+            finally:
+                del os.environ["WISE_CHECKPOINT_DIR"]
+            params = torch.load(state, map_location="cpu", mmap=True,
+                                weights_only=True)["params"]
+            served_state = served.model.state_dict()
+            differ = [k for k, v in params.items()
+                      if not torch.equal(served_state[k].cpu(),
+                                         v.to(served_state[k].dtype))]
+            del params, served_state
+            text = served.extract_text_features(QUERIES)
+            images = served.extract_image_features(frames[:batch])
+            del served
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        train_data.load_caption_segments, train_data.sample_frame = real
+    seed0 = OpenClipExtractor(f"mlfoundations/open_clip/{model}/none")
+    moved = float(np.abs(text - seed0.extract_text_features(QUERIES)).max())
+    del seed0
+    gc.collect()
+    torch.cuda.empty_cache()
+    finite = bool(np.isfinite(text).all() and np.isfinite(images).all())
+    norm_err = float(np.abs(np.linalg.norm(
+        np.concatenate([text, images]), axis=1) - 1).max())
+    say("train", card=repr(card), check="train_cli", model=model,
+        steps=steps, batch=batch, rc=rc, cli_s=f"{cli_s:.1f}",
+        checkpoint_gb=f"{ckpt_gb:.3f}",
+        launches=json.dumps(got, separators=(",", ":")),
+        served_tensors_differing=len(differ),
+        text_max_abs_diff_vs_seed0=f"{moved:.4f}", moved_bar="> 1e-3",
+        max_unit_norm_err=f"{norm_err:.2e}", norm_bar=1e-3)
+    if differ or not finite or moved <= 1e-3 or norm_err > 1e-3:
+        raise PhaseError(f"train: the extractor's {model} differs from the "
+                         f"CLI's checkpoint in {differ[:5]}, or its "
+                         f"embeddings (finite {finite}, norm error "
+                         f"{norm_err}, moved {moved}) are off")
+    return {k: v for k, v in by_shape.items() if v}
+
+
 def phase_train(torch, card, model: str = "ViT-B-32", batch: int = 256,
-                wide: str = "ViT-L-14", wide_batch: int = 32):
+                wide: str = "ViT-L-14", wide_batch: int = 32,
+                default_batch: int = 32):
     """CLIP fine-tuning on the card through CLIPTrainer (see the module
     docstring, phase 10); returns the launch counts of the kernel path's
     steps, keyed by (wrapper, SP, D)."""
@@ -2351,7 +2753,8 @@ def phase_train(torch, card, model: str = "ViT-B-32", batch: int = 256,
     if not (cfg.fused_block and cfg.pool_last_block):
         raise PhaseError("train: the training config has the kernels off")
     plain_cfg = dataclasses.replace(cfg, fused_block=False,
-                                    pool_last_block=False)
+                                    pool_last_block=False,
+                                    fused_attention=False)
     batches = [_train_batch(torch, cfg, 200 + i, batch) for i in range(3)]
     torch.cuda.reset_peak_memory_stats()
 
@@ -2376,22 +2779,7 @@ def phase_train(torch, card, model: str = "ViT-B-32", batch: int = 256,
     gp = grads(plain)
     if _block_launches() != first_counts:
         raise PhaseError("train: the plain twin launched kernels")
-    floor = 1e-6 * math.sqrt(sum(float(g.float().pow(2).sum())
-                                 for g in gp.values()))
-    cos = {k: _flat_cos(gk[k], g) for k, g in gp.items()
-           if float(g.norm()) > floor}
-    worst = min(cos, key=cos.get)
-    whole = _flat_cos(torch.cat([gk[k].flatten() for k in gp]),
-                      torch.cat([g.flatten() for g in gp.values()]))
-    say("train", card=repr(card), model=model, batch=batch,
-        check="first_step_gradients", parameters=len(gp), compared=len(cos),
-        min_cos=f"{cos[worst]:.6f}", min_cos_at=worst, per_parameter_bar=0.95,
-        whole_tree_cos=f"{whole:.6f}", whole_tree_bar=0.99)
-    if not (cos[worst] >= 0.95 and whole >= 0.99
-            and all(bool(g.isfinite().all()) for g in gk.values())):
-        raise PhaseError(f"train: kernel-path gradients off the plain "
-                         f"twin's (min cos {cos[worst]:.4f} at {worst}, "
-                         f"whole tree {whole:.4f})")
+    _check_first_grads(card, model, batch, gk, gp)
     del gk, gp
 
     key = "visual.transformer.resblocks.0.mlp_fc.kernel"
@@ -2536,6 +2924,30 @@ def phase_train(torch, card, model: str = "ViT-B-32", batch: int = 256,
         peak_device_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
     del big
     torch.cuda.empty_cache()
+
+    # the default backbone at full width: ViT-H/14 (32 layers, 257 tokens,
+    # head_dim 80) and XLM-R large (24 post-LN layers, 64 tokens)
+    cfg_h = training_clip_config(XLMR_MODEL, "bfloat16")
+    if not (cfg_h.fused_block and cfg_h.text_tower == "hf_xlm_roberta"):
+        raise PhaseError("train: the default backbone's config is off the "
+                         "kernels")
+    _add_counts(launches, _train_against_twin(
+        torch, card, XLMR_MODEL, cfg_h, dataclasses.replace(
+            cfg_h, fused_block=False, pool_last_block=False,
+            fused_attention=False), default_batch, 400))
+    # WISE_FUSED_BLOCK=0: the attention middle is the one kernel
+    os.environ["WISE_FUSED_BLOCK"] = "0"
+    try:
+        cfg_a = training_clip_config(model, "bfloat16")
+    finally:
+        del os.environ["WISE_FUSED_BLOCK"]
+    if cfg_a.fused_block or not cfg_a.fused_attention:
+        raise PhaseError("train: WISE_FUSED_BLOCK=0 left no attention "
+                         "middle on")
+    _add_counts(launches, _train_against_twin(
+        torch, card, f"{model}[WISE_FUSED_BLOCK=0]", cfg_a,
+        dataclasses.replace(cfg_a, fused_attention=False), batch, 500))
+    _add_counts(launches, _train_cli(torch, card, batch=default_batch))
     return launches
 
 
@@ -3824,22 +4236,28 @@ def profile_xlmr_text(torch, card, reps: int = 5):
                  model=XLMR_ID.split("/")[2], path="text_embed_8")
 
 
-def profile_train_step(torch, card, batch: int = 256):
-    """Where one ViT-B/32 train step's time goes on the kernel path: ms of
-    its forward, backward and optimizer update (CUDA events, median of 5)
-    and the device ms per CUDA kernel of a whole step (torch.profiler, mean
-    of 2 steps)."""
+def profile_train_step(torch, card, model: str = "ViT-B-32",
+                       batch: int = 256):
+    """Where one train step's time goes on the kernel path: ms of its
+    forward, backward and optimizer update (CUDA events, median of 5) and
+    the device ms per CUDA kernel of a whole step (torch.profiler, mean of 2
+    steps)."""
+    import gc
+
     from wise_tpu_torch.cli.train import training_clip_config
     from wise_tpu_torch.parallel.train import CLIPTrainer
 
-    cfg = training_clip_config("ViT-B-32", "bfloat16")
+    cfg = training_clip_config(model, "bfloat16")
     trainer = CLIPTrainer(cfg, learning_rate=1e-5, grad_clip=1.0).init(seed=0)
     images, tokens = _train_batch(torch, cfg, 200, batch)
-    say("profile", card=repr(card), model="ViT-B-32", batch=batch,
+    say("profile", card=repr(card), model=model, batch=batch,
         path="train_step", **_step_ms(torch, trainer, images, tokens))
     _say_kernels(_device_kernels(
         torch, lambda: trainer.train_step(images, tokens), 2, grad=True),
-        top=20, model="ViT-B-32", path="train_step")
+        top=20, model=model, path="train_step")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_profile(torch, card, batch: int = 64, reps: int = 5):
@@ -3992,6 +4410,7 @@ def main(argv=None) -> int:
             profile_image_batch(torch, card)
             profile_xlmr_text(torch, card)
             profile_train_step(torch, card)
+            profile_train_step(torch, card, XLMR_MODEL, batch=32)
             return 0
         if args.phase == "gemm":
             rows = []

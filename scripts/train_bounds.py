@@ -2,6 +2,8 @@
 """The least time an H100 could take for each training rule's forward and
 backward at the shapes chip_smoke.py times them (its ``[backward]`` lines and
 the padded block's rule in ``[padded]``), from the shapes alone.
+chip_smoke.py prints the same bound on each ``[backward]`` line from
+``work``.
 
     python3 scripts/train_bounds.py
 
@@ -10,9 +12,13 @@ products for each one of the forward), at 989 TFLOP/s. Bytes at 3.35 TB/s,
 each once: the stream's x, out, d_out and d_x (f32 or bf16), the tensors the
 forward saves for the backward, written and read (bf16 qkv for the attention
 block, the bf16 pre-activation h for the MLP, k and v for the pooled blocks;
-the padded block saves only x, as it recomputes), and the weights read by
-the forward and the backward and their gradients written. The bound is the
-larger of the two times. Needs no card and no JAX.
+the padded block and the post-LN blocks save only their inputs, as they
+recompute), and the weights read by the forward and the backward and their
+gradients written; the post-LN attention block also reads its f32 key mask
+twice. The attention middle has no weights: q, k and v are read by the
+forward and again by the backward, out written, d_out read, and dq, dk and
+dv written. The bound is the larger of the two times. Needs no card and no
+JAX.
 """
 
 from __future__ import annotations
@@ -33,6 +39,18 @@ ROWS = {
         "pooled", 256, 77, 512, 2, True),
     "fused_attn_block_padded_train 32x257x1280 f32": (
         "padded", 32, 257, 1280, 4, False),
+    "fused_attn_block_train 32x257x1280 f32": ("attn", 32, 257, 1280, 4,
+                                               False),
+    "fused_mlp_split_train 32x257x1280 f32": ("mlp", 32, 257, 1280, 4,
+                                              False),
+    "fused_postln_attn_block_train 32x64x1024 bf16": (
+        "postln_attn", 32, 64, 1024, 2, False),
+    "fused_postln_mlp_block_train 32x64x1024 bf16": (
+        "postln_mlp", 32, 64, 1024, 2, False),
+    "fused_attention_trainable 256x50x768 bf16": (
+        "attention", 256, 50, 768, 2, False),
+    "fused_attention_trainable 256x77x512 bf16 causal": (
+        "attention", 256, 77, 512, 2, True),
 }
 
 
@@ -41,9 +59,13 @@ def work(kind, b, sp, d, xb, causal):
     m, f = b * sp, 4 * d
     keys = (sp + 1) / 2 if causal else sp
     stream = 4 * m * d * xb                      # x, out, d_out, d_x
-    if kind == "mlp":
+    if kind == "attention":
+        # q, k, v twice, out, d_out, dq, dk, dv
+        return 3 * 4 * m * keys * d, 11 * m * d * xb
+    if kind in ("mlp", "postln_mlp"):
         weights = 2 * (2 * d * f + f + d) + 8 * d
-        return 3 * 4 * m * d * f, stream + 2 * 2 * m * f + 3 * weights
+        saved = 0 if kind == "postln_mlp" else 2 * 2 * m * f   # h_pre
+        return 3 * 4 * m * d * f, stream + saved + 3 * weights
     weights = 2 * (4 * d * d + 4 * d) + 8 * d
     if kind == "pooled":
         fwd = 4 * m * d * d + 4 * b * d * d + 4 * b * keys * d
@@ -51,6 +73,8 @@ def work(kind, b, sp, d, xb, causal):
         stream = 2 * m * d * xb + 2 * b * d * xb  # x, d_x; out, d_out rows
         return 3 * fwd, stream + saved + 3 * weights
     fwd = 8 * m * d * d + 4 * m * keys * d
+    if kind == "postln_attn":
+        return 3 * fwd, stream + 2 * 4 * b * sp + 3 * weights   # km twice
     saved = 0 if kind == "padded" else 2 * 2 * m * 3 * d   # qkv
     return 3 * fwd, stream + saved + 3 * weights
 

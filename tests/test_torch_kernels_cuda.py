@@ -811,8 +811,9 @@ def test_hybrid_and_postln_layers_raise_outside_the_kernels_shapes(cuda):
     """With ``fused_block`` off and ``fused_attention`` on, a CLIP block of
     a head_dim the attention kernel does not take reaches the wrapper on the
     card and raises, and so does an XLM-R layer on the post-LN wrappers: no
-    plain fallback by shape. With autograd on and trainable parameters
-    both refuse first: neither has its training rule yet."""
+    plain fallback by shape. With autograd on and trainable parameters the
+    layers take their training entries, whose forward reaches the same
+    wrapper and raises the same way."""
     from wise_tpu_torch.models.clip import hf_text as TH
     from wise_tpu_torch.models.clip import model as TM
 
@@ -823,7 +824,7 @@ def test_hybrid_and_postln_layers_raise_outside_the_kernels_shapes(cuda):
     x = torch.randn(2, 16, 288, device=cuda)
     with torch.no_grad(), pytest.raises(ValueError, match="head_dim"):
         blk(x, n_valid=16)
-    with pytest.raises(RuntimeError, match="Queue A item 16"):
+    with pytest.raises(ValueError, match="head_dim"):
         blk(x, n_valid=16)
     layer = TH.BertLayer(TH.HFTextConfig(
         vocab_size=64, width=128, layers=1, heads=4, intermediate=512,
@@ -833,7 +834,7 @@ def test_hybrid_and_postln_layers_raise_outside_the_kernels_shapes(cuda):
     km = torch.zeros(2, 1, 16, device=cuda)
     with torch.no_grad(), pytest.raises(ValueError, match="head_dim"):
         layer(x, km)
-    with pytest.raises(RuntimeError, match="Queue A item 16"):
+    with pytest.raises(ValueError, match="head_dim"):
         layer(x, km)
     assert not any(A.LAUNCHES.values()) and not any(P.LAUNCHES.values())
 
@@ -1324,6 +1325,62 @@ def test_train_rule_gradients_match_plain_on_card(cuda, rule, stream):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rule", ["postln-attn", "postln-mlp", "attention",
+                                  "attention-causal"])
+def test_recompute_rule_gradients_match_plain_on_card(cuda, rule):
+    """The post-LN rules (64 tokens at head_dim 64, every example's keys cut
+    at another length) and the attention middle's (n_valid < SP,
+    and causal): the kernel forward launches once, the output is the serve
+    wrapper's bit for bit, and the gradients are autograd's through the
+    plain version (per-tensor cosine >= 0.999)."""
+    from wise_tpu_torch.ops import attention as A
+
+    P.reset_launches()
+    A.reset_launches()
+    if rule.startswith("postln"):
+        mlp = rule == "postln-mlp"
+        x, km, ln, w = _postln_inputs("xlmr", 120, cuda, mlp=mlp)
+        args = [t.requires_grad_() for t in (x, *ln, *w)]
+        heads = POSTLN_SHAPES["xlmr"][3]
+        if mlp:
+            fused = lambda: P.fused_postln_mlp_block_train(*args)  # noqa
+            plain = lambda: P.plain_postln_mlp_block(*args)  # noqa
+            serve = lambda: P.fused_postln_mlp_block(*args)  # noqa
+        else:
+            fused = lambda: P.fused_postln_attn_block_train(  # noqa
+                args[0], km, *args[1:], heads)
+            plain = lambda: P.plain_postln_attn_block(  # noqa
+                args[0], km, *args[1:], heads)
+            serve = lambda: P.fused_postln_attn_block(  # noqa
+                args[0], km, *args[1:], heads)
+    else:
+        causal = rule == "attention-causal"
+        g = torch.Generator().manual_seed(121)
+        args = [torch.randn(4, 77, 512, generator=g).to(cuda, torch.bfloat16)
+                .requires_grad_() for _ in range(3)]
+        n_valid = 77 if causal else 60
+        fused = lambda: A.fused_attention_trainable(  # noqa
+            *args, 8, n_valid, causal)
+        plain = lambda: A.plain_short_attention(  # noqa
+            *args, 8, n_valid, causal)
+        serve = lambda: A.fused_short_attention(  # noqa
+            *args, 8, n_valid, causal)
+    out = fused()
+    assert out.requires_grad
+    # one launch: at width 256 the MLP is the "single" variant
+    launched = dict(P.LAUNCHES_BY_SHAPE) | dict(A.LAUNCHES_BY_SHAPE)
+    assert sum(launched.values()) == 1
+    with torch.no_grad():
+        assert torch.equal(out, serve())
+    weight = torch.randn(out.shape, device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(2))
+    got = torch.autograd.grad((out.float() * weight).sum(), args)
+    want = torch.autograd.grad((plain().float() * weight).sum(), args)
+    assert all(bool(t.isfinite().all()) for t in got)
+    assert _grad_cos(got, want) >= 0.999
+
+
+@pytest.mark.cuda
 def test_wrappers_raise_under_autograd_on_card(cuda):
     """A kernel wrapper called on CUDA tensors with an input that requires a
     gradient raises instead of returning a tensor cut from the graph; with
@@ -1348,6 +1405,10 @@ def test_wrappers_raise_under_autograd_on_card(cuda):
               lambda: K.fused_mlp_fc(xm, *lnm, *wm[:2])]
     q = torch.randn(2, 16, 128, device=cuda).bfloat16().requires_grad_()
     calls.append(lambda: A.fused_short_attention(q, q, q, 2, 16))
+    xp, km, lnp, wp = _postln_inputs("xlmr", 45, cuda)
+    xp.requires_grad_()
+    calls.append(lambda: P.fused_postln_attn_block(
+        xp, km, *lnp, *wp, POSTLN_SHAPES["xlmr"][3]))
     db = torch.randn(4096, 64, device=cuda)
     qv = torch.randn(1, 64, device=cuda, requires_grad=True)
     calls.append(lambda: FT.fused_topk_threshold(qv, db, 4096, 10))

@@ -299,16 +299,23 @@ def test_training_clip_config_matches_the_reference(monkeypatch, dtype, off):
     from wise_tpu.cli.train import training_clip_config as j_config
     from wise_tpu_torch.cli.train import training_clip_config as t_config
 
-    for name in ("WISE_FUSED_BLOCK", "WISE_POOL_LAST"):
+    for name in ("WISE_FUSED_BLOCK", "WISE_POOL_LAST", "WISE_FUSED_ATTN"):
         monkeypatch.delenv(name, raising=False)
     for name in off:
         monkeypatch.setenv(name, "0")
     want = dataclasses.asdict(j_config("ViT-B-32", dtype, remat=True))
     got = dataclasses.asdict(t_config("ViT-B-32", dtype, remat=True))
     assert jnp.dtype(want.pop("dtype")).name == got.pop("dtype") == dtype
+    # one deliberate deviation (ROADMAP Queue C 10): the port keeps the
+    # attention middle a kernel in bf16, as both extractors' production
+    # configs do; the reference's training config leaves it off
+    assert not want.pop("fused_attention")
+    assert got.pop("fused_attention") == (dtype == "bfloat16")
     assert got == {k: want[k] for k in got}
     assert got["fused_block"] == (dtype == "bfloat16"
                                   and "WISE_FUSED_BLOCK" not in off)
+    monkeypatch.setenv("WISE_FUSED_ATTN", "0")
+    assert not t_config("ViT-B-32", dtype).fused_attention
 
 
 def test_parsers_take_the_same_options():

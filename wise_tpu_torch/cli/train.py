@@ -4,7 +4,13 @@
 Takes optimizer steps on one card (``WISE_TORCH_DEVICE=cpu`` for the CPU)
 with f32 master weights under AdamW, checkpoints as ``step_%08d`` directories
 and can resume. bf16 runs go through the saved-activation block kernels and
-the pooled last layer.
+the pooled last layer, the XLM-R text tower of the default backbone through
+the post-LN kernels, and with WISE_FUSED_BLOCK=0 the attention middle
+through its kernel; every backward is plain PyTorch.
+
+    python -m wise_tpu_torch.cli.train --project-dir P \\
+        --metadata-id EK/ann/train --caption-column narration \\
+        --model xlm-roberta-large-ViT-H-14 --steps 1000 --batch-size 32
 
     python -m wise_tpu_torch.cli.train --project-dir P \\
         --metadata-id EK/ann/train --caption-column narration \\
@@ -63,7 +69,13 @@ def training_clip_config(model: str, dtype: str = "bfloat16", pp: int = 1,
     (their ``*_train`` rules: saved-activation forwards, plain backwards)
     and the pooled last layer by default. WISE_FUSED_BLOCK=0 /
     WISE_POOL_LAST=0 opt out; pipeline-parallel training keeps the kernels
-    off, as in the reference."""
+    off, as in the reference.
+
+    With WISE_FUSED_BLOCK=0 the attention middle stays a kernel
+    (``fused_attention``, off with WISE_FUSED_ATTN=0), as the extractor's
+    production config keeps it in both packages. The reference's training
+    config leaves ``fused_attention`` at its default, off; the port trains
+    through ``fused_attention_trainable`` instead (ROADMAP Queue C 10)."""
     from ..models.clip.config import get_clip_config
 
     bf16 = dtype == "bfloat16"
@@ -71,6 +83,10 @@ def training_clip_config(model: str, dtype: str = "bfloat16", pp: int = 1,
         get_clip_config(model),
         dtype="bfloat16" if bf16 else "float32",
         remat=remat,
+        fused_attention=(
+            bf16 and pp <= 1
+            and os.environ.get("WISE_FUSED_ATTN", "1") != "0"
+        ),
         fused_block=(
             bf16 and pp <= 1
             and os.environ.get("WISE_FUSED_BLOCK", "1") != "0"
@@ -80,6 +96,21 @@ def training_clip_config(model: str, dtype: str = "bfloat16", pp: int = 1,
             and os.environ.get("WISE_POOL_LAST", "1") != "0"
         ),
     )
+
+
+def training_tokenizer(config):
+    """The captions' tokenizer. The XLM-R tower masks its pad id, 1, so its
+    captions are padded with 1, as the extractor pads the queries it serves
+    (models/clip/extractor.py); the reference's train CLI pads them with 0,
+    which that tower reads as a real token (ROADMAP Queue C 10). Other
+    towers take ``get_tokenizer``'s, as in the reference."""
+    from ..models.clip.tokenizer import HashTokenizer, get_tokenizer
+
+    if config.text_tower == "hf_xlm_roberta":
+        return HashTokenizer(vocab_size=config.vocab_size,
+                             context_length=config.context_length, pad_id=1)
+    return get_tokenizer(None, vocab_size=config.vocab_size,
+                         context_length=config.context_length)
 
 
 def main(argv=None) -> int:
@@ -92,7 +123,6 @@ def main(argv=None) -> int:
             "--dp / --mp / --pp: multi-device training is not ported "
             "(ROADMAP Queue A item 12); this trainer runs on one card")
 
-    from ..models.clip.tokenizer import get_tokenizer
     from ..parallel.train import CLIPTrainer
     from ..pipeline.train_data import caption_batches, load_caption_segments
     from ..project import WiseProject
@@ -123,10 +153,7 @@ def main(argv=None) -> int:
             log.info(f"resumed from step {start_step}")
         except FileNotFoundError:
             log.info("no checkpoint found; starting fresh")
-    tokenizer = get_tokenizer(
-        None, vocab_size=config.vocab_size,
-        context_length=config.context_length,
-    )
+    tokenizer = training_tokenizer(config)
 
     batches = caption_batches(
         segments, tokenizer, args.batch_size, config.image_size,

@@ -13,17 +13,30 @@ intermediate, output, out_ln}``, ``proj`` or ``proj_fc`` + ``proj_out``) with
 one difference: a layer's separate ``self/{query, key, value}`` projections
 are stored as one ``qkv`` Dense (D, 3D), the layout the attention kernel
 takes. ``convert.from_flax_params`` concatenates them once, when a tree is
-loaded. Matrices, Dense biases and the two embedding tables are stored in
-the compute dtype (the tables are summed in f32, as the reference sums
-them); LayerNorm parameters and the projection head stay f32.
+loaded. For serving, matrices, Dense biases and the two embedding tables are
+stored in the compute dtype (the tables are summed in f32, as the reference
+sums them); LayerNorm parameters and the projection head stay f32. For
+training, ``param_dtype=torch.float32`` stores every matrix, bias and table
+in f32 and casts at each use, as models/clip/model.py's ``Dense`` does
+(``CLIP(config, param_dtype=torch.float32)`` passes it down).
 
-With ``fused_block`` set (and bf16) every layer calls the post-LN kernel
-wrappers (ops/postln_block.py), which launch the CUDA kernels on CUDA tensors
-and compute their plain versions on CPU tensors; a shape the kernels do not
-take raises on the card. Otherwise a layer is the wrappers' plain versions
-(in f32 the reference's plain-ops layer to rounding; in bf16 they round
-where the kernels do, not where the reference's XLA layer does). Outside the
-layers everything is plain torch, as the reference leaves it to XLA.
+With ``fused_block`` set (and bf16) every layer calls the post-LN training
+entries (ops/postln_block.py ``*_train``): with no gradient required they
+are the kernel wrappers, which launch the CUDA kernels on CUDA tensors and
+compute their plain versions on CPU tensors; under a gradient they add a
+backward that differentiates the plain block, as the reference's layer calls
+its ``_train`` wrappers (wise_tpu/models/clip/hf_text.py:135-144). A shape
+the kernels do not take raises on the card. Otherwise a layer is the
+wrappers' plain versions (in f32 the reference's plain-ops layer to
+rounding; in bf16 they round where the kernels do, not where the
+reference's XLA layer does). Outside the layers everything is plain torch,
+differentiated by autograd, as the reference leaves it to XLA.
+
+One deviation from the reference's converter (ROADMAP Queue C 6):
+``convert_hf_text_state_dict`` adds row 0 of
+``embeddings.token_type_embeddings.weight``, which HuggingFace's RoBERTa adds
+to every token, to the position table when the key is present; the
+reference drops it.
 """
 
 from __future__ import annotations
@@ -79,45 +92,51 @@ class BertLayer(nn.Module):
     """One post-LN block. ``km`` is the per-example additive f32 key mask
     (B, 1, SP): 0 at real tokens, -inf at padding."""
 
-    def __init__(self, c: HFTextConfig):
+    def __init__(self, c: HFTextConfig, param_dtype=None):
         super().__init__()
         dt = c.torch_dtype
         self.heads = c.heads
         self.fused_block = c.fused_block and dt == torch.bfloat16
-        self.qkv = Dense(c.width, 3 * c.width, dt)
-        self.attn_out = Dense(c.width, c.width, dt)
+        self.qkv = Dense(c.width, 3 * c.width, dt, param_dtype=param_dtype)
+        self.attn_out = Dense(c.width, c.width, dt, param_dtype=param_dtype)
         self.attn_ln = LayerNorm(c.width)
-        self.intermediate = Dense(c.width, c.intermediate, dt)
-        self.output = Dense(c.intermediate, c.width, dt)
+        self.intermediate = Dense(c.width, c.intermediate, dt,
+                                  param_dtype=param_dtype)
+        self.output = Dense(c.intermediate, c.width, dt,
+                            param_dtype=param_dtype)
         self.out_ln = LayerNorm(c.width)
 
     def forward(self, x, km):
         fused = self.fused_block
-        attn = P.fused_postln_attn_block if fused else \
-            P.plain_postln_attn_block
+        attn = (P.fused_postln_attn_block_train if fused
+                else P.plain_postln_attn_block)
         x = attn(x, km, self.attn_ln.scale, self.attn_ln.bias,
-                 self.qkv.kernel, self.qkv.bias, self.attn_out.kernel,
-                 self.attn_out.bias, self.heads)
-        mlp = P.fused_postln_mlp_block if fused else P.plain_postln_mlp_block
+                 *self.qkv.weights(), *self.attn_out.weights(), self.heads)
+        mlp = (P.fused_postln_mlp_block_train if fused
+               else P.plain_postln_mlp_block)
         return mlp(x, self.out_ln.scale, self.out_ln.bias,
-                   self.intermediate.kernel, self.intermediate.bias,
-                   self.output.kernel, self.output.bias, "gelu")
+                   *self.intermediate.weights(), *self.output.weights(),
+                   "gelu")
 
 
 class XLMRobertaTextTower(nn.Module):
-    def __init__(self, c: HFTextConfig):
+    """``param_dtype`` stores the matrices, biases and tables in another
+    dtype than the compute dtype: float32 for training, None (the compute
+    dtype) for serving."""
+
+    def __init__(self, c: HFTextConfig, param_dtype=None):
         super().__init__()
         if c.proj_type not in ("linear", "mlp"):
             raise ValueError(f"unknown proj_type {c.proj_type!r}")
         self.config = c
-        dt = c.torch_dtype
+        pdt = param_dtype or c.torch_dtype
         self.word_embeddings = nn.Parameter(
-            torch.zeros(c.vocab_size, c.width, dtype=dt))
+            torch.zeros(c.vocab_size, c.width, dtype=pdt))
         self.position_embeddings = nn.Parameter(
-            torch.zeros(c.max_positions, c.width, dtype=dt))
+            torch.zeros(c.max_positions, c.width, dtype=pdt))
         self.emb_ln = LayerNorm(c.width)
         for i in range(c.layers):
-            self.add_module(f"layer_{i}", BertLayer(c))
+            self.add_module(f"layer_{i}", BertLayer(c, param_dtype))
         if c.proj_type == "mlp":
             hidden = (c.width + c.embed_dim) // 2
             self.proj_fc = nn.Parameter(torch.zeros(c.width, hidden))
@@ -167,9 +186,15 @@ def convert_hf_text_state_dict(sd, config: HFTextConfig):
         return {"scale": g(prefix + ".weight"), "bias": g(prefix + ".bias")}
 
     base = "text.transformer"
+    positions = g(f"{base}.embeddings.position_embeddings.weight")
+    token_type = f"{base}.embeddings.token_type_embeddings.weight"
+    if token_type in sd:
+        # HF's RoBERTa adds token type 0's row to every token; the towers
+        # take no token types, so it folds into every position's row
+        positions = positions + g(token_type)[0]
     params = {
         "word_embeddings": g(f"{base}.embeddings.word_embeddings.weight"),
-        "position_embeddings": g(f"{base}.embeddings.position_embeddings.weight"),
+        "position_embeddings": positions,
         "emb_ln": ln(f"{base}.embeddings.LayerNorm"),
     }
     # projection head naming depends on open_clip's proj type: "mlp" saves

@@ -47,9 +47,11 @@ for the XLM-RoBERTa tower (hf_text.py) on the post-LN kernels.
 Under autograd the blocks go through the ``*_train`` functions of
 ops/block.py: with no gradient required they launch what serving launches;
 with one, the saved-activation kernels and plain-PyTorch backwards. The
-attention-middle kernel and the post-LN kernels have no training rule yet and
-raise there. ``config.remat`` recomputes each block in the backward
-(``torch.utils.checkpoint``).
+attention middle goes through ops/attention.py ``fused_attention_trainable``
+and the XLM-R tower's layers through ops/postln_block.py's ``*_train``
+entries: the same kernels forward, and a backward that differentiates the
+plain version at the saved inputs. ``config.remat`` recomputes each block in
+the backward (``torch.utils.checkpoint``).
 """
 
 from __future__ import annotations
@@ -135,11 +137,13 @@ class ResidualAttentionBlock(nn.Module):
                 *self.mlp_proj.weights())
 
     def _attention_middle(self, x, n_valid: int, causal: bool):
-        """x + out_proj(fused_short_attention(in_proj(LN(x)))): the
-        projections are plain GEMMs, as the reference leaves them to XLA."""
+        """x + out_proj(fused_short_attention(in_proj(LN(x)))) through its
+        training entry: the projections are plain GEMMs, as the reference
+        leaves them to XLA."""
         y = self.ln_1(x).to(self.dtype)
         q, k, v = self.attn.in_proj(y).split(self.width, dim=-1)
-        att = A.fused_short_attention(q, k, v, self.heads, n_valid, causal)
+        att = A.fused_attention_trainable(q, k, v, self.heads, n_valid,
+                                          causal)
         return x + self.attn.out_proj(att).to(x.dtype)
 
     def _fused_attn(self, seq: int):
@@ -419,11 +423,8 @@ class CLIP(nn.Module):
         if config.text_tower == "hf_xlm_roberta":
             from .hf_text import XLMRobertaTextTower, hf_text_config
 
-            if param_dtype not in (None, config.torch_dtype):
-                raise NotImplementedError(
-                    "training the XLM-RoBERTa text tower: ROADMAP Queue A "
-                    "item 16")
-            self.text = XLMRobertaTextTower(hf_text_config(config))
+            self.text = XLMRobertaTextTower(hf_text_config(config),
+                                            param_dtype)
         else:
             self.text = TextTransformer(config, param_dtype)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))

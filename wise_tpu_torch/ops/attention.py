@@ -10,9 +10,18 @@ computes the plain version; on a CUDA tensor it launches ``wt_short_attention``
 attention.cuh, reading three tensors) or raises. ``LAUNCHES`` counts the
 launches.
 
-| wrapper               | TPU kernel it replaces                        |
-| --------------------- | --------------------------------------------- |
-| fused_short_attention | fused_short_attention (attention.py:125)      |
+| wrapper                   | TPU kernel it replaces                    |
+| ------------------------- | ----------------------------------------- |
+| fused_short_attention     | fused_short_attention (attention.py:125)  |
+| fused_attention_trainable | fused_attention_trainable (:222), its     |
+|                           |   custom VJP (_fat_fwd, _fat_bwd)         |
+
+``fused_attention_trainable`` is the training entry: with a gradient
+required its forward is this kernel and its backward autograd through
+``plain_short_attention`` at the saved q, k and v, with the same mask (the
+reference's ``_fat_bwd`` is ``jax.vjp`` of its XLA attention, no kernel);
+with none it is ``fused_short_attention``. The serve wrapper refuses a
+gradient on the card.
 
 The reference admits head_dim 64 only, for a TPU layout reason, and its
 padded-head block (ops/block.py ``fused_attn_block_padded``) calls it on
@@ -34,7 +43,7 @@ import math
 import torch
 
 from . import block
-from .block import MAX_SEQ, _stream
+from .block import MAX_SEQ, _leaves, _needs_grad, _stream
 from .build import LaunchCounter, check, load_library, refuse_grad
 
 #: head dims the attention-middle kernel takes: the block kernels' and the
@@ -50,11 +59,6 @@ LAUNCHES = _launches.counts
 #: the same launches keyed by (wrapper, SP, D)
 LAUNCHES_BY_SHAPE = _launches.by_shape
 reset_launches = _launches.reset
-
-
-#: what a wrapper here says when it is called on the card under autograd
-NO_TRAIN_RULE = ("its training rule is not ported yet (ROADMAP.md Queue A "
-                 "item 16)")
 
 
 def plain_short_attention(q, k, v, heads: int, n_valid: int,
@@ -108,7 +112,8 @@ def fused_short_attention(q, k, v, heads: int, n_valid: int,
     if not q.is_cuda:
         return plain_short_attention(q, k, v, heads, n_valid, causal, scale)
     name = "fused_short_attention"
-    refuse_grad(name, (q, k, v), NO_TRAIN_RULE)
+    refuse_grad(name, (q, k, v),
+                "call fused_attention_trainable, which differentiates")
     if q.dim() != 3:
         raise ValueError(f"{name}: q must be (B, SP, D)")
     b, sp, d = q.shape
@@ -132,3 +137,35 @@ def fused_short_attention(q, k, v, heads: int, n_valid: int,
         d, heads, int(n_valid), int(causal), scale, _stream(q)), name)
     _launches.add(name, sp, d)
     return out
+
+
+class _AttentionTrain(torch.autograd.Function):
+    """fused_attention_trainable under a gradient: the kernel forward, and a
+    backward that differentiates plain_short_attention at the saved q, k and
+    v (the reference's ``_fat_bwd``). Masked key columns get no gradient;
+    rows >= n_valid, which the kernel computes like any other, take the
+    caller's cotangent, as in the reference."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads, n_valid, causal):
+        out = fused_short_attention(q, k, v, heads, n_valid, causal)
+        ctx.save_for_backward(q, k, v)
+        ctx.static = (heads, n_valid, causal)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        heads, n_valid, causal = ctx.static
+        q, k, v = _leaves(*ctx.saved_tensors)
+        with torch.enable_grad():
+            out = plain_short_attention(q, k, v, heads, n_valid, causal)
+        return (*torch.autograd.grad(out, (q, k, v), g), None, None, None)
+
+
+def fused_attention_trainable(q, k, v, heads: int, n_valid: int,
+                              causal: bool = False):
+    """fused_short_attention for the towers: under a gradient the same
+    kernel forward and a recompute backward; with none the serve wrapper."""
+    if not _needs_grad(q, k, v):
+        return fused_short_attention(q, k, v, heads, n_valid, causal)
+    return _AttentionTrain.apply(q, k, v, heads, n_valid, causal)

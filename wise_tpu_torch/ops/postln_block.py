@@ -18,6 +18,8 @@ counts the kernel launches.
 | fused_postln_mlp_block "split"   | the same, two programs: _postln_fc_kernel|
 |   (fused_postln_fc then          |   (:257) then _postln_proj_kernel (:265) |
 |   fused_postln_proj)             |                                          |
+| fused_postln_attn_block_train    | fused_postln_attn_block_train (:468)     |
+| fused_postln_mlp_block_train     | fused_postln_mlp_block_train (:487)      |
 
 Rounding points follow the TPU kernels: qkv rounds to bf16 after the bias, p
 before the PV product, h after the GELU; the residual sum x + acc + bias is
@@ -26,6 +28,15 @@ formed and normalised in f32 and rounds once, after the LayerNorm.
 A row whose keys are all masked (km all -inf) is NaN in the kernel, in the
 plain version and on the TPU alike (a softmax over nothing); the extractor
 never makes one, since every row it pads carries one real token.
+
+The training entries ``fused_postln_attn_block_train`` and
+``fused_postln_mlp_block_train`` (the reference's :468 and :487) run the
+serve wrappers' kernels forward and, under a gradient, a backward that
+differentiates the plain block at the saved inputs (the reference's
+``_recompute_bwd``; it has no backward kernel). ``km`` gets no gradient. A
+masked key's probability is exactly 0, so it sends nothing back, and a row
+with one real key has finite gradients. The serve wrappers refuse a
+gradient on the card.
 """
 
 from __future__ import annotations
@@ -35,8 +46,8 @@ import math
 import torch
 
 from .block import (ACTS, HEAD_DIMS, _check_param, _check_proj, _check_x,
-                    _ptrs, _require, _stream, activation, layer_norm_f32)
-from .attention import NO_TRAIN_RULE
+                    _leaves, _needs_grad, _ptrs, _require, _stream,
+                    activation, layer_norm_f32)
 from .build import LaunchCounter, check, load_library, refuse_grad
 
 _launches = LaunchCounter("fused_postln_attn_block", "fused_postln_mlp_block",
@@ -46,6 +57,10 @@ LAUNCHES = _launches.counts
 #: the same launches keyed by (wrapper, SP, D) of x
 LAUNCHES_BY_SHAPE = _launches.by_shape
 reset_launches = _launches.reset
+
+#: what a serve wrapper says when it is called on the card under autograd
+_ATTN_TRAIN = "call fused_postln_attn_block_train, which differentiates"
+_MLP_TRAIN = "call fused_postln_mlp_block_train, which differentiates"
 
 
 def postln_mlp_choice(width: int) -> str:
@@ -139,7 +154,7 @@ def fused_postln_attn_block(x, km, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
                                        wo, bo, heads)
     name = "fused_postln_attn_block"
     refuse_grad(name, (x, ln_scale, ln_bias, wqkv, bqkv, wo, bo),
-                NO_TRAIN_RULE)
+                _ATTN_TRAIN)
     b, sp, d = _check_stream(x, name)
     _require(heads >= 1 and d % heads == 0 and d // heads in HEAD_DIMS,
              f"{name}: head_dim {d / max(heads, 1):g} not in {HEAD_DIMS}")
@@ -170,7 +185,7 @@ def fused_postln_fc(x, wfc, bfc, act: str = "gelu"):
     if not x.is_cuda:
         return plain_postln_fc(x, wfc, bfc, act)
     name = "fused_postln_fc"
-    refuse_grad(name, (x, wfc, bfc), NO_TRAIN_RULE)
+    refuse_grad(name, (x, wfc, bfc), _MLP_TRAIN)
     b, sp, d, f = _check_fc(x, wfc, bfc, act, name)
     lib = load_library()
     h = torch.empty((b, sp, f), dtype=torch.bfloat16, device=x.device)
@@ -186,7 +201,7 @@ def fused_postln_proj(h, wproj, bproj, x, ln_scale, ln_bias):
     if not x.is_cuda:
         return plain_postln_proj(h, wproj, bproj, x, ln_scale, ln_bias)
     name = "fused_postln_proj"
-    refuse_grad(name, (h, wproj, bproj, x, ln_scale, ln_bias), NO_TRAIN_RULE)
+    refuse_grad(name, (h, wproj, bproj, x, ln_scale, ln_bias), _MLP_TRAIN)
     b, sp, d = _check_stream(x, name)
     f = wproj.shape[0]
     _require(f % 32 == 0, f"{name}: hidden width {f} not a multiple of 32")
@@ -221,7 +236,7 @@ def fused_postln_mlp_block(x, ln_scale, ln_bias, wfc, bfc, wproj, bproj,
         return fused_postln_proj(h, wproj, bproj, x, ln_scale, ln_bias)
     name = "fused_postln_mlp_block"
     refuse_grad(name, (x, ln_scale, ln_bias, wfc, bfc, wproj, bproj),
-                NO_TRAIN_RULE)
+                _MLP_TRAIN)
     b, sp, d, f = _check_fc(x, wfc, bfc, act, name)
     _check_proj(wproj, bproj, d, f, x.device, name)
     _check_ln(ln_scale, ln_bias, d, x.device, name)
@@ -235,3 +250,67 @@ def fused_postln_mlp_block(x, ln_scale, ln_bias, wfc, bfc, wproj, bproj,
         m, d, f, ACTS[act], _stream(x)), name)
     _launches.add(name, sp, d)
     return out
+
+
+# ---------------------------------------------------------------------------
+# autograd rules (wise_tpu/ops/postln_block.py:468-505): the kernel forward,
+# the backward a recompute of the plain block at the saved inputs
+# ---------------------------------------------------------------------------
+
+
+class _PostlnAttnTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, km, ln_s, ln_b, wqkv, bqkv, wo, bo, heads):
+        out = fused_postln_attn_block(x, km, ln_s, ln_b, wqkv, bqkv, wo, bo,
+                                      heads)
+        ctx.save_for_backward(x, km, ln_s, ln_b, wqkv, bqkv, wo, bo)
+        ctx.heads = heads
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, km, *params = ctx.saved_tensors
+        x, *params = _leaves(x, *params)
+        with torch.enable_grad():
+            out = plain_postln_attn_block(x, km, *params, ctx.heads)
+        gx, *gp = torch.autograd.grad(out, (x, *params), g)
+        return (gx, None, *gp, None)
+
+
+class _PostlnMlpTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln_s, ln_b, wfc, bfc, wproj, bproj, act):
+        out = fused_postln_mlp_block(x, ln_s, ln_b, wfc, bfc, wproj, bproj,
+                                     act)
+        ctx.save_for_backward(x, ln_s, ln_b, wfc, bfc, wproj, bproj)
+        ctx.act = act
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        args = _leaves(*ctx.saved_tensors)
+        with torch.enable_grad():
+            out = plain_postln_mlp_block(*args, ctx.act)
+        return (*torch.autograd.grad(out, args, g), None)
+
+
+def fused_postln_attn_block_train(x, km, ln_scale, ln_bias, wqkv, bqkv, wo,
+                                  bo, heads: int):
+    """fused_postln_attn_block for the XLM-R tower: under a gradient the same
+    kernel forward and a recompute backward (``km`` gets none); with none
+    the serve wrapper."""
+    params = (ln_scale, ln_bias, wqkv, bqkv, wo, bo)
+    if not _needs_grad(x, *params):
+        return fused_postln_attn_block(x, km, *params, heads)
+    return _PostlnAttnTrain.apply(x, km, *params, heads)
+
+
+def fused_postln_mlp_block_train(x, ln_scale, ln_bias, wfc, bfc, wproj,
+                                 bproj, act: str = "gelu"):
+    """fused_postln_mlp_block for the XLM-R tower (the variant
+    ``postln_mlp_choice`` picks): under a gradient the same forward and a
+    recompute backward; with none the serve wrapper."""
+    args = (x, ln_scale, ln_bias, wfc, bfc, wproj, bproj)
+    if not _needs_grad(*args):
+        return fused_postln_mlp_block(*args, act)
+    return _PostlnMlpTrain.apply(*args, act)

@@ -168,7 +168,10 @@ class CLIPTrainer:
     """Fine-tunes the CLIP towers of ``config`` on ``device`` (the card
     unless ``WISE_TORCH_DEVICE`` says otherwise). With ``config.fused_block``
     the forward runs the saved-activation block kernels (ops/block.py
-    ``*_train``) and the backward is plain PyTorch."""
+    ``*_train``) and, for an XLM-R text tower, the post-LN kernels
+    (ops/postln_block.py ``*_train``); with ``fused_attention`` alone the
+    attention middle's (ops/attention.py ``fused_attention_trainable``). The
+    backward is plain PyTorch throughout."""
 
     def __init__(self, config: CLIPConfig, device=None,
                  learning_rate: float = 1e-4, weight_decay: float = 0.01,

@@ -9,7 +9,8 @@ ViT-L/14 on the saved-activation block kernels, of the default backbone at
 full width (ViT-H/14 and XLM-R large, the post-LN rules) and of ViT-B/32
 with WISE_FUSED_BLOCK=0 (the attention middle's rule), and the train CLI on
 the default backbone. Then the two paths whose gates ship closed: ViT-H/14
-on the padded-head block, and the embed fold.
+on the padded-head block, and the embed fold. Last the two plain-PyTorch
+paths: CLAP 2022 (CNN14 audio, BERT caption) and shot detection.
 
     python3 chip_smoke.py                  # env, kernels, every slice
     python3 chip_smoke.py --phase kernels  # env and kernels only
@@ -25,6 +26,8 @@ on the padded-head block, and the embed fold.
     python3 chip_smoke.py --phase train    # env and the training steps only
     python3 chip_smoke.py --phase padded   # env and the padded-head block only
     python3 chip_smoke.py --phase embed_fold  # env and the embed fold only
+    python3 chip_smoke.py --phase clap2022 # env and CLAP 2022 only
+    python3 chip_smoke.py --phase shots    # env and shot detection only
     python3 chip_smoke.py --phase profile  # env and the audio breakdown
 
 Phases, one line each; any failure exits non-zero:
@@ -233,6 +236,22 @@ Phases, one line each; any failure exits non-zero:
    tokens, patch 32, width 768): one counted call, the kernel against its
    plain version with the stream in f32 and bf16, and timed against the
    split entry (phase_embed_fold).
+14. clap2022: phase 4 for microsoft/clap/2022 (CNN14 to 2,048 channels,
+   BERT-base 12 x 768 over 100 tokens, plain PyTorch, seeded weights, the
+   hash tokenizer): the served top-10 against a direct run of the
+   extractor, unit embeddings that are not collapsed, a float32 batch
+   against the bf16 path, a caption unchanged by its padding; the ingest
+   may launch no kernel of csrc/ (phase_clap2022).
+15. shots: detect_shots on a seeded ten-minute 720p video at 2 fps with 40
+   cuts, on the card against the planted spans and against its CPU run,
+   then the detect-shots CLI on a project whose decoder is a seeded
+   stand-in (phase_shots).
+
+The kernels phase also times the two kernels no PR has redesigned alone
+(ALONE: layernorm_kernel at ViT-H/14's and ViT-B/32's f32 rows beside
+F.layer_norm, attention_pooled_kernel at ViT-H/14's pooled row and the
+text tower's beside SDPA on the same pooled q; ``alone=`` lines), and the
+whole run prints each one's launches on the paths.
 
 The kernels phase also holds the three training forwards at the training
 shapes (TRAIN_SHAPES, ViT-H/14's at 32 x 257 x 1280 among them), output and
@@ -310,6 +329,11 @@ QUERIES = ["a dog running on the beach", "people cooking in a kitchen",
            "fireworks over a river"]
 AUDIO_ID = "microsoft/clap/2023/four-datasets"
 SEGMENTS = 1024  # synthetic 4 s segments at 48 kHz ingested by the audio phase
+#: msclap 2022 (CNN14 audio, BERT caption) at full width and depth
+CLAP2022_ID = "microsoft/clap/2022/msclap"
+#: the shots phase's video: ten minutes at the reference's 2 fps, 720p,
+#: with seeded cuts
+SHOT_FRAMES, SHOT_SIZE, SHOT_CUTS = 1200, (720, 1280), 40
 AUDIO_QUERIES = ["a dog barking", "rain on a window", "a violin solo",
                  "people talking in a cafe", "a car engine starting",
                  "birds singing at dawn", "applause in a hall",
@@ -1047,19 +1071,22 @@ TRAIN_SHAPES = {
 
 
 def _check_res_row(torch, results, name, tag, x, kernel, plain, twin, base,
-                   res_faults, work, faults=None):
+                   res_faults, work, faults=None, library=None):
     """A training forward's row: ``kernel()`` and ``plain()`` return (out,
     residual). The output is held as its serve twin's is (``_check_row`` on
     the increment over ``base``; planted ``faults``, by default the skipped
     block), the residual on
     the whole tensor (``output_agreement``), and every callable in
     ``res_faults`` returns a faulty residual that must fail that check.
-    ``twin`` is the serve wrapper on the same inputs, timed beside."""
+    ``twin`` is the serve wrapper on the same inputs, timed beside;
+    ``library`` the serve twin's library call (SDPA on the block's q, k, v;
+    torch.addmm on each product)."""
     from wise_tpu_torch.ops.block import output_agreement
 
     _check_row(torch, results, name, tag, (name, *x.shape[1:]), x,
                lambda: kernel()[0], lambda: plain()[0], base,
-               faults or {"block_skipped": lambda: base}, work)
+               faults or {"block_skipped": lambda: base}, work,
+               library=library)
     with torch.inference_mode():
         got, want = kernel()[1], plain()[1]
         torch.cuda.synchronize()
@@ -1087,9 +1114,10 @@ def _train_rows(torch, results, tag, s):
     """fused_attn_block_res and the MLP's training forward (the wrapper
     ``mlp_choice`` gives the width; the split pair's fc half also alone) at
     one training shape. Bound: the serve twin's, plus the residual's bytes
-    written (2 M 3D, or 2 M F). Planted on the residual: left unwritten
-    (zeros), and for the MLP written after the activation (h in its
-    place)."""
+    written (2 M 3D, or 2 M F). Library: the serve twin's (SDPA on the
+    block's q, k and v; torch.addmm on each of the MLP's products, or on the
+    fc half's). Planted on the residual: left unwritten (zeros), and for the
+    MLP written after the activation (h in its place)."""
     from wise_tpu_torch.ops import block as K
 
     b, sp, d, h, causal = s["b"], s["sp"], s["d"], s["heads"], s["causal"]
@@ -1110,9 +1138,13 @@ def _train_rows(torch, results, tag, s):
         lambda: K.fused_attn_block(x, *ln, *w, **kw), x,
         {"res_unwritten": lambda: torch.zeros(
             b, sp, 3 * d, dtype=torch.bfloat16, device="cuda")},
-        more(_attn_work(b, sp, d, xb, keys), 2 * m * 3 * d))
+        more(_attn_work(b, sp, d, xb, keys), 2 * m * 3 * d),
+        library=_sdpa_of_block(torch, x, ln, w, h, causal))
 
     x, ln, w = _block_inputs(torch, b, sp, d, dtype, s["seeds"][1], mlp=True)
+    with torch.inference_mode():
+        y = K.layer_norm_f32(x, *ln).to(torch.bfloat16)
+        hid = K.plain_mlp_fc(x, *ln, *w[:2], act=act)
     res_faults = {
         "res_after_activation": lambda: K.fused_mlp_fc(x, *ln, *w[:2],
                                                        act=act),
@@ -1129,7 +1161,8 @@ def _train_rows(torch, results, tag, s):
         lambda: res_fn(x, *ln, *w, act=act),
         lambda: plain_fn(x, *ln, *w, act=act),
         lambda: twin(x, *ln, *w, act=act), x, res_faults,
-        more(_mlp_work(m, d, f, xb), 2 * m * f))
+        more(_mlp_work(m, d, f, xb), 2 * m * f),
+        library=_addmm_pair(torch, y, w[:2], hid, w[2:]))
     if split:
         # the fc half alone: no residual stream under h, so h is held whole
         _check_res_row(
@@ -1140,7 +1173,126 @@ def _train_rows(torch, results, tag, s):
             torch.zeros((), device="cuda"), res_faults,
             more(_mlp_work(m, d, f, xb, "fc"), 2 * m * f),
             faults={"h_not_activated": lambda: K.fused_mlp_fc_res(
-                x, *ln, *w[:2], act="none")[0]})
+                x, *ln, *w[:2], act="none")[0]},
+            library=_addmm(torch, y, *w[:2]))
+
+
+#: the two CUDA kernels no PR has redesigned, each timed alone at a main
+#: path's shape: tag -> (kernel, BLOCK_SHAPES entry, the wrappers whose
+#: launch chains hold one launch of it on all B x SP rows at that (SP, D)).
+#: layernorm_kernel: ViT-H/14's 65,792 x 1280 and ViT-B/32's 12,800 x 768
+#: f32 rows (the MLP's LayerNorm is in the single block, or in the split
+#: pair's fc half); attention_pooled_kernel: ViT-H/14's pooled row over
+#: 256 x 257 x 1280 and the CLIP text tower's per-example rows over
+#: 8 x 77 x 512
+ALONE = {
+    "vit_h": ("layernorm_kernel", "vit_h", (
+        "fused_attn_block", "fused_mlp_fc", "fused_attn_block_pooled")),
+    "vision": ("layernorm_kernel", "vision", (
+        "fused_attn_block", "fused_mlp_block", "fused_attn_block_pooled")),
+    "vit_h-pooled": ("attention_pooled_kernel", "vit_h",
+                     ("fused_attn_block_pooled",)),
+    "text-pooled": ("attention_pooled_kernel", "text",
+                    ("fused_attn_block_pooled_dyn",)),
+}
+def _alone_rows(torch):
+    """layernorm_kernel and attention_pooled_kernel alone (ALONE): the
+    kernel's own device ms inside the call of a wrapper that launches it
+    (torch.profiler self time, as a Swin row's ``part_ms``), beside its
+    plain PyTorch version and its library call on the same inputs (CUDA
+    events) and its bound. LayerNorm: K.layer_norm_f32 cast to bf16 (the
+    kernel's output), F.layer_norm (which writes f32); 8 f32 operations an
+    element at PEAK_OPS_F32, x read once, bf16 y written once. Pooled
+    attention: the softmax over each example's keys of q at its pooled row
+    (f32 logits, bf16 p) times v, and SDPA on that q; bytes: k and v of
+    every row, q and the output. Returns the rows, each with the wrappers
+    whose launches on the paths it counts."""
+    from torch.nn.functional import layer_norm
+
+    from wise_tpu_torch.ops import block as K
+
+    rows = []
+    for tag, (kname, shape, via) in ALONE.items():
+        s = BLOCK_SHAPES[shape]
+        b, sp, d, h, causal = (s["b"], s["sp"], s["d"], s["heads"],
+                               s["causal"])
+        dtype = torch.float32 if s["f32"] else torch.bfloat16
+        xb = 4 if s["f32"] else 2
+        x, ln, w = _block_inputs(torch, b, sp, d, dtype, s["seeds"][2])
+        kw = dict(heads=h, n_valid=sp, causal=causal)
+        if kname == "layernorm_kernel":
+            if K.mlp_choice(d) == "split":
+                via = tuple(v.replace("fused_mlp_block", "fused_mlp_fc")
+                            for v in via)
+            m = b * sp
+            ops, nbytes, peak = 8 * m * d, m * d * (xb + 2) + _LN_BYTES * d, \
+                PEAK_OPS_F32
+
+            def call():
+                return K.fused_attn_block(x, *ln, *w, **kw)
+
+            def plain():
+                return K.layer_norm_f32(x, *ln).to(torch.bfloat16)
+
+            def library():
+                return layer_norm(x, (d,), ln[0], ln[1], eps=K.EPS)
+        else:
+            hd = d // h
+            ar = torch.arange(b, device="cuda")
+            if causal:
+                pool = torch.tensor([3, 76, 0, 40, 11, 76, 25, 7],
+                                    dtype=torch.int32, device="cuda")
+
+                def call():
+                    return K.fused_attn_block_pooled_dyn(x, pool, *ln, *w,
+                                                         **kw)
+
+                library = _sdpa_of_block(torch, x, ln, w, h, causal,
+                                         rows=pool)
+            else:
+                pool = torch.zeros(b, dtype=torch.int32, device="cuda")
+
+                def call():
+                    return K.fused_attn_block_pooled(x, *ln, *w, pool_row=0,
+                                                     **kw)
+
+                library = _sdpa_of_block(torch, x, ln, w, h, causal, row=0)
+            with torch.inference_mode():
+                qkv = K.qkv_stage(x, *ln, *w[:2])
+            q = qkv[ar, pool.long(), :d].reshape(b, h, hd)
+            k = qkv[..., d:2 * d].reshape(b, sp, h, hd)
+            v = qkv[..., 2 * d:].reshape(b, sp, h, hd)
+            col = torch.arange(sp, device="cuda")[None, :]
+            keep = (col <= pool.long()[:, None] if causal
+                    else col < sp)[:, None, :]
+            keys = float(pool.float().mean()) + 1 if causal else sp
+
+            def plain():
+                return K._softmax_attend(q, k, v, keep, torch.bfloat16)
+
+            ops, nbytes, peak = (4 * b * keys * d,
+                                 2 * b * sp * 2 * d + 2 * 2 * b * d, PEAK_OPS)
+        for _ in range(3):  # a profile may now and then record no kernel
+            hits = [k for k in _device_kernels(torch, call) if kname in k[2]]
+            if hits:
+                break
+        if not hits:
+            raise PhaseError(f"{kname}[{tag}]: the profile of "
+                             f"{via[0]} recorded no {kname}")
+        ms, per_call = sum(k[0] for k in hits), sum(k[1] for k in hits)
+        with torch.inference_mode():
+            plain_ms = _cuda_ms(torch, plain, 20)
+            library_ms = _cuda_ms(torch, library, 20)
+        bound_ms, bound_by = _bound(ops, nbytes, peak)
+        say("kernels", alone=f"{kname}[{tag}]",
+            shape="x".join(map(str, x.shape)), dtype=str(x.dtype)[6:],
+            ms=f"{ms:.4f}", launches_per_call=f"{per_call:g}",
+            plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
+            bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+            timed_in=via[0])
+        rows.append(dict(name=kname, tag=tag, via=via, sp=sp, d=d,
+                         per_call=per_call))
+    return rows
 
 
 #: the bars of a backward row: per-tensor cosine of the gradients, and max
@@ -1829,7 +1981,8 @@ def phase_kernels(torch):
     (BLOCK_SHAPES, SWIN_STAGES, POSTLN_SHAPES, SHORT_ATTN_SHAPES), on the
     op's increment over its residual input (on the whole output where it
     has none), with planted faults that must fail the same check; the top-k
-    kernels at TOPK_ROWS on their (scores, rows)."""
+    kernels at TOPK_ROWS on their (scores, rows). Returns (the rows, the
+    rows of the kernels timed alone: ALONE)."""
     results = []
     for tag, shape in BLOCK_SHAPES.items():
         _block_rows(torch, results, tag, shape)
@@ -1839,12 +1992,13 @@ def phase_kernels(torch):
     for tag, shape in POSTLN_SHAPES.items():
         _postln_rows(torch, results, tag, shape)
     _short_attention_rows(torch, results)
+    alone = _alone_rows(torch)
     _gemm_rows(torch, results)
     _gemm_refuses_misaligned(torch)
     _topk_rows(torch, results)
     _require_rows(results)
     _backward_rows(torch)
-    return results
+    return results, alone
 
 
 def _require_rows(results) -> None:
@@ -3123,6 +3277,349 @@ def phase_audio(torch, card, k=10):
     return launches
 
 
+@contextlib.contextmanager
+def _env(**values):
+    """The environment with ``values`` set while the block runs, restored
+    after."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def _every_launch():
+    """Every launch counter of the port's CUDA kernels by (wrapper, shape):
+    the block, post-LN, attention, top-k and embed wrappers', and the Swin
+    wrappers' and kernels'."""
+    from wise_tpu_torch.ops import swin_attention as SA
+    from wise_tpu_torch.ops import swin_block as SB
+
+    counts = _block_launches()
+    counts.update(SB.LAUNCHES_BY_SHAPE)
+    counts.update(SA.LAUNCHES_BY_SHAPE)
+    counts.update(SA.KERNEL_LAUNCHES_BY_SHAPE)
+    return {k: v for k, v in counts.items() if v}
+
+
+def _reset_every_launch():
+    from wise_tpu_torch.ops import swin_attention as SA
+    from wise_tpu_torch.ops import swin_block as SB
+
+    _reset_launches()
+    SB.reset_launches()
+    SA.reset_launches()
+
+
+def _split_ms(torch, extractor, x, reps: int = 5):
+    """Device ms of a batch's log-mel, audio tower and projection (with the
+    normalisation), each alone (CUDA events)."""
+    model = extractor.model
+    with torch.inference_mode():
+        mel = extractor.log_mel(x)
+        feats = model.audio_encoder(mel)
+        return {
+            "log_mel": _cuda_ms(torch, lambda: extractor.log_mel(x), reps),
+            "cnn14": _cuda_ms(torch, lambda: model.audio_encoder(mel), reps),
+            "projection": _cuda_ms(
+                torch, lambda: model.audio_projection(feats), reps)}
+
+
+def phase_clap2022(torch, card, k=10):
+    """msclap 2022 at full width and depth (CNN14 to 2,048 channels,
+    BERT-base 12 x 768 over 100 tokens; seeded weights, the hash tokenizer):
+    SEGMENTS 4 s segments at 48 kHz through the pipeline's batches of 32,
+    IndexFlatIP, REST ``search_in=audio``. Checks: the served top-10 of
+    each query against a direct run of the extractor (swaps only within
+    1e-3); finite unit embeddings that are not collapsed (the mean
+    off-diagonal cosine is printed); a 64-segment batch under
+    WISE_CLAP_DTYPE=float32 against the bf16 path (min cosine >= 0.99); a
+    caption's embedding unchanged by its padding. Both towers are plain
+    PyTorch: the ingest may launch no kernel of csrc/, the served queries
+    only the flat index's top-k kernels."""
+    import numpy as np
+    from wise_tpu_torch import project
+    from wise_tpu_torch.cli import create_index
+    from wise_tpu_torch.models.clap.extractor import ClapExtractor
+    from wise_tpu_torch.models.clap.model import (BertCaptionEncoder,
+                                                  Cnn14Encoder)
+
+    segs = _segments(torch, SEGMENTS, seed=8)
+    clips = [segs[i:i + 16] for i in range(0, SEGMENTS, 16)]  # 64 s files
+    with tempfile.TemporaryDirectory(prefix="wise_smoke_clap2022_") as tmp:
+        project_dir = Path(tmp) / "proj"
+        extractor = ClapExtractor(CLAP2022_ID)
+        c, model = extractor.config, extractor.model
+        if not (isinstance(model.audio_encoder, Cnn14Encoder)
+                and isinstance(model.caption_encoder, BertCaptionEncoder)
+                and c.cnn14_channels[-1] == 2048 and c.text_layers == 12
+                and c.text_width == 768 and c.context_length == 100):
+            raise PhaseError(f"clap2022: {CLAP2022_ID} is not CNN14 + "
+                             f"BERT-base at full width: {c}")
+        with torch.inference_mode():  # first use: cuDNN, cuBLAS
+            extractor.extract_audio_features(segs[:32])
+            extractor.extract_text_features(["warm up"])
+        _reset_every_launch()
+        torch.cuda.reset_peak_memory_stats()
+        n, ingest_s = _ingest(project_dir, extractor, CLAP2022_ID, clips,
+                              audio=True)
+        ingest_peak = torch.cuda.max_memory_allocated()
+        ingest_launches = _every_launch()
+        if n != SEGMENTS or ingest_launches:
+            raise PhaseError(f"clap2022: embedded {n} of {SEGMENTS} "
+                             f"segments, launching {ingest_launches}")
+        if create_index.main(["--project-dir", str(project_dir)]) != 0:
+            raise PhaseError("create-index failed")
+        config = project.WiseProject(project_dir).load_config()
+        served, lat = _serve_queries(project_dir, config, AUDIO_QUERIES, k,
+                                     media="audio")
+        serve_launches = _every_launch()
+        towers = [key for key in serve_launches
+                  if not key[0].startswith("fused_topk")]
+        if towers:
+            raise PhaseError(f"clap2022: the caption tower launched "
+                             f"{towers}")
+
+        # the direct run: the same extractor on the same segments, 64 at a
+        # time, and on the same queries
+        ids = _vector_ids(project_dir)
+        vecs = np.concatenate([extractor.extract_audio_features(
+            segs[i:i + 64]) for i in range(0, SEGMENTS, 64)])
+        prefix = config.search.audio_query_prefix
+        texts = [f"{prefix} {q}".strip() for q in AUDIO_QUERIES]
+        text = extractor.extract_text_features(texts)
+        gap = max(_check_against_plain(*served[q], vecs @ text[i], ids, k,
+                                       1e-3)
+                  for i, q in enumerate(AUDIO_QUERIES))
+        both = np.concatenate([vecs, text])
+        norm_err = float(np.abs(np.linalg.norm(both, axis=1) - 1).max())
+        gram = vecs @ vecs.T
+        off = float((gram.sum() - np.trace(gram)) / (n * (n - 1)))
+        tgram = text @ text.T
+        text_off = float((tgram.sum() - np.trace(tgram))
+                         / (len(text) * (len(text) - 1)))
+        if (not np.isfinite(both).all() or norm_err > 1e-3 or off > 0.999
+                or text_off > 0.999):
+            raise PhaseError(
+                f"clap2022: embeddings not finite unit vectors (norm error "
+                f"{norm_err}) or collapsed (mean off-diagonal cosine audio "
+                f"{off}, text {text_off})")
+
+        # WISE_CLAP_DTYPE=float32: the same seeded weights in f32
+        with _env(WISE_CLAP_DTYPE="float32"):
+            f32 = ClapExtractor(CLAP2022_ID)
+        ref = f32.extract_audio_features(segs[:64])
+        cos_f32 = float((ref * vecs[:64]).sum(1).min())
+        ref_text = f32.extract_text_features(texts)
+        cos_f32_text = float((ref_text * text).sum(1).min())
+        batch = torch.from_numpy(segs[:64]).to(extractor.device)
+        f32_ms = _split_ms(torch, f32, batch)
+        del f32
+        torch.cuda.empty_cache()
+        if min(cos_f32, cos_f32_text) < 0.99:
+            raise PhaseError(f"clap2022: bf16 against float32 min cosine "
+                             f"audio {cos_f32}, text {cos_f32_text} < 0.99")
+
+        # padding: the same caption padded to its length + 2 and to 100,
+        # and with other ids in its pad rows
+        tokens = extractor.tokenizer(texts[:1])
+        length = int((tokens != 0).sum())
+        t = torch.from_numpy(tokens.astype(np.int64)).to(extractor.device)
+        junk = t.clone()
+        junk[:, length:] = 4321
+        ln = torch.tensor([length], device=extractor.device)
+        with torch.inference_mode():
+            full = model.encode_text(t, ln)
+            short = model.encode_text(t[:, :length + 2], ln)
+            other = model.encode_text(junk, ln)
+        pad_exact = bool(torch.equal(full, other))
+        pad_cos = float(torch.nn.functional.cosine_similarity(
+            full, short).min())
+        if not pad_exact or pad_cos < 0.9999:
+            raise PhaseError(f"clap2022: a caption's embedding moved with "
+                             f"its padding (ids in the pad rows: equal "
+                             f"{pad_exact}; length {length + 2} against 100: "
+                             f"cosine {pad_cos})")
+
+        rates = _audio_rates(torch, extractor, segs[:64])
+        split = _split_ms(torch, extractor, batch)
+        enc = extractor.tokenizer(texts)
+        tt = torch.from_numpy(np.concatenate([enc, enc]).astype(
+            np.int64)).to(extractor.device)  # the text bucket of 16
+        tl = (tt != 0).sum(1)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            text_ms = _cuda_ms(torch, lambda: model.encode_text(tt, tl), 10)
+        text_peak = torch.cuda.max_memory_allocated()
+        # where the time goes, by CUDA kernel (torch.profiler)
+        audio_kernels = _device_kernels(
+            torch, lambda: model.encode_audio(extractor.log_mel(batch)))
+        text_kernels = _device_kernels(torch,
+                                       lambda: model.encode_text(tt, tl))
+
+    say("clap2022", card=repr(card), model=CLAP2022_ID, segments=n,
+        ingest_s=f"{ingest_s:.3f}", segments_per_s=f"{n / ingest_s:.1f}",
+        ingest_peak_gb=f"{ingest_peak / 1e9:.3f}",
+        requests=len(lat) + 1 + len(AUDIO_QUERIES),
+        query_p50_ms=f"{1e3 * float(np.median(lat)):.3f}",
+        vs_direct="ok", served_gap_max=f"{gap:.6f}",
+        ingest_launches=0, serve_launches=json.dumps(
+            {_launch_name(key): v for key, v in sorted(
+                serve_launches.items())}, separators=(",", ":")))
+    say("clap2022", card=repr(card), check="embeddings",
+        max_unit_norm_err=f"{norm_err:.2e}",
+        audio_mean_offdiag_cos=f"{off:.6f}",
+        text_mean_offdiag_cos=f"{text_off:.6f}", collapse_bar="< 0.999",
+        f32_vs_bf16_min_cos_audio=f"{cos_f32:.6f}",
+        f32_vs_bf16_min_cos_text=f"{cos_f32_text:.6f}", cos_bar=">= 0.99",
+        pad_rows_other_ids="equal", pad_len=length + 2,
+        pad_len_vs_100_min_cos=f"{pad_cos:.7f}")
+    sps, ms = rates
+    say("clap2022", card=repr(card), batch=len(batch), dtype="bfloat16",
+        extractor_segments_per_s=f"{sps:.1f}",
+        device_ms_per_batch=f"{ms:.3f}",
+        **{f"{k}_ms": f"{v:.3f}" for k, v in split.items()})
+    say("clap2022", card=repr(card), batch=len(batch), dtype="float32",
+        **{f"{k}_ms": f"{v:.3f}" for k, v in f32_ms.items()})
+    say("clap2022", card=repr(card), text_batch=len(tt), queries=len(enc),
+        context=tt.shape[1], text_embed_ms=f"{text_ms:.3f}",
+        text_peak_gb=f"{text_peak / 1e9:.3f}")
+    _say_kernels(audio_kernels, top=10, path="clap2022_audio_batch")
+    _say_kernels(text_kernels, top=10, path="clap2022_text_embed")
+
+
+def _shot_video(torch, seed: int):
+    """SHOT_FRAMES seeded 720 x 1280 frames with SHOT_CUTS cuts: each shot a
+    coarse random 9 x 16 colour layout at full size, each frame that layout
+    plus per-pixel jitter in [-8, 8] and a drift of the shot's brightness;
+    made on the card, returned as (frames uint8 on the host, pts at 2 fps,
+    the planted spans)."""
+    import numpy as np
+
+    h, w = SHOT_SIZE
+    rng = np.random.default_rng(seed)
+    starts = np.sort(rng.choice(np.arange(5, SHOT_FRAMES - 4, 5),
+                                SHOT_CUTS, replace=False))
+    bounds = [0, *starts.tolist(), SHOT_FRAMES]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    frames = np.empty((SHOT_FRAMES, h, w, 3), np.uint8)
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        cells = torch.randint(0, 256, (1, 3, 9, 16), generator=g,
+                              device="cuda").float()
+        base = torch.nn.functional.interpolate(cells, size=(h, w))[0]
+        base = base.permute(1, 2, 0)
+        for i in range(a, b, 16):
+            m = min(16, b - i)
+            drift = 6.0 * torch.arange(i - a, i - a + m, device="cuda") / (
+                b - a)
+            jitter = torch.randint(-8, 9, (m, h, w, 3), generator=g,
+                                   device="cuda")
+            frames[i:i + m] = torch.clamp(
+                base + drift[:, None, None, None] + jitter, 0, 255).to(
+                    torch.uint8).cpu().numpy()
+    pts = np.arange(SHOT_FRAMES, dtype=np.float64) / 2
+    spans = [(float(pts[a]), float(pts[b - 1]))
+             for a, b in zip(bounds[:-1], bounds[1:])]
+    return frames, pts, spans
+
+
+def phase_shots(torch, card):
+    """Shot detection at a real video's size: SHOT_FRAMES frames of 720 x
+    1280 (ten minutes at the reference's 2 fps) with SHOT_CUTS seeded cuts.
+    ``detect_shots`` on the card must find exactly the planted spans, its
+    scores must equal the CPU run of ``frame_change_scores`` within 1e-3 (a
+    bin flip moves a score by 3.3e-4); then the detect-shots CLI's ``main``
+    on a project whose decoder is a seeded stand-in (the card's machine has
+    none) must write exactly those spans to the shots table."""
+    import numpy as np
+    from wise_tpu_torch import config as wconfig, data_models as dm, db
+    from wise_tpu_torch import project
+    from wise_tpu_torch.cli import shots as cli
+    from wise_tpu_torch.db import repository
+    from wise_tpu_torch.io.dataset import MediaChunk
+    from wise_tpu_torch.pipeline import shots
+
+    frames, pts, planted = _shot_video(torch, seed=19)
+    shots.detect_shots(frames[:64], pts[:64])  # first use
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    spans = shots.detect_shots(frames, pts)
+    detect_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if spans != planted:
+        raise PhaseError(f"shots: found {len(spans)} spans, planted "
+                         f"{len(planted)}: {spans[:5]} vs {planted[:5]}")
+    on_card = shots.frame_change_scores(frames)
+    with _env(WISE_TORCH_DEVICE="cpu"):
+        t0 = time.perf_counter()
+        on_cpu = shots.frame_change_scores(frames)
+        cpu_s = time.perf_counter() - t0
+    err = float(np.abs(on_card - on_cpu).max())
+    flips = int((np.abs(on_card - on_cpu) > 1e-5).sum())
+    if on_card.shape != (SHOT_FRAMES - 1,) or err > 1e-3:
+        raise PhaseError(f"shots: card scores {on_card.shape} off the CPU "
+                         f"run by {err}")
+    ranked = np.sort(on_card)[::-1]
+    min_cut, max_other = float(ranked[SHOT_CUTS - 1]), float(ranked[SHOT_CUTS])
+
+    def stand_in(media_type, files, video=None):
+        step = video.frames_per_chunk
+        return [(files[0], {"video": MediaChunk(tensor=frames[i:i + step],
+                                                 pts=pts[i:i + step])})
+                for i in range(0, SHOT_FRAMES, step)]
+
+    real = shots.get_dataset
+    shots.get_dataset = stand_in
+    try:
+        with tempfile.TemporaryDirectory(prefix="wise_smoke_shots_") as tmp:
+            project_dir = Path(tmp) / "proj"
+            proj = project.WiseProject(project_dir, create_project=True)
+            proj.save_config(wconfig.WiseConfig())
+            conn = db.init_project(proj.db_path)
+            sc = repository.SourceCollectionRepo().create(
+                conn, dm.SourceCollection(location=str(Path(tmp) / "media"),
+                                          type=dm.SourceCollectionType.DIR))
+            media = repository.MediaRepo().create(conn, dm.MediaMetadata(
+                source_collection_id=sc.id, path="clip000.mp4",
+                media_type=dm.MediaType.VIDEO, format="mp4",
+                width=SHOT_SIZE[1], height=SHOT_SIZE[0], num_frames=SHOT_FRAMES,
+                duration=SHOT_FRAMES / 2))
+            conn.commit()
+            conn.close()
+            t0 = time.perf_counter()
+            rc = cli.main(["--project-dir", str(project_dir)])
+            cli_s = time.perf_counter() - t0
+            conn = db.connect(proj.db_path, readonly=True)
+            rows = [(r[0], r[1], r[2]) for r in conn.execute(
+                "SELECT media_id, start_time, end_time FROM shots "
+                "ORDER BY start_time")]
+            conn.close()
+    finally:
+        shots.get_dataset = real
+    if rc != 0 or rows != [(media.id, a, b) for a, b in planted]:
+        raise PhaseError(f"shots: the CLI returned {rc} and wrote "
+                         f"{len(rows)} rows, planted {len(planted)}")
+    say("shots", card=repr(card), frames=SHOT_FRAMES,
+        size="x".join(map(str, SHOT_SIZE)), cuts=SHOT_CUTS,
+        spans=len(spans), planted="equal",
+        detect_s=f"{detect_s:.3f}",
+        frames_per_s=f"{SHOT_FRAMES / detect_s:.1f}",
+        peak_gb=f"{peak / 1e9:.3f}", chunk=shots.CHUNK,
+        cpu_scores_s=f"{cpu_s:.3f}", max_abs_vs_cpu=f"{err:.2e}",
+        bin_flips=flips, min_cut_score=f"{min_cut:.4f}",
+        max_other_score=f"{max_other:.4f}")
+    say("shots", card=repr(card), check="cli", rc=rc, rows=len(rows),
+        planted="equal", cli_s=f"{cli_s:.3f}",
+        cli_frames_per_s=f"{SHOT_FRAMES / cli_s:.1f}",
+        frames_per_chunk=wconfig.WiseConfig().video.frames_per_chunk)
+
+
 #: vectors per synthetic clip of the index phase (a 34-minute video at 2 fps)
 INDEX_CLIP = 4096
 #: frames of the one clip the index phase embeds with the real tower
@@ -4383,7 +4880,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phase", choices=["all", "kernels", "gemm", "topk",
                                         "swin", "vit_h", "siglip",
                                         "xlmr", "hybrid", "index", "train",
-                                        "padded", "embed_fold", "profile"],
+                                        "padded", "embed_fold", "clap2022",
+                                        "shots", "profile"],
                     default="all")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print nvcc -Xptxas -v (registers, shared memory)")
@@ -4455,7 +4953,13 @@ def main(argv=None) -> int:
         if args.phase == "embed_fold":
             _timed("embed_fold", phase_embed_fold, torch, card)
             return 0
-        kernels = _timed("kernels", phase_kernels, torch)
+        if args.phase == "clap2022":
+            _timed("clap2022", phase_clap2022, torch, card)
+            return 0
+        if args.phase == "shots":
+            _timed("shots", phase_shots, torch, card)
+            return 0
+        kernels, alone = _timed("kernels", phase_kernels, torch)
         if args.phase == "kernels":
             return 0
         launches = _timed("slice", phase_slice, torch, card)
@@ -4482,6 +4986,16 @@ def main(argv=None) -> int:
             for key, n in counts.items():
                 launches.setdefault(key, n)
             kernels += rows
+        # msclap 2022 and shot detection: plain PyTorch paths, no kernel of
+        # the rows above
+        _timed("clap2022", phase_clap2022, torch, card)
+        _timed("shots", phase_shots, torch, card)
+        for r in alone:
+            n = sum(launches.get((name, r["sp"], r["d"]), 0)
+                    for name in r["via"])
+            say("kernels", alone=f"{r['name']}[{r['tag']}]",
+                launches_on_path=f"{n * r['per_call']:g}",
+                counted_from=",".join(r["via"]))
         off = {r["key"]: _off_path(r["key"]) for r in kernels
                if _off_path(r["key"])}
         stray = [_launch_name(key) for key in off if launches.get(key)]

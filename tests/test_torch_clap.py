@@ -258,7 +258,8 @@ def test_msclap_checkpoint_loads_like_the_reference(tmp_path):
 
 def test_factory_routes_clap_2023_to_the_port(monkeypatch, tmp_path):
     """The production id at full width builds the port's extractor (seeded
-    random weights, no JAX); CLAP 2022 raises, naming its ROADMAP item."""
+    random weights, no JAX); so does CLAP 2022's, with its CNN14 and BERT
+    towers."""
     monkeypatch.setenv("WISE_CHECKPOINT_DIR", str(tmp_path))
     monkeypatch.setenv("WISE_TORCH_DEVICE", "cpu")
     from wise_tpu_torch.models.clap.extractor import ClapExtractor
@@ -274,8 +275,12 @@ def test_factory_routes_clap_2023_to_the_port(monkeypatch, tmp_path):
     # HTSAT stage 3 (res 8, window 8) clamps its shifted block
     assert fe.model.audio_encoder.stage3_block1.shift == 0
     assert fe.model.audio_encoder.stage2_block1.shift == 4
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        FeatureExtractorFactory("microsoft/clap/2022/x")
+    fe = FeatureExtractorFactory("microsoft/clap/2022/x")
+    assert isinstance(fe, ClapExtractor)
+    assert fe.output_dim == 1024 and fe.config == TC.production_clap_config(
+        "2022")
+    assert isinstance(fe.model.audio_encoder, TM.Cnn14Encoder)
+    assert isinstance(fe.model.caption_encoder, TM.BertCaptionEncoder)
 
 
 def test_hash_ids_outside_a_tiny_vocabulary_raise():

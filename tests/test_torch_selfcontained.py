@@ -39,7 +39,12 @@ EMBED_AND_EXACT = ["ops/embed_block.py", "models/clip/preprocess.py"]
 PQ_AND_EVAL = ["ops/pq.py", "eval/__init__.py", "eval/retrieval.py",
                "eval/index_recall.py", "cli/merge_projects.py",
                "io/__main__.py"]
-#: the host modules the port copied from the JAX package, path for path
+#: shot detection and its CLI, and the CLAP 2022 towers' module, which the
+#: walk over SOURCES must reach as well
+SHOTS_AND_CLAP_2022 = ["pipeline/shots.py", "cli/shots.py",
+                       "models/clap/model.py", "models/clap/config.py"]
+#: the host modules the port copied from the JAX package, path for path, and
+#: the ports that keep their origin's names (pipeline.shots)
 COPIED = """config data_models utils project db db.repository store
 store.feature_store store.factory store.npz_store store.tar_store io
 io.decode io.dataset io.native_decoder search search.query_parser
@@ -49,7 +54,7 @@ models.clip.convert models.clap.tokenizer models.clap.convert
 pipeline.extract api.models api.coalesce api.engine api.server
 cli.extract_features cli.create_index cli.search cli.serve cli.metadata
 pipeline.train_data ops.pq eval eval.retrieval eval.index_recall
-cli.merge_projects io.__main__""".split()
+cli.merge_projects io.__main__ cli.shots pipeline.shots""".split()
 
 
 def _rel(path):
@@ -102,6 +107,12 @@ def test_walk_reaches_the_embed_fold_and_the_exact_preprocessing():
 def test_walk_reaches_the_pq_and_eval_modules():
     walked = {_rel(p) for p in SOURCES}
     assert not [m for m in PQ_AND_EVAL if f"wise_tpu_torch/{m}" not in walked]
+
+
+def test_walk_reaches_shot_detection_and_the_clap_2022_towers():
+    walked = {_rel(p) for p in SOURCES}
+    assert not [m for m in SHOTS_AND_CLAP_2022
+                if f"wise_tpu_torch/{m}" not in walked]
 
 
 def test_train_cli_imports_without_the_jax_stack():
@@ -203,7 +214,8 @@ def test_default_device_prefers_the_card(monkeypatch):
     assert default_device() == torch.device("cpu")
 
 
-@pytest.mark.parametrize("entry", ["clip", "clap", "index", "cli"])
+@pytest.mark.parametrize("entry", ["clip", "clap", "clap2022", "shots",
+                                   "index", "cli"])
 def test_entry_points_do_not_fall_back_to_the_cpu(monkeypatch, tmp_path,
                                                   entry):
     """Without a card and without the variable, the extractors, the index
@@ -224,6 +236,19 @@ def test_entry_points_do_not_fall_back_to_the_cpu(monkeypatch, tmp_path,
 
         with pytest.raises(RuntimeError, match="WISE_TORCH_DEVICE"):
             ClapExtractor("microsoft/clap/2023/x")
+    elif entry == "clap2022":
+        from wise_tpu_torch.models.clap.extractor import ClapExtractor
+
+        with pytest.raises(RuntimeError, match="WISE_TORCH_DEVICE"):
+            ClapExtractor("microsoft/clap/2022/x")
+    elif entry == "shots":
+        import numpy as np
+
+        from wise_tpu_torch.pipeline.shots import detect_shots
+
+        frames = np.zeros((3, 8, 8, 3), np.uint8)
+        with pytest.raises(RuntimeError, match="WISE_TORCH_DEVICE"):
+            detect_shots(frames, np.arange(3) / 2)
     elif entry == "index":
         from wise_tpu_torch.index.feature_index import FeatureSearchIndex
 

@@ -1,9 +1,10 @@
 """CLAP configurations, without JAX.
 
 The fields of wise_tpu/models/clap/model.py ``CLAPConfig`` for the msclap
-2023 towers (HTSAT audio, GPT2 caption) with ``dtype`` as a name
-("float32" or "bfloat16"), and the port's kernel switches. The 2022 towers
-(CNN14 audio, BERT caption) wait for their port (ROADMAP Queue A item 10).
+2023 towers (HTSAT audio, GPT2 caption) and the 2022 towers (CNN14 audio,
+BERT caption), with ``dtype`` as a name ("float32" or "bfloat16"), and the
+port's kernel switches (the 2022 towers run plain PyTorch ops, as the
+reference runs them on XLA, so the switches leave them alone).
 """
 
 from __future__ import annotations
@@ -34,10 +35,12 @@ class CLAPConfig:
     num_heads: Tuple[int, ...] = (4, 8, 16, 32)
     window_size: int = 8
     mlp_ratio: float = 4.0
-    #: tower families, as the reference names them (its msclap converter
-    #: reads both); class constants: the port has the 2023 pair only
-    audio_encoder_type = "htsat"
-    text_encoder_type = "gpt2"
+    #: audio tower family: "htsat" (msclap 2023, Swin over mel) or "cnn14"
+    #: (msclap 2022, PANNs CNN14 over mel)
+    audio_encoder_type: str = "htsat"
+    #: CNN14 conv-block widths; the last is also fc1's width, the embedding
+    #: msclap projects from
+    cnn14_channels: Tuple[int, ...] = (64, 128, 256, 512, 1024, 2048)
     # text (GPT2-small shapes)
     vocab_size: int = 50257
     context_length: int = 77
@@ -46,6 +49,14 @@ class CLAPConfig:
     text_layers: int = 12
     #: GPT2 checkpoints use torch's 'gelu_new' (tanh approximation)
     text_act: str = "gelu_tanh"
+    #: caption tower family: "gpt2" (msclap 2023: causal, pooled at the last
+    #: real token) or "bert" (msclap 2022: bert-base-uncased, bidirectional,
+    #: pooled at [CLS])
+    text_encoder_type: str = "gpt2"
+    #: the BERT tower's embedding tables and LayerNorm eps
+    text_max_positions: int = 512
+    text_type_vocab: int = 2
+    text_ln_eps: float = 1e-5
     dtype: str = "float32"
     #: the caption tower's last layer computes only each caption's pooled
     #: row (its last real token)
@@ -65,16 +76,21 @@ class CLAPConfig:
             self.dtype]
 
 
-CLAP_CONFIGS = {"2023": CLAPConfig()}
+CLAP_CONFIGS = {
+    "2023": CLAPConfig(),
+    # msclap config_2022.yml: bert-base-uncased captions (text_len 100),
+    # Cnn14 audio (out_emb 2048), d_proj 1024, 44.1 kHz x 5 s
+    "2022": CLAPConfig(
+        joint_dim=1024, duration=5.0, audio_encoder_type="cnn14",
+        text_encoder_type="bert", vocab_size=30522, context_length=100,
+        text_width=768, text_heads=12, text_layers=12, text_act="gelu",
+        text_ln_eps=1e-12),
+}
 
 
 def get_clap_config(version: str) -> CLAPConfig:
     if version in CLAP_CONFIGS:
         return CLAP_CONFIGS[version]
-    if version == "2022":
-        raise NotImplementedError(
-            "CLAP 2022 (CNN14 audio + BERT caption towers) is not ported to "
-            "PyTorch yet (ROADMAP Queue A item 10)")
     raise ValueError(
         f"unknown CLAP version {version}; the port knows "
         f"{sorted(CLAP_CONFIGS)}")

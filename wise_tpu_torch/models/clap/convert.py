@@ -15,6 +15,12 @@ msclap checkpoint (ROADMAP item 2):
 - key prefixes are auto-detected (msclap wraps towers as
   ``caption_encoder.base.*`` / ``audio_encoder.base.*``).
 
+The 2022 towers convert exactly (no warning): BERT's per-layer
+``{query, key, value}`` stay three Dense layers (``from_flax_params`` merges
+only the XLM-R tower's ``self.{query, key, value}``), CNN14's convolution
+kernels keep the flax HWIO layout and every BatchNorm folds into its affine
+pair.
+
 The converters return the reference's parameter tree as numpy arrays;
 ``from_flax_params`` (models/clip/convert.py) carries it onto the port's
 state_dict, and ``load_msclap_state_dict`` / ``load_checkpoint`` end in it.

@@ -1,11 +1,13 @@
 """CLAP feature extractor on the port's towers
 (wise_tpu/models/clap/extractor.py).
 
-Same id scheme (``microsoft/clap/<version>/<variant>``, version 2023), same
-checkpoint search (``*.npz``, ``*.pth``, ``*.pt`` under
+Same id scheme (``microsoft/clap/<version>/<variant>``, version 2023 or
+2022), same checkpoint search (``*.npz``, ``*.pth``, ``*.pt`` under
 ``$WISE_CHECKPOINT_DIR/clap/<version>/<variant>/``; the port reads msclap
-``.pth``/``.pt`` and raises for a flax ``.npz``), same GPT2 vocabulary
-staging with the hash-tokenizer fallback, same batch buckets and
+``.pth``/``.pt`` and raises for a flax ``.npz``), same caption vocabulary
+staging by tower family (GPT2 ``vocab.json`` + ``merges.txt`` for 2023,
+BERT ``vocab.txt`` for 2022) with the hash-tokenizer fallback, same batch
+buckets and
 L2-normalised float32 outputs. Without a checkpoint the towers take seeded
 random weights, with a warning. Waveforms arrive at the pipeline's 48 kHz
 and move to the device as float32; the resample to the model's 44.1 kHz,
@@ -81,12 +83,13 @@ class ClapExtractor(FeatureExtractor):
             )
             init_random_(model, seed=0)
         self.model = model.to(self.device).eval().requires_grad_(False)
-        # GPT2 byte-level BPE from a staged vocab.json + merges.txt, else the
-        # deterministic hash tokenizer
+        # the caption tower's own tokenizer (2023: GPT2 byte-level BPE from
+        # vocab.json + merges.txt; 2022: BERT WordPiece from vocab.txt), else
+        # the deterministic hash tokenizer
         self.tokenizer = get_caption_tokenizer(
             ckpt_dir if ckpt_dir.exists() else None,
             vocab_size=c.vocab_size, context_length=c.context_length,
-            kind="gpt2")
+            kind=c.text_encoder_type)
         self._audio_buckets = BucketPolicy((1, 4, 16, 64))
         self._text_buckets = BucketPolicy((1, 4, 16, 64))
 

@@ -1,5 +1,6 @@
-"""CLAP 2023 in PyTorch (wise_tpu/models/clap/model.py): the HTSAT audio
-tower, the GPT2 caption tower and msclap's projection heads.
+"""CLAP in PyTorch (wise_tpu/models/clap/model.py): msclap 2023's HTSAT
+audio tower and GPT2 caption tower, msclap 2022's CNN14 audio tower and BERT
+caption tower, and msclap's projection heads.
 
 The parameter tree is the reference's: a state_dict key is the flax path
 joined by dots (``stage0_block1.attn.qkv.kernel``, the caption tower's
@@ -16,8 +17,15 @@ partition read through the block's token map (built once, at init);
 otherwise the block keeps an f32 stream around a window-attention op
 (ops/swin_attention.py), with roll, window partition and reverse as layout
 ops around it.
-The caption tower is the port's CLIP ``Transformer`` (gelu_tanh, causal,
-the last layer computed only at each caption's last real token).
+The GPT2 caption tower is the port's CLIP ``Transformer`` (gelu_tanh,
+causal, the last layer computed only at each caption's last real token).
+
+The 2022 towers run plain PyTorch ops, as the reference runs them on XLA:
+CNN14's 3x3 convolutions (``torch.nn.functional.conv2d``, kernels kept in
+flax's HWIO layout) and BERT's products, with the reference's f32 points
+(the folded-BN affines, LayerNorm, softmax, the pooling reductions). One
+deliberate deviation, ROADMAP Queue C 1: CNN14's sixth block does not pool,
+as in upstream PANNs and msclap (the reference pools it 2x2).
 """
 
 from __future__ import annotations
@@ -322,14 +330,179 @@ def _l2_normalize(x):
     return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
 
 
+class BertLayerNorm(LayerNorm):
+    """LayerNorm's f32 parameter pair, applied in f32 at BERT's eps."""
+
+    def __init__(self, dim: int, eps: float):
+        super().__init__(dim)
+        self.eps = eps
+
+    def forward(self, x):
+        return K.layer_norm_f32(x, self.scale, self.bias, self.eps)
+
+
+class BertBlock(nn.Module):
+    """One post-LN BERT block (the reference's ``_BertBlock``):
+    bidirectional attention under an additive pad mask, q k^T in the
+    compute dtype, the softmax in f32, the exact-erf GELU MLP."""
+
+    def __init__(self, width: int, heads: int, eps: float,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.heads = heads
+        self.query = Dense(width, width, dtype)
+        self.key = Dense(width, width, dtype)
+        self.value = Dense(width, width, dtype)
+        self.attn_out = Dense(width, width, dtype)
+        self.attn_ln = BertLayerNorm(width, eps)
+        self.intermediate = Dense(width, 4 * width, dtype)
+        self.output = Dense(4 * width, width, dtype)
+        self.out_ln = BertLayerNorm(width, eps)
+
+    def forward(self, x, km):
+        """x (B, L, D) in the compute dtype; km (B, L) additive f32 (0 real,
+        -inf pad)."""
+        dt = self.query.dtype
+        b, n, d = x.shape
+        h = self.heads
+        hd = d // h
+        q, k, v = (f(x).view(b, n, h, hd)
+                   for f in (self.query, self.key, self.value))
+        # the product rounds to the compute dtype; the scale (a numpy
+        # scalar in the reference, which promotes) and the mask act in f32
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(hd)
+        probs = torch.softmax(logits + km[:, None, None, :], dim=-1).to(dt)
+        att = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, n, d)
+        x = self.attn_ln(x + self.attn_out(att)).to(dt)
+        m = self.output(K.activation(self.intermediate(x), "gelu"))
+        return self.out_ln(x + m).to(dt)
+
+
+class BertCaptionEncoder(nn.Module):
+    """msclap 2022's caption tower: bert-base-uncased to its last hidden
+    state, pooled at [CLS] (msclap ignores BERT's pooler head). The
+    embedding is word[tokens] + pos[:L] + type[0] in f32 (positions from 0,
+    token type 0), LayerNorm'd at eps ``text_ln_eps``; the pad mask comes
+    from ``lengths``. The tables stay f32, as the reference adds them in
+    f32."""
+
+    def __init__(self, c: CLAPConfig):
+        super().__init__()
+        self.config = c
+        w = c.text_width
+        self.word_embeddings = nn.Parameter(torch.zeros(c.vocab_size, w))
+        self.position_embeddings = nn.Parameter(
+            torch.zeros(c.text_max_positions, w))
+        self.token_type_embeddings = nn.Parameter(
+            torch.zeros(c.text_type_vocab, w))
+        self.emb_ln = BertLayerNorm(w, c.text_ln_eps)
+        for i in range(c.text_layers):
+            setattr(self, f"layer_{i}", BertBlock(
+                w, c.text_heads, c.text_ln_eps, c.torch_dtype))
+
+    def forward(self, tokens, lengths):
+        """tokens (B, L) int, lengths (B,) int -> (B, width) f32, the [CLS]
+        row of the last layer."""
+        c = self.config
+        n = tokens.shape[1]
+        x = (self.word_embeddings[tokens] + self.position_embeddings[:n]
+             + self.token_type_embeddings[0])
+        x = self.emb_ln(x).to(c.torch_dtype)
+        # [CLS] caption [SEP] [PAD]*: no query may read a pad key
+        keep = (torch.arange(n, device=tokens.device)[None, :]
+                < lengths.to(tokens.device)[:, None])
+        km = torch.zeros(keep.shape, device=tokens.device).masked_fill(
+            ~keep, -math.inf)
+        for i in range(c.text_layers):
+            x = getattr(self, f"layer_{i}")(x, km)
+        return x[:, 0].float()
+
+
+class Conv3x3(nn.Module):
+    """A bias-free 3x3 convolution, padding 1, with its kernel in flax's
+    HWIO layout (3, 3, in, out); the activations are channels-last."""
+
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros(3, 3, cin, cout, dtype=dtype))
+
+    def forward(self, x):
+        """x (B, C, T, F) in channels_last memory -> (B, out, T, F)."""
+        w = self.kernel.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        return torch.nn.functional.conv2d(x, w, padding=1)
+
+
+class Cnn14Encoder(nn.Module):
+    """PANNs CNN14 (msclap 2022's ``audioenc_name: Cnn14``): log-mel -> the
+    bn0 affine per mel bin (f32) -> six conv blocks (3x3 conv in the compute
+    dtype, then the folded-BN affine and relu in f32, twice; a 2x2 average
+    pool after blocks 1 to 5) -> mean over mel bins -> max + mean over time
+    -> fc1 + relu in f32: the embedding msclap projects.
+
+    Block 6 does not pool, as upstream PANNs' and msclap's ``Cnn14.forward``
+    (``conv_block6(x, pool_size=(1, 1))``): 690 frames x 64 bins end at
+    21 x 2. The reference pools there too and ends at 10 x 1 (ROADMAP
+    Queue C 1: a deliberate deviation of the port)."""
+
+    def __init__(self, c: CLAPConfig):
+        super().__init__()
+        self.config = c
+        dt = c.torch_dtype
+        # PANNs' bn0 over mel bins folded into an affine: (x + 40) / 40
+        # until a checkpoint's running statistics replace it
+        self.bn0_scale = nn.Parameter(torch.full((c.n_mels,), 1.0 / 40.0))
+        self.bn0_bias = nn.Parameter(torch.ones(c.n_mels))
+        cin = 1
+        for i, ch in enumerate(c.cnn14_channels):
+            blk = f"conv_block{i + 1}"
+            for j in (1, 2):
+                setattr(self, f"{blk}_conv{j}", Conv3x3(cin, ch, dt))
+                setattr(self, f"{blk}_bn{j}_scale",
+                        nn.Parameter(torch.ones(ch)))
+                setattr(self, f"{blk}_bn{j}_bias",
+                        nn.Parameter(torch.zeros(ch)))
+                cin = ch
+        final = c.cnn14_channels[-1]
+        self.fc1 = Dense(final, final, torch.float32)
+
+    def forward(self, mel):
+        """mel (B, frames, n_mels) f32 log-mel -> (B, cnn14_channels[-1])
+        f32."""
+        c = self.config
+        n = len(c.cnn14_channels)
+        x = mel.float() * self.bn0_scale + self.bn0_bias
+        # (B, 1, T, F) in channels_last memory: the reference's (B, T, F, 1)
+        x = x.to(c.torch_dtype)[:, None].contiguous(
+            memory_format=torch.channels_last)
+        for i in range(n):
+            blk = f"conv_block{i + 1}"
+            for j in (1, 2):
+                x = getattr(self, f"{blk}_conv{j}")(x)
+                s = getattr(self, f"{blk}_bn{j}_scale")[:, None, None]
+                t = getattr(self, f"{blk}_bn{j}_bias")[:, None, None]
+                x = torch.relu(x.float() * s + t).to(c.torch_dtype)
+            if i < n - 1:
+                x = torch.nn.functional.avg_pool2d(x, 2)
+        x = x.float().mean(dim=3)                        # over mel bins
+        x = x.amax(dim=2) + x.mean(dim=2)                # over time
+        return torch.relu(self.fc1(x))
+
+
 class CLAP(nn.Module):
     def __init__(self, config: CLAPConfig):
         super().__init__()
         c = self.config = config
         dt = c.torch_dtype
-        self.audio_encoder = HTSATEncoder(c)
-        self.caption_encoder = CaptionEncoder(c)
-        final = c.embed_dim * 2 ** (len(c.depths) - 1)
+        if c.audio_encoder_type == "cnn14":
+            self.audio_encoder = Cnn14Encoder(c)
+            final = c.cnn14_channels[-1]
+        else:
+            self.audio_encoder = HTSATEncoder(c)
+            final = c.embed_dim * 2 ** (len(c.depths) - 1)
+        self.caption_encoder = (BertCaptionEncoder(c)
+                                if c.text_encoder_type == "bert"
+                                else CaptionEncoder(c))
         self.audio_projection = Projection(final, c.joint_dim, dt)
         self.caption_projection = Projection(c.text_width, c.joint_dim, dt)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
@@ -346,15 +519,17 @@ class CLAP(nn.Module):
 @torch.no_grad()
 def init_random_(model: CLAP, seed: int = 0) -> CLAP:
     """Seeded random weights, drawn on the CPU from torch.Generator(seed) in
-    the reference's initialiser families: lecun-normal kernels, N(0, 0.02)
-    embeddings and bias tables (caption positions N(0, 0.01)), zero biases,
-    unit LayerNorm scales, the bn0 affine and logit_scale at their init."""
+    the reference's initialiser families: lecun-normal kernels (a
+    convolution's fan-in is 3 x 3 x in), N(0, 0.02) embeddings and bias
+    tables (the GPT2 tower's positions N(0, 0.01)), zero biases, unit
+    LayerNorm scales; CNN14's folded-BN affines at scale 1 and bias 0, the
+    bn0 affine (1/40, 1) and logit_scale at their init."""
     g = torch.Generator().manual_seed(seed)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf in ("scale", "bn0_scale", "bn0_bias") or name == "logit_scale":
+        if leaf in ("scale", "bn0_bias") or leaf.endswith("_scale"):
             continue
-        if leaf == "bias":
+        if leaf == "bias" or leaf.endswith("_bias"):
             p.zero_()
             continue
         if leaf == "kernel":

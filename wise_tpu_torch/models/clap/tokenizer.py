@@ -18,7 +18,12 @@ scripts/fetch_checkpoints.py stages them next to the msclap checkpoint.
 Without staged vocab files the extractor falls back to the deterministic
 HashTokenizer (random-weight towers only — same caveat as CLIP).
 
-Copy of ``wise_tpu/models/clap/tokenizer.py``, with its imports bound to wise_tpu_torch.
+Copy of ``wise_tpu/models/clap/tokenizer.py``, with its imports bound to
+wise_tpu_torch. One deliberate deviation (ROADMAP Queue C 2): the BERT
+tokenizer's basic split also runs HF ``BasicTokenizer``'s text cleaning
+(NUL, U+FFFD and control characters dropped, whitespace made a space) and
+its CJK split (each CJK ideograph a word of its own), which the reference's
+copy lacks.
 """
 
 from __future__ import annotations
@@ -103,6 +108,31 @@ def find_bert_vocab(ckpt_dir: Optional[Path] = None) -> Optional[Path]:
     return None
 
 
+def _is_control(ch: str) -> bool:
+    """HF ``_is_control``: category C*, except tab, newline and return."""
+    import unicodedata
+
+    return ch not in "\t\n\r" and unicodedata.category(ch).startswith("C")
+
+
+def _is_whitespace(ch: str) -> bool:
+    """HF ``_is_whitespace``: space, tab, newline, return or category Zs."""
+    import unicodedata
+
+    return ch in " \t\n\r" or unicodedata.category(ch) == "Zs"
+
+
+#: HF ``BasicTokenizer._is_chinese_char``'s CJK ideograph blocks
+_CJK_BLOCKS = ((0x4E00, 0x9FFF), (0x3400, 0x4DBF), (0x20000, 0x2A6DF),
+               (0x2A700, 0x2B73F), (0x2B740, 0x2B81F), (0x2B820, 0x2CEAF),
+               (0xF900, 0xFAFF), (0x2F800, 0x2FA1F))
+
+
+def _is_cjk(ch: str) -> bool:
+    cp = ord(ch)
+    return any(lo <= cp <= hi for lo, hi in _CJK_BLOCKS)
+
+
 class BertCaptionTokenizer:
     """bert-base-uncased WordPiece tokenization -> (tokens, lengths).
 
@@ -111,9 +141,11 @@ class BertCaptionTokenizer:
     truncation=True`` and NO eot suffix (that is gpt-only), so each
     caption becomes ``[CLS] pieces [SEP] [PAD]*``. This class implements
     the uncased pipeline natively (lowercase + accent strip + punctuation
-    split + greedy longest-match WordPiece) from a staged ``vocab.txt``;
-    tests/test_clap_2022.py pins it piece-for-piece against
-    transformers.BertTokenizer on a tiny vocab."""
+    split + greedy longest-match WordPiece) from a staged ``vocab.txt``,
+    after HF's text cleaning and CJK split;
+    tests/test_torch_clap2022.py pins it piece-for-piece against
+    transformers.BertTokenizer on a tiny vocab, CJK and control characters
+    included."""
 
     def __init__(self, vocab_file: Path, context_length: int = 100):
         self.vocab = {}
@@ -133,6 +165,10 @@ class BertCaptionTokenizer:
     def _basic_tokens(text: str) -> List[str]:
         import unicodedata
 
+        # HF BasicTokenizer._clean_text, then _tokenize_chinese_chars
+        text = "".join(" " if _is_whitespace(ch) else ch for ch in text
+                       if ord(ch) not in (0, 0xFFFD) and not _is_control(ch))
+        text = "".join(f" {ch} " if _is_cjk(ch) else ch for ch in text)
         text = text.lower()
         # strip accents (uncased models): NFD then drop combining marks
         text = "".join(

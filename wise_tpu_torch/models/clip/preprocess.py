@@ -29,18 +29,27 @@ def _keys_cubic(x):
     return np.where(x >= 2.0, 0.0, out).astype(np.float32)
 
 
+def _triangle(x):
+    return np.maximum(0.0, 1.0 - x).astype(np.float32)
+
+
+#: jax.image.resize's kernels by method name
+_KERNELS = {"cubic": _keys_cubic, "linear": _triangle}
+
+
 @functools.lru_cache(maxsize=16)
-def resize_weights(src: int, dst: int) -> np.ndarray:
+def resize_weights(src: int, dst: int, method: str = "cubic") -> np.ndarray:
     """(dst, src) weights W with out = W @ in along one axis: the
-    antialiased Keys-cubic resize of jax.image.resize (scale dst / src,
-    translation 0; the kernel widens by src / dst when downsampling),
-    computed in f32 in the same order as jax's ``compute_weight_mat``."""
+    antialiased resize of jax.image.resize with ``method``'s kernel (Keys
+    cubic, or the triangle of "linear"; scale dst / src, translation 0; the
+    kernel widens by src / dst when downsampling), computed in f32 in the
+    same order as jax's ``compute_weight_mat``."""
     f32 = np.float32
     inv = 1.0 / (dst / src)
     kernel_scale = f32(max(inv, 1.0))
     sample = (np.arange(dst, dtype=f32) + f32(0.5)) * f32(inv) - f32(0.5)
     x = np.abs(sample[None, :] - np.arange(src, dtype=f32)[:, None])
-    w = _keys_cubic(x / kernel_scale)
+    w = _KERNELS[method](x / kernel_scale)
     total = w.sum(axis=0, keepdims=True, dtype=f32)
     w = np.where(np.abs(total) > 1000.0 * float(np.finfo(f32).eps),
                  w / np.where(total != 0, total, f32(1.0)), f32(0.0))

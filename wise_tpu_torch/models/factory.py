@@ -4,7 +4,7 @@ ids, routed to the port's extractors.
 - ``mlfoundations/open_clip/<model>/<pretrained>`` -> PyTorch/CUDA OpenCLIP
 - ``wise/random_features/<dim>/<label>``           -> the numpy fake (random_features.py)
 - ``microsoft/clap/<version>/<variant>``           -> PyTorch/CUDA CLAP
-  (version 2023; 2022 raises, ROADMAP Queue A item 10)
+  (version 2023: HTSAT + GPT2; version 2022: CNN14 + BERT)
 """
 
 from __future__ import annotations

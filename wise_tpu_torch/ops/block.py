@@ -96,13 +96,13 @@ def mlp_choice(width: int) -> str:
 # ---------------------------------------------------------------------------
 
 
-def layer_norm_f32(x, scale, bias):
+def layer_norm_f32(x, scale, bias, eps: float = EPS):
     """flax LayerNorm numerics in f32: var = max(E[x^2] - E[x]^2, 0)."""
     xf = x.float()
     mean = xf.mean(-1, keepdim=True)
     mean2 = (xf * xf).mean(-1, keepdim=True)
     var = torch.clamp(mean2 - mean * mean, min=0.0)
-    return (xf - mean) * (torch.rsqrt(var + EPS) * scale) + bias
+    return (xf - mean) * (torch.rsqrt(var + eps) * scale) + bias
 
 
 def activation(h, act: str):

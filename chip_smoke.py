@@ -29,6 +29,10 @@ paths: CLAP 2022 (CNN14 audio, BERT caption) and shot detection.
     python3 chip_smoke.py --phase clap2022 # env and CLAP 2022 only
     python3 chip_smoke.py --phase shots    # env and shot detection only
     python3 chip_smoke.py --phase profile  # env and the audio breakdown
+    python3 chip_smoke.py --phase pooled   # env, the pooled block rows and
+                                           # the pooled attention alone
+    python3 chip_smoke.py --phase pooled --parent  # the same from the
+                                           # parent's checkout (timing)
 
 Phases, one line each; any failure exits non-zero:
 
@@ -247,11 +251,20 @@ Phases, one line each; any failure exits non-zero:
    then the detect-shots CLI on a project whose decoder is a seeded
    stand-in (phase_shots).
 
-The kernels phase also times the two kernels no PR has redesigned alone
-(ALONE: layernorm_kernel at ViT-H/14's and ViT-B/32's f32 rows beside
-F.layer_norm, attention_pooled_kernel at ViT-H/14's pooled row and the
-text tower's beside SDPA on the same pooled q; ``alone=`` lines), and the
-whole run prints each one's launches on the paths.
+The kernels phase also times kernels alone inside their blocks (ALONE:
+layernorm_kernel at ViT-H/14's and ViT-B/32's f32 rows beside
+F.layer_norm; attention_pooled_kernel at every pooled shape of the paths
+beside SDPA on the same pooled q, and called alone through
+ops.block.pooled_attention at the kernel's head group and at each other,
+each held to its plain version on the whole output; gather_rows_kernel at
+the text tower's per-example rows beside ``y[arange, rows]``; ``alone=``
+lines), checks that no static pooled row launches the gather, and the
+whole run prints each one's launches on the paths. The pooled block rows
+plant two more faults: the last key tile dropped (on inputs where the last
+key carries a share of the attention) and, on the per-example causal rows,
+the keys past each row kept. ``--phase pooled`` runs those rows alone; run
+from the parent commit's checkout with ``--parent`` it times the parent's
+kernels the same way, for runs in turns.
 
 The kernels phase also holds the three training forwards at the training
 shapes (TRAIN_SHAPES, ViT-H/14's at 32 x 257 x 1280 among them), output and
@@ -754,7 +767,7 @@ def _block_rows(torch, results, tag, s):
     b, sp, d, h, causal = s["b"], s["sp"], s["d"], s["heads"], s["causal"]
     dtype = torch.float32 if s["f32"] else torch.bfloat16
     xb = 4 if s["f32"] else 2
-    seed_attn, seed_mlp, seed_pool = s["seeds"]
+    seed_attn, seed_mlp = s["seeds"][:2]
     x_std = s.get("x_std", 1.0)
     kw = dict(heads=h, n_valid=sp, causal=causal)
     keys = (sp + 1) / 2 if causal else sp
@@ -838,42 +851,98 @@ def _block_rows(torch, results, tag, s):
         del raw
     del y, hid, library
 
-    if s.get("pooled", True) is False:
-        return
-    x, ln, w = _block_inputs(torch, b, sp, d, dtype, seed_pool, x_std=x_std)
+    if s.get("pooled", True) is not False:
+        _pooled_rows(torch, results, tag, s)
+
+
+#: the per-example pooled rows of the causal towers' shapes (B = 8): the
+#: last token, the first, and rows between
+DYN_ROWS = [3, 76, 0, 40, 11, 76, 25, 7]
+
+
+def _last_key_inputs(torch, x, ln, w, rows, d):
+    """Inputs of the pooled block's own, (x, ln, w), on which its last key
+    carries a share of the attention: each example's pooled row as in x;
+    the last row that row plus half the next one (where the last row is not
+    itself the pooled row); every other row constant, which the LayerNorm
+    maps to its bias (zero here); the k projection the q one, and the k and
+    v biases zero. So the other keys have logit 0 and v 0, the pooled row's
+    own key a logit of |q|² / sqrt(hd) ~ sqrt(hd), and the last key a logit
+    near it and a v of its own."""
+    b, sp, _ = x.shape
+    ar = torch.arange(b, device=x.device)
+    r = rows.long()
+    xc = torch.ones_like(x)
+    xc[ar, r] = x[ar, r]
+    near = x[ar, r] + 0.5 * x[ar, (r + 1) % sp]
+    xc[:, sp - 1] = torch.where((r == sp - 1)[:, None], x[:, sp - 1], near)
+    wqkv, bqkv = w[0].clone(), w[1].clone()
+    wqkv[:, d:2 * d] = wqkv[:, :d]
+    bqkv[d:] = 0
+    return xc, (ln[0], torch.zeros_like(ln[1])), (wqkv, bqkv, *w[2:])
+
+
+def _pooled_rows(torch, results, tag, s):
+    """The pooled block at one shape: static row 0 (or ``pool_row``) for
+    the non-causal towers, DYN_ROWS for the causal ones. Planted faults:
+    the logits zeroed, the block skipped, at head_dim 80 the head_dim-64
+    scale, over OLD_MAX_SEQ tokens the keys past it dropped; the last key
+    tile dropped (the kernel at n_valid = SP - 1 on _last_key_inputs,
+    against the plain version at SP: a kernel that skips its last key tile
+    skips at least the last key, which there carries a share of the
+    attention); on the per-example rows, the keys past each row kept (the
+    kernel with causal off)."""
+    from wise_tpu_torch.ops import block as K
+
+    b, sp, d, h, causal = s["b"], s["sp"], s["d"], s["heads"], s["causal"]
+    dtype = torch.float32 if s["f32"] else torch.bfloat16
+    xb = 4 if s["f32"] else 2
+    x, ln, w = _block_inputs(torch, b, sp, d, dtype, s["seeds"][2],
+                             x_std=s.get("x_std", 1.0))
+    kw = dict(heads=h, n_valid=sp, causal=causal)
     row = s.get("pool_row", 0)
     if causal:
         name = "fused_attn_block_pooled_dyn"
-        rows = torch.tensor([3, 76, 0, 40, 11, 76, 25, 7], dtype=torch.int32,
-                            device="cuda")
+        rows = torch.tensor(DYN_ROWS, dtype=torch.int32, device="cuda")
         base = x[torch.arange(b, device="cuda"), rows.long()]
         keys = float(rows.float().mean()) + 1
 
-        def pooled(w=w):
-            return K.fused_attn_block_pooled_dyn(x, rows, *ln, *w, **kw)
+        def pooled(w=w, x=x, ln=ln, n_valid=sp, causal=causal):
+            return K.fused_attn_block_pooled_dyn(
+                x, rows, *ln, *w, heads=h, n_valid=n_valid, causal=causal)
 
-        def plain():
+        def plain(x=x, ln=ln, w=w):
             return K.plain_attn_block_pooled_dyn(x, rows, *ln, *w, **kw)
 
         library = _sdpa_of_block(torch, x, ln, w, h, causal, rows=rows)
     else:
         name, base = "fused_attn_block_pooled", x[:, row]
+        rows = torch.full((b,), row, dtype=torch.int32, device="cuda")
+        keys = row + 1 if causal else sp
 
-        def pooled(w=w, n_valid=sp):
+        def pooled(w=w, x=x, ln=ln, n_valid=sp, causal=causal):
             return K.fused_attn_block_pooled(
-                x, *ln, *w, pool_row=row, **{**kw, "n_valid": n_valid})
+                x, *ln, *w, pool_row=row, heads=h, n_valid=n_valid,
+                causal=causal)
 
-        def plain():
+        def plain(x=x, ln=ln, w=w):
             return K.plain_attn_block_pooled(x, *ln, *w, pool_row=row, **kw)
 
         library = _sdpa_of_block(torch, x, ln, w, h, causal, row)
 
+    lone = _last_key_inputs(torch, x, ln, w, rows, d)
     faults = {"faulted_kernel": lambda: pooled(_zero_q(w, d)),
-              "block_skipped": lambda: base}
+              "block_skipped": lambda: base,
+              "last_key_tile_dropped": lambda: (
+                  pooled(x=lone[0], ln=lone[1], w=lone[2], n_valid=sp - 1),
+                  plain(*lone),
+                  pooled(x=lone[0], ln=lone[1], w=lone[2]))}
     if d // h != 64:
         faults["scale_of_hd64"] = lambda: pooled(_wrong_scale(w, d, d // h))
     if sp > OLD_MAX_SEQ:
         faults["keys_past_272_dropped"] = lambda: pooled(n_valid=OLD_MAX_SEQ)
+    if causal:
+        faults["causal_keys_past_row_kept"] = lambda: pooled(causal=False)
     _check_row(torch, results, name, tag, (name, sp, d), x, pooled, plain,
                base, faults, _attn_work(b, sp, d, xb, keys, pooled=True),
                library=library)
@@ -1177,49 +1246,109 @@ def _train_rows(torch, results, tag, s):
             library=_addmm(torch, y, *w[:2]))
 
 
-#: the two CUDA kernels no PR has redesigned, each timed alone at a main
-#: path's shape: tag -> (kernel, BLOCK_SHAPES entry, the wrappers whose
-#: launch chains hold one launch of it on all B x SP rows at that (SP, D)).
-#: layernorm_kernel: ViT-H/14's 65,792 x 1280 and ViT-B/32's 12,800 x 768
-#: f32 rows (the MLP's LayerNorm is in the single block, or in the split
-#: pair's fc half); attention_pooled_kernel: ViT-H/14's pooled row over
-#: 256 x 257 x 1280 and the CLIP text tower's per-example rows over
-#: 8 x 77 x 512
+#: kernels timed alone at a main path's shape: tag -> (kernel, BLOCK_SHAPES
+#: entry, the wrappers whose launch chains hold one launch of it at that
+#: (SP, D)). layernorm_kernel: ViT-H/14's 65,792 x 1280 and ViT-B/32's
+#: 12,800 x 768 f32 rows (the MLP's LayerNorm is in the single block, or in
+#: the split pair's fc half); attention_pooled_kernel at every shape a path
+#: launches it: the static pooled row (row 0; SigLIP text row 63) of the
+#: non-causal towers, DYN_ROWS of the causal ones; gather_rows_kernel, the
+#: per-example rows of LN(x) (no static row gathers), at the CLIP text
+#: tower's shape
 ALONE = {
     "vit_h": ("layernorm_kernel", "vit_h", (
         "fused_attn_block", "fused_mlp_fc", "fused_attn_block_pooled")),
     "vision": ("layernorm_kernel", "vision", (
         "fused_attn_block", "fused_mlp_block", "fused_attn_block_pooled")),
-    "vit_h-pooled": ("attention_pooled_kernel", "vit_h",
-                     ("fused_attn_block_pooled",)),
-    "text-pooled": ("attention_pooled_kernel", "text",
+    **{f"{tag}-pooled": ("attention_pooled_kernel", tag, (
+        "fused_attn_block_pooled_dyn" if s["causal"]
+        else "fused_attn_block_pooled",))
+       for tag, s in BLOCK_SHAPES.items()
+       if s.get("pooled", True) and not s.get("only_attn")},
+    "text-gather": ("gather_rows_kernel", "text",
                     ("fused_attn_block_pooled_dyn",)),
 }
-def _alone_rows(torch):
-    """layernorm_kernel and attention_pooled_kernel alone (ALONE): the
-    kernel's own device ms inside the call of a wrapper that launches it
-    (torch.profiler self time, as a Swin row's ``part_ms``), beside its
-    plain PyTorch version and its library call on the same inputs (CUDA
-    events) and its bound. LayerNorm: K.layer_norm_f32 cast to bf16 (the
-    kernel's output), F.layer_norm (which writes f32); 8 f32 operations an
-    element at PEAK_OPS_F32, x read once, bf16 y written once. Pooled
-    attention: the softmax over each example's keys of q at its pooled row
-    (f32 logits, bf16 p) times v, and SDPA on that q; bytes: k and v of
-    every row, q and the output. Returns the rows, each with the wrappers
-    whose launches on the paths it counts."""
+#: heads a block of attention_pooled_kernel may take (ops.block
+#: pooled_attention's ``group``): the alone rows time each that divides the
+#: shape's heads
+POOL_GROUPS = (1, 2, 4, 8, 16)
+
+
+def _profiled_ms(torch, fn, kname=""):
+    """Device ms a call of ``fn`` of the CUDA kernels whose names hold
+    ``kname`` (all of them where empty): torch.profiler self time over 10
+    calls (_device_kernels), retried where a profile recorded none."""
+    for _ in range(3):
+        ms = sum(k[0] for k in _device_kernels(torch, fn, reps=10)
+                 if kname in k[2])
+        if ms:
+            return ms
+    raise PhaseError(f"the profile recorded no {kname or 'kernel'}")
+
+
+def _pooled_alone(torch, K, q, kv, h, sp, pool, causal, plain, library):
+    """The pooled attention kernel called alone (ops.block.pooled_attention)
+    on the block's own q and kv, at the kernel's choice of head group and at
+    each of POOL_GROUPS, and the library call on the same inputs, all by
+    device time (_profiled_ms): (ms at its choice, "g:ms,...", library ms).
+    Each output is held to the plain version on the whole output
+    (output_agreement); a disagreement raises."""
+    rows = pool if causal else None
+    row = 0 if causal else int(pool[0])
+    timed = {}
+    for g in (0,) + POOL_GROUPS:
+        if g and h % g:
+            continue
+
+        def call(g=g):
+            return K.pooled_attention(q, kv, h, sp, rows, row, causal, g)
+
+        with torch.inference_mode():
+            check = K.output_agreement(call(), plain())
+        if not check["ok"]:
+            raise PhaseError(f"pooled_attention group {g} disagrees "
+                             f"with its plain version: {check}")
+        timed[g] = _profiled_ms(torch, call, "attention_pooled_kernel")
+    return (timed[0], ",".join(f"{g}:{ms:.4f}" for g, ms in timed.items()
+                               if g), _profiled_ms(torch, library))
+
+
+def _alone_rows(torch, kinds=None, parent=False):
+    """Kernels timed alone (ALONE; only those named in ``kinds`` where
+    given): the kernel's own device ms inside the call of a wrapper that
+    launches it (torch.profiler self time over 10 calls, as a Swin row's
+    ``part_ms``), beside its plain PyTorch version and its library call on
+    the same inputs (CUDA events) and its bound. LayerNorm: K.layer_norm_f32
+    cast to bf16 (the kernel's output), F.layer_norm (which writes f32); 8
+    f32 operations an element at PEAK_OPS_F32, x read once, bf16 y written
+    once. Pooled attention: the softmax over each example's kept keys of q
+    at its pooled row (f32 logits, bf16 p) times v, and SDPA on that q;
+    bytes: k and v of the keys each row keeps, q and the output. Unless
+    ``parent`` (this script run from the parent commit's checkout, to time
+    its kernels: it predates these), a pooled row also times the kernel
+    called alone on the same q and kv as the library call (``alone_ms``,
+    and ``group_ms`` at each head group, device time, beside the library
+    call's, ``library_device_ms``) and holds each to the plain version, and
+    a static row's block must launch no gather_rows_kernel. The gather: y[arange(B), rows] on LN(x), with
+    the clamp (plain) and without (library). Returns the rows, each with
+    the wrappers whose launches on the paths it counts."""
     from torch.nn.functional import layer_norm
 
     from wise_tpu_torch.ops import block as K
 
     rows = []
     for tag, (kname, shape, via) in ALONE.items():
+        if kinds and kname not in kinds:
+            continue
         s = BLOCK_SHAPES[shape]
         b, sp, d, h, causal = (s["b"], s["sp"], s["d"], s["heads"],
                                s["causal"])
         dtype = torch.float32 if s["f32"] else torch.bfloat16
         xb = 4 if s["f32"] else 2
-        x, ln, w = _block_inputs(torch, b, sp, d, dtype, s["seeds"][2])
+        x, ln, w = _block_inputs(torch, b, sp, d, dtype, s["seeds"][2],
+                                 x_std=s.get("x_std", 1.0))
         kw = dict(heads=h, n_valid=sp, causal=causal)
+        more = {}
         if kname == "layernorm_kernel":
             if K.mlp_choice(d) == "split":
                 via = tuple(v.replace("fused_mlp_block", "fused_mlp_fc")
@@ -1239,46 +1368,79 @@ def _alone_rows(torch):
         else:
             hd = d // h
             ar = torch.arange(b, device="cuda")
+            row = s.get("pool_row", 0)
             if causal:
-                pool = torch.tensor([3, 76, 0, 40, 11, 76, 25, 7],
-                                    dtype=torch.int32, device="cuda")
+                pool = torch.tensor(DYN_ROWS, dtype=torch.int32,
+                                    device="cuda")
 
                 def call():
                     return K.fused_attn_block_pooled_dyn(x, pool, *ln, *w,
                                                          **kw)
 
-                library = _sdpa_of_block(torch, x, ln, w, h, causal,
-                                         rows=pool)
+                sdpa = _sdpa_of_block(torch, x, ln, w, h, causal, rows=pool)
             else:
-                pool = torch.zeros(b, dtype=torch.int32, device="cuda")
+                pool = torch.full((b,), row, dtype=torch.int32,
+                                  device="cuda")
 
                 def call():
-                    return K.fused_attn_block_pooled(x, *ln, *w, pool_row=0,
-                                                     **kw)
+                    return K.fused_attn_block_pooled(x, *ln, *w,
+                                                     pool_row=row, **kw)
 
-                library = _sdpa_of_block(torch, x, ln, w, h, causal, row=0)
+                sdpa = _sdpa_of_block(torch, x, ln, w, h, causal, row=row)
             with torch.inference_mode():
                 qkv = K.qkv_stage(x, *ln, *w[:2])
-            q = qkv[ar, pool.long(), :d].reshape(b, h, hd)
-            k = qkv[..., d:2 * d].reshape(b, sp, h, hd)
-            v = qkv[..., 2 * d:].reshape(b, sp, h, hd)
-            col = torch.arange(sp, device="cuda")[None, :]
-            keep = (col <= pool.long()[:, None] if causal
-                    else col < sp)[:, None, :]
-            keys = float(pool.float().mean()) + 1 if causal else sp
+            kept = (pool.long() + 1 if causal
+                    else torch.full((b,), sp, device="cuda"))
+            keys = float(kept.float().mean())
+            if kname == "gather_rows_kernel":
+                with torch.inference_mode():
+                    y = K.layer_norm_f32(x, *ln).to(torch.bfloat16)
+                pl = pool.long()
 
-            def plain():
-                return K._softmax_attend(q, k, v, keep, torch.bfloat16)
+                def plain():
+                    return y[ar, pl.clamp(0, sp - 1)]
 
-            ops, nbytes, peak = (4 * b * keys * d,
-                                 2 * b * sp * 2 * d + 2 * 2 * b * d, PEAK_OPS)
+                def library():
+                    return y[ar, pl]
+
+                ops, nbytes, peak = 0, 2 * 2 * b * d + 4 * b, PEAK_OPS
+            else:
+                q = qkv[ar, pool.long(), :d].reshape(b, h, hd)
+                k = qkv[..., d:2 * d].reshape(b, sp, h, hd)
+                v = qkv[..., 2 * d:].reshape(b, sp, h, hd)
+                col = torch.arange(sp, device="cuda")[None, :]
+                keep = (col < kept[:, None])[:, None, :]
+
+                def plain():
+                    return K._softmax_attend(q, k, v, keep, torch.bfloat16)
+
+                library = sdpa
+                ops, nbytes, peak = (4 * b * keys * d,
+                                     2 * 2 * d * float(kept.sum())
+                                     + 2 * 2 * b * d, PEAK_OPS)
+                if not parent:
+                    alone_ms, group_ms, library_device_ms = _pooled_alone(
+                        torch, K, q.reshape(b, d).contiguous(),
+                        qkv[..., d:].contiguous(), h, sp, pool, causal,
+                        lambda: plain().reshape(b, d), library)
+                    more = dict(alone_ms=f"{alone_ms:.4f}",
+                                group_ms=group_ms,
+                                library_device_ms=f"{library_device_ms:.4f}")
         for _ in range(3):  # a profile may now and then record no kernel
-            hits = [k for k in _device_kernels(torch, call) if kname in k[2]]
+            found = _device_kernels(torch, call, reps=10)
+            hits = [k for k in found if kname in k[2]]
             if hits:
                 break
         if not hits:
             raise PhaseError(f"{kname}[{tag}]: the profile of "
                              f"{via[0]} recorded no {kname}")
+        if kname == "attention_pooled_kernel" and not causal:
+            gathers = sum(k[1] for k in found
+                          if "gather_rows_kernel" in k[2])
+            more["gathers_per_call"] = f"{gathers:g}"
+            if gathers and not parent:
+                raise PhaseError(f"{via[0]}[{tag}]: a static pooled row "
+                                 f"launched gather_rows_kernel")
         ms, per_call = sum(k[0] for k in hits), sum(k[1] for k in hits)
         with torch.inference_mode():
             plain_ms = _cuda_ms(torch, plain, 20)
@@ -1289,7 +1451,7 @@ def _alone_rows(torch):
             ms=f"{ms:.4f}", launches_per_call=f"{per_call:g}",
             plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
             bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
-            timed_in=via[0])
+            timed_in=via[0], **more)
         rows.append(dict(name=kname, tag=tag, via=via, sp=sp, d=d,
                          per_call=per_call))
     return rows
@@ -1999,6 +2161,18 @@ def phase_kernels(torch):
     _require_rows(results)
     _backward_rows(torch)
     return results, alone
+
+
+def _pooled_phase(torch, results, parent=False):
+    """``--phase pooled``: the pooled block rows at every shape that has
+    one (with their planted faults), then the pooled attention and the
+    gather alone (ALONE). Run from the parent's checkout with ``parent``
+    to time its kernels in turns with this tree's."""
+    for tag, shape in BLOCK_SHAPES.items():
+        if shape.get("pooled", True) and not shape.get("only_attn"):
+            _pooled_rows(torch, results, tag, shape)
+    _alone_rows(torch, ("attention_pooled_kernel", "gather_rows_kernel"),
+                parent)
 
 
 def _require_rows(results) -> None:
@@ -4881,8 +5055,12 @@ def main(argv=None) -> int:
                                         "swin", "vit_h", "siglip",
                                         "xlmr", "hybrid", "index", "train",
                                         "padded", "embed_fold", "clap2022",
-                                        "shots", "profile"],
+                                        "shots", "profile", "pooled"],
                     default="all")
+    ap.add_argument("--parent", action="store_true",
+                    help="this script run from the parent commit's "
+                         "checkout, to time its pooled kernels (--phase "
+                         "pooled): skip what the parent predates")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print nvcc -Xptxas -v (registers, shared memory)")
     args = ap.parse_args(argv)
@@ -4918,6 +5096,11 @@ def main(argv=None) -> int:
         if args.phase == "topk":
             rows = []
             _timed("topk", _topk_rows, torch, rows)
+            _require_rows(rows)
+            return 0
+        if args.phase == "pooled":
+            rows = []
+            _timed("pooled", _pooled_phase, torch, rows, args.parent)
             _require_rows(rows)
             return 0
         if args.phase == "swin":

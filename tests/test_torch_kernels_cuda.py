@@ -432,6 +432,55 @@ def test_wide_attention_matches_plain_on_card(cuda, shape, kind, causal,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["static", "causal_rows"])
+@pytest.mark.parametrize("sp", [1, 50, 77, 257, 577, 640])
+@pytest.mark.parametrize("hd", [64, 80])
+def test_pooled_attention_alone_matches_plain_on_card(cuda, hd, sp, mode):
+    """attention_pooled_kernel alone (ops.block.pooled_attention) at every
+    head group of 16 heads and at the kernel's own choice, on the whole
+    output (ops.block.output_agreement): a static row with n_valid < SP,
+    or per-example causal rows at 0, the middle, SP - 1 and past both ends
+    (clamped)."""
+    heads, b = 16, 6
+    d = heads * hd
+    g = torch.Generator().manual_seed(hd + sp)
+    q = torch.randn((b, d), generator=g).to(cuda, torch.bfloat16)
+    kv = torch.randn((b, sp, 2 * d), generator=g).to(cuda, torch.bfloat16)
+    if mode == "static":
+        rows, row, causal, n_valid = None, sp - 1, False, max(1, sp - 7)
+    else:
+        rows = torch.tensor([0, sp // 2, sp - 1, sp + 5, -3, sp // 3],
+                            dtype=torch.int32, device=cuda)
+        row, causal, n_valid = 0, True, sp
+    want = K.plain_pooled_attention(q, kv, heads, n_valid, rows, row, causal)
+    for group in (0, 1, 2, 4, 8, 16):
+        K.reset_launches()
+        got = K.pooled_attention(q, kv, heads, n_valid, rows, row, causal,
+                                 group)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES_BY_SHAPE == {("pooled_attention", sp, d): 1}
+        check = K.output_agreement(got, want)
+        assert check["ok"], (group, check)
+
+
+@pytest.mark.cuda
+def test_pooled_attention_refuses_what_it_does_not_take(cuda):
+    """A head group that is not a power of two dividing the heads, n_valid
+    outside [1, SP], a static row outside [0, SP): refused, nothing
+    launched."""
+    q = torch.zeros((2, 1024), device=cuda, dtype=torch.bfloat16)
+    kv = torch.zeros((2, 50, 2048), device=cuda, dtype=torch.bfloat16)
+    K.reset_launches()
+    for kw in (dict(group=3), dict(group=32), dict(n_valid=0),
+               dict(n_valid=51), dict(pool_row=50)):
+        args = dict(heads=16, n_valid=50)
+        args.update(kw)
+        with pytest.raises((RuntimeError, ValueError)):
+            K.pooled_attention(q, kv, **args)
+    assert not any(K.LAUNCHES.values())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("act", ["gelu", "quick_gelu", "gelu_tanh"])
 @pytest.mark.parametrize("stream", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", ["vit_h", "tile+1"])

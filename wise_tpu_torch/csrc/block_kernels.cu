@@ -6,6 +6,7 @@
 //   wt_mlp_block          <- fused_mlp_block             (_mlp_block_kernel)
 //   wt_attn_block_pooled  <- fused_attn_block_pooled     (_attn_block_pooled_kernel)
 //                            fused_attn_block_pooled_dyn (_attn_block_pooled_dyn_kernel)
+//   wt_attention_pooled   <- the attention of those two, alone
 //   wt_mlp_fc, wt_mlp_proj <- fused_mlp_split            (_fc_kernel, _proj_kernel)
 // the saved-activation forwards of training (the same Pallas kernels with
 // one more output):
@@ -41,9 +42,12 @@
 //                      mma.sync with S and P in registers
 //                      (attention.cuh, shared with postln_kernels.cu)
 //   attention_pooled_kernel
-//                      one query row per (batch, head): the pooled last
-//                      layer, whose q GEMM runs on the pooled rows of LN(x)
-//                      gathered by gather_rows_kernel
+//                      one query row per (example, head): the pooled last
+//                      layer's attention, a block per (example, group of
+//                      heads) streaming K then V tiles through a cp.async
+//                      ring (below). Its q GEMM reads a static pooled row
+//                      of LN(x) in place, as a strided operand; per-example
+//                      rows are gathered first by gather_rows_kernel
 //
 // The MLP has one chain in two halves: wt_mlp_fc (LayerNorm, fc GEMM with the
 // bias + activation epilogue, h to device memory) and wt_mlp_proj (proj GEMM
@@ -110,88 +114,272 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// pooled attention: one query row per (head, batch), 128 threads looping
-// over the keys. q (B, D) bf16; kv (B * SP, 2D) bf16 rows [k | v];
-// att (B, D) bf16. Dynamic shared memory: SP floats (logits, then p).
+// pooled attention: one query row per (example, head), the attention half of
+// the pooled last layer. Replaces the attention inside the Pallas TPU
+// kernels wise_tpu/ops/block.py _attn_block_pooled_kernel (behind
+// fused_attn_block_pooled) and _attn_block_pooled_dyn_kernel (behind
+// fused_attn_block_pooled_dyn), which attend an 8-row query window on the
+// MXU and slice the pooled row out of it (a Mosaic layout workaround, not
+// carried over).
+//
+// q (B, D) bf16; kv (B * SP, 2D) bf16, each row [k | v]; att (B, D) bf16.
+// Per example b and head h: logits q . k_j in f32 times scale; key j is kept
+// where j < n_valid and, with causal, j <= row_b (rows[b] clamped into
+// [0, SP), or row0); softmax in f32 over the kept keys; p normalised, then
+// rounded to bf16 (as p.astype(v.dtype) in the reference); P V in f32;
+// att rounded to bf16.
+//
+// What bounds it: the keys a row keeps are read once each, K then V (2 bytes
+// an element, 4 B keys D bytes), for 4 B keys D operations: one operation a
+// byte, so bytes bound it (0.1 ms at ViT-H/14's 256 x 257 x 1280). kv comes
+// from the kv GEMM just before it and exceeds L2 at the large batches, so
+// most reads come from device memory. What the design does about it:
+//   - one block of 4 warps per (example, group of G heads), G a power of two
+//     dividing H (pooled_group: the largest up to 16 that leaves the grid 4
+//     blocks an SM; 1 at the text towers' batches of 8, where the grid stays
+//     B x H blocks); the G heads' K (or V) columns of one key row are
+//     G * HD * 2 contiguous bytes. 64 registers and 19-25 KB of shared
+//     memory at the paths' shapes let 8 blocks share an SM, so ViT-H/14's
+//     1,024 blocks run as one wave;
+//   - the keys pass in tiles of kPoolSegs / G key rows (kPoolSegs
+//     (key, head) segments of HD), K tiles first, then V tiles, through a
+//     ring of kPoolStages shared-memory stages fed by 16-byte cp.async
+//     copies, consecutive threads on consecutive 16 bytes of a row; the V
+//     tiles' copies are in flight while the softmax runs. Tiles at or past
+//     the last kept key (n_valid, and row_b + 1 with causal) are not read;
+//     rows past it inside the last tile are zero-filled;
+//   - the 128 threads form 16 groups of 8 lanes; a group takes kPoolRounds
+//     segments of each tile, always of the same head (16 % G == 0), its
+//     lanes HD / 8 columns each (8 at head_dim 64: one 16-byte shared read;
+//     10 at 80: five 4-byte reads, free of bank conflicts at 40-word
+//     segments). Logits: each lane's partial dot over its columns, summed
+//     by three shuffles, into a shared f32 row of the G heads' logits
+//     (SP x G at most), each group keeping its running max. P V: each lane
+//     accumulates p times its columns in f32 registers. No thread is idle
+//     in either pass;
+//   - the softmax is exact in the reference's sense: the group maxima merge
+//     per head before any exp, every kept key's exp(logit - max) sums (per
+//     thread, then across the warp by shuffles, then across warps) before
+//     any p is formed, and p = bf16(e / sum) is rounded once, after the
+//     division (a one-pass online softmax rounds other values: PERF.md §6);
+//   - the 16 / G groups of one head hold partial outputs over their keys;
+//     they meet in shared memory (the dead ring) and sum into att.
 // ---------------------------------------------------------------------------
 
+// threads a block; its 8-lane groups; segments a group takes a tile; the
+// (key, head) segments of a tile; the ring's stages; heads a block at most
 constexpr int kPoolThreads = 128;
+constexpr int kPoolGroups = kPoolThreads / 8;
+constexpr int kPoolRounds = 2;
+constexpr int kPoolSegs = kPoolGroups * kPoolRounds;
+constexpr int kPoolStages = 4;
+constexpr int kPoolMaxGroup = 16;
 
-__device__ __forceinline__ float block_reduce(float v, float* red, bool is_max) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  v = is_max ? warp_max(v) : warp_sum(v);
-  __syncthreads();  // red is free again
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  return is_max ? fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]))
-                : red[0] + red[1] + red[2] + red[3];
+// floats of partial maxima (one a group) and sums (one a warp and head)
+constexpr int kPoolRed = kPoolGroups + kPoolThreads / 32 * kPoolMaxGroup;
+
+// dynamic shared memory of one block: the ring, then the logits (p after
+// the softmax) of tiles x (kPoolSegs / G) keys x G heads, then kPoolRed
+template <int HD>
+size_t pooled_smem_bytes(int SP, int G) {
+  const int tk = kPoolSegs / G, tiles = (SP + tk - 1) / tk;
+  return (size_t)kPoolStages * kPoolSegs * HD * sizeof(bf16) +
+         ((size_t)tiles * tk * G + kPoolRed) * sizeof(float);
+}
+
+// HD / 8 consecutive bf16 of shared memory as f32: one 16-byte read at head
+// dim 64, five 4-byte reads at 80 (the piece starts 4-byte aligned)
+template <int HD>
+__device__ __forceinline__ void load_piece(const bf16* p,
+                                           float (&f)[HD / 8]) {
+  if constexpr (HD == 64) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 v = __bfloat1622float2(h[i]);
+      f[2 * i] = v.x;
+      f[2 * i + 1] = v.y;
+    }
+  } else {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(p);
+#pragma unroll
+    for (int i = 0; i < HD / 16; ++i) {
+      const float2 v = __bfloat1622float2(h[i]);
+      f[2 * i] = v.x;
+      f[2 * i + 1] = v.y;
+    }
+  }
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kPoolThreads)
-attention_pooled_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
-                        int D, const int* __restrict__ rows, int row0,
+__global__ void __launch_bounds__(kPoolThreads, 8)
+attention_pooled_kernel(const bf16* __restrict__ q,
+                        const bf16* __restrict__ kv, int D,
+                        const int* __restrict__ rows, int row0,
                         bf16* __restrict__ att, int SP, int n_valid,
-                        int causal, float scale) {
-  extern __shared__ float ps[];  // SP
-  __shared__ float qs[HD];
-  __shared__ float red[kPoolThreads / 32];
-  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+                        int causal, int lg, float scale) {
+  constexpr int E = HD / 8;  // columns of a lane, 16-byte chunks of a segment
+  constexpr int kStage = kPoolSegs * HD;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  float* L = reinterpret_cast<float*>(ring + kPoolStages * kStage);
+
+  const int G = 1 << lg, TK = kPoolSegs >> lg;  // heads, keys of a tile
+  const int b = blockIdx.y, h0 = blockIdx.x * G;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gi = tid >> 3, l8 = tid & 7, g = gi & (G - 1);
   const int ldkv = 2 * D;
-  const bf16* kvb = kv + (size_t)b * SP * ldkv + h * HD;
-  if (tid < HD) qs[tid] = __bfloat162float(q[(size_t)b * D + h * HD + tid]);
-  __syncthreads();
-
   const int row = pooled_row(rows, row0, b, SP);
-  float m = -INFINITY;
-  for (int j = tid; j < SP; j += kPoolThreads) {
-    float l = -INFINITY;
-    if (j < n_valid && (!causal || j <= row)) {
-      const bf16* kr = kvb + (size_t)j * ldkv;
-      float s = 0.f;
-#pragma unroll 8
-      for (int c = 0; c < HD; ++c) s += qs[c] * __bfloat162float(kr[c]);
-      l = s * scale;
-    }
-    ps[j] = l;
-    m = fmaxf(m, l);
-  }
-  m = block_reduce(m, red, true);
-  float sum = 0.f;
-  for (int j = tid; j < SP; j += kPoolThreads) {
-    const float p = ps[j] == -INFINITY ? 0.f : expf(ps[j] - m);
-    ps[j] = p;
-    sum += p;
-  }
-  sum = block_reduce(sum, red, false);
-  // p rounds to bf16 before the PV product, as p.astype(v.dtype) does
-  for (int j = tid; j < SP; j += kPoolThreads)
-    ps[j] = __bfloat162float(__float2bfloat16(ps[j] / sum));
-  __syncthreads();
+  const int kend = causal ? min(n_valid, row + 1) : n_valid;  // keys kept
+  const int T = (kend + TK - 1) / TK;                           // key tiles
+  float* red = L + T * TK * G;  // kPoolRed floats
+  const bf16* kvb = kv + (size_t)b * SP * ldkv + h0 * HD;
 
-  if (tid < HD) {
-    const bf16* vb = kvb + D + tid;
+  // tile u < T: K of keys [u TK, u TK + TK); u >= T: V of tile u - T
+  auto issue = [&](int u) {
+    const int key0 = (u < T ? u : u - T) * TK;
+    const bf16* src = kvb + (u < T ? 0 : D);
+    bf16* dst = ring + (u % kPoolStages) * kStage;
+    for (int c = tid; c < kPoolSegs * E; c += kPoolThreads) {
+      const int seg = c / E, piece = c - seg * E;
+      const int key = key0 + (seg >> lg);
+      const bool ok = key < kend;
+      cp_async16(dst + seg * HD + piece * 8,
+                 src + (size_t)(ok ? key : 0) * ldkv + (seg & (G - 1)) * HD +
+                     piece * 8,
+                 ok);
+    }
+  };
+  const int U = 2 * T;
+#pragma unroll
+  for (int u = 0; u < kPoolStages - 1; ++u) {
+    if (u < U) issue(u);
+    cp_async_commit();
+  }
+
+  float qf[E];
+  {
+    const bf16* qh = q + (size_t)b * D + (h0 + g) * HD + l8 * E;
+#pragma unroll
+    for (int i = 0; i < E; ++i) qf[i] = __bfloat162float(qh[i]);
+  }
+  float m = -INFINITY;  // the group's running max over its keys
+  float acc[E];
+#pragma unroll
+  for (int i = 0; i < E; ++i) acc[i] = 0.f;
+
+  for (int u = 0; u < U; ++u) {
+    if (u + kPoolStages - 1 < U) issue(u + kPoolStages - 1);
+    cp_async_commit();
+    if (u == T) {
+      // the softmax over every kept key, while V's first tiles arrive.
+      // Maxima: the groups of one head are gi = g + G k, within a warp
+      // 8 G lanes apart
+      for (int off = 8 * G; off < 32; off <<= 1)
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      if (l8 == 0) red[gi] = m;
+      __syncthreads();
+      const int hh = tid & (G - 1);  // this thread's head in the exp pass
+      float mh = -INFINITY;
+      for (int k = hh; k < kPoolGroups; k += G) mh = fmaxf(mh, red[k]);
+      float sum = 0.f;
+      for (int i = tid; i < kend * G; i += kPoolThreads) {
+        const float e = expf(L[i] - mh);
+        L[i] = e;
+        sum += e;
+      }
+      for (int off = G; off < 32; off <<= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (lane < G) red[kPoolGroups + warp * G + lane] = sum;
+      __syncthreads();
+      float sh = 0.f;
+      for (int w = 0; w < kPoolThreads / 32; ++w)
+        sh += red[kPoolGroups + w * G + hh];
+      // p rounds to bf16 after the division, as p.astype(v.dtype) does;
+      // the rows of the last tile past kend get p = 0
+      for (int i = tid; i < T * TK * G; i += kPoolThreads)
+        L[i] = i < kend * G ? __bfloat162float(__float2bfloat16(L[i] / sh))
+                            : 0.f;
+      __syncthreads();
+    }
+    cp_async_wait<kPoolStages - 1>();
+    __syncthreads();
+    const bf16* tile = ring + (u % kPoolStages) * kStage;
+    if (u < T) {
+#pragma unroll
+      for (int r = 0; r < kPoolRounds; ++r) {
+        const int seg = gi + r * kPoolGroups;
+        const int key = u * TK + (seg >> lg);
+        float k[E];
+        load_piece<HD>(tile + seg * HD + l8 * E, k);
+        float s = 0.f;
+#pragma unroll
+        for (int i = 0; i < E; ++i) s = fmaf(qf[i], k[i], s);
+        s += __shfl_xor_sync(0xffffffffu, s, 4);
+        s += __shfl_xor_sync(0xffffffffu, s, 2);
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        const float l = key < kend ? s * scale : -INFINITY;
+        if (l8 == 0) L[key * G + g] = l;
+        m = fmaxf(m, l);
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < kPoolRounds; ++r) {
+        const int seg = gi + r * kPoolGroups;
+        const float p = L[((u - T) * TK + (seg >> lg)) * G + g];
+        float v[E];
+        load_piece<HD>(tile + seg * HD + l8 * E, v);
+#pragma unroll
+        for (int i = 0; i < E; ++i) acc[i] = fmaf(p, v[i], acc[i]);
+      }
+    }
+    __syncthreads();
+  }
+
+  // the groups' partial outputs meet in the dead ring: part[gi][HD]
+  cp_async_wait<0>();
+  float* part = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int i = 0; i < E; ++i) part[gi * HD + l8 * E + i] = acc[i];
+  __syncthreads();
+  bf16* out = att + (size_t)b * D + h0 * HD;
+  for (int c = tid; c < G * HD; c += kPoolThreads) {
+    const int hh = c / HD, col = c - hh * HD;
     float o = 0.f;
-    for (int j = 0; j < SP; ++j)
-      o += ps[j] * __bfloat162float(vb[(size_t)j * ldkv]);
-    att[(size_t)b * D + h * HD + tid] = __float2bfloat16(o);
+    for (int k = hh; k < kPoolGroups; k += G) o += part[k * HD + col];
+    out[c] = __float2bfloat16(o);
   }
 }
 
+// heads a block of attention_pooled_kernel takes: the largest power of two
+// up to kPoolMaxGroup dividing H that still leaves 4 blocks an SM
+int pooled_group(int B, int H) {
+  const long long slots = 4LL * sm_count();
+  int g = 1;
+  while (2 * g <= kPoolMaxGroup && H % (2 * g) == 0 &&
+         (long long)B * (H / (2 * g)) >= slots)
+    g *= 2;
+  return g;
+}
+
 // dst (B, D) bf16 <- row map_row(g, b) of src (rows of D) for each b, in
-// 16-byte pieces (D % 8 == 0)
-__global__ void __launch_bounds__(kPoolThreads)
+// 16-byte pieces (D % 8 == 0): the per-example pooled rows of LN(x), the q
+// GEMM's operand
+constexpr int kGatherThreads = 128;
+
+__global__ void __launch_bounds__(kGatherThreads)
 gather_rows_kernel(const bf16* __restrict__ src, RowMap g,
                    bf16* __restrict__ dst, int D) {
   const uint4* s =
       reinterpret_cast<const uint4*>(src + map_row(g, blockIdx.x) * D);
   uint4* d = reinterpret_cast<uint4*>(dst + (size_t)blockIdx.x * D);
-  for (int i = threadIdx.x; i < D / 8; i += kPoolThreads) d[i] = s[i];
+  for (int i = threadIdx.x; i < D / 8; i += kGatherThreads) d[i] = s[i];
 }
 
 cudaError_t gather_rows(const bf16* src, RowMap g, bf16* dst, int B, int D,
                         cudaStream_t st) {
-  gather_rows_kernel<<<B, kPoolThreads, 0, st>>>(src, g, dst, D);
+  gather_rows_kernel<<<B, kGatherThreads, 0, st>>>(src, g, dst, D);
   return cudaGetLastError();
 }
 
@@ -199,10 +387,18 @@ template <int HD>
 cudaError_t launch_attention_pooled(const bf16* q, const bf16* kv, int D,
                                     const int* rows, int row0, bf16* att,
                                     int B, int SP, int H, int n_valid,
-                                    int causal, cudaStream_t st) {
+                                    int causal, int G, cudaStream_t st) {
+  if (G < 1 || G > kPoolMaxGroup || (G & (G - 1)) || H % G)
+    return cudaErrorInvalidValue;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      attention_pooled_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)pooled_smem_bytes<HD>(kMaxSeq, kPoolMaxGroup));
+  if (attr != cudaSuccess) return attr;
+  int lg = 0;
+  while ((1 << lg) < G) ++lg;
   attention_pooled_kernel<HD>
-      <<<dim3(H, B), kPoolThreads, SP * sizeof(float), st>>>(
-          q, kv, D, rows, row0, att, SP, n_valid, causal,
+      <<<dim3(H / G, B), kPoolThreads, pooled_smem_bytes<HD>(SP, G), st>>>(
+          q, kv, D, rows, row0, att, SP, n_valid, causal, lg,
           1.0f / sqrtf((float)HD));
   return cudaGetLastError();
 }
@@ -267,6 +463,27 @@ int attn_block(const void* x, int x_f32, const float* ln_s, const float* ln_b,
 
 
 extern "C" {
+
+// The pooled attention alone (attention_pooled_kernel): q (B, D) bf16,
+// kv (B*SP, 2D) bf16 rows [k | v] -> att (B, D) bf16, at each example's row
+// rows[b] (device int32, clamped) or row0; keys >= n_valid and, with causal,
+// keys past the row dropped. ``group``: heads a block takes (a power of two
+// dividing H, at most 16), 0 for pooled_group's choice. No scratch.
+int wt_attention_pooled(const bf16* q, const bf16* kv, int D, const int* rows,
+                        int row0, bf16* att, int B, int SP, int H, int n_valid,
+                        int causal, int group, void* stream) {
+  const int hd = head_dim(SP, D, H);
+  if (!hd || B < 1 || n_valid < 1 || n_valid > SP)
+    return (int)cudaErrorInvalidValue;
+  const int G = group ? group : pooled_group(B, H);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(hd == 64 ? launch_attention_pooled<64>(q, kv, D, rows, row0,
+                                                      att, B, SP, H, n_valid,
+                                                      causal, G, st)
+                        : launch_attention_pooled<80>(q, kv, D, rows, row0,
+                                                      att, B, SP, H, n_valid,
+                                                      causal, G, st));
+}
 
 // x + out_proj(MHA(LN1(x))): x (B, SP, D) f32 or bf16 -> out, same shape and
 // dtype. Scratch (bf16): y (B*SP, D), qkv (B*SP, 3D), att (B*SP, D).
@@ -430,23 +647,28 @@ int wt_attn_block_pooled(const void* x, int x_f32, const float* ln_s,
                          int H, int n_valid, int causal, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * SP;
-  const int hd = head_dim(SP, D, H);
-  if (!hd) return (int)cudaErrorInvalidValue;
+  if (!head_dim(SP, D, H) || (!rows && (pool_row < 0 || pool_row >= SP)))
+    return (int)cudaErrorInvalidValue;
   const RowMap pooled = {rows, pool_row, SP, kGatherPooled};
   WT_CHECK(layernorm(x, x_f32, ln_s, ln_b, y, M, D, st));
   WT_CHECK((gemm<bf16, kBias>(y, D, wqkv + D, 3 * D, bqkv + D, kv, 2 * D,
                               nullptr, 0, kNoMap, M, 2 * D, D, kNone, st)));
-  // the pooled rows of y, gathered into att (free until the attention
-  // writes it), are the q GEMM's operand
-  WT_CHECK(gather_rows(y, pooled, att, B, D, st));
-  WT_CHECK((gemm<bf16, kBias>(att, D, wqkv, 3 * D, bqkv, q, D, nullptr, 0,
-                              kNoMap, B, D, D, kNone, st)));
-  WT_CHECK(hd == 64 ? launch_attention_pooled<64>(q, kv, D, rows, pool_row,
-                                                  att, B, SP, H, n_valid,
-                                                  causal, st)
-                    : launch_attention_pooled<80>(q, kv, D, rows, pool_row,
-                                                  att, B, SP, H, n_valid,
-                                                  causal, st));
+  if (rows) {
+    // each example's own row of y, gathered into att (free until the
+    // attention writes it), is the q GEMM's operand
+    WT_CHECK(gather_rows(y, pooled, att, B, D, st));
+    WT_CHECK((gemm<bf16, kBias>(att, D, wqkv, 3 * D, bqkv, q, D, nullptr, 0,
+                                kNoMap, B, D, D, kNone, st)));
+  } else {
+    // a static row is a strided view of y: row pool_row of each example,
+    // SP * D elements apart (16-byte aligned, as TMA wants: D % 32 == 0)
+    WT_CHECK((gemm<bf16, kBias>(y + (size_t)pool_row * D, SP * D, wqkv,
+                                3 * D, bqkv, q, D, nullptr, 0, kNoMap, B, D,
+                                D, kNone, st)));
+  }
+  WT_CHECK((cudaError_t)wt_attention_pooled(q, kv, D, rows, pool_row, att, B,
+                                            SP, H, n_valid, causal, 0,
+                                            stream));
   WT_CHECK(gemm_residual(att, D, wo, D, bo, out, D, x, D, pooled, x_f32, B, D,
                          D, st));
   return 0;

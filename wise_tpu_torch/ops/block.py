@@ -63,7 +63,8 @@ _launches = LaunchCounter("fused_attn_block", "fused_mlp_block",
                           "fused_attn_block_pooled_dyn", "fused_mlp_fc",
                           "fused_mlp_proj", "fused_attn_block_res",
                           "fused_mlp_block_res", "fused_mlp_fc_res",
-                          "fused_ln_matmul", "fused_residual_matmul")
+                          "fused_ln_matmul", "fused_residual_matmul",
+                          "pooled_attention")
 #: kernel launches per wrapper since the last reset_launches()
 LAUNCHES = _launches.counts
 #: the same launches keyed by (wrapper, SP, D) of x: one tower's count
@@ -243,15 +244,31 @@ def plain_attn_block_pooled_dyn(x, rows, ln_s, ln_b, wqkv, bqkv, wo, bo,
     idx = rows.long().clamp(0, sp - 1)
     ar = torch.arange(b, device=x.device)
     q = y[ar, idx] @ wqkv[:, :d] + bqkv[:d]
-    col = torch.arange(sp, device=x.device)[None, :]
+    att = plain_pooled_attention(q, kv.reshape(b, sp, 2 * d), heads, n_valid,
+                                 idx, causal=causal)
+    return x[ar, idx] + (att @ wo + bo).to(x.dtype)
+
+
+def plain_pooled_attention(q, kv, heads: int, n_valid: int, rows=None,
+                           pool_row: int = 0, causal: bool = False):
+    """The pooled blocks' attention: q (B, D) at each example's row
+    (``rows`` (B,), clamped into [0, SP), or ``pool_row``) against
+    kv (B, SP, 2D) rows [k | v] -> (B, D) in q's dtype. Keys >= n_valid
+    and, with causal, keys past the row are dropped; f32 logits and
+    softmax, p rounded to q's dtype before P V."""
+    b, sp, d2 = kv.shape
+    d = d2 // 2
+    hd = d // heads
+    col = torch.arange(sp, device=q.device)[None, :]
+    if rows is None:
+        rows = torch.full((b,), pool_row, device=q.device)
     keep = col < n_valid
     if causal:
-        keep = keep & (col <= idx[:, None])
-    att = _softmax_attend(
+        keep = keep & (col <= rows.long().clamp(0, sp - 1)[:, None])
+    return _softmax_attend(
         q.reshape(b, heads, hd), kv[..., :d].reshape(b, sp, heads, hd),
-        kv[..., d:].reshape(b, sp, heads, hd), keep[:, None, :], dt,
+        kv[..., d:].reshape(b, sp, heads, hd), keep[:, None, :], q.dtype,
     ).reshape(b, d)
-    return x[ar, idx] + (att @ wo + bo).to(x.dtype)
 
 
 def plain_attn_block_pooled(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads: int,
@@ -622,6 +639,45 @@ def _pooled_launch(name, x, rows, pool_row, ln_scale, ln_bias, wqkv, bqkv, wo,
         int(causal), _stream(x)), name)
     _launches.add(name, sp, d)
     return out
+
+
+def pooled_attention(q, kv, heads: int, n_valid: int, rows=None,
+                     pool_row: int = 0, causal: bool = False,
+                     group: int = 0):
+    """The pooled blocks' attention alone (csrc/block_kernels.cu
+    ``attention_pooled_kernel``, behind both pooled wrappers): q (B, D) bf16,
+    kv (B, SP, 2D) bf16 rows [k | v], rows (B,) int32 or ``pool_row``
+    -> (B, D) bf16, as plain_pooled_attention. ``group``: heads a block of
+    the kernel takes (a power of two dividing heads, at most 16), 0 for the
+    kernel's own choice."""
+    if not q.is_cuda:
+        return plain_pooled_attention(q, kv, heads, n_valid, rows, pool_row,
+                                      causal)
+    name = "pooled_attention"
+    _refuse_grad(name, "fused_attn_block_pooled_train", q, kv)
+    _require(kv.dim() == 3 and q.dim() == 2,
+             f"{name}: q (B, D), kv (B, SP, 2D)")
+    b, sp, d2 = kv.shape
+    d = d2 // 2
+    _check_param(q, (b, d), torch.bfloat16, kv.device, f"{name} q")
+    _check_param(kv, (b, sp, 2 * d), torch.bfloat16, kv.device, f"{name} kv")
+    _require(heads >= 1 and d % heads == 0 and d // heads in HEAD_DIMS
+             and 1 <= sp <= MAX_SEQ and 1 <= n_valid <= sp,
+             f"{name}: width {d}, heads {heads}, sequence {sp}, n_valid "
+             f"{n_valid} not taken")
+    if rows is not None:
+        _check_param(rows, (b,), torch.int32, kv.device, f"{name} rows")
+    else:
+        _require(0 <= pool_row < sp,
+                 f"{name}: pool_row {pool_row} out of range")
+    att = torch.empty((b, d), dtype=torch.bfloat16, device=q.device)
+    check(load_library().wt_attention_pooled(
+        q.data_ptr(), kv.data_ptr(), d,
+        None if rows is None else rows.data_ptr(), int(pool_row),
+        att.data_ptr(), b, sp, heads, int(n_valid), int(causal), int(group),
+        _stream(q)), name)
+    _launches.add(name, sp, d)
+    return att
 
 
 def fused_attn_block_pooled(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,

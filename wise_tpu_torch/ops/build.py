@@ -47,6 +47,8 @@ SIGNATURES = {
     "wt_mlp_proj": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _P],
     "wt_attn_block_pooled": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                              _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "wt_attention_pooled": [_P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                            _P],
     "wt_short_attention": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I,
                            _F, _P],
     "wt_ln_matmul": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

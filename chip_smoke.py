@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths once on one NVIDIA GPU. Serving:
-OpenCLIP ViT-B/32, ViT-H/14, SigLIP ViT-L-16-SigLIP-384 and the default
+OpenCLIP ViT-B/32, ViT-H/14, ViT-g-14, ViT-bigG-14, SigLIP
+ViT-L-16-SigLIP-384 and the default
 backbone xlm-roberta-large-ViT-H-14 (video frames, with one batch each of
 ViT-L/14, ViT-B/16, ViT-L/14 at 336 px and ViT-B-16-SigLIP-256), CLAP 2023
 (audio segments), and the production configuration with
@@ -18,6 +19,11 @@ paths: CLAP 2022 (CNN14 audio, BERT caption) and shot detection.
     python3 chip_smoke.py --phase swin     # env, the Swin rows, the audio
                                            # batch's breakdown
     python3 chip_smoke.py --phase vit_h    # env and the ViT-H/14 slice only
+    python3 chip_smoke.py --phase vit_g    # env, the ViT-g-14 slice (the
+                                           # doctor, a trace) and its
+                                           # batch's breakdown
+    python3 chip_smoke.py --phase vit_bigg # env, the ViT-bigG-14 slice and
+                                           # its batch's breakdown
     python3 chip_smoke.py --phase siglip   # env, the SigLIP-384 slice and its
                                            # batch's breakdown
     python3 chip_smoke.py --phase xlmr     # env and the default backbone only
@@ -51,9 +57,14 @@ Phases, one line each; any failure exits non-zero:
    vision blocks (256 x 576 x 1024, bf16 stream, gelu_tanh, the split MLP
    and its halves; no pooled block) and text blocks (8 x 64 x 1024,
    non-causal, pooled at row 63), and ViT-L/14 at 336 px (64 x 577 x 1024,
-   f32 stream, pooled at row 0); planted there: the head_dim-64 softmax
+   f32 stream, pooled at row 0), and ViT-g-14's and ViT-bigG-14's vision
+   blocks (256 x 257 x 1408 and x 1664, head dims 88 and 104, f32 stream,
+   the split MLP at F 5632 and 6656 and its halves, pooled at row 0);
+   planted there: the head_dim-64 softmax
    scale, a query tile left unwritten (and a ragged last one), the keys
-   past 272 dropped, h not activated. Every attention-block row (pooled
+   past 272 dropped, h not activated, and at head dims 88 and 104 the last
+   8 columns of every head dropped (zero in q and v). Every attention-block
+   row (pooled
    ones, and the post-LN block with its key mask, included) carries
    F.scaled_dot_product_attention on the block's own q, k and v as
    ``library_ms`` (the attention part alone), every MLP-block row (the
@@ -76,8 +87,8 @@ Phases, one line each; any failure exits non-zero:
    half) at the XLM-R shape 64 x 1024 at batch 8, 32 (training) and 256,
    and fused_short_attention at ViT-B/32's vision and text shapes (the text
    at batch 8 and at the training batch, 256), at 64 x 257
-   tokens of width 1024 and 1280 and at 64 x 576 and 64 x 577 of width
-   1024, with ``F.scaled_dot_product_attention``
+   tokens of width 1024, 1280, 1408 and 1664 and at 64 x 576 and 64 x 577
+   of width 1024, with ``F.scaled_dot_product_attention``
    timed beside it (``library_ms``): these have no residual under their
    output and are held on the whole output (cosine >= 0.999, max abs error
    <= 4 bf16 ulps of the output's max abs); planted there: the key mask
@@ -91,7 +102,10 @@ Phases, one line each; any failure exits non-zero:
    1,048,576 x 512 (TOPK_ROWS: fused_topk_threshold at Q = 1, 8 and 16,
    k = 10 and 100; fused_topk at Q = 64, k = 100, f32 and bf16 storage, and
    at Q = 61 on bf16, which pads the queries to 64; both at Q = 32, k = 10
-   on f32, the router's cut), each held
+   on f32, the router's cut), and at 1,048,576 x 1280, ViT-bigG-14's
+   joint space (TOPK_WIDE_ROWS: the threshold scan at Q = 1, 8 and 16, k =
+   10, f32 and bf16; fused_topk at Q = 64, k = 100, both storage types;
+   their launches are the wrappers' at width 1280 on the paths), each held
    against its plain version twice: on integer-valued vectors with planted
    ties (scores and rows must be identical) and on seeded unit-norm random
    vectors (scores within 2e-6, rows equal except among near-tied entries:
@@ -123,7 +137,9 @@ Phases, one line each; any failure exits non-zero:
    DB, indexed as IndexFlatIP, served by the port's REST server on
    localhost, and queried with text over HTTP. Checks the responses, that
    every block kernel launched during the run, and the served top-10 ids
-   against a plain-PyTorch run of the same queries.
+   and distances against a plain-PyTorch run of the same queries in float32
+   on the same weights (swaps and distances within 1e-3, plus the
+   response's 3-decimal rounding).
 4. audio: the same for 1,024 seeded synthetic 4 s segments at 48 kHz,
    embedded by the port's ClapExtractor (microsoft/clap/2023, production
    config: HTSAT + GPT2 at full width and depth, random weights) in the
@@ -153,6 +169,17 @@ Phases, one line each; any failure exits non-zero:
    batches x (layers - 1) for the attention block and the split MLP, and
    batches for the pooled block. One 64-frame batch also runs the path of
    WISE_FUSED_BLOCK=0 (as does each tower of phase 5).
+7a. vit_g, vit_bigg: phase 7 for OpenCLIP ViT-g-14 (vision 257 x 1408,
+   head_dim 88, 40 layers; text 77 x 1024, 24 layers; 1024-d) and
+   ViT-bigG-14 (vision 257 x 1664, head_dim 104, 48 layers; text 77 x
+   1280, 20 heads, 32 layers; 1280-d), each on 512 frames in 2 batches; the
+   served searches must launch one fused_topk_threshold a search batch at
+   the tower's width and nothing else of the top-k, and a search_batch of
+   64 stored vectors at k = 100 one fused_topk, within 2e-6 of a plain
+   top-k. On ViT-g-14's project the doctor CLI runs in a process of its
+   own (the card, the product on it, nvcc, the kernel library, FTS5 and
+   the project must pass) and one ingest batch runs inside
+   utils.profiling.trace, which must write its trace.
 8. xlmr: phase 3 for the reference's default backbone,
    xlm-roberta-large-ViT-H-14 (ViT-H/14's vision tower; the XLM-R large text
    tower: 64 tokens x 1024, 24 post-LN layers, 250,002-token vocabulary,
@@ -233,7 +260,8 @@ Phases, one line each; any failure exits non-zero:
    run must launch exactly 93 / 31 / 31 of them, 31 split MLP pairs, one
    pooled block and no monolithic block; embeddings against the monolithic
    and the plain path (cosine >= 0.999); one layer timed against
-   fused_attn_block; the training rule's gradients at 32 x 257 x 1280
+   fused_attn_block, there and at ViT-g-14's and ViT-bigG-14's shapes
+   (head dims 88 and 104); the training rule's gradients at 32 x 257 x 1280
    against autograd through the plain block (cosine >= 0.999 per tensor);
    and the three kernels' rows (phase_padded).
 13. embed_fold: fused_embed_attn_block at ViT-B/32's geometry (512 x 50
@@ -294,8 +322,9 @@ batch, one 256-frame ViT-H/14 batch and one text embed of the default
 backbone on the kernel path, and one train step each of ViT-B/32 (batch
 256) and of the default backbone (batch 32), down on
 ``[profile]`` lines (see phase_profile, profile_image_batch,
-profile_xlmr_text, profile_train_step); ``--phase siglip`` ends with a
-256-frame SigLIP-384 batch's; it checks only that no roll, permute or copy kernel
+profile_xlmr_text, profile_train_step); ``--phase siglip``, ``--phase
+vit_g`` and ``--phase vit_bigg`` end with a 256-frame batch's of their
+model; it checks only that no roll, permute or copy kernel
 runs inside the audio batch's Swin blocks, and prints no summary.
 """
 
@@ -330,6 +359,12 @@ XLMR_MODEL = "xlm-roberta-large-ViT-H-14"
 #: the bidirectional last-token text tower; two batches of 256 at 384 px
 SIGLIP_ID = "mlfoundations/open_clip/ViT-L-16-SigLIP-384/webli"
 SIGLIP_FRAMES = 512
+#: the registry's two largest towers: vision head dims 88 (ViT-g-14, 1408
+#: wide, 40 layers) and 104 (ViT-bigG-14, 1664 wide, 48 layers, a 1280-d
+#: joint space); two batches of 256 each
+VIT_G_ID = "mlfoundations/open_clip/ViT-g-14/laion2b_s34b_b88k"
+VIT_BIGG_ID = "mlfoundations/open_clip/ViT-bigG-14/laion2b_s39b_b160k"
+WIDE_FRAMES = 512
 #: further towers the extended attention kernels open: one batch each, at
 #: each model's own frame size
 FAMILY_IDS = ["mlfoundations/open_clip/ViT-L-14/laion2b_s32b_b82k",
@@ -354,6 +389,8 @@ AUDIO_QUERIES = ["a dog barking", "rain on a window", "a violin solo",
 #: the index phase's database, and the top-k kernel rows': vectors x width
 #: (a multiple of the index's group of 4096 rows, so N_pad = N)
 INDEX_N, INDEX_D = 1 << 20, 512
+#: the widest rows the top-k kernels take: ViT-bigG-14's joint space
+WIDE_D = 1280
 #: the kernels behind fused_topk, two a chunk: the product into Sᵀ (bf16
 #: storage the GEMM, f32 storage the three-term TF32 product) and the
 #: selection, one for both
@@ -658,7 +695,14 @@ BLOCK_SHAPES = {
                         pool_row=63),
     "vit_l336": dict(b=64, sp=577, d=1024, heads=16, f32=True, causal=False,
                      act="gelu", seeds=(66, 67, 68)),
+    "vit_g": dict(b=256, sp=257, d=1408, heads=16, f32=True, causal=False,
+                  act="gelu", seeds=(71, 72, 73)),
+    "vit_bigg": dict(b=256, sp=257, d=1664, heads=16, f32=True,
+                     causal=False, act="gelu", seeds=(74, 75, 76)),
 }
+#: head dims the attention kernels carry zero-filled to the next multiple
+#: of 16 columns: rows there plant a kernel that drops the last 8
+WIDE_HEAD_DIMS = (88, 104)
 #: the gate before SigLIP: rows over it plant a kernel that drops the keys
 #: past it
 OLD_MAX_SEQ = 272
@@ -698,6 +742,19 @@ def _wrong_scale(w, d, hd):
     wqkv, bqkv = w[0].clone(), w[1].clone()
     wqkv[:, :d] *= 0.125 * math.sqrt(hd)
     bqkv[:d] *= 0.125 * math.sqrt(hd)
+    return (wqkv, bqkv, *w[2:])
+
+
+def _head_tail_dropped(w, d, hd):
+    """wqkv and bqkv with the last 8 columns of every head zeroed in the q
+    and v slots: what a kernel that took hd // 16 k16 steps and n-tile
+    pairs alone at head_dim 88 or 104 would compute (those columns in no
+    logit, the output's zero)."""
+    wqkv, bqkv = w[0].clone(), w[1].clone()
+    for slot in (0, 2):
+        cols = wqkv[:, slot * d:(slot + 1) * d].view(-1, d // hd, hd)
+        cols[..., hd - 8:] = 0
+        bqkv[slot * d:(slot + 1) * d].view(d // hd, hd)[:, hd - 8:] = 0
     return (wqkv, bqkv, *w[2:])
 
 
@@ -786,6 +843,9 @@ def _block_rows(torch, results, tag, s):
               "block_skipped": lambda: x}
     if d // h != 64:
         faults["scale_of_hd64"] = lambda: attn(_wrong_scale(w, d, d // h))
+    if d // h in WIDE_HEAD_DIMS:
+        faults["last_8_head_cols_dropped"] = lambda: attn(
+            _head_tail_dropped(w, d, d // h))
     if sp > 64:
         faults["tile_dropped"] = lambda: rows_left(64, 128)
     if sp > 64 and sp % 64:
@@ -939,6 +999,9 @@ def _pooled_rows(torch, results, tag, s):
                   pooled(x=lone[0], ln=lone[1], w=lone[2]))}
     if d // h != 64:
         faults["scale_of_hd64"] = lambda: pooled(_wrong_scale(w, d, d // h))
+    if d // h in WIDE_HEAD_DIMS:
+        faults["last_8_head_cols_dropped"] = lambda: pooled(
+            _head_tail_dropped(w, d, d // h))
     if sp > OLD_MAX_SEQ:
         faults["keys_past_272_dropped"] = lambda: pooled(n_valid=OLD_MAX_SEQ)
     if causal:
@@ -1684,16 +1747,19 @@ POSTLN_SHAPES = {"query": dict(b=8, seeds=(41, 42)),
 POSTLN_SP, POSTLN_D, POSTLN_HEADS = 64, 1024, 16
 #: fused_short_attention's shapes: (B, SP, D, heads, causal) of ViT-B/32's
 #: vision and text towers, ViT-L/14's and ViT-H/14's (head_dim 80) vision,
-#: SigLIP-384's (576 tokens) and ViT-L/14's at 336 px (577), at the batch of
-#: the WISE_FUSED_BLOCK=0 batches that launch them; ViT-B/32's text tower
-#: also at the training batch (256 captions)
+#: SigLIP-384's (576 tokens), ViT-L/14's at 336 px (577), ViT-g-14's (88)
+#: and ViT-bigG-14's (104), at the batch of the WISE_FUSED_BLOCK=0 batches
+#: that launch them; ViT-B/32's text tower also at the training batch (256
+#: captions)
 SHORT_ATTN_SHAPES = {"vit_b32": (256, 50, 768, 12, False),
                      "text": (8, 77, 512, 8, True),
                      "train_text": (256, 77, 512, 8, True),
                      "vit_l": (64, 257, 1024, 16, False),
                      "vit_h": (64, 257, 1280, 16, False),
                      "siglip": (64, 576, 1024, 16, False),
-                     "vit_l336": (64, 577, 1024, 16, False)}
+                     "vit_l336": (64, 577, 1024, 16, False),
+                     "vit_g": (64, 257, 1408, 16, False),
+                     "vit_bigg": (64, 257, 1664, 16, False)}
 
 
 def _postln_inputs(torch, b, seed, mlp=False):
@@ -1895,6 +1961,14 @@ def _short_attention_rows(torch, results):
         if sp > OLD_MAX_SEQ:
             faults["keys_past_272_dropped"] = lambda: call(
                 A.fused_short_attention, n_valid=OLD_MAX_SEQ)
+        if hd in WIDE_HEAD_DIMS:
+            def tail_dropped():
+                cut = [t.clone().view(b, sp, heads, hd) for t in (q, v)]
+                for t in cut:
+                    t[..., hd - 8:] = 0
+                qc, vc = (t.view(b, sp, d) for t in cut)
+                return A.fused_short_attention(qc, k, vc, heads, sp, causal)
+            faults["last_8_head_cols_dropped"] = tail_dropped
         keys = (sp + 1) / 2 if causal else sp
         _check_row(torch, results, "fused_short_attention", tag,
                    ("fused_short_attention", sp, d), q,
@@ -1920,11 +1994,32 @@ TOPK_ROWS = [("q1-k10-f32", "fused_topk_threshold", 1, 10, "float32"),
              ("q64-k100-f32", "fused_topk", 64, 100, "float32"),
              ("q64-k100-bf16", "fused_topk", 64, 100, "bfloat16"),
              ("q61-k100-bf16", "fused_topk", 61, 100, "bfloat16")]
+#: the same kernels at WIDE_D (ViT-bigG-14's joint space), INDEX_N rows:
+#: the served query and the coalesced bursts on both storage types, and
+#: the batched search. No path serves 1M rows of that width: their
+#: launches are the wrappers' at WIDE_D on the paths (the bigG index of
+#: [vit_bigg]), whatever the rows (the key's N_pad is None)
+TOPK_WIDE_ROWS = [("q1-k10-f32-d1280", "fused_topk_threshold", 1, 10,
+                   "float32"),
+                  ("q8-k10-f32-d1280", "fused_topk_threshold", 8, 10,
+                   "float32"),
+                  ("q16-k10-f32-d1280", "fused_topk_threshold", 16, 10,
+                   "float32"),
+                  ("q1-k10-bf16-d1280", "fused_topk_threshold", 1, 10,
+                   "bfloat16"),
+                  ("q8-k10-bf16-d1280", "fused_topk_threshold", 8, 10,
+                   "bfloat16"),
+                  ("q16-k10-bf16-d1280", "fused_topk_threshold", 16, 10,
+                   "bfloat16"),
+                  ("q64-k100-f32-d1280", "fused_topk", 64, 100, "float32"),
+                  ("q64-k100-bf16-d1280", "fused_topk", 64, 100,
+                   "bfloat16")]
 TOPK_GROUP = 4096  # FeatureSearchIndex.GROUP
 
 
-def _topk_inputs(torch):
-    """The two databases of the top-k rows, on the card, f32 and bf16.
+def _topk_inputs(torch, d=INDEX_D):
+    """The two databases of the top-k rows, INDEX_N x ``d``, on the card,
+    f32 and bf16.
     "unit": seeded unit-norm random vectors and queries. "tied": vectors of
     small non-negative integers (every score exact, ties everywhere, the
     k-th boundary included), the last 1,000 rows zero like padding
@@ -1932,8 +2027,8 @@ def _topk_inputs(torch):
     (inside one tile, across spans, in the last group); query 0 has only
     negative coefficients, so it scores every row below the zero rows, and
     unmasked padding would tie with the planted best."""
-    n, d = INDEX_N, INDEX_D
-    g = torch.Generator(device="cuda").manual_seed(1234)
+    n = INDEX_N
+    g = torch.Generator(device="cuda").manual_seed(1234 + d - INDEX_D)
     unit = torch.randn(n, d, generator=g, device="cuda")
     unit /= unit.norm(dim=1, keepdim=True)
     uq = torch.randn(64, d, generator=g, device="cuda")
@@ -1948,7 +2043,7 @@ def _topk_inputs(torch):
     return {"unit": {"float32": unit, "bfloat16": unit.bfloat16(), "q": uq,
                      "n_valid": n},
             "tied": {"float32": tied, "bfloat16": tied.bfloat16(), "q": tq,
-                     "n_valid": n_valid}}
+                     "n_valid": n_valid}, "d": d}
 
 
 def _tf32_only(FT, q, db, n_valid, k, group):
@@ -1975,7 +2070,7 @@ def _topk_row(torch, results, data, tag, name, qn, k, storage):
     from wise_tpu_torch.ops import topk as TK
 
     fn, plain = getattr(FT, name), getattr(FT, name + "_plain")
-    group, n = TOPK_GROUP, INDEX_N
+    group, n, d = TOPK_GROUP, INDEX_N, data["d"]
     tied, unit = data["tied"], data["unit"]
     tdb, tq, nv = tied[storage], tied["q"][:qn], tied["n_valid"]
     udb, uq = unit[storage], unit["q"][:qn]
@@ -2039,14 +2134,14 @@ def _topk_row(torch, results, data, tag, name, qn, k, storage):
     caught = not any(c["ok"] for c in planted.values())
     ok = exact["ok"] and check["ok"] and caught
     itemsize = udb.element_size()
-    ops = 2 * qn * n * INDEX_D
+    ops = 2 * qn * n * d
     if grouped and storage == "float32":
         ops, peak = 3 * ops, PEAK_OPS_TF32
     else:
         peak = PEAK_OPS_F32 if storage == "float32" else PEAK_OPS
     bound_ms, bound_by = _bound(
-        ops, n * INDEX_D * itemsize + qn * INDEX_D * 4 + qn * k * 12, peak)
-    say("kernels", name=f"{name}[{tag}]", shape=f"{qn}x{n}x{INDEX_D}", k=k,
+        ops, n * d * itemsize + qn * d * 4 + qn * k * 12, peak)
+    say("kernels", name=f"{name}[{tag}]", shape=f"{qn}x{n}x{d}", k=k,
         dtype=storage, tied_identical=exact["ok"],
         tied_mismatched=exact["mismatched"],
         max_abs_err=f"{check['max_abs_err']:.3g}", err_bound="2e-06",
@@ -2061,7 +2156,8 @@ def _topk_row(torch, results, data, tag, name, qn, k, storage):
         **{f: f"{v:.3g}" if f.endswith("err") else f"{v:.4f}"
            for f, v in parts.items()},
         status="ok" if ok else "FAIL")
-    results.append(dict(name=name, tag=tag, key=(name, n, INDEX_D),
+    results.append(dict(name=name, tag=tag,
+                        key=(name, n if d == INDEX_D else None, d),
                         max_abs_err=check["max_abs_err"], ms=ms,
                         plain_ms=plain_ms, bound_ms=bound_ms,
                         bound_by=bound_by, library_ms=library_ms, ok=ok,
@@ -2131,11 +2227,12 @@ def _threshold_parts(torch, FT, q, db, n_valid, k) -> dict:
 
 
 def _topk_rows(torch, results):
-    data = _topk_inputs(torch)
-    for row in TOPK_ROWS:
-        _topk_row(torch, results, data, *row)
-    del data
-    torch.cuda.empty_cache()
+    for d, rows in ((INDEX_D, TOPK_ROWS), (WIDE_D, TOPK_WIDE_ROWS)):
+        data = _topk_inputs(torch, d)
+        for row in rows:
+            _topk_row(torch, results, data, *row)
+        del data
+        torch.cuda.empty_cache()
 
 
 def phase_kernels(torch):
@@ -2349,12 +2446,14 @@ def _vector_ids(project_dir: Path):
     return ids
 
 
-def _twin(torch, extractor, fused_block=False, fused_attention=False):
+def _twin(torch, extractor, fused_block=False, fused_attention=False,
+          dtype=None):
     """The extractor on another path with the same weights: a shallow copy
     around a second model on the card. Both switches off is the plain
     PyTorch path (with ``fused_block`` alone off, the attention middle would
     still be a kernel); ``fused_attention`` alone on is the path of
-    WISE_FUSED_BLOCK=0."""
+    WISE_FUSED_BLOCK=0. ``dtype`` "float32" computes and keeps the weights
+    in f32 (each bf16 weight is exact there; TF32 is off)."""
     import copy
     import dataclasses
 
@@ -2363,7 +2462,8 @@ def _twin(torch, extractor, fused_block=False, fused_attention=False):
     with torch.device(extractor.device):
         model = CLIP(dataclasses.replace(
             extractor.config, fused_block=fused_block,
-            fused_attention=fused_attention))
+            fused_attention=fused_attention,
+            dtype=dtype or extractor.config.dtype))
     model.load_state_dict(extractor.model.state_dict())
     twin = copy.copy(extractor)
     twin.config = model.config
@@ -2524,9 +2624,69 @@ def _hybrid_batch(torch, extractor, plain, frames, queries=()):
     return counts, cos, _encode_rates(torch, hybrid, frames)[1]
 
 
+def _check_searches(phase, extractor, launches, searched) -> dict:
+    """The served queries' searches on the index at the tower's width D:
+    one ``fused_topk_threshold`` launch a search batch (_search_batches),
+    and no ``fused_topk`` and no top-k off the kernels."""
+    d = extractor.config.embed_dim
+    thr = sum(n for key, n in launches.items()
+              if key[0] == "fused_topk_threshold" and key[2] == d)
+    grp = sum(n for key, n in launches.items()
+              if key[0] == "fused_topk" and key[2] == d)
+    if not searched or (thr, grp) != (len(searched), 0):
+        raise PhaseError(f"{phase}: {len(searched)} served search batches "
+                         f"(rows {searched}) launched {thr} threshold scans "
+                         f"and {grp} batched top-k at D {d}; expected one "
+                         f"scan a batch")
+    return dict(search_batches=len(searched), threshold_launches=thr,
+                embed_dim=d)
+
+
+def _batched_search(torch, phase, project_dir, model_id, k=100):
+    """The loaded IndexFlatIP's batched search (``search_batch``) at Q = 64,
+    k = 100, the stored vectors' first 64 as queries: exactly one
+    ``fused_topk`` launch at the index's width, and (scores, rows) within
+    2e-6 of a plain top-k over the index's own rows (_stable_topk of the
+    product)."""
+    import numpy as np
+    from wise_tpu_torch import project
+    from wise_tpu_torch.config import IndexConfig
+    from wise_tpu_torch.index.feature_index import FeatureSearchIndex
+    from wise_tpu_torch.ops import fused_topk as FT
+    from wise_tpu_torch.ops import topk as TK
+
+    asset = project.WiseProject(project_dir).discover_assets()["video"][
+        model_id]
+    idx = FeatureSearchIndex("video", model_id, asset, config=IndexConfig())
+    if not idx.load_index("IndexFlatIP"):
+        raise PhaseError(f"{phase}: no IndexFlatIP file")
+    db = idx._ensure_device_db()
+    n_valid, d = int(idx._metadata["count"]), db.shape[1]
+    q = db[:64].float().cpu().numpy()
+    before = dict(FT.LAUNCHES_BY_SHAPE)
+    got = idx.search_batch(q, k)
+    new = {key: n - before.get(key, 0)
+           for key, n in FT.LAUNCHES_BY_SHAPE.items()
+           if n != before.get(key, 0)}
+    if new != {("fused_topk", db.shape[0], d): 1}:
+        raise PhaseError(f"{phase}: search_batch(64, k={k}) launched {new}")
+    with torch.inference_mode():
+        want = TK._stable_topk(torch.from_numpy(q).cuda()
+                               @ db[:n_valid].float().T, k)
+    want_ids = np.asarray(idx._arrays["ids"])[want[1].cpu().numpy()]
+    check = FT.topk_agreement(
+        (torch.from_numpy(got[0]), torch.from_numpy(got[1])),
+        (want[0].cpu(), torch.from_numpy(want_ids)), tol=2e-6)
+    if not check["ok"]:
+        raise PhaseError(f"{phase}: search_batch(64, k={k}) off the plain "
+                         f"top-k: {check}")
+    return dict(batched_search=f"q64_k{k}",
+                batched_max_abs_err=f"{check['max_abs_err']:.3g}")
+
+
 def phase_slice(torch, card, model_id=MODEL_ID, n_frames=FRAMES,
                 phase="slice", topk_1m=True, size=224, k=10,
-                hybrid_frames=0):
+                hybrid_frames=0, searches=False, project_hook=None):
     """Ingest -> IndexFlatIP -> REST on the port; returns the launch counts
     of the main path's run, keyed by (wrapper, SP, D). The vision tower's
     counts must be exact: batches x (layers - 1) for the attention block and
@@ -2535,7 +2695,12 @@ def phase_slice(torch, card, model_id=MODEL_ID, n_frames=FRAMES,
     text batches served (_text_batches, _check_text_launches). Frames are
     ``size`` px, the model's input, so no host resize runs. With
     ``hybrid_frames`` that many frames also go through the path of
-    WISE_FUSED_BLOCK=0 (_hybrid_batch)."""
+    WISE_FUSED_BLOCK=0 (_hybrid_batch). With ``searches`` the served
+    queries' searches are counted (_search_batches): one threshold-scan
+    launch a search batch at the index's width, no other top-k launch; and
+    the batched search (_batched_search) runs once. ``project_hook(extractor,
+    project_dir, clips)`` runs on the finished project before it is
+    removed."""
     import numpy as np
     from wise_tpu_torch import project
     from wise_tpu_torch.cli import create_index
@@ -2572,9 +2737,13 @@ def phase_slice(torch, card, model_id=MODEL_ID, n_frames=FRAMES,
         if create_index.main(["--project-dir", str(project_dir)]) != 0:
             raise PhaseError("create-index failed")
         config = project.WiseProject(project_dir).load_config()
-        with _text_batches() as batch_sizes:
+        with _text_batches() as batch_sizes, _search_batches() as searched:
             served, lat = _serve_queries(project_dir, config, QUERIES, k)
         launches = _block_launches()
+        fields = {}
+        if searches:
+            fields.update(_check_searches(phase, extractor, launches,
+                                          searched))
         idle = [key for key in vision + text if not launches.get(key)]
         if idle:
             raise PhaseError(f"{phase}: not launched on the path: {idle}")
@@ -2582,11 +2751,16 @@ def phase_slice(torch, card, model_id=MODEL_ID, n_frames=FRAMES,
         _check_text_launches(phase, extractor.config, text, launches,
                              text_batches)
 
-        # the same frames and queries through the plain PyTorch path
+        # the same frames and queries through the plain PyTorch path in
+        # float32 on the same weights: the served scores are held to the
+        # function itself, not to a second bf16 path, whose own rounding
+        # moves with the weights (ROADMAP C 12). The plain bf16 twin is
+        # timed and runs the WISE_FUSED_BLOCK=0 comparison below
         plain = _twin(torch, extractor)
+        exact = _twin(torch, extractor, dtype="float32")
         ids = _vector_ids(project_dir)
         vecs = np.concatenate([
-            np.concatenate([plain.extract_image_features(c[i:i + 256])
+            np.concatenate([exact.extract_image_features(c[i:i + 256])
                             for i in range(0, len(c), 256)])
             for c in clips])
         if _block_launches() != launches:
@@ -2594,12 +2768,20 @@ def phase_slice(torch, card, model_id=MODEL_ID, n_frames=FRAMES,
         prefix = config.search.query_prefix
         gap = 0.0
         for q in QUERIES:
-            qv = plain.extract_text_features([f"{prefix} {q}".strip()])[0]
+            qv = exact.extract_text_features([f"{prefix} {q}".strip()])[0]
             scores = (torch.from_numpy(vecs) @ torch.from_numpy(qv)).numpy()
             gap = max(gap, _check_against_plain(*served[q], scores, ids, k,
                                                 1e-3))
+        del exact
+        torch.cuda.empty_cache()
 
-        fields, extra = {}, []
+        extra = []
+        if searches:
+            fields.update(_batched_search(torch, phase, project_dir,
+                                          model_id))
+            launches = _block_launches()
+        if project_hook:
+            fields.update(project_hook(extractor, project_dir, clips))
         if hybrid_frames:
             frames = clips[0][:hybrid_frames]
             counts, cos, ms = _hybrid_batch(torch, extractor, plain, frames)
@@ -2651,6 +2833,68 @@ def phase_slice(torch, card, model_id=MODEL_ID, n_frames=FRAMES,
             device_ms_per_batch=f"{tower_ms:.3f}",
             device_frames_per_s=f"{1e3 * len(clips[0]) / tower_ms:.1f}")
     return launches
+
+
+#: the doctor's lines that must pass on the card's machine; its native
+#: decoder (FFmpeg's libraries) and OpenCV may be missing there and are
+#: printed as they come
+DOCTOR_REQUIRED = ("cuda devices", "device compute", "nvcc",
+                   "kernel library", "sqlite FTS5", "project assets",
+                   "project db")
+
+
+def _doctor_and_trace(extractor, project_dir, clips) -> dict:
+    """The doctor CLI (``python -m wise_tpu_torch.cli.doctor``) on the
+    phase's project, in a process of its own: every line printed, those of
+    DOCTOR_REQUIRED must read PASS, and its exit code is reported (nonzero
+    where any line fails, as the reference's). Then one ingest batch inside
+    ``utils.profiling.trace`` with WISE_TRACE_DIR in a temporary directory:
+    the Chrome trace must be written and hold CUDA kernel events, which are
+    counted."""
+    from wise_tpu_torch.utils.profiling import trace
+
+    run = subprocess.run(
+        [sys.executable, "-m", "wise_tpu_torch.cli.doctor", "--project-dir",
+         str(project_dir)], capture_output=True, text=True, cwd=ROOT,
+        timeout=600, env={**os.environ, "PYTHONPATH": str(ROOT)})
+    lines = {}
+    for ln in run.stdout.splitlines():
+        if ln[:4] in ("PASS", "FAIL"):
+            say("doctor", line=repr(ln[:200]))
+            lines[ln[6:].split(":")[0]] = ln[:4]
+    failed = [n for n in DOCTOR_REQUIRED if lines.get(n) != "PASS"]
+    if failed:
+        raise PhaseError(f"doctor: {failed} did not pass "
+                         f"(rc {run.returncode}): {run.stdout[-2000:]} "
+                         f"{run.stderr[-2000:]}")
+    with tempfile.TemporaryDirectory(prefix="wise_trace_") as tmp:
+        with _env(WISE_TRACE_DIR=tmp), trace("ingest_batch"):
+            extractor.extract_image_features(clips[0])
+        files = list(Path(tmp, "ingest_batch").glob("trace_*.json"))
+        if len(files) != 1:
+            raise PhaseError(f"trace: wrote {files}, expected one trace")
+        events = json.loads(files[0].read_text()).get("traceEvents", [])
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        nbytes = files[0].stat().st_size
+    if not kernels:
+        raise PhaseError(f"trace: no CUDA kernel event in {nbytes} bytes of "
+                         f"trace: the profiler saw no device activity")
+    return dict(doctor_rc=run.returncode,
+                doctor_pass=sum(v == "PASS" for v in lines.values()),
+                doctor_lines=len(lines), trace_bytes=nbytes,
+                trace_kernel_events=kernels)
+
+
+def phase_wide(torch, card, model_id, phase):
+    """phase_slice for the registry's two largest towers (ViT-g-14 with the
+    doctor and the trace hook on its project, ViT-bigG-14): 512 frames in
+    2 batches, IndexFlatIP over REST, the served searches and a batched one
+    counted at the tower's width, a 64-frame batch through
+    WISE_FUSED_BLOCK=0."""
+    return phase_slice(
+        torch, card, model_id, WIDE_FRAMES, phase, topk_1m=False,
+        hybrid_frames=64, searches=True,
+        project_hook=_doctor_and_trace if phase == "vit_g" else None)
 
 
 def phase_families(torch, card, batch: int = 64):
@@ -4523,6 +4767,43 @@ def _padded_rows(torch, results, b, sp, d, heads):
     torch.cuda.empty_cache()
 
 
+def _padded_layer(torch, card, batch, sp, d, heads, model, seed):
+    """One attention layer at batch x sp x d (f32 stream): the padded chain
+    (fused_attn_block_padded, each head zero-padded to HEAD_PAD) against
+    fused_attn_block, both on their increment against plain_attn_block,
+    and their CUDA-event ms in turns (padded, monolithic, monolithic,
+    padded). The shape's entry in ops.block._CALIBRATED_PAD rests on this
+    line: the table stays empty unless the padded block wins."""
+    from wise_tpu_torch.ops import block as K
+
+    x, ln, w = _block_inputs(torch, batch, sp, d, torch.float32, seed)
+    kw = dict(heads=heads, n_valid=sp)
+    fns = {"padded": K.fused_attn_block_padded,
+           "monolithic": K.fused_attn_block}
+    with torch.inference_mode():
+        ref = K.plain_attn_block(x, *ln, *w, **kw)
+        chk = {name: K.increment_agreement(fn(x, *ln, *w, **kw), ref, x)
+               for name, fn in fns.items()}
+        del ref
+        layer_ms = {name: [] for name in fns}
+        for name in ("padded", "monolithic", "monolithic", "padded"):
+            layer_ms[name].append(_cuda_ms(
+                torch, lambda f=fns[name]: f(x, *ln, *w, **kw), 20))
+    say("padded", card=repr(card), check="layer", model=model,
+        shape=f"{batch}x{sp}x{d}", head_dim=d // heads, dtype="float32",
+        padded_ms=",".join(f"{v:.4f}" for v in layer_ms["padded"]),
+        monolithic_ms=",".join(f"{v:.4f}" for v in layer_ms["monolithic"]),
+        padded_min_cos=f"{chk['padded']['min_cos']:.6f}",
+        monolithic_min_cos=f"{chk['monolithic']['min_cos']:.6f}",
+        padded_wins=min(layer_ms["padded"]) < min(layer_ms["monolithic"]),
+        status="ok" if all(c["ok"] for c in chk.values()) else "FAIL")
+    if not all(c["ok"] for c in chk.values()):
+        raise PhaseError(f"padded: a {model} layer off plain_attn_block "
+                         f"{chk}")
+    del x
+    torch.cuda.empty_cache()
+
+
 def phase_padded(torch, card, batch: int = PADDED_BATCH,
                  train_batch: int = PADDED_TRAIN_BATCH):
     """The padded-head block (ops/block.py fused_attn_block_padded) on
@@ -4542,7 +4823,8 @@ def phase_padded(torch, card, batch: int = PADDED_BATCH,
        >= 0.999 each, and the three paths' device ms a batch.
     2. One layer at 64 x 257 x 1280 (f32 stream): the padded chain against
        fused_attn_block (CUDA events, 20 calls after 3), both on their
-       increment against plain_attn_block.
+       increment against plain_attn_block; the same at ViT-g-14's 64 x 257
+       x 1408 and ViT-bigG-14's 64 x 257 x 1664 (_padded_layer).
     3. fused_attn_block_padded_train, forward + backward at 32 x 257 x 1280,
        against autograd through plain_attn_block: per-tensor gradient
        cosine >= 0.999.
@@ -4597,33 +4879,14 @@ def phase_padded(torch, card, batch: int = PADDED_BATCH,
     del fe, got, mono, flat
     torch.cuda.empty_cache()
 
-    # one layer: the padded chain against the monolithic block
-    x, ln, w = _block_inputs(torch, batch, sp, d, torch.float32, 142)
-    kw = dict(heads=heads, n_valid=sp)
-    with torch.inference_mode():
-        ref = K.plain_attn_block(x, *ln, *w, **kw)
-        chk = {name: K.increment_agreement(fn(x, *ln, *w, **kw), ref, x)
-               for name, fn in (("padded", K.fused_attn_block_padded),
-                                ("monolithic", K.fused_attn_block))}
-        del ref
-        # in turns: padded, monolithic, monolithic, padded
-        order = ("padded", "monolithic", "monolithic", "padded")
-        fns = {"padded": K.fused_attn_block_padded,
-               "monolithic": K.fused_attn_block}
-        layer_ms = {name: [] for name in fns}
-        for name in order:
-            layer_ms[name].append(_cuda_ms(
-                torch, lambda f=fns[name]: f(x, *ln, *w, **kw), 20))
-    say("padded", card=repr(card), check="layer", shape=f"{batch}x{sp}x{d}",
-        dtype="float32",
-        padded_ms=",".join(f"{v:.4f}" for v in layer_ms["padded"]),
-        monolithic_ms=",".join(f"{v:.4f}" for v in layer_ms["monolithic"]),
-        padded_min_cos=f"{chk['padded']['min_cos']:.6f}",
-        monolithic_min_cos=f"{chk['monolithic']['min_cos']:.6f}",
-        status="ok" if all(c["ok"] for c in chk.values()) else "FAIL")
-    if not all(c["ok"] for c in chk.values()):
-        raise PhaseError(f"padded: a layer off plain_attn_block {chk}")
-    del x
+    # one layer: the padded chain against the monolithic block, at
+    # ViT-H/14's shape and at ViT-g-14's and ViT-bigG-14's (head dims 88
+    # and 104), where the monolithic block runs on the new instantiations
+    _padded_layer(torch, card, batch, sp, d, heads, "ViT-H-14", 142)
+    for tag, model in (("vit_g", "ViT-g-14"), ("vit_bigg", "ViT-bigG-14")):
+        s = BLOCK_SHAPES[tag]
+        _padded_layer(torch, card, batch, s["sp"], s["d"], s["heads"], model,
+                      s["seeds"][0])
 
     # the training rule
     x, ln, w = _block_inputs(torch, train_batch, sp, d, torch.float32, 143)
@@ -4801,7 +5064,7 @@ def _launch_name(key) -> str:
     D) of the top-k kernels."""
     name, a, b, *masked = key
     if name.startswith("fused_topk"):
-        return f"{name}[N={a},D={b}]"
+        return f"{name}[N={'any' if a is None else a},D={b}]"
     if masked:
         return f"{name}[L={a},C={b}{',masked' if masked[0] else ''}]"
     return f"{name}[SP={a},D={b}]"
@@ -5052,7 +5315,8 @@ def _encode_rates(torch, extractor, frames, reps: int = 5):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", choices=["all", "kernels", "gemm", "topk",
-                                        "swin", "vit_h", "siglip",
+                                        "swin", "vit_h", "vit_g", "vit_bigg",
+                                        "siglip",
                                         "xlmr", "hybrid", "index", "train",
                                         "padded", "embed_fold", "clap2022",
                                         "shots", "profile", "pooled"],
@@ -5113,6 +5377,11 @@ def main(argv=None) -> int:
             phase_slice(torch, card, VIT_H_ID, VIT_H_FRAMES, "vit_h",
                         topk_1m=False, hybrid_frames=64)
             return 0
+        if args.phase in ("vit_g", "vit_bigg"):
+            model_id = VIT_G_ID if args.phase == "vit_g" else VIT_BIGG_ID
+            _timed(args.phase, phase_wide, torch, card, model_id, args.phase)
+            profile_image_batch(torch, card, model_id=model_id)
+            return 0
         if args.phase == "siglip":
             _timed("siglip", phase_siglip, torch, card)
             profile_image_batch(torch, card, model_id=SIGLIP_ID)
@@ -5152,6 +5421,11 @@ def main(argv=None) -> int:
         launches.update(_timed(
             "vit_h", phase_slice, torch, card, VIT_H_ID, VIT_H_FRAMES,
             "vit_h", topk_1m=False, hybrid_frames=64))
+        for phase, model_id in (("vit_g", VIT_G_ID),
+                                ("vit_bigg", VIT_BIGG_ID)):
+            launches.update(_timed(phase, phase_wide, torch, card, model_id,
+                                   phase))
+            torch.cuda.empty_cache()
         launches.update(_timed(
             "xlmr", phase_slice, torch, card, XLMR_ID, XLMR_FRAMES, "xlmr",
             topk_1m=False))
@@ -5173,6 +5447,15 @@ def main(argv=None) -> int:
         # the rows above
         _timed("clap2022", phase_clap2022, torch, card)
         _timed("shots", phase_shots, torch, card)
+        # a top-k row at WIDE_D (key N_pad None) counts its wrapper's
+        # launches at that width on the paths, whatever their rows
+        for r in kernels:
+            name, n_pad, d = r["key"][:3]
+            if name.startswith("fused_topk") and n_pad is None:
+                launches[r["key"]] = sum(
+                    c for key, c in list(launches.items())
+                    if key[0] == name and key[1] is not None
+                    and key[2] == d)
         for r in alone:
             n = sum(launches.get((name, r["sp"], r["d"]), 0)
                     for name in r["via"])

@@ -366,6 +366,10 @@ WIDE_SHAPES = {
     "tile+1": (2, 65, 65, 128, 2),       # one row into a second query tile
     "vit_b16": (2, 197, 197, 128, 2),    # head_dim 64 over 128 tokens
     "one": (2, 1, 1, 160, 2),
+    "vit_g": (3, 257, 257, 352, 4),      # head_dim 88 (ViT-g-14)
+    "vit_bigg": (3, 257, 250, 416, 4),   # head_dim 104 (ViT-bigG-14)
+    "longest_88": (2, 640, 640, 352, 4),
+    "tile+1_104": (2, 65, 65, 416, 4),
 }
 
 
@@ -434,7 +438,7 @@ def test_wide_attention_matches_plain_on_card(cuda, shape, kind, causal,
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["static", "causal_rows"])
 @pytest.mark.parametrize("sp", [1, 50, 77, 257, 577, 640])
-@pytest.mark.parametrize("hd", [64, 80])
+@pytest.mark.parametrize("hd", [64, 80, 88, 104])
 def test_pooled_attention_alone_matches_plain_on_card(cuda, hd, sp, mode):
     """attention_pooled_kernel alone (ops.block.pooled_attention) at every
     head group of 16 heads and at the kernel's own choice, on the whole
@@ -784,6 +788,11 @@ SHORT_CASES = {
     "ragged_tile": (2, 130, 128, 2, 130, False, None),
     "causal_257": (2, 257, 128, 2, 250, True, None),
     "head_dim_80_n_valid": (2, 257, 160, 2, 250, False, None),
+    # head dims 88 and 104 (ViT-g-14, ViT-bigG-14): the pad to 96 / 112
+    "vit_g": (2, 257, 352, 4, 257, False, None),
+    "vit_bigg_causal": (2, 257, 416, 4, 250, True, None),
+    "head_dim_88_ragged": (2, 130, 176, 2, 130, False, None),
+    "head_dim_104_one": (2, 1, 208, 2, 1, False, None),
 }
 
 
@@ -827,6 +836,29 @@ def test_short_attention_planted_fault_fails_the_check(cuda, fault):
         q, k, v, heads, sp if fault == "mask_dropped" else sp - 7,
         fault != "causal_dropped",
         0.5 / (d // heads) ** 0.5 if fault == "half_scale" else None)
+    assert not K.output_agreement(bad, want)["ok"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [88, 104])
+@pytest.mark.parametrize("operand", ["q", "k", "v"])
+def test_short_attention_last_head_columns_dropped_fail(cuda, hd, operand):
+    """The last 8 columns of every head zeroed in q, k or v (what a kernel
+    that computed hd // 16 steps alone would see) fails the check the
+    kernel passes at head dims 88 and 104."""
+    heads, sp = 4, 257
+    d = heads * hd
+    g = torch.Generator().manual_seed(hd)
+    q, k, v = [torch.randn((2, sp, d), generator=g).to(cuda, torch.bfloat16)
+               for _ in range(3)]
+    want = A.plain_short_attention(q, k, v, heads, sp)
+    assert K.output_agreement(
+        A.fused_short_attention(q, k, v, heads, sp), want)["ok"]
+    cut = dict(q=q, k=k, v=v)
+    t = cut[operand].clone().view(2, sp, heads, hd)
+    t[..., hd - 8:] = 0
+    cut[operand] = t.view(2, sp, d)
+    bad = A.fused_short_attention(cut["q"], cut["k"], cut["v"], heads, sp)
     assert not K.output_agreement(bad, want)["ok"]
 
 
@@ -967,7 +999,11 @@ TOPK_FNS = ["fused_topk", "fused_topk_threshold"]
 #: tile of the threshold scan (16)
 TOPK_CASES = [(1000, 16, 1, 10, 256), (300, 32, 3, 7, 128),
               (5000, 768, 9, 33, 512), (40000, 1024, 17, 1024, 4096),
-              (3, 8, 2, 10, 64), (9000, 512, 16, 50, 1024)]
+              (3, 8, 2, 10, 64), (9000, 512, 16, 50, 1024),
+              # ViT-bigG-14's 1280-d joint space: a tile of 16, of 1, and
+              # the group path's batches
+              (9000, 1280, 16, 10, 1024), (5000, 1280, 1, 100, 512),
+              (7000, 1280, 64, 100, 1024)]
 
 
 def _topk_tied(n, d, q, group, device, storage):

@@ -9,7 +9,10 @@ kPoolSegs / G rows, as many as the kept keys need (n_valid, and with causal
 the example's row + 1: the causal tile skip), rows past the last kept key
 zero-filled; the block's threads in groups of 8 lanes, group gi taking
 segments gi + groups r of each tile, always of head gi % G, each lane
-HD / 8 columns, the dot summed across the 8 lanes by the xor butterfly;
+its columns (8 contiguous at head_dim 64; at 80, 88 and 104 the 4-byte
+words l8 + 8 i of the segment, ``pooled_col``: 5 words at 80, 6 or 5 at
+88, 7 or 6 at 104), the dot summed across the 8 lanes by the xor
+butterfly;
 each group's running max, merged per head; exp(logit - max) summed per
 thread (thread t: head t % G, flat indices t, t + threads, ...), then across
 the warp's lanes by xor shuffles, then across the warps; p = bf16(e / sum),
@@ -37,7 +40,12 @@ Held against:
   tile dropped, the maximum taken from the first tile only (on inputs with
   a key in the last tile whose logit is ~150 above the rest: exp
   overflows),
-  p rounded before the normalisation.
+  p rounded before the normalisation, and at 88 and 104 the head's last 8
+  columns dropped (what a lane's run of HD / 16 pairs would do).
+
+The lanes' shared reads are held, from the source's constants, to 4-byte
+alignment, no bank conflict within a read instruction, every column read
+by one lane and every lane busy.
 """
 
 import re
@@ -68,7 +76,12 @@ GROUPS = THREADS // 8            # 8-lane groups of a block
 SEGS = GROUPS * ROUNDS           # (key, head) segments of a tile
 WARPS = THREADS // 32
 SPS = [1, 50, 77, 257, 577, 640]
-HEAD_DIMS = [64, 80]
+HEAD_DIMS = [64, 80, 88, 104]
+WIDE = tuple(hd for hd in HEAD_DIMS if hd // 8 % 2)  # 88, 104: padded
+#: (hd, sp) the model is held at: every length at 64 and 80; at the wide
+#: head dims one key, a ragged tile, ViT-g / bigG's 257 keys and the most
+HD_SP = ([(hd, sp) for hd in (64, 80) for sp in SPS]
+         + [(hd, sp) for hd in WIDE for sp in (1, 77, 257, 640)])
 HEADS = 4
 
 
@@ -99,6 +112,18 @@ def _butterfly(v, offsets, axis=-1):
     return v
 
 
+def lane_cols(hd):
+    """(8, E) segment columns of each lane, in the order its loop takes
+    them (block_kernels.cu ``pooled_col``); hd where a lane has none (its
+    word past HD / 2 reads as 0)."""
+    if hd == 64:
+        return np.arange(8)[:, None] * 8 + np.arange(8)[None, :]
+    e = 2 * (-(-(hd // 2) // 8))
+    cols = np.array([[2 * (l8 + 8 * (i >> 1)) + (i & 1) for i in range(e)]
+                     for l8 in range(8)])
+    return np.where(cols < hd, cols, hd)
+
+
 def _kept(sp, n_valid, row, causal):
     return min(n_valid, row + 1) if causal else n_valid
 
@@ -111,7 +136,7 @@ def model(q, kv, heads, n_valid, rows=None, pool_row=0, causal=False,
     b_n, sp, d2 = kv.shape
     d = d2 // 2
     hd = d // heads
-    e_n = hd // 8                     # columns of a lane
+    lanes = lane_cols(hd)             # (8, columns of a lane)
     g_n = group
     tk = SEGS // g_n                  # keys of a tile
     scale = np.float32(1.0 / np.sqrt(np.float32(hd)))
@@ -130,7 +155,12 @@ def model(q, kv, heads, n_valid, rows=None, pool_row=0, causal=False,
             kend = min(kend, tiles * tk)
         for h0 in range(0, heads, g_n):
             cols = slice(h0 * hd, (h0 + g_n) * hd)
-            qh = q[b, cols].reshape(g_n, 8, e_n)
+            qh = q[b, cols].reshape(g_n, hd)
+            if fault == "last_8_columns_dropped":
+                qh = np.concatenate([qh[:, :hd - 8],
+                                     np.zeros((g_n, 8), np.float32)], 1)
+            # a zero column at hd for the lanes' missing words
+            qh = np.pad(qh, ((0, 0), (0, 1)))[:, lanes]
             logits = np.full((tiles * tk, g_n), -np.inf, np.float32)
             gmax = np.full(GROUPS, -np.inf, np.float32)
             for t in range(tiles):
@@ -139,7 +169,8 @@ def model(q, kv, heads, n_valid, rows=None, pool_row=0, causal=False,
                 kt = np.where(ok[:, None], kv[b, np.minimum(keys, sp - 1),
                                               cols.start:cols.stop]
                               .reshape(SEGS, g_n, hd)[seg, seg_head], 0)
-                part = _f32_sum(qh[seg_head] * kt.reshape(SEGS, 8, e_n), -1)
+                kl = np.pad(kt, ((0, 0), (0, 1)))[:, lanes]
+                part = _f32_sum(qh[seg_head] * kl, -1)
                 s = _butterfly(part, (4, 2, 1))[:, 0]
                 lg = np.where(ok, (s * scale).astype(np.float32), -np.inf)
                 logits[keys, seg_head] = lg
@@ -173,6 +204,8 @@ def model(q, kv, heads, n_valid, rows=None, pool_row=0, causal=False,
                                               d + cols.start:d + cols.stop]
                               .reshape(SEGS, g_n, hd)[seg, seg_head], 0)
                 pv = p[keys, seg_head][:, None] * vt
+                if fault == "last_8_columns_dropped":
+                    pv[:, hd - 8:] = 0
                 for r in range(ROUNDS):
                     rs = slice(r * GROUPS, (r + 1) * GROUPS)
                     acc = (acc + pv[rs]).astype(np.float32)
@@ -291,8 +324,7 @@ def _within_ulps(got, want, heads, ulps=2):
 
 
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("sp", SPS)
-@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("hd,sp", HD_SP)
 def test_model_against_float64_and_the_plain_version(hd, sp, mode):
     rows, pool_row, causal, n_valid = _mode(mode, sp)
     b = 5 if rows is not None else 3
@@ -304,15 +336,27 @@ def test_model_against_float64_and_the_plain_version(hd, sp, mode):
         assert _within_ulps(att, want, HEADS)
 
 
-def test_model_at_vit_h_group_of_sixteen():
-    """ViT-H/14's pooled row: 16 heads of 80 over 257 keys, a block taking
-    all 16 heads (tiles of 4 keys) and 4 (the grid the card picks)."""
-    q, kv = _inputs(7, 2, 257, 80, heads=16, scale=0.3)
+def _sixteen_heads(hd, groups):
+    q, kv = _inputs(7, 2, 257, hd, heads=16, scale=0.3)
     want = _torch_att(q, kv, 16, 257, None, 0, False)
-    for group in (16, 4):
+    for group in groups:
         assert _holds(q, kv, 16, 257, None, 0, False, group)
         att = model(q, kv, 16, 257, None, 0, False, group)[0]
         assert _within_ulps(att, want, 16)
+
+
+def test_model_at_vit_h_group_of_sixteen():
+    """ViT-H/14's pooled row: 16 heads of 80 over 257 keys, a block taking
+    all 16 heads (tiles of 4 keys) and 4 (the grid the card picks)."""
+    _sixteen_heads(80, (16, 4))
+
+
+@pytest.mark.parametrize("hd", WIDE)
+def test_model_at_vit_g_and_bigg_groups(hd):
+    """ViT-g-14's and ViT-bigG-14's pooled row: 16 heads of 88 or 104 over
+    257 keys, a block taking all 16 heads, 8 (the grid the card picks) and
+    4."""
+    _sixteen_heads(hd, (16, 8, 4))
 
 
 def _jax_attention(hd, sp, seed, rows, pool_row, causal, n_valid):
@@ -354,8 +398,8 @@ def _jax_attention(hd, sp, seed, rows, pool_row, causal, n_valid):
 
 
 @pytest.mark.parametrize("kind", ["static", "dyn"])
-@pytest.mark.parametrize("sp", SPS)
-@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("hd,sp", [(hd, sp) for hd, sp in HD_SP
+                                   if hd not in WIDE or sp in (77, 257)])
 def test_model_against_the_jax_reference(hd, sp, kind):
     """Static rows (row 0, causal at the middle row with n_valid < SP) and
     per-example causal rows in range (0, the middle, SP - 1)."""
@@ -402,8 +446,9 @@ FAULTS = ["last_key_tile_dropped", "max_from_first_tile",
 
 
 @pytest.mark.parametrize("fault", FAULTS)
-@pytest.mark.parametrize("sp", [77, 257, 640])
-@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("hd,sp", [(hd, sp) for hd in HEAD_DIMS
+                                   for sp in (77, 257, 640)
+                                   if hd not in WIDE or sp == 257])
 def test_planted_model_faults_fail(hd, sp, fault):
     """Each fault fails the float64 check where the correct model passes,
     at every head group; the maximum from the first tile only is a fault
@@ -412,6 +457,58 @@ def test_planted_model_faults_fail(hd, sp, fault):
         q, kv = _peaked(hd, sp, sp + hd, group)
         assert _holds(q, kv, HEADS, sp, None, 0, False, group)
         assert not _holds(q, kv, HEADS, sp, None, 0, False, group, fault)
+
+
+@pytest.mark.parametrize("sp", [77, 257])
+@pytest.mark.parametrize("hd", WIDE)
+def test_dropped_last_columns_fail(hd, sp):
+    """The head's last 8 columns dropped from the logits and the output
+    (a lane loop of HD / 16 pairs at 88 or 104) fails the float64 check, on
+    ordinary inputs, at every head group."""
+    for group in (1, 4):
+        q, kv = _inputs(hd + sp, 2, sp, hd, scale=1.0)
+        assert _holds(q, kv, HEADS, sp, None, 0, False, group)
+        assert not _holds(q, kv, HEADS, sp, None, 0, False, group,
+                          "last_8_columns_dropped")
+
+
+def test_lane_reads_are_aligned_conflict_free_and_cover_the_segment():
+    """For each head dim, from the source's constants: the segment stride
+    in the ring (HD, or kPoolWideSeg at 88 and 104) holds whole 16-byte
+    chunks (the copies' destinations); a lane's reads are 4-byte aligned
+    words (16 bytes at 64) inside the segment; every column of the head is
+    read by exactly one lane; every lane reads (none idle, at most one
+    word more than another); and each read instruction's 32 lanes (4
+    groups of 8 at segments 4 w + j + 16 r) fall in 32 distinct banks, or,
+    at 64, 4 quarter-warp phases of 128 contiguous bytes."""
+    src = CU.read_text()
+    assert "2 * (l8 + 8 * (i >> 1)) + (i & 1)" in src
+    wide_seg = _constant("kPoolWideSeg")
+    for hd in HEAD_DIMS:
+        seg = wide_seg if hd in WIDE else hd           # bf16
+        assert (seg * 2) % 16 == 0 and seg >= hd
+        lanes = lane_cols(hd)
+        cols = lanes[lanes < hd]
+        assert sorted(cols.tolist()) == list(range(hd))
+        per_lane = (lanes < hd).sum(1)
+        assert per_lane.min() >= 1 and per_lane.max() - per_lane.min() <= 2
+        if hd == 64:  # one 16-byte read a lane, 8 lanes' 128 bytes a phase
+            assert (lanes[:, 0] * 2 % 16 == 0).all()
+            assert (np.diff(lanes, axis=1) == 1).all()
+            continue
+        assert (lanes[:, 0::2] % 2 == 0).all()        # 4-byte aligned pairs
+        for r in range(ROUNDS):
+            for warp in range(WARPS):
+                for i in range(lanes.shape[1] // 2):
+                    banks = set()
+                    for j in range(4):
+                        gi = 4 * warp + j
+                        s_idx = gi + r * GROUPS
+                        for l8 in range(8):
+                            w = l8 + 8 * i
+                            assert w < seg // 2   # inside the segment
+                            banks.add((s_idx * seg // 2 + w) % 32)
+                    assert len(banks) == 32, (hd, r, warp, i)
 
 
 def test_constants_fit_the_kernel():
@@ -423,6 +520,19 @@ def test_constants_fit_the_kernel():
         assert GROUPS % g == 0 and SEGS % g == 0 and SEGS // g >= 1
     for hd in HEAD_DIMS:
         assert hd % 8 == 0
+    # the ring and 640 keys' logits of 16 heads fit a block's 227 KB at
+    # every head dim; at 257 keys and 4 heads a block leaves room for the
+    # blocks an SM its launch bounds ask for (pooled_blocks_per_sm)
+    stages = _constant("kPoolStages")
+    red = GROUPS + WARPS * MAX_GROUP
+    for hd in HEAD_DIMS:
+        seg = _constant("kPoolWideSeg") if hd in WIDE else hd
+
+        def smem(sp, g):
+            tk = SEGS // g
+            return stages * SEGS * seg * 2 + (-(-sp // tk) * tk * g + red) * 4
+        assert smem(640, MAX_GROUP) <= 232448
+        assert (233472 // (smem(257, 4) + 1024)) >= _blocks_per_sm(hd)
 
 
 def test_cpu_wrapper_is_the_plain_version():
@@ -436,3 +546,38 @@ def test_cpu_wrapper_is_the_plain_version():
     want = K.plain_pooled_attention(tq, tkv, HEADS, 40, rows, causal=True)
     assert torch.equal(got, want)
     assert not any(K.LAUNCHES.values())
+
+
+def _blocks_per_sm(hd):
+    """block_kernels.cu pooled_blocks_per_sm: kPoolBlocksSm, or
+    kPoolWideBlocksSm where the ring's segments are padded (HD / 8 odd)."""
+    return _constant("kPoolWideBlocksSm" if hd in WIDE else "kPoolBlocksSm")
+
+
+def _pooled_group(b, h, hd, sms=132):
+    """block_kernels.cu pooled_group: the largest power-of-two G <= 16
+    dividing h whose grid of b x h / G blocks still fills half the blocks
+    an SM holds (_blocks_per_sm: 4 of 8; 3 of 6 at the wide head dims) on
+    every SM."""
+    slots = _blocks_per_sm(hd) // 2 * sms
+    g = 1
+    while 2 * g <= MAX_GROUP and h % (2 * g) == 0 and b * (h // (2 * g)) \
+            >= slots:
+        g *= 2
+    return g
+
+
+def test_pooled_group_picks_at_the_paths_shapes():
+    """The rule, with each head dim's blocks an SM read from the source's
+    constants, and its picks on an H100's 132 SMs: 4 at ViT-H/14 and ViT-B/32, 8 at ViT-g-14 and ViT-bigG-14 (one
+    wave of 512 blocks, where 4 left 1.3 waves), 1 at ViT-L/14-336's batch
+    of 64 and at the text towers' batches of 8."""
+    assert [_blocks_per_sm(hd) for hd in HEAD_DIMS] == [8, 8, 6, 6]
+    picks = {"vit_h": _pooled_group(256, 16, 80),
+             "vit_b32": _pooled_group(256, 12, 64),
+             "vit_g": _pooled_group(256, 16, 88),
+             "vit_bigg": _pooled_group(256, 16, 104),
+             "vit_l336": _pooled_group(64, 16, 64),
+             "text": _pooled_group(8, 8, 64)}
+    assert picks == {"vit_h": 4, "vit_b32": 4, "vit_g": 8, "vit_bigg": 8,
+                     "vit_l336": 1, "text": 1}

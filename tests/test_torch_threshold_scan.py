@@ -272,7 +272,7 @@ def _cu_int(name):
 
 @pytest.mark.parametrize("storage", ["float32", "bfloat16"])
 @pytest.mark.parametrize("k", [1, 50, 100, 128, 300, 1024])
-@pytest.mark.parametrize("d", [8, 512, 1000, 1024])
+@pytest.mark.parametrize("d", [8, 512, 1000, 1024, 1280])
 def test_plan_leaves_the_ring_three_stages(storage, k, d):
     """The C entry refuses a plan whose shared memory leaves the ring fewer
     than kScanMinStages stages: scan_smem of csrc/topk_kernels.cu, its
@@ -291,14 +291,28 @@ def test_plan_leaves_the_ring_three_stages(storage, k, d):
         assert (smem_max - fixed) // stage >= _cu_int("kScanMinStages")
 
 
+def test_the_widest_rows_are_the_registry_s():
+    """The wrapper's MAX_D, the C entry's kScanMaxD and the widest joint
+    space of the CLIP registry (ViT-bigG-14's 1280) agree, so that every
+    index the registry's towers make is searched on the kernels; at that
+    width the plan still takes a tile of 16 (three stages of ring, above)."""
+    from wise_tpu_torch.models.clip.config import CLIP_CONFIGS
+
+    assert _cu_int("kScanMaxD") == F.MAX_D == 1280
+    assert max(c.embed_dim for c in CLIP_CONFIGS.values()) == F.MAX_D
+    assert F.scan_plan(1 << 20, 16, 10, 132)[1:] == (16, 128)
+
+
 # ---------------------------------------------------------------------------
 # the model against the plain version and the Pallas kernel
 # ---------------------------------------------------------------------------
 
 #: (n, d, q, k, group, sms): one query, a tile of 8 and of 16, an n_valid
-#: off a block boundary, ranges ending inside groups, k = 1
+#: off a block boundary, ranges ending inside groups, k = 1; the widest
+#: rows (ViT-bigG-14's 1280-d joint space) at a tile of 16 and of 1
 PALLAS_CASES = [(1000, 32, 1, 10, 256, 132), (2048, 16, 8, 100, 256, 3),
-                (1500, 24, 16, 7, 512, 5), (700, 8, 3, 1, 128, 2)]
+                (1500, 24, 16, 7, 512, 5), (700, 8, 3, 1, 128, 2),
+                (1000, 1280, 16, 10, 256, 3), (600, 1280, 1, 10, 128, 5)]
 
 
 @pytest.mark.parametrize("storage", ["float32", "bfloat16"])

@@ -40,9 +40,18 @@
 //     of P V), K comes in by ldmatrix and V by ldmatrix.trans;
 //   - the output is staged through the warp's own rows of the dead Q tile
 //     and stored in 16-byte rows.
-// Shared rows are padded by 8 bf16 (144 / 176 / 272 bytes at head_dim 64 /
-// 80 / 128): the 8 rows an ldmatrix reads fall in 8 distinct 16-byte bank
-// groups, so it is free of bank conflicts.
+// Head dims 88 and 104 (ViT-g-14, ViT-bigG-14) are not a multiple of the
+// m16n8k16 step: the tiles carry them zero-filled to 96 / 112 columns
+// (attn_pad_dim), so QK^T takes one k16 step more, whose last 8 columns add
+// 0 to every logit, and P V one 16-column pair of n-tiles more, whose last
+// 8 columns come out 0 and are never stored (9% / 8% more tensor-core work
+// than the true width, no tail code). The pad columns are zeroed once; the
+// copies never write them.
+// Shared rows are the padded head_dim and 8 bf16 more (144 / 176 / 208 /
+// 240 / 272 bytes at head_dim 64 / 80 / 88 / 104 / 128): an odd count of
+// 16-byte groups, so the 8 rows an ldmatrix reads fall in 8 distinct bank
+// groups and it is free of bank conflicts (a row of HD + 8 would be 192 and
+// 224 bytes at 88 and 104, even counts whose 8 rows share banks).
 
 #include "mma.cuh"  // mma.sync and ldmatrix fragments (includes common.cuh)
 
@@ -57,10 +66,22 @@ constexpr int kMaxSeq = 640;
 constexpr int kQTile = 64, kKTile = 64, kAttnWarps = kQTile / 16;
 constexpr int kAttnThreads = 32 * kAttnWarps;
 
+// head_dim rounded up to the m16n8k16 step: the tiles' columns
+template <int HD>
+__host__ __device__ constexpr int attn_pad_dim() {
+  return (HD + 15) / 16 * 16;
+}
+// bf16 a shared row holds past the padded head_dim
+constexpr int kAttnRowPad = 8;
+template <int HD>
+__host__ __device__ constexpr int attn_ld() {
+  return attn_pad_dim<HD>() + kAttnRowPad;
+}
+
 // shared memory of one block: the Q tile and two stages of K and V
 template <int HD>
 constexpr size_t attn_smem_bytes() {
-  return (size_t)(kQTile + 4 * kKTile) * (HD + 8) * sizeof(bf16);
+  return (size_t)(kQTile + 4 * kKTile) * attn_ld<HD>() * sizeof(bf16);
 }
 
 // ---------------------------------------------------------------------------
@@ -87,17 +108,26 @@ constexpr size_t attn_smem_bytes() {
 // ---------------------------------------------------------------------------
 
 template <int HD>
-__global__ void __launch_bounds__(kAttnThreads)
-attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, int ldq, int ldk, int ldv,
-                 const float* __restrict__ km, bf16* __restrict__ att, int D,
-                 int SP, int n_valid, int causal, float scale) {
-  constexpr int LD = HD + 8, kChunks = HD / 8, kSteps = HD / 16;
+__device__ __forceinline__ void attention_tile(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, int ldq, int ldk, int ldv,
+    const float* __restrict__ km, bf16* __restrict__ att, int D, int SP,
+    int n_valid, int causal, float scale) {
+  // kChunks: 16-byte chunks of a head's row in device memory; kSteps: k16
+  // steps of the padded row (a bare HD / 16 would drop the last 8 columns
+  // at 88 and 104)
+  constexpr int HP = attn_pad_dim<HD>(), LD = attn_ld<HD>();
+  constexpr int kChunks = HD / 8, kSteps = HP / 16;
+  static_assert(HD % 8 == 0 && HP - HD <= 8, "one 16-byte pad chunk a row");
   constexpr int kTile = kKTile * LD;  // elements of one K or V stage
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = Qs + kQTile * LD;
   bf16* Vs = Ks + 2 * kTile;
+  if constexpr (HP > HD) {  // the pad columns of Q, both K and both V stages
+    for (int r = threadIdx.x; r < kQTile + 4 * kKTile; r += kAttnThreads)
+      *reinterpret_cast<uint4*>(Qs + r * LD + HD) = make_uint4(0, 0, 0, 0);
+  }
 
   const int q0 = blockIdx.x * kQTile, col0 = blockIdx.y * HD;
   const size_t row0 = (size_t)blockIdx.z * SP;  // the example's first row
@@ -251,7 +281,7 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (!live) return;
 
   // O staged in the warp's own 16 rows of the Q tile (no other warp reads
-  // them), then 16-byte stores
+  // them), then 16-byte stores of the HD true columns
   bf16* os = Qs + warp * 16 * LD;
 #pragma unroll
   for (int n = 0; n < 2 * kSteps; ++n) {
@@ -267,6 +297,32 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       *reinterpret_cast<uint4*>(att + (row0 + wrow + r) * D + col0 + col) =
           *reinterpret_cast<const uint4*>(os + r * LD + col);
   }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kAttnThreads)
+attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, int ldq, int ldk, int ldv,
+                 const float* __restrict__ km, bf16* __restrict__ att, int D,
+                 int SP, int n_valid, int causal, float scale) {
+  attention_tile<HD>(q, k, v, ldq, ldk, ldv, km, att, D, SP, n_valid, causal,
+                     scale);
+}
+
+// At head_dim 104 the registers a thread takes unbounded (170, allocated as
+// 176) leave 2 blocks an SM; a bound of 3 blocks caps them at 168 (16 bytes
+// of spill), and 3 blocks' shared memory (3 x 76.8 KB and the 1 KB each
+// reserves) is the SM's 228 KB. ViT-bigG-14's attention: 144.6 -> 112.9 ms
+// of a 256-frame batch (PERF.md §6). The other head dims keep the unbounded
+// build.
+template <>
+__global__ void __launch_bounds__(kAttnThreads, 3)
+attention_kernel<104>(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, int ldq, int ldk, int ldv,
+                      const float* __restrict__ km, bf16* __restrict__ att,
+                      int D, int SP, int n_valid, int causal, float scale) {
+  attention_tile<104>(q, k, v, ldq, ldk, ldv, km, att, D, SP, n_valid,
+                      causal, scale);
 }
 
 template <int HD>
@@ -286,8 +342,9 @@ cudaError_t launch_attention(const bf16* q, const bf16* k, const bf16* v,
   return cudaGetLastError();
 }
 
-// The attention of a (D, H) pair at its head_dim: 64 or 80 (head_dim()), or
-// 128 for the attention-middle entry alone (short_head_dim()).
+// The attention of a (D, H) pair at its head_dim: 64, 80, 88 or 104
+// (head_dim()), or 128 for the attention-middle entry alone
+// (short_head_dim()).
 inline cudaError_t attention(int hd, const bf16* q, const bf16* k,
                              const bf16* v, int ldq, int ldk, int ldv,
                              const float* km, bf16* att, int D, int B, int SP,
@@ -300,6 +357,12 @@ inline cudaError_t attention(int hd, const bf16* q, const bf16* k,
     case 80:
       return launch_attention<80>(q, k, v, ldq, ldk, ldv, km, att, D, B, SP,
                                   H, n_valid, causal, scale, st);
+    case 88:
+      return launch_attention<88>(q, k, v, ldq, ldk, ldv, km, att, D, B, SP,
+                                  H, n_valid, causal, scale, st);
+    case 104:
+      return launch_attention<104>(q, k, v, ldq, ldk, ldv, km, att, D, B, SP,
+                                   H, n_valid, causal, scale, st);
     case 128:
       return launch_attention<128>(q, k, v, ldq, ldk, ldv, km, att, D, B, SP,
                                    H, n_valid, causal, scale, st);
@@ -316,15 +379,16 @@ inline cudaError_t attention_packed(int hd, const bf16* qkv, const float* km,
                    D, B, SP, H, n_valid, causal, 1.0f / sqrtf((float)hd), st);
 }
 
-// head_dim of a (D, H) pair the block kernels take (64 or 80), else 0
+// head_dim of a (D, H) pair the block kernels take (64, 80, 88 or 104),
+// else 0
 inline int head_dim(int SP, int D, int H) {
   if (SP < 1 || SP > kMaxSeq || H < 1 || D % H != 0) return 0;
   const int hd = D / H;
-  return hd == 64 || hd == 80 ? hd : 0;
+  return hd == 64 || hd == 80 || hd == 88 || hd == 104 ? hd : 0;
 }
 
 // head_dim of a (D, H) pair the attention-middle entry takes: the block
-// kernels' two, and 128, the padded-head block's zero-padded slots
+// kernels' four, and 128, the padded-head block's zero-padded slots
 inline int short_head_dim(int SP, int D, int H) {
   if (SP < 1 || SP > kMaxSeq || H < 1 || D % H != 0) return 0;
   const int hd = D / H;

@@ -34,7 +34,7 @@
 //                      epilogue: bias | bias + activation | bias + residual
 //                      add (both in common.cuh, shared with swin_kernels.cu)
 //   attention_kernel   one (tile of 64 query rows, head, batch) per block,
-//                      for head_dim 64 or 80 (and 128 through
+//                      for head_dim 64, 80, 88 or 104 (and 128 through
 //                      wt_short_attention) and up to 640 keys: two passes
 //                      over key tiles of 64 (row max and sum online, then
 //                      bf16 of the normalised p into PV), K and V
@@ -135,9 +135,10 @@ namespace {
 // from the kv GEMM just before it and exceeds L2 at the large batches, so
 // most reads come from device memory. What the design does about it:
 //   - one block of 4 warps per (example, group of G heads), G a power of two
-//     dividing H (pooled_group: the largest up to 16 that leaves the grid 4
-//     blocks an SM; 1 at the text towers' batches of 8, where the grid stays
-//     B x H blocks); the G heads' K (or V) columns of one key row are
+//     dividing H (pooled_group: the largest up to 16 that leaves the grid
+//     half the blocks an SM holds, 4 of 8, or 3 of 6 at head dims 88 and
+//     104; 1 at the text towers' batches of 8, where the grid stays B x H
+//     blocks); the G heads' K (or V) columns of one key row are
 //     G * HD * 2 contiguous bytes. 64 registers and 19-25 KB of shared
 //     memory at the paths' shapes let 8 blocks share an SM, so ViT-H/14's
 //     1,024 blocks run as one wave;
@@ -149,10 +150,20 @@ namespace {
 //     the last kept key (n_valid, and row_b + 1 with causal) are not read;
 //     rows past it inside the last tile are zero-filled;
 //   - the 128 threads form 16 groups of 8 lanes; a group takes kPoolRounds
-//     segments of each tile, always of the same head (16 % G == 0), its
-//     lanes HD / 8 columns each (8 at head_dim 64: one 16-byte shared read;
-//     10 at 80: five 4-byte reads, free of bank conflicts at 40-word
-//     segments). Logits: each lane's partial dot over its columns, summed
+//     segments of each tile, always of the same head (16 % G == 0). At
+//     head_dim 64 a lane reads its 8 columns as one 16-byte word. Otherwise
+//     a lane takes the 4-byte words l8 + 8 i of the segment: 5 of 40 at 80;
+//     6 or 5 of 44 at 88 and 7 or 6 of 52 at 104 (ViT-g-14, ViT-bigG-14,
+//     where HD / 8 is odd and a run of HD / 8 columns a lane would start
+//     2-byte aligned at odd lanes), so every lane is busy, the first four
+//     one word more at 88 and 104. One read instruction's 8 lanes of a group
+//     take 8 consecutive words, and the 4 groups of a warp sit a segment
+//     apart: 40 words at 80 and, at 88 and 104, kPoolWideSeg bf16 (56
+//     words, not HD) apart in the ring, so that they start 8 or 24 words
+//     apart mod 32 and the warp's 32 words fall in 32 distinct banks. The
+//     copies move HD / 8 16-byte chunks a segment; the wide segments' pad
+//     words are never written, and a lane's word past HD / 2 reads as 0.
+//     Logits: each lane's partial dot over its columns, summed
 //     by three shuffles, into a shared f32 row of the G heads' logits
 //     (SP x G at most), each group keeping its running max. P V: each lane
 //     accumulates p times its columns in f32 registers. No thread is idle
@@ -178,22 +189,54 @@ constexpr int kPoolMaxGroup = 16;
 // floats of partial maxima (one a group) and sums (one a warp and head)
 constexpr int kPoolRed = kPoolGroups + kPoolThreads / 32 * kPoolMaxGroup;
 
+// a segment's bf16 in the ring at head dims 88 and 104 (44 and 52 words
+// padded to 56, whose multiples fall 24 words apart mod 32)
+constexpr int kPoolWideSeg = 112;
+
+// bf16 from one segment of the ring to the next: HD, padded at the head
+// dims whose HD / 8 is odd (88 and 104)
+template <int HD>
+__host__ __device__ constexpr int pooled_seg() {
+  return (HD / 8) % 2 ? kPoolWideSeg : HD;
+}
+// Blocks an SM (the kernel's launch bounds, and pooled_group's reckoning):
+// 8 (64 registers a thread); where the segments are padded, the ring's 28
+// KB leaves room for 6 at ViT-g / bigG's 257 keys, so the registers may
+// grow to 85
+constexpr int kPoolBlocksSm = 8;
+constexpr int kPoolWideBlocksSm = 6;
+template <int HD>
+__host__ __device__ constexpr int pooled_blocks_per_sm() {
+  return pooled_seg<HD>() == HD ? kPoolBlocksSm : kPoolWideBlocksSm;
+}
+// columns a lane holds: 8 at head_dim 64, else 2 x its most words
+template <int HD>
+__host__ __device__ constexpr int pooled_lane_cols() {
+  return HD == 64 ? 8 : 2 * ((HD / 2 + 7) / 8);
+}
+// the segment column of a lane's column i (at or past HD: none)
+template <int HD>
+__host__ __device__ constexpr int pooled_col(int l8, int i) {
+  return HD == 64 ? l8 * 8 + i : 2 * (l8 + 8 * (i >> 1)) + (i & 1);
+}
+
 // dynamic shared memory of one block: the ring, then the logits (p after
 // the softmax) of tiles x (kPoolSegs / G) keys x G heads, then kPoolRed
 template <int HD>
 size_t pooled_smem_bytes(int SP, int G) {
   const int tk = kPoolSegs / G, tiles = (SP + tk - 1) / tk;
-  return (size_t)kPoolStages * kPoolSegs * HD * sizeof(bf16) +
+  return (size_t)kPoolStages * kPoolSegs * pooled_seg<HD>() * sizeof(bf16) +
          ((size_t)tiles * tk * G + kPoolRed) * sizeof(float);
 }
 
-// HD / 8 consecutive bf16 of shared memory as f32: one 16-byte read at head
-// dim 64, five 4-byte reads at 80 (the piece starts 4-byte aligned)
+// A lane's columns of the segment at seg as f32 (pooled_col's order): one
+// 16-byte read at head_dim 64, else the 4-byte words l8 + 8 i, a word past
+// HD / 2 (at 88 and 104, the ring's pad, never written) read as 0
 template <int HD>
-__device__ __forceinline__ void load_piece(const bf16* p,
-                                           float (&f)[HD / 8]) {
+__device__ __forceinline__ void load_piece(
+    const bf16* seg, int l8, float (&f)[pooled_lane_cols<HD>()]) {
   if constexpr (HD == 64) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const uint4 u = *reinterpret_cast<const uint4*>(seg + l8 * 8);
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -202,25 +245,29 @@ __device__ __forceinline__ void load_piece(const bf16* p,
       f[2 * i + 1] = v.y;
     }
   } else {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(seg);
 #pragma unroll
-    for (int i = 0; i < HD / 16; ++i) {
-      const float2 v = __bfloat1622float2(h[i]);
-      f[2 * i] = v.x;
-      f[2 * i + 1] = v.y;
+    for (int i = 0; i < pooled_lane_cols<HD>() / 2; ++i) {
+      const int w = l8 + 8 * i;
+      const bool in = (HD / 2) % 8 == 0 || w < HD / 2;
+      const float2 v = __bfloat1622float2(h[w]);
+      f[2 * i] = in ? v.x : 0.f;
+      f[2 * i + 1] = in ? v.y : 0.f;
     }
   }
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kPoolThreads, 8)
+__global__ void __launch_bounds__(kPoolThreads, pooled_blocks_per_sm<HD>())
 attention_pooled_kernel(const bf16* __restrict__ q,
                         const bf16* __restrict__ kv, int D,
                         const int* __restrict__ rows, int row0,
                         bf16* __restrict__ att, int SP, int n_valid,
                         int causal, int lg, float scale) {
-  constexpr int E = HD / 8;  // columns of a lane, 16-byte chunks of a segment
-  constexpr int kStage = kPoolSegs * HD;
+  constexpr int E = pooled_lane_cols<HD>();  // columns a lane holds
+  constexpr int kChunks = HD / 8;            // 16-byte chunks of a segment
+  constexpr int SEG = pooled_seg<HD>();
+  constexpr int kStage = kPoolSegs * SEG;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);
   float* L = reinterpret_cast<float*>(ring + kPoolStages * kStage);
@@ -241,11 +288,11 @@ attention_pooled_kernel(const bf16* __restrict__ q,
     const int key0 = (u < T ? u : u - T) * TK;
     const bf16* src = kvb + (u < T ? 0 : D);
     bf16* dst = ring + (u % kPoolStages) * kStage;
-    for (int c = tid; c < kPoolSegs * E; c += kPoolThreads) {
-      const int seg = c / E, piece = c - seg * E;
+    for (int c = tid; c < kPoolSegs * kChunks; c += kPoolThreads) {
+      const int seg = c / kChunks, piece = c - seg * kChunks;
       const int key = key0 + (seg >> lg);
       const bool ok = key < kend;
-      cp_async16(dst + seg * HD + piece * 8,
+      cp_async16(dst + seg * SEG + piece * 8,
                  src + (size_t)(ok ? key : 0) * ldkv + (seg & (G - 1)) * HD +
                      piece * 8,
                  ok);
@@ -260,9 +307,12 @@ attention_pooled_kernel(const bf16* __restrict__ q,
 
   float qf[E];
   {
-    const bf16* qh = q + (size_t)b * D + (h0 + g) * HD + l8 * E;
+    const bf16* qh = q + (size_t)b * D + (h0 + g) * HD;
 #pragma unroll
-    for (int i = 0; i < E; ++i) qf[i] = __bfloat162float(qh[i]);
+    for (int i = 0; i < E; ++i) {
+      const int col = pooled_col<HD>(l8, i);
+      qf[i] = col < HD ? __bfloat162float(qh[col]) : 0.f;
+    }
   }
   float m = -INFINITY;  // the group's running max over its keys
   float acc[E];
@@ -312,7 +362,7 @@ attention_pooled_kernel(const bf16* __restrict__ q,
         const int seg = gi + r * kPoolGroups;
         const int key = u * TK + (seg >> lg);
         float k[E];
-        load_piece<HD>(tile + seg * HD + l8 * E, k);
+        load_piece<HD>(tile + seg * SEG, l8, k);
         float s = 0.f;
 #pragma unroll
         for (int i = 0; i < E; ++i) s = fmaf(qf[i], k[i], s);
@@ -329,7 +379,7 @@ attention_pooled_kernel(const bf16* __restrict__ q,
         const int seg = gi + r * kPoolGroups;
         const float p = L[((u - T) * TK + (seg >> lg)) * G + g];
         float v[E];
-        load_piece<HD>(tile + seg * HD + l8 * E, v);
+        load_piece<HD>(tile + seg * SEG, l8, v);
 #pragma unroll
         for (int i = 0; i < E; ++i) acc[i] = fmaf(p, v[i], acc[i]);
       }
@@ -341,7 +391,10 @@ attention_pooled_kernel(const bf16* __restrict__ q,
   cp_async_wait<0>();
   float* part = reinterpret_cast<float*>(smem);
 #pragma unroll
-  for (int i = 0; i < E; ++i) part[gi * HD + l8 * E + i] = acc[i];
+  for (int i = 0; i < E; ++i) {
+    const int col = pooled_col<HD>(l8, i);
+    if (col < HD) part[gi * HD + col] = acc[i];
+  }
   __syncthreads();
   bf16* out = att + (size_t)b * D + h0 * HD;
   for (int c = tid; c < G * HD; c += kPoolThreads) {
@@ -353,9 +406,13 @@ attention_pooled_kernel(const bf16* __restrict__ q,
 }
 
 // heads a block of attention_pooled_kernel takes: the largest power of two
-// up to kPoolMaxGroup dividing H that still leaves 4 blocks an SM
-int pooled_group(int B, int H) {
-  const long long slots = 4LL * sm_count();
+// up to kPoolMaxGroup dividing H that still leaves half the blocks an SM
+// holds (pooled_blocks_per_sm: 8 at head dims 64 and 80, 6 at 88 and 104)
+// busy. At ViT-g-14's and ViT-bigG-14's 256 x 16 heads that is G = 8, one
+// wave of 512 blocks; G = 4's 1,024 blocks took 1.3 waves and 12% longer
+// (PERF.md §6, group_ms)
+int pooled_group(int B, int H, int blocks_per_sm) {
+  const long long slots = (long long)(blocks_per_sm / 2) * sm_count();
   int g = 1;
   while (2 * g <= kPoolMaxGroup && H % (2 * g) == 0 &&
          (long long)B * (H / (2 * g)) >= slots)
@@ -387,7 +444,9 @@ template <int HD>
 cudaError_t launch_attention_pooled(const bf16* q, const bf16* kv, int D,
                                     const int* rows, int row0, bf16* att,
                                     int B, int SP, int H, int n_valid,
-                                    int causal, int G, cudaStream_t st) {
+                                    int causal, int group, cudaStream_t st) {
+  const int G =
+      group ? group : pooled_group(B, H, pooled_blocks_per_sm<HD>());
   if (G < 1 || G > kPoolMaxGroup || (G & (G - 1)) || H % G)
     return cudaErrorInvalidValue;
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -475,14 +534,25 @@ int wt_attention_pooled(const bf16* q, const bf16* kv, int D, const int* rows,
   const int hd = head_dim(SP, D, H);
   if (!hd || B < 1 || n_valid < 1 || n_valid > SP)
     return (int)cudaErrorInvalidValue;
-  const int G = group ? group : pooled_group(B, H);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(hd == 64 ? launch_attention_pooled<64>(q, kv, D, rows, row0,
-                                                      att, B, SP, H, n_valid,
-                                                      causal, G, st)
-                        : launch_attention_pooled<80>(q, kv, D, rows, row0,
-                                                      att, B, SP, H, n_valid,
-                                                      causal, G, st));
+  switch (hd) {
+    case 64:
+      return (int)launch_attention_pooled<64>(q, kv, D, rows, row0, att, B,
+                                              SP, H, n_valid, causal, group,
+                                              st);
+    case 80:
+      return (int)launch_attention_pooled<80>(q, kv, D, rows, row0, att, B,
+                                              SP, H, n_valid, causal, group,
+                                              st);
+    case 88:
+      return (int)launch_attention_pooled<88>(q, kv, D, rows, row0, att, B,
+                                              SP, H, n_valid, causal, group,
+                                              st);
+    default:
+      return (int)launch_attention_pooled<104>(q, kv, D, rows, row0, att, B,
+                                               SP, H, n_valid, causal, group,
+                                               st);
+  }
 }
 
 // x + out_proj(MHA(LN1(x))): x (B, SP, D) f32 or bf16 -> out, same shape and

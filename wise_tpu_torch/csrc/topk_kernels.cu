@@ -637,6 +637,7 @@ constexpr int kScanStageBytes = kScanRows * kSwzRowBytes;  // 32 KB
 constexpr int kScanMaxStages = 6;
 constexpr int kScanMinStages = 3;
 constexpr int kScanMaxQT = 16;        // queries a CTA scores on one read
+constexpr int kScanMaxD = 1280;       // widest rows: ViT-bigG-14's embed_dim
 constexpr int kScanSmemMax = 232448;  // a block's most shared memory
 
 // How a query tile scores: on the tensor cores for bf16 storage at 8 or 16
@@ -1228,8 +1229,8 @@ int wt_topk_threshold(const float* queries, const void* db, int bf16_db,
                       long long* top_r, int* tickets, int Q, int D,
                       int n_rows, int n_valid, int k, int ranges, int qt,
                       int p, int* flushes, void* stream) {
-  if (Q < 1 || D < 8 || D % 8 || D > 1024 || n_rows < 1 || n_valid < 0 ||
-      n_valid > n_rows || k < 1 || k > 1024 || ranges < 1 ||
+  if (Q < 1 || D < 8 || D % 8 || D > kScanMaxD || n_rows < 1 ||
+      n_valid < 0 || n_valid > n_rows || k < 1 || k > 1024 || ranges < 1 ||
       ranges > (n_rows + kScanRows - 1) / kScanRows ||
       (qt != 1 && qt != 8 && qt != kScanMaxQT) || (Q + qt - 1) / qt > 65535 ||
       p < 128 || (p & (p - 1)) || p < k + (k > 32 ? k : 32) ||

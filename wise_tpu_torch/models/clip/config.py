@@ -6,8 +6,10 @@ The fields and registry entries of wise_tpu/models/clip/model.py
 (class-token vision, causal argmax-pooled text), the SigLIP towers
 (MAP-pooled vision, bidirectional last-token text) and the XLM-RoBERTa text
 tower of the default backbone. The registry holds every entry of the
-reference's but ViT-g-14 and ViT-bigG-14, whose head dims (88 and 104) the
-attention kernels do not take yet (``PENDING``).
+reference's, field for field. ViT-g-14 and ViT-bigG-14 keep the reference's
+4 x width MLP (5,632 and 6,656), which the published open_clip checkpoints
+of those names do not have (6,144 and 8,192): ``models/clip/convert.py``
+refuses such a checkpoint (ROADMAP Queue C 11).
 """
 
 from __future__ import annotations
@@ -94,6 +96,15 @@ CLIP_CONFIGS = {
         vision_layers=24, vision_heads=16, text_width=768, text_heads=12,
         text_layers=12,
     ),
+    # vision head_dim 88 and 104, text 64
+    "ViT-g-14": CLIPConfig(
+        embed_dim=1024, patch_size=14, vision_width=1408, vision_layers=40,
+        vision_heads=16, text_width=1024, text_heads=16, text_layers=24,
+    ),
+    "ViT-bigG-14": CLIPConfig(
+        embed_dim=1280, patch_size=14, vision_width=1664, vision_layers=48,
+        vision_heads=16, text_width=1280, text_heads=20, text_layers=32,
+    ),
     # SigLIP (upstream WISE's integration test runs ViT-L-16-SigLIP-384):
     # MAP-pooled vision, non-causal last-pooled text
     "ViT-L-16-SigLIP-384": CLIPConfig(
@@ -128,18 +139,11 @@ CLIP_CONFIGS = {
         quick_gelu=True,
     ),
 }
-#: the reference's entries the port does not build yet: vision head dims 88
-#: and 104, which the attention kernels do not take (ROADMAP Queue A 17)
-PENDING = ("ViT-g-14", "ViT-bigG-14")
 
 
 def get_clip_config(model_name: str) -> CLIPConfig:
     if model_name in CLIP_CONFIGS:
         return CLIP_CONFIGS[model_name]
-    if model_name in PENDING:
-        raise ValueError(
-            f"CLIP model {model_name} is not ported yet: its vision head_dim "
-            f"is not one the attention kernels take (ROADMAP Queue A item 17)")
     raise ValueError(
         f"unknown CLIP model {model_name}; the port knows "
         f"{sorted(CLIP_CONFIGS)}"

@@ -292,9 +292,35 @@ def load_safetensors(path) -> Dict[str, np.ndarray]:
     return out
 
 
+def _check_mlp_width(sd, config) -> None:
+    """Refuse an open_clip checkpoint whose MLP is not 4 x the tower's
+    width, the only MLP the registry's configs (the reference's) build. The
+    published ViT-g-14 and ViT-bigG-14 checkpoints have 6,144- and
+    8,192-wide MLPs against the registry's 5,632 and 6,656 (ROADMAP Queue C
+    11): say so here rather than fail later on a shape."""
+    towers = (("visual.transformer", config.vision_width, "vision"),
+              ("transformer", config.text_width, "text"))
+    for prefix, width, tower in towers:
+        w = sd.get(f"{prefix}.resblocks.0.mlp.c_fc.weight")
+        if w is None:
+            continue
+        inner = int(np.shape(w)[0])
+        if inner != 4 * width:
+            raise ValueError(
+                f"checkpoint's {tower} MLP is {inner} wide; the config builds "
+                f"4 x {width} = {4 * width}, as the reference's registry "
+                f"does. The published open_clip ViT-g-14 and ViT-bigG-14 "
+                f"checkpoints have wider MLPs than the registry's entries of "
+                f"those names and load into neither package (ROADMAP Queue "
+                f"C 11)")
+
+
 def load_openclip_state_dict(sd, config) -> Dict[str, torch.Tensor]:
     """open_clip state dict (tensors or arrays, open_clip key names) ->
-    the port's state_dict."""
+    the port's state_dict. A checkpoint whose MLP is not 4 x the tower's
+    width raises (:func:`_check_mlp_width`)."""
+    if getattr(config, "vision_pool", "cls") != "map":
+        _check_mlp_width(sd, config)
     return from_flax_params(convert_openclip_state_dict(sd, config))
 
 

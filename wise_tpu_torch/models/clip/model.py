@@ -24,10 +24,11 @@ text tower attends both ways (``text_causal=False``) and adds
 Residual blocks go through ops/block.py. With ``fused_block`` set (and
 bf16 GEMMs) every block calls the kernel wrappers, which launch the CUDA
 kernels on CUDA tensors and compute their plain versions on CPU tensors.
-The kernels take head_dim 64 or 80 and at most 640 tokens
+The kernels take head_dim 64, 80, 88 or 104 and at most 640 tokens
 (``ops.block.supports_fused_block``), which covers every tower of the
-registry: ViT-B/32, B/16, L/14 and H/14 at 224 px, ViT-L/14 at 336 px (577
-tokens), SigLIP at 256 and 384 px (256 and 576) and their text towers; any
+registry: ViT-B/32, B/16, L/14, H/14, g/14 (88) and bigG/14 (104) at 224
+px, ViT-L/14 at 336 px (577 tokens), SigLIP at 256 and 384 px (256 and 576)
+and their text towers; any
 other tower raises on the card unless ``fused_block`` is off. The SigLIP
 text tower runs the kernels too (non-causal, pooled at row 63): the
 reference keeps it on plain XLA only because its TPU padding would move that
@@ -446,14 +447,17 @@ class CLIP(nn.Module):
 
 @torch.no_grad()
 def init_random_(model: CLIP, seed: int = 0) -> CLIP:
-    """Seeded random weights, drawn on the CPU from torch.Generator(seed) in
-    the reference's initialiser families: lecun-normal kernels, N(0, 0.02)
-    embeddings, projections and SigLIP's probe (the CLIP text positions
-    N(0, 0.01)), zero biases (the SigLIP patch embed's and text head's too),
-    unit LayerNorm scales; the XLM-R tower's names fall into the same
-    families. One parameter is drawn at a time, so the host never holds more
-    than the largest table in f32."""
-    g = torch.Generator().manual_seed(seed)
+    """Seeded random weights, drawn from torch.Generator(seed) on the
+    device the parameters lie on (the CPU, unless the model was built on a
+    card) in the reference's initialiser families: lecun-normal kernels,
+    N(0, 0.02) embeddings, projections and SigLIP's probe (the CLIP text
+    positions N(0, 0.01)), zero biases (the SigLIP patch embed's and text
+    head's too), unit LayerNorm scales; the XLM-R tower's names fall into
+    the same families. One parameter is drawn at a time, so the host never
+    holds more than the largest table in f32. A card's generator draws
+    other numbers than the CPU's from the same seed."""
+    device = next(model.parameters()).device
+    g = torch.Generator(device=device).manual_seed(seed)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "scale" or name == "logit_scale":
@@ -467,5 +471,5 @@ def init_random_(model: CLIP, seed: int = 0) -> CLIP:
             std = 0.01
         else:
             std = 0.02
-        p.copy_(torch.randn(p.shape, generator=g) * std)
+        p.copy_(torch.randn(p.shape, generator=g, device=device) * std)
     return model

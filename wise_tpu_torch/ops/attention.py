@@ -25,8 +25,10 @@ gradient on the card.
 
 The reference admits head_dim 64 only, for a TPU layout reason, and its
 padded-head block (ops/block.py ``fused_attn_block_padded``) calls it on
-128-lane slots; the kernel here is instantiated for 64, 80 and 128
-(``HEAD_DIMS``, a set of its own: the block kernels take 64 and 80 alone).
+128-lane slots; the kernel here is instantiated for 64, 80, 88, 104 and
+128 (``HEAD_DIMS``, a set of its own: the block kernels take all but 128).
+At 88 and 104 the kernel carries each head zero-filled to 96 / 112 columns
+(one k16 step and one n-tile pair more; the pad adds 0 and is not stored).
 The reference holds a whole (SP, SP) logits block per head; the kernel runs
 query tiles of ``Q_TILE`` rows over key tiles of ``KEY_TILE``, S and P in
 registers, in two passes: the first takes each row's max and sum online,

@@ -49,8 +49,9 @@ import torch
 from .build import LaunchCounter, check, load_library, refuse_grad
 
 EPS = 1e-5
-#: head dims the attention kernels are instantiated for (csrc/block_kernels.cu)
-HEAD_DIMS = (64, 80)
+#: head dims the attention kernels are instantiated for (csrc/attention.cuh,
+#: csrc/block_kernels.cu): 64, 80 (ViT-H/14), 88 (ViT-g-14), 104 (ViT-bigG-14)
+HEAD_DIMS = (64, 80, 88, 104)
 #: longest sequence the attention kernels take (csrc/attention.cuh kMaxSeq,
 #: kept equal): ten 64-key tiles, for the 576 tokens of SigLIP at 384 px and
 #: the 577 of ViT-L/14 at 336 px. Not a shared-memory limit (the kernel's key
@@ -73,9 +74,9 @@ reset_launches = _launches.reset
 
 
 def supports_fused_block(seq: int, width: int, heads: int) -> bool:
-    """Whether the kernels take the shape: head_dim 64 or 80 and sequences
-    up to MAX_SEQ. A predicate for callers that want to ask first; the
-    wrappers check for themselves and raise on the card."""
+    """Whether the kernels take the shape: a head_dim in HEAD_DIMS and
+    sequences up to MAX_SEQ. A predicate for callers that want to ask first;
+    the wrappers check for themselves and raise on the card."""
     return (heads >= 1 and width % heads == 0
             and width // heads in HEAD_DIMS and 1 <= seq <= MAX_SEQ)
 

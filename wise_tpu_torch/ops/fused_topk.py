@@ -79,8 +79,9 @@ from .topk import _scores, _stable_topk, running_topk
 
 #: the largest k the kernels' shared-memory buffer holds
 MAX_K = 1024
-#: the widest rows the kernels' query tile holds
-MAX_D = 1024
+#: the widest rows the kernels' query tile holds (csrc/topk_kernels.cu
+#: kScanMaxD): ViT-bigG-14's 1280-d joint space
+MAX_D = 1280
 #: rows of one block of the threshold scan: a stage of its ring holds 128
 #: bytes of each, and a CTA's range is whole blocks
 SCAN_BLOCK_ROWS = 256

@@ -9,9 +9,12 @@ WISE_FUSED_BLOCK=0. Training: CLIP fine-tuning steps of ViT-B/32 and
 ViT-L/14 on the saved-activation block kernels, of the default backbone at
 full width (ViT-H/14 and XLM-R large, the post-LN rules) and of ViT-B/32
 with WISE_FUSED_BLOCK=0 (the attention middle's rule), and the train CLI on
-the default backbone. Then the two paths whose gates ship closed: ViT-H/14
-on the padded-head block, and the embed fold. Last the two plain-PyTorch
-paths: CLAP 2022 (CNN14 audio, BERT caption) and shot detection.
+the default backbone. Multi-device: the index's sharded searches and REST
+server on a mesh (every card, or the one card twice), and data-parallel
+training through the train CLI at --dp 2. Then the two paths whose gates ship
+closed: ViT-H/14 on the padded-head block, and the embed fold. Last the two
+plain-PyTorch paths: CLAP 2022 (CNN14 audio, BERT caption) and shot
+detection.
 
     python3 chip_smoke.py                  # env, kernels, every slice
     python3 chip_smoke.py --phase kernels  # env and kernels only
@@ -29,6 +32,8 @@ paths: CLAP 2022 (CNN14 audio, BERT caption) and shot detection.
     python3 chip_smoke.py --phase xlmr     # env and the default backbone only
     python3 chip_smoke.py --phase hybrid   # env and WISE_FUSED_BLOCK=0 only
     python3 chip_smoke.py --phase index    # env and the 1M-vector index only
+    python3 chip_smoke.py --phase multi    # env, the index (whose project it
+                                           # needs) and the multi-device leg
     python3 chip_smoke.py --phase train    # env and the training steps only
     python3 chip_smoke.py --phase padded   # env and the padded-head block only
     python3 chip_smoke.py --phase embed_fold  # env and the embed fold only
@@ -213,6 +218,29 @@ Phases, one line each; any failure exits non-zero:
    the flat-sibling rerank, with the int8 refine rerank and with none, the
    first at least the last; every perturbed stored frame's source found in
    its top 10 (R1@10 >= 0.9).
+   multi, on the index phase's project (phase_multi): a mesh of every card
+   when there are two or more, else the one card twice (two shards, two
+   ranks on it; the line names the layout and the ranks' backend, NCCL for
+   a card a rank, else gloo). ``sharded_scan_topk`` on the f32 and bf16
+   rows (shards of the single card's copy: views of it on one card) at
+   Q 1 k 10, Q 16 k 10 and Q 64 k 100 against the single card's
+   ``flat_topk``: ids identical up to ties within 2e-6, scores within 2e-6,
+   the routed wrapper launched once a shard, both timed by CUDA events. A
+   FeatureSearchIndex on the mesh (``WISE_TORCH_DEVICE`` names it) with
+   int8 storage, IndexIVFFlat and IndexIVFPQ at nprobe 1024 against the
+   index phase's single-card results of the 64 queries, recall@10 beside
+   theirs; the REST server on the mesh: the 8 queries' top-10 the single
+   card's, the threshold scan once a shard a served batch, its HTTP p50.
+   Then the train CLI at --dp 2 (it spawns its two ranks): ViT-B/32 on the
+   kernel path at global batch 256, 128 rows a rank, 3 steps, against the
+   single-card trainer from the same seed-0 masters and the same batches
+   (whole-tree first-step gradient cosine >= 0.999, losses within 1e-3,
+   the norm of each tower's and logit_scale's gradient within 1e-3 of the
+   single card's, which the planted gather (its backward without the
+   all_reduce) must fail, each rank's steps exactly the kernel path's
+   launches; step ms and peak memory a rank), one checkpoint, which the
+   extractor serves. Its
+   searches' top-k launches join the index's in the kernels summary.
 
 11. train: CLIP fine-tuning through the port's CLIPTrainer at full width
    and depth. ViT-B/32 (``training_clip_config("ViT-B-32", "bfloat16")``:
@@ -3215,18 +3243,154 @@ def _train_against_twin(torch, card, model, cfg, plain_cfg, batch, seed):
     return launches
 
 
+#: where a rank of the train CLI at --dp N writes its record (_dp_cli_rank)
+DP_COUNTS_ENV = "WISE_SMOKE_DP_COUNTS"
+
+
+def _cli_stand_ins(model: str, batch: int):
+    """The train CLI's caption segments and a frame a segment: seeded
+    stand-ins for the metadata table and the decoder (the card's machine
+    has none)."""
+    from wise_tpu_torch.cli import train as cli
+
+    captions = _captions(500, 2 * batch)
+    frames = _frames(500, len(captions),
+                     cli.training_clip_config(model).image_size)
+    segments = [(f"clip{i}.mp4", float(i), c) for i, c in enumerate(captions)]
+    return segments, frames
+
+
+@contextlib.contextmanager
+def _stand_ins(model: str, batch: int):
+    """pipeline/train_data.py reads the stand-ins while the block runs,
+    which gets (segments, frames)."""
+    from wise_tpu_torch.pipeline import train_data
+
+    segments, frames = _cli_stand_ins(model, batch)
+    real = train_data.load_caption_segments, train_data.sample_frame
+    train_data.load_caption_segments = lambda *a: segments
+    train_data.sample_frame = lambda path, t, size: frames[int(t)]
+    try:
+        yield segments, frames
+    finally:
+        train_data.load_caption_segments, train_data.sample_frame = real
+
+
+def _planted_gather(torch):
+    """The planted fault of the data-parallel loss: ``gather_rows`` whose
+    backward takes the rank's rows of the gradient without summing it over
+    the ranks first (DDP's average then leaves the towers 1/W of their
+    gradient and ``logit_scale`` all of it)."""
+    from wise_tpu_torch.parallel import train as TT
+
+    class GatherWithoutReduce(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return TT._GatherRows.forward(ctx, x)
+
+        @staticmethod
+        def backward(ctx, grad):
+            lo, hi = ctx.rows
+            return grad[lo:hi].to(ctx.dtype)
+
+    return GatherWithoutReduce.apply
+
+
+def _fault_grads(torch, trainer, images, tokens) -> dict:
+    """The first step's gradients with ``_planted_gather`` in the loss,
+    clipped as the optimizer clips them, then cleared: what the check of
+    the data-parallel gradients must refuse. Its launches are not the
+    path's (the caller counts the step after it)."""
+    from wise_tpu_torch.parallel import train as TT
+
+    real, TT.gather_rows = TT.gather_rows, _planted_gather(torch)
+    try:
+        trainer.optimizer.zero_grad()
+        trainer.loss(torch.as_tensor(images).to(trainer.device, torch.float32),
+                     torch.as_tensor(tokens).to(trainer.device,
+                                                torch.int64)).backward()
+    finally:
+        TT.gather_rows = real
+    with torch.no_grad():
+        if trainer.optimizer.grad_clip > 0:
+            trainer.optimizer._clip()
+    grads = {n: p.grad.detach().cpu()
+             for n, p in trainer.model.named_parameters()}
+    trainer.optimizer.zero_grad()
+    return grads
+
+
+def _dp_cli_rank(argv) -> None:
+    """A rank of the train CLI at --dp N, in a process of its own: the
+    stand-ins installed in this process, then the CLI's own rank entry, with
+    each ``CLIPTrainer.train_step`` recorded (loss, CUDA-event ms, launches
+    against ``_step_launches``; rank 0 keeps the first step's gradients, and
+    those of the same step with the planted gather, ``_fault_grads``, taken
+    before it); the record written under $WISE_SMOKE_DP_COUNTS."""
+    import torch
+
+    from wise_tpu_torch.cli import train as cli
+    from wise_tpu_torch.parallel.train import CLIPTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = argv[argv.index("--model") + 1]
+    batch = int(argv[argv.index("--batch-size") + 1])
+    out_dir, rank = Path(os.environ[DP_COUNTS_ENV]), os.environ["RANK"]
+    want = _step_launches(cli.training_clip_config(model))
+    rec = {"losses": [], "step_ms": [], "launches": {},
+           "launches_exact": True}
+    step = CLIPTrainer.train_step
+
+    def recorded(trainer, images, tokens):
+        if not rec["losses"]:
+            fault = _fault_grads(torch, trainer, images, tokens)
+            if trainer.rank == 0:
+                torch.save(fault, out_dir / "fault_grads.pt")
+        _reset_launches()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        loss = step(trainer, images, tokens)
+        ev[1].record()
+        torch.cuda.synchronize()
+        rec["losses"].append(float(loss))
+        rec["step_ms"].append(ev[0].elapsed_time(ev[1]))
+        launched = _launches_by_name()
+        rec["launches_exact"] &= launched == want
+        _add_counts(rec["launches"], launched)
+        if len(rec["losses"]) == 1 and trainer.rank == 0:
+            torch.save({n: p.grad.detach().cpu()
+                        for n, p in trainer.model.named_parameters()},
+                       out_dir / "grads.pt")
+        return loss
+
+    torch.cuda.reset_peak_memory_stats()
+    CLIPTrainer.train_step = recorded
+    try:
+        with _stand_ins(model, batch):
+            cli._rank_main(argv)
+    finally:
+        CLIPTrainer.train_step = step
+    rec.update(device=f"cuda:{torch.cuda.current_device()}",
+               peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(rec))
+
+
 def _train_cli(torch, card, model: str = XLMR_MODEL, steps: int = 3,
-               batch: int = 32):
+               batch: int = 32, dp: int = 1, out=None):
     """The train CLI on the card (``python -m wise_tpu_torch.cli.train
-    --model <model>`` through its ``main``): its captions' segments and
-    their frames come from seeded stand-ins for the metadata table and the
-    decoder (the card's machine has none), everything else is the CLI's
-    own: the training config, the tokenizer, CLIPTrainer, the checkpoint.
-    Its steps must launch exactly steps x ``_step_launches``; then the
-    port's extractor loads the checkpoint (every tensor the checkpoint's
-    f32 master cast to the serving dtype) and serves finite unit
-    embeddings, the text embeddings of the queries away from the seed-0
-    weights'. Returns the CLI's launches by (wrapper, SP, D)."""
+    --model <model> --dp <dp>`` through its ``main``): its captions'
+    segments and their frames come from seeded stand-ins (_stand_ins),
+    everything else is the CLI's own: the training config, the tokenizer,
+    CLIPTrainer, the checkpoint; with ``dp`` > 1 the ranks it spawns
+    (each installs the stand-ins, _dp_cli_rank). Its steps must launch
+    exactly steps x ``_step_launches`` (in every rank); then the port's
+    extractor loads the checkpoint (every tensor the checkpoint's f32
+    master cast to the serving dtype) and serves finite unit embeddings,
+    the text embeddings of the queries away from the seed-0 weights'.
+    Returns the CLI's launches by (wrapper, SP, D) in this process; with
+    ``dp`` > 1, ``out`` gains the ranks' records (``ranks``) and rank 0's
+    first-step gradients (``grads``)."""
     import gc
 
     import numpy as np
@@ -3234,18 +3398,15 @@ def _train_cli(torch, card, model: str = XLMR_MODEL, steps: int = 3,
     from wise_tpu_torch.cli import train as cli
     from wise_tpu_torch.models.clip.extractor import OpenClipExtractor
     from wise_tpu_torch.parallel.train import STATE_FILE
-    from wise_tpu_torch.pipeline import train_data
 
     cfg = cli.training_clip_config(model)
-    captions = _captions(500, 2 * batch)
-    frames = _frames(500, len(captions), cfg.image_size)
-    segments = [(f"clip{i}.mp4", float(i), c) for i, c in enumerate(captions)]
     want = {k: steps * v for k, v in _step_launches(cfg).items()}
-    real = train_data.load_caption_segments, train_data.sample_frame
-    train_data.load_caption_segments = lambda *a: segments
-    train_data.sample_frame = lambda path, t, size: frames[int(t)]
+    real_rank = cli._rank_main
+    cli._rank_main = _dp_cli_rank
     try:
-        with tempfile.TemporaryDirectory(prefix="wise_smoke_cli_") as tmp:
+        with tempfile.TemporaryDirectory(prefix="wise_smoke_cli_") as tmp, \
+                _stand_ins(model, batch) as (_, frames), \
+                _env(**{DP_COUNTS_ENV: tmp}):
             (Path(tmp) / "proj").mkdir()
             ckpt = Path(tmp) / "ckpt" / model / "finetuned"
             _reset_launches()
@@ -3254,15 +3415,27 @@ def _train_cli(torch, card, model: str = XLMR_MODEL, steps: int = 3,
                            "--metadata-id", "S/smoke/train",
                            "--caption-column", "caption", "--model", model,
                            "--steps", str(steps), "--batch-size", str(batch),
-                           "--learning-rate", "1e-4",
+                           "--learning-rate", str(DP_LR), "--dp", str(dp),
                            "--checkpoint-dir", str(ckpt)])
             cli_s = time.time() - t0
             got, by_shape = _launches_by_name(), dict(_block_launches())
+            ranks = [got]
+            if dp > 1 and rc == 0:
+                out["ranks"] = [json.loads((Path(tmp) / f"rank{r}.json")
+                                           .read_text()) for r in range(dp)]
+                out["grads"], out["fault_grads"] = (
+                    torch.load(Path(tmp) / f"{name}.pt", map_location="cpu",
+                               weights_only=True)
+                    for name in ("grads", "fault_grads"))
+                ranks = [r["launches"] for r in out["ranks"]]
             gc.collect()
             torch.cuda.empty_cache()
-            if rc != 0 or got != want:
-                raise PhaseError(f"train: the {model} train CLI returned "
-                                 f"{rc} and launched {got}, expected {want}")
+            steps_ckpt = sorted(p.name for p in ckpt.glob("step_*"))
+            if rc != 0 or any(r != want for r in ranks) or steps_ckpt != [
+                    f"step_{steps:08d}"]:
+                raise PhaseError(f"train: the {model} train CLI at --dp {dp} "
+                                 f"returned {rc}, wrote {steps_ckpt} and "
+                                 f"launched {ranks}, expected {want} a rank")
             state = ckpt / f"step_{steps:08d}" / STATE_FILE
             ckpt_gb = state.stat().st_size / 1e9
             os.environ["WISE_CHECKPOINT_DIR"] = str(Path(tmp) / "ckpt")
@@ -3284,7 +3457,7 @@ def _train_cli(torch, card, model: str = XLMR_MODEL, steps: int = 3,
             gc.collect()
             torch.cuda.empty_cache()
     finally:
-        train_data.load_caption_segments, train_data.sample_frame = real
+        cli._rank_main = real_rank
     seed0 = OpenClipExtractor(f"mlfoundations/open_clip/{model}/none")
     moved = float(np.abs(text - seed0.extract_text_features(QUERIES)).max())
     del seed0
@@ -3293,10 +3466,11 @@ def _train_cli(torch, card, model: str = XLMR_MODEL, steps: int = 3,
     finite = bool(np.isfinite(text).all() and np.isfinite(images).all())
     norm_err = float(np.abs(np.linalg.norm(
         np.concatenate([text, images]), axis=1) - 1).max())
-    say("train", card=repr(card), check="train_cli", model=model,
-        steps=steps, batch=batch, rc=rc, cli_s=f"{cli_s:.1f}",
+    say("multi" if dp > 1 else "train", card=repr(card), check="train_cli",
+        model=model, dp=dp, steps=steps, batch=batch, rc=rc,
+        cli_s=f"{cli_s:.1f}",
         checkpoint_gb=f"{ckpt_gb:.3f}",
-        launches=json.dumps(got, separators=(",", ":")),
+        launches=json.dumps(ranks[0], separators=(",", ":")),
         served_tensors_differing=len(differ),
         text_max_abs_diff_vs_seed0=f"{moved:.4f}", moved_bar="> 1e-3",
         max_unit_norm_err=f"{norm_err:.2e}", norm_bar=1e-3)
@@ -4167,10 +4341,12 @@ def _recall(got_ids, want_ids) -> float:
     return hits / want_ids.size
 
 
-def phase_index(torch, card, k=10):
+def phase_index(torch, card, k=10, keep=None):
     """The index and query leg at deployment size (see the module
-    docstring, phase 9); returns the top-k wrappers' launch counts over the
-    phase, keyed by (wrapper, N_pad, D)."""
+    docstring, phase 10); returns the top-k wrappers' launch counts over the
+    phase, keyed by (wrapper, N_pad, D). With ``keep``, a dict, the project
+    is built under ``keep["root"]`` and left there, and ``keep`` gains what
+    the multi-device phase holds its own results to (phase_multi)."""
     import numpy as np
     from wise_tpu_torch import project
     from wise_tpu_torch.cli import create_index
@@ -4188,7 +4364,8 @@ def phase_index(torch, card, k=10):
                 FT.LAUNCHES_BY_SHAPE.get(grp, 0))
 
     frames = _frames(123, INDEX_REAL, 224)
-    with tempfile.TemporaryDirectory(prefix="wise_smoke_index_") as tmp:
+    with (contextlib.nullcontext(keep["root"]) if keep else
+          tempfile.TemporaryDirectory(prefix="wise_smoke_index_")) as tmp:
         project_dir = Path(tmp) / "proj"
         extractor = OpenClipExtractor(MODEL_ID)
         with torch.inference_mode():  # first use: cuBLAS, kernel library
@@ -4258,11 +4435,13 @@ def phase_index(torch, card, k=10):
         assets = project.WiseProject(project_dir).discover_assets()
         asset = assets["video"][MODEL_ID]
 
-        def load(index_type="IndexFlatIP", **cfg):
-            """A loaded index whose device copy is built: (index, seconds)."""
+        def load(index_type="IndexFlatIP", device="cuda:0", **cfg):
+            """A loaded index whose device copy is built: (index, seconds).
+            On the card, or with ``device=None`` on the devices that
+            ``WISE_TORCH_DEVICE`` names (phase_multi's mesh)."""
             t0 = time.perf_counter()
             idx = FeatureSearchIndex("video", MODEL_ID, asset,
-                                     config=IndexConfig(**cfg))
+                                     config=IndexConfig(**cfg), device=device)
             if not idx.load_index(index_type):
                 raise PhaseError(f"index: no {index_type} file")
             idx.search_batch(q64[:1], k)
@@ -4303,6 +4482,7 @@ def phase_index(torch, card, k=10):
                              f"run: {check}")
         f32_10, f32_100 = idx.search_batch(q64, k), got
         f32_ids10, f32_ids100 = f32_10[1], f32_100[1]
+        n_valid = int(idx._metadata["count"])
         timed(idx, "float32", load_s, q64_max_abs_err=check["max_abs_err"],
               q64_near_tie_swaps=check["mismatched"], **scan_alone(idx))
         del idx
@@ -4365,7 +4545,8 @@ def phase_index(torch, card, k=10):
             raise PhaseError("create-index IndexIVFFlat failed")
         ivf_build_s = time.perf_counter() - t0
         idx, load_s = load("IndexIVFFlat", nprobe=1024)
-        ivf_recall = _recall(idx.search_batch(q64, k)[1], f32_ids10)
+        ivf10 = idx.search_batch(q64, k)
+        ivf_recall = _recall(ivf10[1], f32_ids10)
         say("index", card=repr(card), path="IndexIVFFlat",
             build_s=f"{ivf_build_s:.1f}", load_s=f"{load_s:.1f}",
             nlist=idx._metadata["nlist"], nprobe=1024,
@@ -4378,9 +4559,15 @@ def phase_index(torch, card, k=10):
         del idx
         torch.cuda.empty_cache()
 
-        _ivfpq_leg(torch, card, project_dir, load, create_index, q64,
-                   f32_ids10, k)
+        pq10 = _ivfpq_leg(torch, card, project_dir, load, create_index, q64,
+                          f32_ids10, k)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if keep is not None:
+            keep.update(project_dir=project_dir, config=config, load=load,
+                        q64=q64, n_valid=n_valid, served=served,
+                        http_p50_ms=1e3 * float(np.median(lat)),
+                        f32_ids10=f32_ids10, int8=i8[0], ivf=ivf10,
+                        ivfpq=pq10)
 
     launches = {key: n for key, n in FT.LAUNCHES_BY_SHAPE.items() if n}
     say("index", card=repr(card), peak_device_gb=f"{peak_gb:.3f}",
@@ -4397,7 +4584,8 @@ def _ivfpq_leg(torch, card, project_dir, load, create_index, q64, flat_ids,
     top-k kernel may launch. Held: 8 queries' ADC candidates (no rerank)
     against the numpy host ADC on the same file; recall@10 against the
     flat ids ``flat_ids`` of ``q64`` with each rerank and none; R1@10 over
-    the perturbed stored frames (``q64[8:]``)."""
+    the perturbed stored frames (``q64[8:]``). Returns the default search's
+    (scores, ids) of ``q64`` at ``k``."""
     import numpy as np
     from wise_tpu_torch.eval.index_recall import recall_at_k, top1_recall_at_n
     from wise_tpu_torch.ops import fused_topk as FT
@@ -4418,13 +4606,15 @@ def _ivfpq_leg(torch, card, project_dir, load, create_index, q64, flat_ids,
     idx, load_s = load("IndexIVFPQ", nprobe=nprobe)
     if idx._ensure_flat_sibling() is None:
         raise PhaseError("index: IVF-PQ found no IndexFlatIP sibling")
-    pg = idx._ensure_pq_paged()
+    default10 = idx.search_batch(q64, k)
+    # the one card's paged shard (a mesh of one; parallel/sharded_search.py)
+    pg = {name: part[0] for name, part in idx._ensure_pq_paged().items()
+          if isinstance(part, list)}
     if pg["paged"].dtype != torch.uint8 or not pg["paged"].is_cuda:
         raise PhaseError(f"index: IVF-PQ codes {pg['paged'].dtype} on "
                          f"{pg['paged'].device}")
-    resident = sum(t.numel() * t.element_size() for t in pg.values()
-                   if isinstance(t, torch.Tensor))
-    flat_r10, flat_r1 = recalls(idx.search_batch(q64, k)[1])
+    resident = sum(t.numel() * t.element_size() for t in pg.values())
+    flat_r10, flat_r1 = recalls(default10[1])
     q1_ms = _p50_ms(lambda: idx.search_batch(q64[:1], k), 10)
     q64_ms = _p50_ms(lambda: idx.search_batch(q64, k), 5, 1)
     meta = dict(idx._metadata)
@@ -4448,12 +4638,13 @@ def _ivfpq_leg(torch, card, project_dir, load, create_index, q64, flat_ids,
     # ivfpq_search_paged alone at the rerank's 4 x k candidates: CUDA-event
     # ms a call (mean), its kernels' device ms and launches a call
     # (torch.profiler), the pages a query may probe and the chunk
-    centroids, _ = idx._ensure_ivf_coarse()
+    centroids = idx._ensure_ivf_coarse()[0]
     kc = idx.config.pq_rerank_mult * k
     paged = {}
     for qn in (1, 64):
         q = torch.from_numpy(idx._rotate_q_pq(q64[:qn])).cuda()
-        budget, chunk = idx._paged_plan(pg, nprobe, nq=qn, pq=True)
+        budget, chunk = idx._paged_plan(idx._pq_paged, nprobe, nq=qn,
+                                        pq=True)
 
         def adc(q=q, budget=budget, chunk=chunk):
             return ivfpq_search_paged(
@@ -4507,6 +4698,303 @@ def _ivfpq_leg(torch, card, project_dir, load, create_index, q64, flat_ids,
     if min(flat_r1, refine_r1) < 0.9:
         raise PhaseError(f"index: IVF-PQ R1@10 on perturbed frames {flat_r1} "
                          f"(flat rerank), {refine_r1} (refine) < 0.9")
+    return default10
+
+
+#: the [multi] phase: the sharded scans' (Q, k), the data-parallel leg's
+#: ranks, global batch, steps and seed, and the train CLI's batch at --dp
+MULTI_SCANS = [(1, 10), (16, 10), (64, 100)]
+DP_RANKS, DP_BATCH, DP_STEPS, DP_LR = 2, 256, 3, 1e-4
+#: how far from 1 the data-parallel gradients' scale (_grad_scales) may
+#: be: the planted gather moves a tower's or logit_scale's by a factor of
+#: DP_RANKS (before the clip, the towers'; after it, logit_scale's), and
+#: the reduction order moved them by <= 2.3e-4 on the card
+DP_SCALE_BAR = 1e-3
+
+
+def _mesh_names(torch) -> list:
+    """The multi-device phase's mesh: every visible card when there are two
+    or more, else the one card twice (two shards, two ranks on it)."""
+    n = torch.cuda.device_count()
+    return [f"cuda:{i}" for i in range(n)] if n >= 2 else ["cuda:0"] * 2
+
+
+def phase_multi(torch, card, keep, k=10):
+    """The multi-device leg on the index phase's project (``keep``, from
+    phase_index): the sharded flat, int8, IVF-Flat and IVF-PQ searches and
+    the REST server on the mesh against their single-card counterparts,
+    then data-parallel training through the train CLI at --dp 2. Returns the
+    top-k wrappers' launches of its searches, at the shards' shapes and the
+    single card's, counted as (wrapper, INDEX_N, INDEX_D): the shards hold
+    the same rows."""
+    from wise_tpu_torch.ops import fused_topk as FT
+    from wise_tpu_torch.parallel.distributed import choose_backend
+    from wise_tpu_torch.parallel.mesh import get_mesh
+
+    names = _mesh_names(torch)
+    mesh = get_mesh(devices=names)
+    say("multi", card=repr(card), mesh=",".join(names),
+        cards=torch.cuda.device_count(),
+        layout=("one card twice" if len(set(names)) == 1
+                else "a card a shard"),
+        dp_ranks=DP_RANKS, dp_backend=choose_backend(DP_RANKS, names))
+    _reset_launches()
+    with _env(WISE_TORCH_DEVICE=",".join(names)):
+        _multi_scans(torch, card, mesh, keep)
+        _multi_indexes(torch, card, keep, k)
+        _multi_serve(torch, card, mesh, keep, k)
+    launches = {}
+    for (name, rows, d), n in FT.LAUNCHES_BY_SHAPE.items():
+        if n and d == INDEX_D:
+            key = (name, INDEX_N, INDEX_D)
+            launches[key] = launches.get(key, 0) + n
+    say("multi", card=repr(card), topk_launches=json.dumps(
+        {f"{name}@{rows}x{d}": n for (name, rows, d), n
+         in sorted(FT.LAUNCHES_BY_SHAPE.items()) if n},
+        separators=(",", ":")), counted_as=f"{INDEX_N}x{INDEX_D}")
+    _multi_train(torch, card)
+    return launches
+
+
+def _multi_scans(torch, card, mesh, keep):
+    """``sharded_scan_topk`` on shards of the index phase's f32 and bf16
+    rows (on one card twice, views of the single card's copy) against the
+    single card's ``flat_topk`` on the same rows: ids identical up to ties
+    within 2e-6 and scores within 2e-6 (``topk_agreement``); each search
+    launches the routed wrapper once a shard. Both times by CUDA events,
+    each returning host arrays."""
+    from wise_tpu_torch.ops import fused_topk as FT
+    from wise_tpu_torch.ops.topk import flat_topk, routes_to_threshold
+    from wise_tpu_torch.parallel.sharded_search import (pad_and_shard_db,
+                                                        sharded_scan_topk)
+
+    idx, _ = keep["load"]()
+    db32, n, q64 = idx._ensure_device_db(), keep["n_valid"], keep["q64"]
+    for storage in ("float32", "bfloat16"):
+        db = db32 if storage == "float32" else db32.to(torch.bfloat16)
+        shards, _ = pad_and_shard_db(mesh, db)
+        rows = shards[0].shape[0]
+        filled = sum(1 for i in range(len(shards)) if i * rows < n)
+        shared = all(s.untyped_storage().data_ptr()
+                     == db.untyped_storage().data_ptr() for s in shards)
+        for qn, kk in MULTI_SCANS:
+            q = q64[:qn]
+            qt = torch.from_numpy(q).cuda()
+            name = ("fused_topk_threshold" if routes_to_threshold(qn, kk)
+                    else "fused_topk")
+            before = FT.LAUNCHES_BY_SHAPE.get((name, rows, INDEX_D), 0)
+            got = sharded_scan_topk(mesh, q, shards, n, kk)
+            launched = FT.LAUNCHES_BY_SHAPE.get((name, rows, INDEX_D),
+                                                0) - before
+            want = flat_topk(qt, db, n, kk)
+            check = FT.topk_agreement(tuple(map(torch.from_numpy, got)),
+                                      (want[0].cpu(), want[1].cpu()),
+                                      tol=2e-6)
+
+            def single(qt=qt, db=db, kk=kk):
+                return [t.cpu() for t in flat_topk(qt, db, n, kk)]
+
+            def sharded(q=q, shards=shards, kk=kk):
+                return sharded_scan_topk(mesh, q, shards, n, kk)
+
+            say("multi", card=repr(card), leg="scan", storage=storage,
+                q=qn, k=kk, wrapper=name, shards=len(shards),
+                shard_rows=rows, filled_shards=filled,
+                views_of_single=shared, launches_per_search=launched,
+                max_abs_err=check["max_abs_err"],
+                near_tie_swaps=check["mismatched"],
+                single_ms=f"{_cuda_ms(torch, single, 10):.4f}",
+                sharded_ms=f"{_cuda_ms(torch, sharded, 10):.4f}")
+            if not check["ok"] or launched != filled:
+                raise PhaseError(
+                    f"multi: the sharded {storage} scan at Q {qn} k {kk} "
+                    f"launched {name} {launched} times on {filled} filled "
+                    f"shards, against the single card: {check}")
+        del shards, db
+    del idx, db32
+    torch.cuda.empty_cache()
+
+
+def _multi_indexes(torch, card, keep, k):
+    """FeatureSearchIndex on the mesh (``WISE_TORCH_DEVICE`` names it) for
+    int8 storage, IVF-Flat and IVF-PQ at nprobe 1024 (the flat-sibling
+    rerank), against the index phase's single-card results of the same 64
+    queries: ids identical up to swaps between scores within 2e-6 (int8's
+    rerank and IVF-Flat's f32 scores) or 1e-5 (IVF-PQ's rerank is exact
+    f32 too; its ADC candidates are the same set), and recall@10 against
+    the flat ids beside the single card's."""
+    from wise_tpu_torch.ops import fused_topk as FT
+
+    q64 = keep["q64"]
+    for label, kind, cfg in (("int8", "IndexFlatIP",
+                              {"storage_dtype": "int8"}),
+                             ("ivf", "IndexIVFFlat", {"nprobe": 1024}),
+                             ("ivfpq", "IndexIVFPQ", {"nprobe": 1024})):
+        idx, load_s = keep["load"](kind, device=None, **cfg)
+        if not idx._sharded:
+            raise PhaseError(f"multi: the {kind} index is not on the mesh")
+        got, want = idx.search_batch(q64, k), keep[label]
+        check = FT.topk_agreement(tuple(map(torch.from_numpy, got)),
+                                  tuple(map(torch.from_numpy, want)),
+                                  tol=2e-6 if label != "ivfpq" else 1e-5)
+        recall, single = (_recall(r[1], keep["f32_ids10"])
+                          for r in (got, want))
+        say("multi", card=repr(card), leg=kind, storage=cfg.get(
+            "storage_dtype", "float32"), nprobe=cfg.get("nprobe"),
+            shards=idx._mesh.shape["dp"], load_s=f"{load_s:.1f}",
+            ids_vs_single="ok" if check["ok"] else "differ",
+            max_abs_err=check["max_abs_err"],
+            near_tie_swaps=check["mismatched"],
+            recall10_vs_flat=f"{recall:.4f}",
+            single_recall10_vs_flat=f"{single:.4f}",
+            q1_k10_p50_ms=f"{_p50_ms(lambda: idx.search_batch(q64[:1], k), 10):.3f}")
+        if not check["ok"]:
+            raise PhaseError(f"multi: the sharded {kind} ({label}) search "
+                             f"differs from the single card's: {check}")
+        del idx
+        torch.cuda.empty_cache()
+
+
+def _multi_serve(torch, card, mesh, keep, k):
+    """The REST server on the project with ``WISE_TORCH_DEVICE`` naming the
+    mesh: the 8 queries' served top-10 must be the single-card server's
+    (the index phase's), and every served search batch launches the
+    threshold scan once a filled shard."""
+    import numpy as np
+    from wise_tpu_torch.ops import fused_topk as FT
+
+    ndev = mesh.shape["dp"]
+    rows = -(-keep["n_valid"] // (ndev * 4096)) * 4096
+    filled = sum(1 for i in range(ndev) if i * rows < keep["n_valid"])
+    key = ("fused_topk_threshold", rows, INDEX_D)
+    before = FT.LAUNCHES_BY_SHAPE.get(key, 0)
+    with _search_batches() as batches:
+        served, lat = _serve_queries(keep["project_dir"], keep["config"],
+                                     QUERIES, k)
+    launched = FT.LAUNCHES_BY_SHAPE.get(key, 0) - before
+    differ = [q for q in QUERIES if served[q][0] != keep["served"][q][0]]
+    gap = max(float(np.abs(np.subtract(served[q][1],
+                                       keep["served"][q][1])).max())
+              for q in QUERIES)
+    say("multi", card=repr(card), leg="rest", shards=ndev,
+        requests=len(lat) + 9, search_batches=len(batches),
+        threshold_launches=launched, top10_vs_single=(
+            "equal" if not differ else f"differ:{len(differ)}"),
+        max_distance_gap=f"{gap:.4f}",
+        http_p50_ms=f"{1e3 * float(np.median(lat)):.3f}",
+        single_http_p50_ms=f"{keep['http_p50_ms']:.3f}")
+    if differ or gap > 1e-3 or launched != filled * len(batches):
+        raise PhaseError(
+            f"multi: the mesh server's top-{k} differs from the single "
+            f"card's for {differ} (distance gap {gap}), or it launched the "
+            f"scan {launched} times for {len(batches)} batches on {filled} "
+            f"filled shards")
+
+
+def _multi_train(torch, card):
+    """Data parallelism through the train CLI: ``--dp`` DP_RANKS at global
+    batch DP_BATCH for DP_STEPS steps (_train_cli, whose ranks record their
+    steps, _dp_cli_rank), against the single-card trainer from the same
+    seed-0 f32 masters, optimizer settings and batches (the CLI's own
+    ``caption_batches`` over the same stand-ins): the first step's
+    whole-tree gradient cosine >= 0.999, the losses within 1e-3, and the
+    scale of the gradients (``_grad_scales``: the norm of each tower's
+    gradient and of ``logit_scale``'s over the single card's, each within
+    DP_SCALE_BAR of 1), which the planted gather (``_fault_grads``) must
+    fail; step ms (CUDA events) and peak memory a rank beside the single
+    card's."""
+    import gc
+
+    from wise_tpu_torch.cli.train import (training_clip_config,
+                                          training_tokenizer)
+    from wise_tpu_torch.parallel.train import CLIPTrainer
+    from wise_tpu_torch.pipeline.train_data import caption_batches
+
+    model = "ViT-B-32"
+    cfg = training_clip_config(model)
+    with _stand_ins(model, DP_BATCH) as (segments, _):
+        batches = caption_batches(segments, training_tokenizer(cfg), DP_BATCH,
+                                  cfg.image_size, epochs=10_000)
+        batches = [next(batches) for _ in range(DP_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    trainer = CLIPTrainer(cfg, learning_rate=DP_LR, total_steps=DP_STEPS,
+                          grad_clip=1.0).init(seed=0)
+    single = {"losses": [], "step_ms": []}
+    for images, tokens in batches:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        single["losses"].append(float(trainer.train_step(images, tokens)))
+        ev[1].record()
+        torch.cuda.synchronize()
+        single["step_ms"].append(ev[0].elapsed_time(ev[1]))
+        if "grads" not in single:
+            single["grads"] = {n: p.grad.detach().cpu()
+                               for n, p in trainer.model.named_parameters()}
+    single_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = single.pop("grads")
+    del trainer, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    _train_cli(torch, card, model, steps=DP_STEPS, batch=DP_BATCH,
+               dp=DP_RANKS, out=out)
+    got, ranks = out["grads"], out["ranks"]
+
+    def dot(a, b):
+        return float(torch.dot(a.flatten().double(), b.flatten().double()))
+
+    cos = sum(dot(got[n], g) for n, g in want.items()) / math.sqrt(
+        sum(dot(g, g) for g in want.values())
+        * sum(dot(g, g) for g in got.values()))
+    scales = _grad_scales(got, want)
+    fault = _grad_scales(out["fault_grads"], want)
+    scale_off = max(abs(v - 1) for v in scales.values())
+    caught = max(abs(v - 1) for v in fault.values()) > DP_SCALE_BAR
+    leaf_off = max(abs(math.sqrt(dot(got[n], got[n]) / dot(g, g)) - 1)
+                   for n, g in want.items() if dot(g, g) > 0)
+    gap = max(abs(a - b) for r in ranks for a, b in zip(r["losses"],
+                                                       single["losses"]))
+    for r, rec in enumerate(ranks):
+        say("multi", card=repr(card), leg="dp_train", model=model, rank=r,
+            device=rec["device"], rows=DP_BATCH // DP_RANKS,
+            global_batch=DP_BATCH, step_ms=",".join(
+                f"{v:.3f}" for v in rec["step_ms"]),
+            peak_device_gb=f"{rec['peak_device_gb']:.3f}",
+            launches_per_step_exact=rec["launches_exact"])
+    say("multi", card=repr(card), leg="dp_train", check="vs_single_card",
+        ranks=DP_RANKS, whole_tree_grad_cos=f"{cos:.6f}", cos_bar=0.999,
+        losses=",".join(f"{v:.5f}" for v in ranks[0]["losses"]),
+        single_losses=",".join(f"{v:.5f}" for v in single["losses"]),
+        max_loss_gap=f"{gap:.6f}", loss_bar=1e-3,
+        grad_scale=",".join(f"{k}:{v:.6f}" for k, v in scales.items()),
+        scale_bar=DP_SCALE_BAR, worst_leaf_scale_off=f"{leaf_off:.2e}",
+        planted_grad_scale=",".join(f"{k}:{v:.6f}" for k, v in fault.items()),
+        planted="FAIL(expected)" if caught else "PASSED(wrong)",
+        single_step_ms=",".join(f"{v:.3f}" for v in single["step_ms"]),
+        single_peak_device_gb=f"{single_gb:.3f}")
+    if not (cos >= 0.999 and gap <= 1e-3 and scale_off <= DP_SCALE_BAR
+            and caught and all(r["launches_exact"] for r in ranks)):
+        raise PhaseError(f"multi: {DP_RANKS} data-parallel ranks off the "
+                         f"single card (grad cos {cos}, loss gap {gap}, "
+                         f"gradient scales {scales}), the planted gather "
+                         f"not caught ({fault}), or off the kernel path's "
+                         f"launches")
+
+
+def _grad_scales(got: dict, want: dict) -> dict:
+    """The norm of ``got``'s gradient over ``want``'s, for the vision tower
+    (``visual.*``), the text tower (the rest) and ``logit_scale``: a check
+    that the cosine cannot make, since it ignores scale."""
+    def group(name):
+        return (name if name == "logit_scale"
+                else "visual" if name.startswith("visual.") else "text")
+
+    sums = {}
+    for name, g in want.items():
+        a, b = sums.setdefault(group(name), [0.0, 0.0])
+        sums[group(name)] = [a + float(got[name].double().square().sum()),
+                             b + float(g.double().square().sum())]
+    return {k: math.sqrt(a / b) for k, (a, b) in sums.items()}
 
 
 #: the padded-head phase (ViT-H/14's vision tower with the padded-head block
@@ -5312,6 +5800,20 @@ def _encode_rates(torch, extractor, frames, reps: int = 5):
     return fps, ms
 
 
+def _index_then_multi(torch, card) -> dict:
+    """The index phase on the first card (its server too, on a machine of
+    several), then the multi-device phase on its project; the top-k
+    wrappers' launches of both (the multi phase's searches counted at the
+    index's shape)."""
+    with tempfile.TemporaryDirectory(prefix="wise_smoke_index_") as tmp:
+        keep = {"root": tmp}
+        launches = _timed("index", phase_index, torch, card, keep=keep)
+        for key, n in _timed("multi", phase_multi, torch, card,
+                             keep).items():
+            launches[key] = launches.get(key, 0) + n
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", choices=["all", "kernels", "gemm", "topk",
@@ -5319,7 +5821,8 @@ def main(argv=None) -> int:
                                         "siglip",
                                         "xlmr", "hybrid", "index", "train",
                                         "padded", "embed_fold", "clap2022",
-                                        "shots", "profile", "pooled"],
+                                        "shots", "profile", "pooled",
+                                        "multi"],
                     default="all")
     ap.add_argument("--parent", action="store_true",
                     help="this script run from the parent commit's "
@@ -5396,6 +5899,9 @@ def main(argv=None) -> int:
         if args.phase == "index":
             _timed("index", phase_index, torch, card)
             return 0
+        if args.phase == "multi":
+            _index_then_multi(torch, card)
+            return 0
         if args.phase == "train":
             _timed("train", phase_train, torch, card)
             return 0
@@ -5430,7 +5936,8 @@ def main(argv=None) -> int:
             "xlmr", phase_slice, torch, card, XLMR_ID, XLMR_FRAMES, "xlmr",
             topk_1m=False))
         launches.update(_timed("hybrid", phase_hybrid, torch, card))
-        launches.update(_timed("index", phase_index, torch, card))
+        for key, n in _index_then_multi(torch, card).items():
+            launches[key] = launches.get(key, 0) + n
         # the training steps' counts stand beside the serve paths': a key
         # both reach (the pooled kernels at ViT-B/32) keeps its serve count
         for key, n in _timed("train", phase_train, torch, card).items():

@@ -261,8 +261,8 @@ def test_device_path_matches_host_adc(tmp_path):
     assert idx.create_index("IndexIVFPQ")
     assert idx.load_index("IndexIVFPQ")
     pg = idx._ensure_pq_paged()
-    assert pg["paged"].dtype == torch.uint8
-    assert pg["codebooks"].dtype == torch.float32
+    assert [p.dtype for p in pg["paged"]] == [torch.uint8]   # one shard
+    assert [c.dtype for c in pg["codebooks"]] == [torch.float32]
     q = np.concatenate([vecs[3:5], np.random.default_rng(1).standard_normal(
         (2, 32)).astype(np.float32)])
     for nprobe in (1, 4, 10_000):

@@ -102,9 +102,11 @@ def test_ivfpq_index_keeps_codes_and_books_on_the_card(cuda, tmp_path):
     q = vecs[:8]
     got = idx._search_ivfpq_device(q, 10, 16)
     pg = idx._ensure_pq_paged()
-    assert pg["paged"].dtype == torch.uint8 and pg["paged"].is_cuda
-    assert pg["codebooks"].dtype == torch.float32 and pg["codebooks"].is_cuda
-    assert pg["page_rows"].is_cuda
+    (paged,), (codebooks,), (page_rows,) = (
+        pg["paged"], pg["codebooks"], pg["page_rows"])   # one shard
+    assert paged.dtype == torch.uint8 and paged.is_cuda
+    assert codebooks.dtype == torch.float32 and codebooks.is_cuda
+    assert page_rows.is_cuda
     want = idx._search_ivfpq_host(q, 10, 16)
     check = topk_agreement(tuple(map(torch.from_numpy, got)),
                            tuple(map(torch.from_numpy, want)), tol=1e-5)

@@ -46,8 +46,12 @@ SHOTS_AND_CLAP_2022 = ["pipeline/shots.py", "cli/shots.py",
 #: the doctor CLI and the profiler hook's module, which the walk over
 #: SOURCES must reach as well
 DOCTOR_AND_TRACE = ["cli/doctor.py", "utils/profiling.py"]
+#: the multi-device modules (the mesh, the sharded search, the process
+#: group), which the walk over SOURCES must reach as well
+MULTI_DEVICE = ["parallel/mesh.py", "parallel/distributed.py",
+                "parallel/sharded_search.py"]
 #: the host modules the port copied from the JAX package, path for path, and
-#: the ports that keep their origin's names (pipeline.shots)
+#: the ports that keep their origin's names (pipeline.shots, parallel)
 COPIED = """config data_models utils project db db.repository store
 store.feature_store store.factory store.npz_store store.tar_store io
 io.decode io.dataset io.native_decoder search search.query_parser
@@ -57,7 +61,8 @@ models.clip.convert models.clap.tokenizer models.clap.convert
 pipeline.extract api.models api.coalesce api.engine api.server
 cli.extract_features cli.create_index cli.search cli.serve cli.metadata
 pipeline.train_data ops.pq eval eval.retrieval eval.index_recall
-cli.merge_projects io.__main__ cli.shots pipeline.shots cli.doctor""".split()
+cli.merge_projects io.__main__ cli.shots pipeline.shots cli.doctor parallel
+parallel.distributed parallel.sharded_search""".split()
 
 
 def _rel(path):
@@ -115,6 +120,12 @@ def test_walk_reaches_the_pq_and_eval_modules():
 def test_walk_reaches_shot_detection_and_the_clap_2022_towers():
     walked = {_rel(p) for p in SOURCES}
     assert not [m for m in SHOTS_AND_CLAP_2022
+                if f"wise_tpu_torch/{m}" not in walked]
+
+
+def test_walk_reaches_the_multi_device_modules():
+    walked = {_rel(p) for p in SOURCES}
+    assert not [m for m in MULTI_DEVICE
                 if f"wise_tpu_torch/{m}" not in walked]
 
 

@@ -281,8 +281,7 @@ def test_exact_preprocessing_raises_until_it_is_ported(env, monkeypatch,
     np.testing.assert_array_equal(exact, port.extract_image_features(floats))
 
 
-@pytest.mark.parametrize("flags", [("--dp", "2"), ("--mp", "2"),
-                                   ("--pp", "2")])
+@pytest.mark.parametrize("flags", [("--mp", "2"), ("--pp", "2")])
 def test_multi_device_options_raise(env, flags):
     from wise_tpu_torch.cli.train import main as t_train
 

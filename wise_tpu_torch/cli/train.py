@@ -1,12 +1,13 @@
 """train CLI: contrastive CLIP fine-tuning on a project's caption metadata
 (wise_tpu/cli/train.py).
 
-Takes optimizer steps on one card (``WISE_TORCH_DEVICE=cpu`` for the CPU)
-with f32 master weights under AdamW, checkpoints as ``step_%08d`` directories
-and can resume. bf16 runs go through the saved-activation block kernels and
-the pooled last layer, the XLM-R text tower of the default backbone through
-the post-LN kernels, and with WISE_FUSED_BLOCK=0 the attention middle
-through its kernel; every backward is plain PyTorch.
+Takes optimizer steps on one card (``WISE_TORCH_DEVICE=cpu`` for the CPU),
+or data-parallel on several (``--dp``), with f32 master weights under AdamW,
+checkpoints as ``step_%08d`` directories and can resume. bf16 runs go
+through the saved-activation block kernels and the pooled last layer, the
+XLM-R text tower of the default backbone through the post-LN kernels, and
+with WISE_FUSED_BLOCK=0 the attention middle through its kernel; every
+backward is plain PyTorch.
 
     python -m wise_tpu_torch.cli.train --project-dir P \\
         --metadata-id EK/ann/train --caption-column narration \\
@@ -19,9 +20,17 @@ through its kernel; every backward is plain PyTorch.
 Point ``WISE_CHECKPOINT_DIR`` at a directory that holds the result as
 ``<model>/<pretrained>/step_*`` and the extractor serves it.
 
-The multi-device options of the reference's CLI (``--dp`` other than -1 or
-1, ``--mp``, ``--pp`` with ``--microbatches``) are parsed and refused:
-ROADMAP Queue A item 12.
+``--dp N`` (N > 1) starts N ranks itself, one process each, rank r on the
+r-th of the mesh's devices in turn (every visible card, or the list that
+``WISE_TORCH_DEVICE`` names; parallel/distributed.py picks NCCL when each
+rank has a card of its own, else gloo); ``--dp -1``, the default, means one
+rank a device, so one card runs the single-card trainer. Each rank decodes
+and takes only its ``batch_size / dp`` rows of the global batch
+(``caption_batches`` with its rank), whose loss every rank computes
+(parallel/train.py), and rank 0 writes the checkpoints. Under
+torchrun, the ranks are torchrun's. ``--mp`` and ``--pp`` with
+``--microbatches`` are parsed and refused: they are what is left of ROADMAP
+Queue A item 12.
 """
 
 from __future__ import annotations
@@ -49,7 +58,8 @@ def build_parser():
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--checkpoint-every", type=int, default=500)
     p.add_argument("--resume", action="store_true")
-    p.add_argument("--dp", type=int, default=-1)
+    p.add_argument("--dp", type=int, default=-1,
+                   help="data-parallel ranks (-1: one a device)")
     p.add_argument("--mp", type=int, default=1)
     p.add_argument("--pp", type=int, default=1,
                    help="pipeline-parallel stages (multi-device: refused)")
@@ -114,15 +124,55 @@ def training_tokenizer(config):
 
 
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     log = logging.getLogger("train")
 
-    if args.dp not in (-1, 1) or args.mp > 1 or args.pp > 1:
+    if args.mp > 1 or args.pp > 1:
         raise NotImplementedError(
-            "--dp / --mp / --pp: multi-device training is not ported "
-            "(ROADMAP Queue A item 12); this trainer runs on one card")
+            "--mp / --pp: tensor and pipeline parallelism are not ported; "
+            "ROADMAP Queue A item 12 holds what is left: --mp with "
+            "split-head forms of the block kernels, then pipeline.py / "
+            "pp_train.py with --pp and --microbatches")
 
+    from ..parallel.distributed import (maybe_initialize_distributed, spawn,
+                                        world_env)
+    from ..utils.device import default_devices
+
+    world = world_env()[0]
+    dp = args.dp if args.dp != -1 else (
+        world if world > 1 else len(default_devices()))
+    if dp < 1 or (world > 1 and dp != world):
+        log.error(f"--dp {args.dp} with {world} rank(s) in the environment")
+        return 1
+    if args.batch_size % dp:
+        log.error(f"--batch-size {args.batch_size} must divide by --dp {dp}")
+        return 1
+    if world > 1:
+        maybe_initialize_distributed()
+    elif dp > 1:
+        from torch.multiprocessing import ProcessExitedException
+
+        try:
+            spawn(_rank_main, dp, argv)
+        except ProcessExitedException as e:
+            log.error(f"a rank failed: {e}")
+            return e.exit_code or 1
+        return 0
+    return _train(args, log)
+
+
+def _rank_main(argv) -> None:
+    """One rank of ``--dp N``, in a process of its own (parallel/distributed.py
+    ``spawn``); a failed run ends the process with its code."""
+    logging.basicConfig(level=logging.INFO)
+    rc = _train(build_parser().parse_args(argv), logging.getLogger("train"))
+    if rc:
+        raise SystemExit(rc)
+
+
+def _train(args, log) -> int:
     from ..parallel.train import CLIPTrainer
     from ..pipeline.train_data import caption_batches, load_caption_segments
     from ..project import WiseProject
@@ -134,7 +184,6 @@ def main(argv=None) -> int:
     if not segments:
         log.error("no caption segments found")
         return 1
-    log.info(f"{len(segments)} caption segments")
 
     config = training_clip_config(args.model, args.dtype, args.pp,
                                   remat=args.remat)
@@ -143,6 +192,12 @@ def main(argv=None) -> int:
         warmup_steps=args.warmup_steps, total_steps=args.steps,
         grad_clip=args.grad_clip,
     ).init(seed=0)
+    lead = trainer.rank == 0
+    if lead:
+        log.info(f"{len(segments)} caption segments")
+        if trainer.world > 1:
+            log.info(f"{trainer.world} data-parallel ranks, "
+                     f"{args.batch_size // trainer.world} rows each")
     start_step = 0
     ckpt_dir = args.checkpoint_dir or str(
         project.project_dir / "checkpoints" / args.model
@@ -157,7 +212,7 @@ def main(argv=None) -> int:
 
     batches = caption_batches(
         segments, tokenizer, args.batch_size, config.image_size,
-        epochs=10_000,
+        epochs=10_000, rank=trainer.rank, world=trainer.world,
     )
     t0 = time.time()
     step = start_step
@@ -166,7 +221,7 @@ def main(argv=None) -> int:
             break
         loss = trainer.train_step(images, tokens)
         step += 1
-        if step % 10 == 0 or step == args.steps:
+        if lead and (step % 10 == 0 or step == args.steps):
             log.info(
                 f"step {step}/{args.steps} loss={float(loss):.4f} "
                 f"({step - start_step}/{time.time()-t0:.0f}s)"
@@ -180,7 +235,8 @@ def main(argv=None) -> int:
         )
         return 1
     trainer.save_checkpoint(ckpt_dir, step)
-    log.info(f"saved final checkpoint at step {step} to {ckpt_dir}")
+    if lead:
+        log.info(f"saved final checkpoint at step {step} to {ckpt_dir}")
     return 0
 
 

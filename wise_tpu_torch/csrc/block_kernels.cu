@@ -449,8 +449,9 @@ cudaError_t launch_attention_pooled(const bf16* q, const bf16* kv, int D,
       group ? group : pooled_group(B, H, pooled_blocks_per_sm<HD>());
   if (G < 1 || G > kPoolMaxGroup || (G & (G - 1)) || H % G)
     return cudaErrorInvalidValue;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      attention_pooled_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  static PerDevice smem_set;
+  const cudaError_t attr = max_dynamic_smem(
+      smem_set, attention_pooled_kernel<HD>,
       (int)pooled_smem_bytes<HD>(kMaxSeq, kPoolMaxGroup));
   if (attr != cudaSuccess) return attr;
   int lg = 0;

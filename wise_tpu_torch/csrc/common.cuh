@@ -17,6 +17,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -720,6 +722,36 @@ cudaError_t tile_map(CUtensorMap* map, const T* p, int rows, int cols, int ld,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// Devices a PerDevice flag set tracks; a device past them sets its
+// attribute at every launch.
+constexpr int kMaxDevices = 64;
+
+// Whether a launch site has set its kernel's attribute on each device: a
+// static of the site (one a kernel). The attribute belongs to the current
+// device's context, so a process that launches on several cards (a sharded
+// search) sets it on each.
+struct PerDevice {
+  std::atomic<bool> done[kMaxDevices];
+};
+
+// The kernel's dynamic shared-memory cap, set once a device through the
+// site's own ``once``.
+template <typename F>
+cudaError_t max_dynamic_smem(PerDevice& once, F* kernel, int bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool tracked = dev >= 0 && dev < kMaxDevices;
+  if (tracked && once.done[dev].load(std::memory_order_acquire))
+    return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess && tracked)
+    once.done[dev].store(true, std::memory_order_release);
+  return err;
+}
+
 int sm_count() {
   static const int n = [] {
     int dev = 0, sms = 0;
@@ -757,10 +789,10 @@ cudaError_t launch_gemm(const bf16* A, int lda, const bf16* W, int ldw,
   if (err != cudaSuccess) return err;
   err = tile_map<bf16>(&map_w, W, K, N, ldw, kGemmBK, kBoxCols);
   if (err != cudaSuccess) return err;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      gemm_kernel<TO, EPI, TR, WG, BN>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmem);
-  if (attr != cudaSuccess) return attr;
+  static PerDevice smem_set;
+  err = max_dynamic_smem(smem_set, gemm_kernel<TO, EPI, TR, WG, BN>,
+                         (int)T::kSmem);
+  if (err != cudaSuccess) return err;
   gemm_kernel<TO, EPI, TR, WG, BN><<<grid, T::kThreads, T::kSmem, st>>>(
       map_a, map_w, bias, out, ldo, res, ldr, rmap, M, N, K, act, pre);
   return cudaGetLastError();

@@ -942,13 +942,12 @@ cudaError_t launch_swin_attn(SwinAttnArgs p, cudaStream_t st, int* launched) {
   // the attention's latency), then the largest G (fewer weight and bias
   // reads a window); the same on every call
   static int plan[kSwinFusedMaxC / 32 + 1];
-  cudaError_t err;
+  static PerDevice smem_set;
+  cudaError_t err = max_dynamic_smem(smem_set, swin_attn_kernel<HD>,
+                                     kSmemMax);
+  if (err != cudaSuccess) return err;
   int& cached = plan[p.C / 32];
   if (cached == 0) {
-    err = cudaFuncSetAttribute(swin_attn_kernel<HD>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemMax);
-    if (err != cudaSuccess) return err;
     int best_g = 0, best_per = 0;
     for (int G = 1; G <= kSwinMaxGroup; ++G) {
       const size_t bytes = attn_smem_bytes<HD>(p.C, G);
@@ -1288,14 +1287,10 @@ size_t mlp_smem_bytes(int C) {
 template <int WGS, int NP, bool TAIL>
 cudaError_t launch_swin_mlp(const SwinMlpArgs& p, cudaStream_t st,
                             int* launched) {
-  static bool ready = false;
-  if (!ready) {
-    cudaError_t err = cudaFuncSetAttribute(
-        swin_mlp_kernel<WGS, NP, TAIL>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
-    if (err != cudaSuccess) return err;
-    ready = true;
-  }
+  static PerDevice smem_set;
+  const cudaError_t attr =
+      max_dynamic_smem(smem_set, swin_mlp_kernel<WGS, NP, TAIL>, kSmemMax);
+  if (attr != cudaSuccess) return attr;
   swin_mlp_kernel<WGS, NP, TAIL>
       <<<(unsigned)((p.M + kMlpRows - 1) / kMlpRows), 128 * WGS,
          mlp_smem_bytes(p.C), st>>>(p);

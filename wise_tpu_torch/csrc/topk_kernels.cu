@@ -1293,10 +1293,8 @@ int wt_topk_gemm_f32(const float* db, int rows, int D, const float* qs,
   WT_CHECK(tile_map<float>(&map_db, db, rows, D, D, kF32BM, kF32BK));
   WT_CHECK(tile_map<float>(&map_q, qs, 2 * q_pad, d_pad, d_pad, kF32BN,
                            kF32BK));
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      topk_gemm_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kF32Smem);
-  WT_CHECK(attr);
+  static PerDevice smem_set;
+  WT_CHECK(max_dynamic_smem(smem_set, topk_gemm_f32_kernel, (int)kF32Smem));
   const int tiles = (rows + kF32BM - 1) / kF32BM;
   const int grid = tiles < sm_count() ? tiles : sm_count();
   topk_gemm_f32_kernel<<<grid, kF32Threads, kF32Smem,

@@ -6,7 +6,7 @@ and writes alike: the exact flat index (IndexFlatIP semantics), IVF-Flat
 (the same cells over product-quantized residual codes). The host half
 (``.widx`` build and load, the streaming build of a store larger than RAM, id
 mapping, reconstruction, ``search`` and ``search_batch*``) is numpy; the
-device half is PyTorch on one card:
+device half is PyTorch on one card, or sharded over a mesh of several:
 
 - IndexFlatIP: the vectors live on the card, padded to a multiple of GROUP
   rows. f32, or bf16 with ``storage_dtype="bfloat16"``: queries run
@@ -29,8 +29,17 @@ Heuristics of the reference (feature_search_index.py:53-59): nlist =
 Query prompts per modality are the reference's
 (ox-vgg/WISE/src/index/feature_search_index.py:24-28).
 
-The paths that shard an index over several cards are not ported (ROADMAP
-Queue A item 12).
+When ``$WISE_TORCH_DEVICE`` names a list of devices (``utils/device.py``
+``named_devices``), each search is sharded over them, as the reference's is
+with more than one JAX device (parallel/sharded_search.py): IndexFlatIP's
+rows split over the devices, each scanned by the same kernels, the exact
+sharded scan taking precedence over ``flat_approx_recall``; int8 candidates
+proposed shard by shard and reranked on the host. IVF-Flat and IVF-PQ
+always run through the sharded paged search, each device over its
+contiguous range of cells at the worst shard's page budget; one device is a
+mesh of one. The reference shards whenever it sees several devices; the
+port leaves a machine's other cards alone unless the list names them,
+because a collection that fits on one card searches faster there.
 
 The host half is copied from ``wise_tpu/index/feature_index.py``.
 """
@@ -49,7 +58,7 @@ from ..config import IndexConfig
 from ..ops.topk import (flat_topk, flat_topk_approx, int8_candidates,
                         pad_rows, quantize_rows_int8, rerank_exact_f32)
 from ..store.factory import FeatureStoreFactory
-from ..utils.device import default_device
+from ..utils.device import named_devices
 from .format import IndexFileWriter, read_index_file, write_index_file
 from .search_index import SearchIndex
 
@@ -76,18 +85,23 @@ class FeatureSearchIndex(SearchIndex):
 
     def __init__(self, media_type: str, asset_id: str, asset: dict,
                  config: Optional[IndexConfig] = None, device=None):
+        """``device``: the one device to search on; by default the devices
+        that ``$WISE_TORCH_DEVICE`` names (``named_devices``), sharded over
+        when they are more than one."""
         self.media_type = media_type
         self.asset_id = asset_id
         self.asset = asset
         self.config = config or IndexConfig()
         self.index_dir = Path(asset["index_dir"])
-        self.device = torch.device(device) if device else default_device()
+        from ..parallel.mesh import get_mesh
+
+        self._mesh = get_mesh(devices=[device] if device
+                              else named_devices())
+        self.device = self._mesh.devices[0]
         self._extractor = None
         self._arrays = None
         self._metadata = None
-        self._device_db = self._int8_db = None
-        self._ivf_dev = self._ivf_paged = self._pq_paged = None
-        self._flat_sibling = _UNREAD
+        self._drop_device_copies()
 
     # ------------------------------------------------------------------
     def index_path(self, index_type: str) -> Path:
@@ -385,45 +399,92 @@ class FeatureSearchIndex(SearchIndex):
             return False
         self._metadata, self._arrays = read_index_file(path)
         self._index_type = self._metadata["index_type"]
-        # drop stale device copies
+        self._drop_device_copies()
+        return True
+
+    def _drop_device_copies(self):
+        """Forget the device copies of the last loaded file."""
         self._device_db = self._int8_db = None
+        self._sharded_db = self._int8_shards = None
         self._ivf_dev = self._ivf_paged = self._pq_paged = None
         self._flat_sibling = _UNREAD
-        return True
+
+    @property
+    def _sharded(self) -> bool:
+        """Whether the searches shard over several devices."""
+        return self._mesh.shape["dp"] > 1
 
     def _ensure_device_db(self):
         """The vectors on the device once, rows padded to a multiple of
         GROUP (zero rows, masked by n_valid at search); bf16 with
         ``storage_dtype="bfloat16"``."""
         if self._device_db is None:
-            if self.config.storage_dtype not in ("float32", "bfloat16"):
-                raise ValueError(f"storage_dtype {self.config.storage_dtype!r}"
-                                 " not in (float32, bfloat16, int8)")
-            host = np.array(self._arrays["vectors"], dtype=np.float32)
-            db = pad_rows(torch.from_numpy(host).to(self.device), self.GROUP)
-            if self.config.storage_dtype == "bfloat16":
-                db = db.to(torch.bfloat16)
-            self._device_db = db
+            self._device_db = pad_rows(
+                torch.from_numpy(self._host_vectors()).to(self.device),
+                self.GROUP).to(self._flat_dtype())
         return self._device_db
+
+    def _ensure_sharded_db(self):
+        """The list of the vectors' row shards on the mesh
+        (``pad_and_shard_db``: a multiple of dp x GROUP rows), in the dtype
+        of ``_ensure_device_db``."""
+        if self._sharded_db is None:
+            from ..parallel.sharded_search import pad_and_shard_db
+
+            shards, _ = pad_and_shard_db(self._mesh, self._host_vectors(),
+                                         self.GROUP)
+            self._sharded_db = [t.to(self._flat_dtype()) for t in shards]
+        return self._sharded_db
+
+    def _flat_dtype(self):
+        if self.config.storage_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"storage_dtype {self.config.storage_dtype!r}"
+                             " not in (float32, bfloat16, int8)")
+        return (torch.bfloat16 if self.config.storage_dtype == "bfloat16"
+                else torch.float32)
+
+    def _host_vectors(self) -> np.ndarray:
+        return np.array(self._arrays["vectors"], dtype=np.float32)
+
+    def _int8_host(self, n_pad: int):
+        """(codes (n_pad, D) int8, per-row scales (n_pad,)) on the host,
+        zero past the vectors. Quantizes row chunks straight off the memmap
+        into a preallocated int8 buffer: the transient is one 64k-row f32
+        chunk, not a full padded f32 copy of the database."""
+        vecs = self._arrays["vectors"]
+        n, d = vecs.shape
+        codes = np.zeros((n_pad, d), np.int8)
+        scales = np.zeros((n_pad,), np.float32)
+        chunk = 65536
+        for s in range(0, n, chunk):
+            e = min(n, s + chunk)
+            codes[s:e], scales[s:e] = quantize_rows_int8(vecs[s:e])
+        return codes, scales
 
     def _ensure_int8_db(self):
         """int8 device copy: (codes (N_pad, D) int8, per-row scales
-        (N_pad,)). Quantizes row chunks straight off the memmap into a
-        preallocated int8 buffer: the transient is one 64k-row f32 chunk,
-        not a full padded f32 copy of the database."""
+        (N_pad,))."""
         if self._int8_db is None:
-            vecs = self._arrays["vectors"]
-            n, d = vecs.shape
+            n = self._arrays["vectors"].shape[0]
             n_pad = max(self.GROUP, -(-n // self.GROUP) * self.GROUP)
-            codes = np.zeros((n_pad, d), np.int8)
-            scales = np.zeros((n_pad,), np.float32)
-            chunk = 65536
-            for s in range(0, n, chunk):
-                e = min(n, s + chunk)
-                codes[s:e], scales[s:e] = quantize_rows_int8(vecs[s:e])
+            codes, scales = self._int8_host(n_pad)
             self._int8_db = (torch.from_numpy(codes).to(self.device),
                              torch.from_numpy(scales).to(self.device))
         return self._int8_db
+
+    def _ensure_int8_shards(self):
+        """The int8 copy on the mesh: (codes shards, scales shards), split
+        as ``pad_and_shard_db`` splits rows; padded rows quantize to scale
+        0, so they score exactly 0 before masking."""
+        if self._int8_shards is None:
+            from ..parallel.mesh import shard_rows
+
+            n = self._arrays["vectors"].shape[0]
+            step = self._mesh.shape["dp"] * self.GROUP
+            codes, scales = self._int8_host(max(1, -(-n // step)) * step)
+            self._int8_shards = (shard_rows(self._mesh, codes),
+                                 shard_rows(self._mesh, scales))
+        return self._int8_shards
 
     # ------------------------------------------------------------------
     def search(
@@ -471,12 +532,25 @@ class FeatureSearchIndex(SearchIndex):
                                "and exact rerank; flat_approx_recall does "
                                "not apply")
             kc = min(self.config.int8_rerank_mult * k, n_valid)
-            codes, scales = self._ensure_int8_db()
-            _, cand = int8_candidates(q, codes, scales, n_valid=n_valid,
-                                      kc=kc, k=k, group=self.GROUP)
+            if self._sharded:
+                from ..parallel.sharded_search import sharded_int8_candidates
+
+                _, cand = sharded_int8_candidates(
+                    self._mesh, qvec, *self._ensure_int8_shards(), n_valid,
+                    kc, group=self.GROUP)
+            else:
+                codes, scales = self._ensure_int8_db()
+                _, cand = int8_candidates(q, codes, scales, n_valid=n_valid,
+                                          kc=kc, k=k, group=self.GROUP)
             return rerank_exact_f32(qvec, _host(cand),
                                     self._arrays["vectors"], k,
                                     n_valid=n_valid)
+        if self._sharded:
+            from ..parallel.sharded_search import sharded_scan_topk
+
+            return sharded_scan_topk(self._mesh, qvec,
+                                     self._ensure_sharded_db(), n_valid, k,
+                                     group=self.GROUP)
         if self.config.flat_approx_recall > 0.0:
             vals, rows = flat_topk_approx(
                 q, self._ensure_device_db(), n_valid=n_valid, k=k,
@@ -507,48 +581,41 @@ class FeatureSearchIndex(SearchIndex):
 
     # ------------------------------------------------------------------
     def _ensure_ivf_coarse(self):
-        """Centroids + cell offsets on the device."""
+        """The f32 centroids on every mesh device (one copy a device)."""
         if self._ivf_dev is None:
-            offsets = np.array(self._arrays["cell_offsets"], dtype=np.int32)
-            centroids = np.array(self._arrays["centroids"], np.float32)
-            self._ivf_dev = (torch.from_numpy(centroids).to(self.device),
-                             torch.from_numpy(offsets).to(self.device))
+            from ..parallel.mesh import replicate
+
+            self._ivf_dev = replicate(self._mesh, np.array(
+                self._arrays["centroids"], np.float32))
         return self._ivf_dev
 
     def _ensure_paged(self, attr, array_name, lpad, cast_bf16):
-        """Device-resident paged layout (ops/ivf_paged.py) over the
-        cell-sorted ``array_name`` rows (``vectors`` or the uint8 ``codes``),
-        built once per load and kept in ``attr``; with ``cast_bf16`` and
+        """The paged layout (ops/ivf_paged.py) of the cell-sorted
+        ``array_name`` rows (``vectors`` or the uint8 ``codes``), split by
+        contiguous cell ranges over the mesh (``build_sharded_paged``; one
+        shard on one device): lists of per-shard tensors, built once per
+        load and kept in ``attr``. With ``cast_bf16`` and
         ``storage_dtype="bfloat16"`` the pages are bf16."""
         if getattr(self, attr) is None:
-            from ..ops.ivf_paged import build_paged_layout
+            from ..parallel.sharded_search import build_sharded_paged
 
-            lay = build_paged_layout(
-                np.asarray(self._arrays[array_name]),
-                np.asarray(self._arrays["cell_offsets"]), lpad)
-            paged = torch.from_numpy(lay["paged"]).to(self.device)
-            if cast_bf16 and self.config.storage_dtype == "bfloat16":
-                paged = paged.to(torch.bfloat16)
-            setattr(self, attr, {
-                "paged": paged,
-                **{name: torch.from_numpy(lay[name]).to(self.device)
-                   for name in ("page_rows", "page_first", "page_count")},
-                "page_count_host": lay["page_count"],
-            })
+            setattr(self, attr, build_sharded_paged(
+                self._mesh, self._arrays[array_name],
+                self._arrays["cell_offsets"], lpad,
+                cast_bf16=cast_bf16
+                and self.config.storage_dtype == "bfloat16"))
         return getattr(self, attr)
 
     def _paged_plan(self, pg, nprobe, nq=1, pq=False):
-        from ..ops.ivf_paged import default_chunk, paged_budget
+        """(budget, chunk) of every shard: the worst shard's budget."""
+        from ..parallel.sharded_search import sharded_paged_plan
 
-        budget = paged_budget(pg["page_count_host"], nprobe)
-        lpad = pg["paged"].shape[1]
         dim = int(self._metadata["dim"])
         # PQ keeps the reference's sizing, max(D, 256) f32 a lane for its
         # one-hot ADC; the gather ADC holds ~20 M bytes a lane (the widened
         # codes, the gather's int64 indices, its f32 entries), 160 at M = 8
-        chunk = default_chunk(lpad, max(dim, 256) if pq else dim, budget,
-                              nq=nq)
-        return budget, chunk
+        return sharded_paged_plan(pg, nprobe, max(dim, 256) if pq else dim,
+                                  nq=nq)
 
     @staticmethod
     def _pad_device_topk(vals, rows, topk):
@@ -563,19 +630,18 @@ class FeatureSearchIndex(SearchIndex):
         return vals, rows
 
     def _search_ivf_device(self, qvec, topk, nprobe):
-        from ..ops.ivf_paged import ivf_search_paged
+        """Paged IVF-Flat over the mesh's shards, merged on the first
+        device."""
+        from ..parallel.sharded_search import sharded_ivf_paged_topk
 
-        centroids, _ = self._ensure_ivf_coarse()
+        centroids = self._ensure_ivf_coarse()
         pg = self._ensure_paged("_ivf_paged", "vectors",
                                 self.config.ivf_page_rows, cast_bf16=True)
-        nprobe = min(int(nprobe), centroids.shape[0])
+        nprobe = min(int(nprobe), centroids[0].shape[0])
         budget, chunk = self._paged_plan(pg, nprobe, nq=qvec.shape[0])
-        q = torch.from_numpy(np.ascontiguousarray(qvec, dtype=np.float32))
-        vals, rows = ivf_search_paged(
-            q, centroids, pg["page_first"], pg["page_count"], pg["paged"],
-            pg["page_rows"], nprobe=nprobe, budget=budget, chunk=chunk,
-            k=int(topk),
-        )
+        vals, rows = sharded_ivf_paged_topk(
+            self._mesh, qvec, centroids, pg, nprobe=nprobe, k=int(topk),
+            chunk=chunk, budget=budget)
         return self._pad_device_topk(vals, rows, topk)
 
     # ------------------------------------------------------------------
@@ -684,29 +750,30 @@ class FeatureSearchIndex(SearchIndex):
 
     def _ensure_pq_paged(self):
         """The paged uint8 codes (never bf16) and the f32 codebooks on the
-        device, built once per load."""
+        mesh (one copy of the codebooks a device), built once per load."""
         pg = self._ensure_paged("_pq_paged", "codes",
                                 self.config.ivfpq_page_rows, cast_bf16=False)
         if "codebooks" not in pg:
-            pg["codebooks"] = torch.from_numpy(np.array(
-                self._arrays["pq_codebooks"], np.float32)).to(self.device)
+            from ..parallel.mesh import replicate
+
+            pg["codebooks"] = replicate(self._mesh, np.array(
+                self._arrays["pq_codebooks"], np.float32))
         return pg
 
     def _search_ivfpq_device(self, qvec, topk, nprobe):
-        from ..ops.ivf_paged import ivfpq_search_paged
+        """Paged IVF-PQ ADC over the mesh's shards, merged on the first
+        device."""
+        from ..parallel.sharded_search import sharded_ivfpq_paged_topk
 
         qvec = self._rotate_q_pq(qvec)
-        centroids, _ = self._ensure_ivf_coarse()
+        centroids = self._ensure_ivf_coarse()
         pg = self._ensure_pq_paged()
-        nprobe = min(int(nprobe), centroids.shape[0])
+        nprobe = min(int(nprobe), centroids[0].shape[0])
         budget, chunk = self._paged_plan(pg, nprobe, nq=qvec.shape[0],
                                          pq=True)
-        q = torch.from_numpy(np.ascontiguousarray(qvec, dtype=np.float32))
-        vals, rows = ivfpq_search_paged(
-            q, centroids, pg["page_first"], pg["page_count"], pg["paged"],
-            pg["page_rows"], pg["codebooks"], nprobe=nprobe, budget=budget,
-            chunk=chunk, k=int(topk),
-        )
+        vals, rows = sharded_ivfpq_paged_topk(
+            self._mesh, qvec, centroids, pg, pg["codebooks"], nprobe=nprobe,
+            k=int(topk), chunk=chunk, budget=budget)
         return self._pad_device_topk(vals, rows, topk)
 
     def _search_ivfpq_host(self, qvec, topk, nprobe):
@@ -765,13 +832,14 @@ class FeatureSearchIndex(SearchIndex):
         (the serve default) the handle holds the unrealised device tensors,
         so the caller's critical section costs the enqueue and readbacks
         overlap across requester threads. The other paths (int8 rerank,
-        approximate flat, IVF-Flat, IVF-PQ) compute here; their handle is
-        already-realised numpy and finalize is a cheap slice."""
+        approximate flat, IVF-Flat, IVF-PQ, sharded) compute here; their
+        handle is already-realised numpy and finalize is a cheap slice."""
         qvec = np.atleast_2d(np.asarray(query_vectors, dtype=np.float32))
         if (
             self._index_type == "IndexFlatIP"
             and self.config.storage_dtype != "int8"
             and self.config.flat_approx_recall <= 0.0
+            and not self._sharded
         ):
             return self._flat(qvec, topk)
         return self._dispatch_search(qvec, topk)

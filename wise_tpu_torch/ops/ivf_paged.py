@@ -28,7 +28,8 @@ Plain torch ops: the reference leaves this path to XLA. ``build_paged_layout``
 is numpy, copied from the reference. The reference's IVF-PQ core scores
 codes by one-hot matmuls, because gathers are what a TPU does slowly; here
 the ADC is its plain form, a ``torch.gather`` of table entries. The
-multi-chip partitioning (``shard_paged_layout``) is not ported yet.
+multi-device partitioning, ``shard_paged_layout``, is numpy, copied from the
+reference; parallel/sharded_search.py runs the cores above on its shards.
 """
 
 from __future__ import annotations
@@ -227,3 +228,73 @@ def paged_pq_core(queries, centroids, page_first, page_count, paged_codes,
 
 
 ivfpq_search_paged = paged_pq_core
+
+
+def shard_paged_layout(layout: dict, ndev: int) -> dict:
+    """Partition a ``build_paged_layout`` result into ``ndev`` contiguous
+    CELL ranges balanced by page count, so every device runs the unmodified
+    paged core on its own shard.
+
+    Cells stay whole (a cell's pages never span devices) and ranges are
+    contiguous in cell order, so each device covers an ascending contiguous
+    global-row range: the device-major candidate merge keeps the faiss
+    lowest-row tie-break for free.
+
+    Returns the shards stacked along the leading axis
+    (``parallel/sharded_search.py`` ``shard_paged_to_device`` splits them):
+      paged       (ndev*(Tm+1), lpad, W)  per-device pages + dummy page
+      page_rows   (ndev*(Tm+1), lpad)     GLOBAL cell-sorted row ids, -1 pad
+      page_first  (ndev, nlist) int32     device-local first page (0 if unowned)
+      page_count  (ndev, nlist) int32     per-cell pages (0 if unowned)
+    plus ``page_count_host`` (ndev, nlist) for budget computation
+    (budget for nprobe = max over devices of paged_budget(row, nprobe)).
+    """
+    page_count = np.asarray(layout["page_count"], np.int64)
+    page_first = np.asarray(layout["page_first"], np.int64)
+    paged = layout["paged"]
+    page_rows = layout["page_rows"]
+    nlist = len(page_count)
+    lpad, w = paged.shape[1], paged.shape[2]
+    total = int(page_count.sum())
+
+    # contiguous cell ranges with ~equal pages: split points on the page
+    # cumsum, assigning each boundary cell to whichever side leaves the
+    # cumulative count closer to the ideal split (always forcing it left
+    # can starve trailing devices, e.g. page_count=[1,3] over 2 devices)
+    cum = np.cumsum(page_count)
+    targets = total * (np.arange(1, ndev) / ndev)
+    idx = np.searchsorted(cum, targets, side="left")
+    cum_ext = np.concatenate([[0], cum])
+    take_right = np.abs(cum_ext[idx] - targets) <= np.abs(
+        cum_ext[np.minimum(idx + 1, nlist)] - targets
+    )
+    bounds = np.concatenate(
+        [[0], np.where(take_right, idx, idx + 1), [nlist]]
+    )
+    bounds = np.minimum(bounds, nlist)
+    bounds = np.maximum.accumulate(bounds)
+
+    counts_sh = np.zeros((ndev, nlist), np.int32)
+    first_sh = np.zeros((ndev, nlist), np.int32)
+    chip_pages = []
+    for dev in range(ndev):
+        c0, c1 = int(bounds[dev]), int(bounds[dev + 1])
+        counts_sh[dev, c0:c1] = page_count[c0:c1]
+        base = int(page_first[c0]) if c1 > c0 else 0
+        first_sh[dev, c0:c1] = (page_first[c0:c1] - base).astype(np.int32)
+        npages = int(page_count[c0:c1].sum())
+        chip_pages.append((base, npages))
+    t_max = max(cnt for _, cnt in chip_pages)
+
+    paged_sh = np.zeros((ndev, t_max + 1, lpad, w), paged.dtype)
+    rows_sh = np.full((ndev, t_max + 1, lpad), -1, np.int32)
+    for dev, (base, npages) in enumerate(chip_pages):
+        paged_sh[dev, :npages] = paged[base:base + npages]
+        rows_sh[dev, :npages] = page_rows[base:base + npages]
+    return {
+        "paged": paged_sh.reshape(ndev * (t_max + 1), lpad, w),
+        "page_rows": rows_sh.reshape(ndev * (t_max + 1), lpad),
+        "page_first": first_sh,
+        "page_count": counts_sh,
+        "page_count_host": counts_sh,
+    }

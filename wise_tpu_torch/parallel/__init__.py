@@ -1,3 +1,15 @@
-"""Training on the card (wise_tpu/parallel/): the single-device CLIP
-trainer. The mesh, the sharded search and the pipeline-parallel trainer are
-multi-device and wait for ROADMAP Queue A item 12."""
+"""Multi-device work (wise_tpu/parallel/__init__.py): the mesh, the sharded
+search over it, process-group set-up and the CLIP trainer, on one device or
+data-parallel. Tensor parallelism and the pipeline-parallel trainer
+(``pipeline.py``, ``pp_train.py``) wait for ROADMAP Queue A item 12."""
+
+from .distributed import maybe_initialize_distributed
+from .mesh import get_mesh, shard_rows
+from .sharded_search import sharded_scan_topk
+
+__all__ = [
+    "get_mesh",
+    "shard_rows",
+    "sharded_scan_topk",
+    "maybe_initialize_distributed",
+]

@@ -1,12 +1,21 @@
-"""CLIP contrastive training on one device (wise_tpu/parallel/train.py).
+"""CLIP contrastive training (wise_tpu/parallel/train.py): on one device,
+or data-parallel over ranks of ``torch.distributed``.
 
-The reference's ``CLIPTrainer`` with its GSPMD rules left out: the mesh,
-``_spec_for_path`` and ``clip_param_shardings`` are multi-device and wait for
-ROADMAP Queue A item 12, so the trainer takes a device, not a mesh. What is
-kept, name for name: ``build_optimizer`` (AdamW, warm-up + cosine schedule,
+The reference's ``CLIPTrainer`` takes a mesh and lets GSPMD shard the batch
+over 'dp' and the weights over 'mp'. Here the trainer takes a device, and
+data parallelism is one process a rank (parallel/distributed.py): when the
+default process group has more than one rank, the model runs under
+``DistributedDataParallel`` on the rank's device and each rank's
+``train_step`` takes its own rows of the global batch (rank r the r-th
+slice). The loss is the global batch's, as the reference's (``clip_loss``
+over replicated features): every rank's features are gathered with their
+gradient (:func:`gather_rows`) and every rank computes the same loss.
+Tensor parallelism (``_spec_for_path``, ``clip_param_shardings``) and the
+pipeline-parallel trainer wait for ROADMAP Queue A item 12. What is kept,
+name for name: ``build_optimizer`` (AdamW, warm-up + cosine schedule,
 global-norm clip), ``clip_loss``, ``CLIPTrainer`` and the ``step_%08d``
 checkpoints, here on ``torch.save`` / ``torch.load`` where the reference
-uses orbax.
+uses orbax; rank 0 writes them.
 
 **f32 master weights.** The trainer builds the towers with
 ``param_dtype=torch.float32`` (models/clip/model.py): every parameter is an
@@ -40,6 +49,7 @@ import torch
 from ..models.clip.config import CLIPConfig
 from ..models.clip.model import CLIP, init_random_
 from ..utils.device import default_device
+from .distributed import rank_device, world_env
 
 #: the file inside a ``step_%08d`` directory
 STATE_FILE = "train_state.pt"
@@ -156,6 +166,56 @@ def restore_train_checkpoint(ckpt_dir, step: int = -1, map_location="cpu"):
     return step, state["params"], state["opt_state"]
 
 
+def _process_group():
+    """(world size, rank) of the default process group, (1, 0) without
+    one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every rank's (B, ...) rows as one (W * B, ...) tensor, rank r's at
+    rows r * B: an ``all_reduce`` of a zero f32 buffer that each rank fills
+    at its own rows (exact: one term a row is not zero, and f32 holds the
+    features of any compute dtype), since gloo reduces CUDA tensors but does
+    not all-gather them. Every rank then computes the same global loss, so
+    the backward sums the buffer's gradient over the ranks before it takes
+    its own rows: without that sum, DDP's average would give the towers 1/W
+    of their gradient and ``logit_scale``, which every rank differentiates
+    whole, all of its."""
+
+    @staticmethod
+    def forward(ctx, x):
+        import torch.distributed as dist
+
+        world, rank = _process_group()
+        b = x.shape[0]
+        buf = torch.zeros((world * b, *x.shape[1:]), dtype=torch.float32,
+                          device=x.device)
+        buf[rank * b:(rank + 1) * b] = x
+        dist.all_reduce(buf)
+        ctx.rows, ctx.dtype = (rank * b, (rank + 1) * b), x.dtype
+        return buf.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        grad = grad.to(torch.float32, copy=True).contiguous()
+        dist.all_reduce(grad)
+        lo, hi = ctx.rows
+        return grad[lo:hi].to(ctx.dtype)
+
+
+def gather_rows(x):
+    """The global batch's rows of ``x`` on every rank, with the gradient
+    (:class:`_GatherRows`)."""
+    return _GatherRows.apply(x)
+
+
 def clip_loss(img_feats, txt_feats, logit_scale):
     """Symmetric InfoNCE over the batch."""
     logits = logit_scale * img_feats @ txt_feats.T
@@ -166,7 +226,8 @@ def clip_loss(img_feats, txt_feats, logit_scale):
 
 class CLIPTrainer:
     """Fine-tunes the CLIP towers of ``config`` on ``device`` (the card
-    unless ``WISE_TORCH_DEVICE`` says otherwise). With ``config.fused_block``
+    unless ``WISE_TORCH_DEVICE`` says otherwise; on a rank of a process
+    group, the rank's device). With ``config.fused_block``
     the forward runs the saved-activation block kernels (ops/block.py
     ``*_train``) and, for an XLM-R text tower, the post-LN kernels
     (ops/postln_block.py ``*_train``); with ``fused_attention`` alone the
@@ -178,10 +239,16 @@ class CLIPTrainer:
                  warmup_steps: int = 0, total_steps: int = 0,
                  grad_clip: float = 0.0):
         self.config = config
-        self.device = torch.device(device) if device else default_device()
+        self.world, self.rank = _process_group()
+        if device:
+            self.device = torch.device(device)
+        elif self.world > 1:
+            self.device = rank_device(world_env()[2])
+        else:
+            self.device = default_device()
         self._opt_args = (learning_rate, weight_decay, warmup_steps,
                           total_steps, grad_clip)
-        self.model = None
+        self.model = self._forward = None
         self.optimizer = None
 
     def init(self, seed: int = 0, params=None) -> "CLIPTrainer":
@@ -193,7 +260,11 @@ class CLIPTrainer:
             init_random_(model, seed)
         else:
             model.load_state_dict(params)
-        self.model = model.to(self.device).train()
+        self.model = self._forward = model.to(self.device).train()
+        if self.world > 1:
+            from torch.nn.parallel import DistributedDataParallel
+
+            self._forward = DistributedDataParallel(self.model)
         self.optimizer = build_optimizer(self.model.parameters(),
                                          *self._opt_args)
         return self
@@ -204,13 +275,17 @@ class CLIPTrainer:
         return self.model.state_dict()
 
     def loss(self, images, tokens):
-        img, txt, scale = self.model(images, tokens)
+        """The loss of the global batch: on a rank, of every rank's rows."""
+        img, txt, scale = self._forward(images, tokens)
+        if self.world > 1:
+            img, txt = gather_rows(img), gather_rows(txt)
         return clip_loss(img, txt, scale)
 
     def train_step(self, images, tokens):
         """One optimizer step on a batch: images (B, S, S, 3) float, tokens
-        (B, ctx) int. Returns the loss before the step, a 0-d tensor on the
-        device (reading it waits for the step)."""
+        (B, ctx) int; on a rank, its own B rows of the global batch. Returns
+        the global batch's loss before the step, a 0-d tensor on the device
+        (reading it waits for the step)."""
         images = torch.as_tensor(images).to(self.device, torch.float32)
         tokens = torch.as_tensor(tokens).to(self.device, torch.int64)
         self.optimizer.zero_grad()
@@ -220,8 +295,16 @@ class CLIPTrainer:
         return loss.detach()
 
     def save_checkpoint(self, ckpt_dir, step: int) -> Path:
-        return save_train_checkpoint(ckpt_dir, step, self.params,
-                                     self.optimizer.state_dict())
+        """Rank 0 writes the step; the other ranks wait for it."""
+        path = Path(ckpt_dir).absolute() / f"step_{step:08d}"
+        if self.rank == 0:
+            save_train_checkpoint(ckpt_dir, step, self.params,
+                                  self.optimizer.state_dict())
+        if self.world > 1:
+            import torch.distributed as dist
+
+            dist.barrier()
+        return path
 
     def restore_checkpoint(self, ckpt_dir, step: int = -1) -> int:
         """Load the latest (or the given) step into this trainer; returns

@@ -80,19 +80,35 @@ def caption_batches(
     image_size: int,
     seed: int = 0,
     epochs: int = 1,
+    rank: int = 0,
+    world: int = 1,
 ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
     """Yields (images (B,S,S,3) f32 in [0,1]-ish raw uint8->float, tokens
-    (B, ctx) int32). Frames are decoded lazily and cached per segment."""
+    (B, ctx) int32). Frames are decoded lazily and cached per segment.
+
+    With ``world`` > 1, ``batch_size`` is the global batch and rank
+    ``rank`` yields its B = batch_size / world rows of each: every rank
+    draws the same seeded order, and of its stream (the epochs' orders one
+    after another) rank r takes the r-th run of B segments in every run of
+    batch_size, so it decodes and tokenizes only its own rows. Where every
+    frame decodes, rank r's rows are rows r*B..(r+1)*B of the one-process
+    global batch; a frame that does not decode is skipped by its rank
+    alone, which fills its rows from its next run."""
     rng = np.random.default_rng(seed)
     cache = {}
+    rows = batch_size // world
     # the partial batch carries ACROSS epochs: with fewer segments than
     # batch_size, per-epoch resets would discard every partial batch and
     # the generator would yield nothing (observed as a train CLI run
     # finishing at step 0 on a 2-segment project)
     batch_imgs, batch_txts = [], []
+    position = 0
     for _ in range(epochs):
         order = rng.permutation(len(segments))
         for i in order:
+            position += 1
+            if (position - 1) // rows % world != rank:
+                continue
             path, mid, cap = segments[i]
             if i not in cache:
                 cache[i] = sample_frame(path, mid, image_size)
@@ -100,7 +116,7 @@ def caption_batches(
                 continue
             batch_imgs.append(cache[i])
             batch_txts.append(cap)
-            if len(batch_imgs) == batch_size:
+            if len(batch_imgs) == rows:
                 yield (
                     np.stack(batch_imgs).astype(np.float32) / 255.0,
                     tokenizer(batch_txts),

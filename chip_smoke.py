@@ -35,6 +35,10 @@ detection.
     python3 chip_smoke.py --phase multi    # env, the index (whose project it
                                            # needs) and the multi-device leg
     python3 chip_smoke.py --phase train    # env and the training steps only
+    python3 chip_smoke.py --phase mp       # env, the head-split kernel rows
+                                           # and tensor-parallel training
+    python3 chip_smoke.py --phase pp       # env and pipeline-parallel
+                                           # training only
     python3 chip_smoke.py --phase padded   # env and the padded-head block only
     python3 chip_smoke.py --phase embed_fold  # env and the embed fold only
     python3 chip_smoke.py --phase clap2022 # env and CLAP 2022 only
@@ -261,25 +265,48 @@ Phases, one line each; any failure exits non-zero:
    fused_attn_block_res, 23 fused_mlp_fc_res and fused_mlp_proj, 11
    fused_mlp_block_res and the two pooled kernels a step. ms a step by CUDA
    events (forward, backward, optimizer; median) for both paths, and the
-   peak device memory. Then the default backbone at full width
-   (``training_clip_config("xlm-roberta-large-ViT-H-14")``: ViT-H/14, 32
-   layers at 257 x 1280, and XLM-R large, 24 post-LN layers at 64 x 1024,
-   1.19 B f32 masters) at batch 32, and ViT-B/32 under WISE_FUSED_BLOCK=0
+   peak device memory. Then the default backbone at full width and a
+   quarter of its depth (``training_clip_config("xlm-roberta-large-ViT-H-
+   14")`` at XLMR_TRAIN_DEPTH: ViT-H/14, 8 of its 32 layers at 257 x 1280,
+   and XLM-R large, 6 of its 24 post-LN layers at 64 x 1024) at batch 32,
+   and ViT-B/32 under WISE_FUSED_BLOCK=0
    (the attention middle a kernel, everything else plain) at batch 256:
    three steps each against a plain twin from one master tree, one trainer
    on the card at a time (the master tree and the first step's gradients
    wait on the host), with the same bars; a default-backbone step must
-   launch exactly 24 fused_postln_attn_block, 24 fused_postln_fc and
-   fused_postln_proj, 31 fused_attn_block_res, 31 fused_mlp_fc_res and
+   launch exactly 6 fused_postln_attn_block, 6 fused_postln_fc and
+   fused_postln_proj, 7 fused_attn_block_res, 7 fused_mlp_fc_res and
    fused_mlp_proj, and one fused_attn_block_pooled, a WISE_FUSED_BLOCK=0
    step 11 fused_short_attention a tower; ms a step, peak device memory and
    a step's launches by (wrapper, SP, D) for each path. Last the train CLI
-   (``wise_tpu_torch.cli.train.main``) on the default backbone, 3 steps at
-   batch 32 (its captions' segments and frames from seeded stand-ins for
+   (``wise_tpu_torch.cli.train.main``) on the default backbone (at the same
+   depth), 3 steps at batch 32 (its captions' segments and frames from seeded stand-ins for
    the metadata table and the decoder): exactly 3 steps' launches, and the
    port's extractor serves its checkpoint (every tensor the checkpoint's,
    cast to bf16; finite unit embeddings; the queries' text embeddings moved
    from the seed-0 weights').
+
+   mp (phase_mp): the head-split kernel rows (MP_SHAPES: rank 0's half of
+   ViT-H/14's vision tower at 32 x 257 x 1280, of ViT-B/32's at 256 x 50 x
+   768 and its causal text at 256 x 77 x 512; the attention chain, the MLP's
+   fc and proj halves, the pooled chain; the bound the whole block's over
+   two, SDPA on the rank's heads and torch.addmm on each product slice as
+   the library), then the train CLI at --mp 2 (two ranks; on one card they
+   share it under gloo) on the default backbone at batch 32 (at
+   XLMR_TRAIN_DEPTH) and ViT-B/32 at 256, 3 steps each at 1e-4, every rank's steps exactly the head-split launches,
+   against the single card's run of the same CLI from the same masters and
+   batches ([train]'s default-backbone CLI run, recorded): whole-tree
+   first-step gradient cosine >= 0.999, losses within 5e-3, the towers' and
+   logit_scale's gradient norms within 1.5e-2 of the single card's (about
+   twice what --phase mp_witness shows the single card parting from itself
+   by when only its f32 sums are reordered); the first step once more without the all_reduce of LN(x)'s
+   cotangent, which must fail them; step ms and peak memory a rank; the
+   checkpoint the whole tree, ViT-B/32's served.
+   pp (phase_pp): the train CLI at --pp 2 --microbatches 4 on ViT-B/32 at
+   256 (the kernels off, the two stages the card twice) against the single
+   card's plain run, with the same bars; the first step once more with the
+   activations detached between the stages, which must fail them; the
+   pipeline checkpoint restored and served.
 
 12. padded: ViT-H/14's vision tower (production config, random weights
    from seed 0) on one 64-frame batch with the padded-head block opened for
@@ -383,6 +410,14 @@ XLMR_ID = ("mlfoundations/open_clip/xlm-roberta-large-ViT-H-14/"
            "frozen_laion5b_s13b_b90k")
 XLMR_FRAMES = 1024
 XLMR_MODEL = "xlm-roberta-large-ViT-H-14"
+#: the default backbone's training legs ([train]'s twin and CLI runs, [mp])
+#: run at full width and a quarter of its depth: two
+#: gloo ranks on one card spend a step in ~124 host round trips of 42 MB at
+#: 32 vision layers, which with 14 GB checkpoints put the whole smoke at
+#: 1,286 s of its 1,200 on a slow host (NVIDIA H100 80GB HBM3, 700 W)
+XLMR_TRAIN_DEPTH = dict(vision_layers=8, text_layers=6)
+#: set while the cut is on, so that the CLI's spawned ranks take it too
+TRAIN_DEPTH_ENV = "WISE_SMOKE_TRAIN_DEPTH"
 #: upstream WISE's integration-test model: MAP-pooled vision at 576 tokens,
 #: the bidirectional last-token text tower; two batches of 256 at 384 px
 SIGLIP_ID = "mlfoundations/open_clip/ViT-L-16-SigLIP-384/webli"
@@ -479,6 +514,22 @@ KERNELS = {
                               "wise_tpu/ops/block.py:1340"),
     "fused_embed_attn_block": ("wise_tpu_torch/csrc/block_kernels.cu",
                                "wise_tpu/ops/embed_block.py:138"),
+    # the head-split entries (--mp): the same Pallas kernels under the
+    # reference's 'mp' sharding (wise_tpu/parallel/train.py:31-46)
+    "fused_attn_block_mp": ("wise_tpu_torch/csrc/block_kernels.cu "
+                            "wt_attn_block_partial",
+                            "wise_tpu/ops/block.py:1586"),
+    "fused_mlp_fc_mp": ("wise_tpu_torch/csrc/block_kernels.cu wt_mlp_fc_res",
+                        "wise_tpu/ops/block.py:1635"),
+    "fused_mlp_proj_mp": ("wise_tpu_torch/csrc/block_kernels.cu "
+                          "wt_mlp_proj_partial",
+                          "wise_tpu/ops/block.py:1635"),
+    "fused_attn_block_pooled_mp": ("wise_tpu_torch/csrc/block_kernels.cu "
+                                   "wt_attn_block_pooled_partial",
+                                   "wise_tpu/ops/block.py:634"),
+    "fused_attn_block_pooled_dyn_mp": ("wise_tpu_torch/csrc/block_kernels.cu "
+                                       "wt_attn_block_pooled_partial",
+                                       "wise_tpu/ops/block.py:811"),
 }
 #: HTSAT's window batches at batch 64: (tag, windows N, C, heads, n_win of
 #: the shift mask or None); L = 64 tokens (window 8) throughout
@@ -3091,7 +3142,7 @@ def _add_counts(total, counts):
         total[key] = total.get(key, 0) + n
 
 
-def _step_launches(config):
+def _step_launches(config, mp: int = 1):
     """What one train step of ``config`` launches, by wrapper. With
     ``fused_block``: every non-pooled layer of a CLIP tower its attention
     block and its MLP (the wrapper ``mlp_choice`` gives the tower's width)
@@ -3099,7 +3150,10 @@ def _step_launches(config):
     layer of an XLM-R tower its post-LN attention block and MLP (the variant
     ``postln_mlp_choice`` gives). With ``fused_attention`` alone: every
     non-pooled layer of a CLIP tower the attention middle; the pooled last
-    layer and the XLM-R tower are plain."""
+    layer and the XLM-R tower are plain. Split over ``mp`` ranks (a rank's
+    launches): a CLIP tower's layers take the head-split entries, the
+    attention chain and the fc / proj pair at every width, and the pooled
+    layer the head-split pooled chain; the XLM-R tower is whole."""
     from wise_tpu_torch.ops.block import mlp_choice
     from wise_tpu_torch.ops.postln_block import postln_mlp_choice
 
@@ -3124,7 +3178,12 @@ def _step_launches(config):
                        else "fused_attn_block_pooled_dyn"))
     for width, layers, pooled in towers:
         whole = layers - int(bool(c.pool_last_block and pooled))
-        if c.fused_block:
+        if c.fused_block and mp > 1:
+            add(pooled and pooled + "_mp", layers - whole)
+            for name in ("fused_attn_block_mp", "fused_mlp_fc_mp",
+                         "fused_mlp_proj_mp"):
+                add(name, whole)
+        elif c.fused_block:
             add(pooled, layers - whole)
             for name in ["fused_attn_block_res"] + (
                     ["fused_mlp_block_res"] if mlp_choice(width) == "single"
@@ -3243,10 +3302,6 @@ def _train_against_twin(torch, card, model, cfg, plain_cfg, batch, seed):
     return launches
 
 
-#: where a rank of the train CLI at --dp N writes its record (_dp_cli_rank)
-DP_COUNTS_ENV = "WISE_SMOKE_DP_COUNTS"
-
-
 def _cli_stand_ins(model: str, batch: int):
     """The train CLI's caption segments and a frame a segment: seeded
     stand-ins for the metadata table and the decoder (the card's machine
@@ -3276,106 +3331,6 @@ def _stand_ins(model: str, batch: int):
         train_data.load_caption_segments, train_data.sample_frame = real
 
 
-def _planted_gather(torch):
-    """The planted fault of the data-parallel loss: ``gather_rows`` whose
-    backward takes the rank's rows of the gradient without summing it over
-    the ranks first (DDP's average then leaves the towers 1/W of their
-    gradient and ``logit_scale`` all of it)."""
-    from wise_tpu_torch.parallel import train as TT
-
-    class GatherWithoutReduce(torch.autograd.Function):
-        @staticmethod
-        def forward(ctx, x):
-            return TT._GatherRows.forward(ctx, x)
-
-        @staticmethod
-        def backward(ctx, grad):
-            lo, hi = ctx.rows
-            return grad[lo:hi].to(ctx.dtype)
-
-    return GatherWithoutReduce.apply
-
-
-def _fault_grads(torch, trainer, images, tokens) -> dict:
-    """The first step's gradients with ``_planted_gather`` in the loss,
-    clipped as the optimizer clips them, then cleared: what the check of
-    the data-parallel gradients must refuse. Its launches are not the
-    path's (the caller counts the step after it)."""
-    from wise_tpu_torch.parallel import train as TT
-
-    real, TT.gather_rows = TT.gather_rows, _planted_gather(torch)
-    try:
-        trainer.optimizer.zero_grad()
-        trainer.loss(torch.as_tensor(images).to(trainer.device, torch.float32),
-                     torch.as_tensor(tokens).to(trainer.device,
-                                                torch.int64)).backward()
-    finally:
-        TT.gather_rows = real
-    with torch.no_grad():
-        if trainer.optimizer.grad_clip > 0:
-            trainer.optimizer._clip()
-    grads = {n: p.grad.detach().cpu()
-             for n, p in trainer.model.named_parameters()}
-    trainer.optimizer.zero_grad()
-    return grads
-
-
-def _dp_cli_rank(argv) -> None:
-    """A rank of the train CLI at --dp N, in a process of its own: the
-    stand-ins installed in this process, then the CLI's own rank entry, with
-    each ``CLIPTrainer.train_step`` recorded (loss, CUDA-event ms, launches
-    against ``_step_launches``; rank 0 keeps the first step's gradients, and
-    those of the same step with the planted gather, ``_fault_grads``, taken
-    before it); the record written under $WISE_SMOKE_DP_COUNTS."""
-    import torch
-
-    from wise_tpu_torch.cli import train as cli
-    from wise_tpu_torch.parallel.train import CLIPTrainer
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    model = argv[argv.index("--model") + 1]
-    batch = int(argv[argv.index("--batch-size") + 1])
-    out_dir, rank = Path(os.environ[DP_COUNTS_ENV]), os.environ["RANK"]
-    want = _step_launches(cli.training_clip_config(model))
-    rec = {"losses": [], "step_ms": [], "launches": {},
-           "launches_exact": True}
-    step = CLIPTrainer.train_step
-
-    def recorded(trainer, images, tokens):
-        if not rec["losses"]:
-            fault = _fault_grads(torch, trainer, images, tokens)
-            if trainer.rank == 0:
-                torch.save(fault, out_dir / "fault_grads.pt")
-        _reset_launches()
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        loss = step(trainer, images, tokens)
-        ev[1].record()
-        torch.cuda.synchronize()
-        rec["losses"].append(float(loss))
-        rec["step_ms"].append(ev[0].elapsed_time(ev[1]))
-        launched = _launches_by_name()
-        rec["launches_exact"] &= launched == want
-        _add_counts(rec["launches"], launched)
-        if len(rec["losses"]) == 1 and trainer.rank == 0:
-            torch.save({n: p.grad.detach().cpu()
-                        for n, p in trainer.model.named_parameters()},
-                       out_dir / "grads.pt")
-        return loss
-
-    torch.cuda.reset_peak_memory_stats()
-    CLIPTrainer.train_step = recorded
-    try:
-        with _stand_ins(model, batch):
-            cli._rank_main(argv)
-    finally:
-        CLIPTrainer.train_step = step
-    rec.update(device=f"cuda:{torch.cuda.current_device()}",
-               peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
-    (out_dir / f"rank{rank}.json").write_text(json.dumps(rec))
-
-
 def _train_cli(torch, card, model: str = XLMR_MODEL, steps: int = 3,
                batch: int = 32, dp: int = 1, out=None):
     """The train CLI on the card (``python -m wise_tpu_torch.cli.train
@@ -3383,14 +3338,17 @@ def _train_cli(torch, card, model: str = XLMR_MODEL, steps: int = 3,
     segments and their frames come from seeded stand-ins (_stand_ins),
     everything else is the CLI's own: the training config, the tokenizer,
     CLIPTrainer, the checkpoint; with ``dp`` > 1 the ranks it spawns
-    (each installs the stand-ins, _dp_cli_rank). Its steps must launch
-    exactly steps x ``_step_launches`` (in every rank); then the port's
-    extractor loads the checkpoint (every tensor the checkpoint's f32
-    master cast to the serving dtype) and serves finite unit embeddings,
-    the text embeddings of the queries away from the seed-0 weights'.
-    Returns the CLI's launches by (wrapper, SP, D) in this process; with
-    ``dp`` > 1, ``out`` gains the ranks' records (``ranks``) and rank 0's
-    first-step gradients (``grads``)."""
+    (each installs the stand-ins, _recorded_cli_rank). Every step is
+    recorded (_recording), and must launch exactly ``_step_launches`` (in
+    every rank); then the port's extractor loads the checkpoint (every
+    tensor the checkpoint's f32 master cast to the serving dtype) and
+    serves finite unit embeddings, the text embeddings of the queries away
+    from the seed-0 weights'. Returns the CLI's launches by (wrapper, SP,
+    D) in this process. With ``dp`` > 1 the ranks also take the first step
+    with the planted gather, and hold both first steps' gradients to those
+    in the file ``out["ref"]``; ``out`` gains the ranks' records
+    (``ranks``). One card's run of DP_STEPS steps is kept as [mp]'s
+    single-card reference (_REFS)."""
     import gc
 
     import numpy as np
@@ -3401,12 +3359,21 @@ def _train_cli(torch, card, model: str = XLMR_MODEL, steps: int = 3,
 
     cfg = cli.training_clip_config(model)
     want = {k: steps * v for k, v in _step_launches(cfg).items()}
+    # the steps' record: a run of one card of DP_STEPS steps is [mp]'s
+    # single-card reference (_single_ref), which then need not run again
+    rec_dir = tempfile.TemporaryDirectory(prefix="wise_smoke_ref_")
+    spec = dict(want=_step_launches(cfg), out=rec_dir.name)
+    if dp > 1:
+        spec.update(plant="gather", ref=out["ref"])
+    elif steps == DP_STEPS:
+        spec.update(save=str(Path(rec_dir.name) / "grads.pt"))
     real_rank = cli._rank_main
-    cli._rank_main = _dp_cli_rank
+    cli._rank_main = _recorded_cli_rank
     try:
         with tempfile.TemporaryDirectory(prefix="wise_smoke_cli_") as tmp, \
                 _stand_ins(model, batch) as (_, frames), \
-                _env(**{DP_COUNTS_ENV: tmp}):
+                _env(**{RECORD_ENV: json.dumps(spec)}), \
+                _recording(torch, spec):
             (Path(tmp) / "proj").mkdir()
             ckpt = Path(tmp) / "ckpt" / model / "finetuned"
             _reset_launches()
@@ -3421,12 +3388,9 @@ def _train_cli(torch, card, model: str = XLMR_MODEL, steps: int = 3,
             got, by_shape = _launches_by_name(), dict(_block_launches())
             ranks = [got]
             if dp > 1 and rc == 0:
-                out["ranks"] = [json.loads((Path(tmp) / f"rank{r}.json")
-                                           .read_text()) for r in range(dp)]
-                out["grads"], out["fault_grads"] = (
-                    torch.load(Path(tmp) / f"{name}.pt", map_location="cpu",
-                               weights_only=True)
-                    for name in ("grads", "fault_grads"))
+                out["ranks"] = [json.loads((Path(rec_dir.name) /
+                                            f"rank{r}.json").read_text())
+                                for r in range(dp)]
                 ranks = [r["launches"] for r in out["ranks"]]
             gc.collect()
             torch.cuda.empty_cache()
@@ -3458,6 +3422,12 @@ def _train_cli(torch, card, model: str = XLMR_MODEL, steps: int = 3,
             torch.cuda.empty_cache()
     finally:
         cli._rank_main = real_rank
+    if spec.get("save"):
+        _REFS[(model, batch, False)] = (
+            json.loads((Path(rec_dir.name) / "rank0.json").read_text()),
+            Path(spec["save"]), rec_dir)
+    else:
+        rec_dir.cleanup()
     seed0 = OpenClipExtractor(f"mlfoundations/open_clip/{model}/none")
     moved = float(np.abs(text - seed0.extract_text_features(QUERIES)).max())
     del seed0
@@ -3671,16 +3641,17 @@ def phase_train(torch, card, model: str = "ViT-B-32", batch: int = 256,
     del big
     torch.cuda.empty_cache()
 
-    # the default backbone at full width: ViT-H/14 (32 layers, 257 tokens,
-    # head_dim 80) and XLM-R large (24 post-LN layers, 64 tokens)
-    cfg_h = training_clip_config(XLMR_MODEL, "bfloat16")
-    if not (cfg_h.fused_block and cfg_h.text_tower == "hf_xlm_roberta"):
-        raise PhaseError("train: the default backbone's config is off the "
-                         "kernels")
-    _add_counts(launches, _train_against_twin(
-        torch, card, XLMR_MODEL, cfg_h, dataclasses.replace(
-            cfg_h, fused_block=False, pool_last_block=False,
-            fused_attention=False), default_batch, 400))
+    # the default backbone at full width: ViT-H/14 (257 tokens, head_dim
+    # 80) and XLM-R large (post-LN, 64 tokens), at XLMR_TRAIN_DEPTH
+    with _default_backbone_cut():
+        cfg_h = training_clip_config(XLMR_MODEL, "bfloat16")
+        if not (cfg_h.fused_block and cfg_h.text_tower == "hf_xlm_roberta"):
+            raise PhaseError("train: the default backbone's config is off "
+                             "the kernels")
+        _add_counts(launches, _train_against_twin(
+            torch, card, XLMR_MODEL, cfg_h, dataclasses.replace(
+                cfg_h, fused_block=False, pool_last_block=False,
+                fused_attention=False), default_batch, 400))
     # WISE_FUSED_BLOCK=0: the attention middle is the one kernel
     os.environ["WISE_FUSED_BLOCK"] = "0"
     try:
@@ -3693,7 +3664,9 @@ def phase_train(torch, card, model: str = "ViT-B-32", batch: int = 256,
     _add_counts(launches, _train_against_twin(
         torch, card, f"{model}[WISE_FUSED_BLOCK=0]", cfg_a,
         dataclasses.replace(cfg_a, fused_attention=False), batch, 500))
-    _add_counts(launches, _train_cli(torch, card, batch=default_batch))
+    # [mp] holds its default-backbone leg to this run
+    with _default_backbone_cut():
+        _add_counts(launches, _train_cli(torch, card, batch=default_batch))
     return launches
 
 
@@ -3867,6 +3840,25 @@ def phase_audio(torch, card, k=10):
             device_ms_per_batch=f"{ms:.3f}",
             device_segments_per_s=f"{1e3 * len(batch) / ms:.1f}")
     return launches
+
+
+@contextlib.contextmanager
+def _default_backbone_cut():
+    """The registry's default backbone at XLMR_TRAIN_DEPTH while the block
+    runs, for every caller that looks it up (the CLI, the trainers, the
+    extractor), and in the CLI's ranks (TRAIN_DEPTH_ENV)."""
+    import dataclasses
+
+    from wise_tpu_torch.models.clip import config as C
+
+    whole = C.CLIP_CONFIGS[XLMR_MODEL]
+    C.CLIP_CONFIGS[XLMR_MODEL] = dataclasses.replace(whole,
+                                                     **XLMR_TRAIN_DEPTH)
+    try:
+        with _env(**{TRAIN_DEPTH_ENV: "1"}):
+            yield
+    finally:
+        C.CLIP_CONFIGS[XLMR_MODEL] = whole
 
 
 @contextlib.contextmanager
@@ -4235,7 +4227,7 @@ def _write_index_project(torch, project_dir: Path, real):
     """A WiseProject whose feature store and DB hold INDEX_N vectors: the
     ``real`` embeddings as the frames of one clip, then synthetic clips of
     INDEX_CLIP vectors at 2 fps, one media row each, written through the
-    store's ``add`` and the repositories' ``create`` / ``create_batch`` in
+    store's ``add`` and the repositories' ``create`` / ``insert_rows`` in
     one transaction. Returns ((N, D) float32 vectors in id order, seconds
     in the store's writes, seconds in the DB's)."""
     import numpy as np
@@ -4257,6 +4249,7 @@ def _write_index_project(torch, project_dir: Path, real):
         cfg.store.store_type, "video", proj.create_features_dir(MODEL_ID))
     fstore.enable_write(cfg.store.shard_maxcount, cfg.store.shard_maxsize)
     media_repo, vector_repo = repository.MediaRepo(), repository.VectorRepo()
+    video = dm.ModalityType.VIDEO
     vecs = np.empty((INDEX_N, INDEX_D), np.float32)
     store_s = db_s = 0.0
     row = clip = 0
@@ -4272,13 +4265,14 @@ def _write_index_project(torch, project_dir: Path, real):
             source_collection_id=sc.id, path=f"clip{clip:03d}.mp4",
             media_type=dm.MediaType.VIDEO, format="mp4", width=224,
             height=224, num_frames=n, duration=n / 2))
-        created = vector_repo.create_batch(conn, [
-            dm.VectorMetadata(modality=dm.ModalityType.VIDEO,
-                              media_id=media.id, timestamp=i / 2,
-                              end_timestamp=None) for i in range(n)])
+        # create_batch's rows without a pydantic object and a copy of it a
+        # row (insert_rows): 24.9 of a 32.0 s write went to those on an
+        # NVIDIA H100 80GB HBM3 host
+        base = vector_repo.insert_rows(
+            conn, [(video, media.id, i / 2, None) for i in range(n)])
         t1 = time.perf_counter()
-        for v, feat in zip(created, feats):
-            fstore.add(v.id, feat[None, :])
+        for i, feat in enumerate(feats):
+            fstore.add(base + i + 1, feat[None, :])
         store_s += time.perf_counter() - t1
         db_s += t1 - t0
         vecs[row:row + n] = feats
@@ -4705,7 +4699,7 @@ def _ivfpq_leg(torch, card, project_dir, load, create_index, q64, flat_ids,
 #: ranks, global batch, steps and seed, and the train CLI's batch at --dp
 MULTI_SCANS = [(1, 10), (16, 10), (64, 100)]
 DP_RANKS, DP_BATCH, DP_STEPS, DP_LR = 2, 256, 3, 1e-4
-#: how far from 1 the data-parallel gradients' scale (_grad_scales) may
+#: how far from 1 the data-parallel gradients' scale (_grad_check) may
 #: be: the planted gather moves a tower's or logit_scale's by a factor of
 #: DP_RANKS (before the clip, the towers'; after it, logit_scale's), and
 #: the reduction order moved them by <= 2.3e-4 on the card
@@ -4894,14 +4888,14 @@ def _multi_serve(torch, card, mesh, keep, k):
 def _multi_train(torch, card):
     """Data parallelism through the train CLI: ``--dp`` DP_RANKS at global
     batch DP_BATCH for DP_STEPS steps (_train_cli, whose ranks record their
-    steps, _dp_cli_rank), against the single-card trainer from the same
+    steps, _recording), against the single-card trainer from the same
     seed-0 f32 masters, optimizer settings and batches (the CLI's own
     ``caption_batches`` over the same stand-ins): the first step's
     whole-tree gradient cosine >= 0.999, the losses within 1e-3, and the
-    scale of the gradients (``_grad_scales``: the norm of each tower's
-    gradient and of ``logit_scale``'s over the single card's, each within
-    DP_SCALE_BAR of 1), which the planted gather (``_fault_grads``) must
-    fail; step ms (CUDA events) and peak memory a rank beside the single
+    scale of the gradients (_grad_check: the norm of each tower's gradient
+    and of ``logit_scale``'s over the single card's, each within
+    DP_SCALE_BAR of 1), which the planted gather (_planted) must fail;
+    step ms (CUDA events) and peak memory a rank beside the single
     card's."""
     import gc
 
@@ -4920,6 +4914,7 @@ def _multi_train(torch, card):
     trainer = CLIPTrainer(cfg, learning_rate=DP_LR, total_steps=DP_STEPS,
                           grad_clip=1.0).init(seed=0)
     single = {"losses": [], "step_ms": []}
+    ref = tempfile.TemporaryDirectory(prefix="wise_smoke_ref_")
     for images, tokens in batches:
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
@@ -4927,31 +4922,23 @@ def _multi_train(torch, card):
         ev[1].record()
         torch.cuda.synchronize()
         single["step_ms"].append(ev[0].elapsed_time(ev[1]))
-        if "grads" not in single:
-            single["grads"] = {n: p.grad.detach().cpu()
-                               for n, p in trainer.model.named_parameters()}
+        if len(single["losses"]) == 1:
+            torch.save(trainer.whole(trainer.grads()),
+                       Path(ref.name) / "grads.pt")
     single_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = single.pop("grads")
     del trainer, batches
     gc.collect()
     torch.cuda.empty_cache()
-    out = {}
-    _train_cli(torch, card, model, steps=DP_STEPS, batch=DP_BATCH,
-               dp=DP_RANKS, out=out)
-    got, ranks = out["grads"], out["ranks"]
-
-    def dot(a, b):
-        return float(torch.dot(a.flatten().double(), b.flatten().double()))
-
-    cos = sum(dot(got[n], g) for n, g in want.items()) / math.sqrt(
-        sum(dot(g, g) for g in want.values())
-        * sum(dot(g, g) for g in got.values()))
-    scales = _grad_scales(got, want)
-    fault = _grad_scales(out["fault_grads"], want)
-    scale_off = max(abs(v - 1) for v in scales.values())
-    caught = max(abs(v - 1) for v in fault.values()) > DP_SCALE_BAR
-    leaf_off = max(abs(math.sqrt(dot(got[n], got[n]) / dot(g, g)) - 1)
-                   for n, g in want.items() if dot(g, g) > 0)
+    out = {"ref": str(Path(ref.name) / "grads.pt")}
+    try:
+        _train_cli(torch, card, model, steps=DP_STEPS, batch=DP_BATCH,
+                   dp=DP_RANKS, out=out)
+    finally:
+        ref.cleanup()
+    ranks = out["ranks"]
+    got, fault = ranks[0]["grads"], ranks[0]["fault"]
+    scale_off = max(abs(v - 1) for v in got["scales"].values())
+    caught = max(abs(v - 1) for v in fault["scales"].values()) > DP_SCALE_BAR
     gap = max(abs(a - b) for r in ranks for a, b in zip(r["losses"],
                                                        single["losses"]))
     for r, rec in enumerate(ranks):
@@ -4962,39 +4949,26 @@ def _multi_train(torch, card):
             peak_device_gb=f"{rec['peak_device_gb']:.3f}",
             launches_per_step_exact=rec["launches_exact"])
     say("multi", card=repr(card), leg="dp_train", check="vs_single_card",
-        ranks=DP_RANKS, whole_tree_grad_cos=f"{cos:.6f}", cos_bar=0.999,
+        ranks=DP_RANKS, whole_tree_grad_cos=f"{got['cos']:.6f}",
+        cos_bar=0.999,
         losses=",".join(f"{v:.5f}" for v in ranks[0]["losses"]),
         single_losses=",".join(f"{v:.5f}" for v in single["losses"]),
         max_loss_gap=f"{gap:.6f}", loss_bar=1e-3,
-        grad_scale=",".join(f"{k}:{v:.6f}" for k, v in scales.items()),
-        scale_bar=DP_SCALE_BAR, worst_leaf_scale_off=f"{leaf_off:.2e}",
-        planted_grad_scale=",".join(f"{k}:{v:.6f}" for k, v in fault.items()),
+        grad_scale=",".join(f"{k}:{v:.6f}"
+                            for k, v in got["scales"].items()),
+        scale_bar=DP_SCALE_BAR,
+        worst_leaf_scale_off=f"{got['worst_leaf']:.2e}",
+        planted_grad_scale=",".join(f"{k}:{v:.6f}"
+                                    for k, v in fault["scales"].items()),
         planted="FAIL(expected)" if caught else "PASSED(wrong)",
         single_step_ms=",".join(f"{v:.3f}" for v in single["step_ms"]),
         single_peak_device_gb=f"{single_gb:.3f}")
-    if not (cos >= 0.999 and gap <= 1e-3 and scale_off <= DP_SCALE_BAR
+    if not (got["cos"] >= 0.999 and gap <= 1e-3 and scale_off <= DP_SCALE_BAR
             and caught and all(r["launches_exact"] for r in ranks)):
         raise PhaseError(f"multi: {DP_RANKS} data-parallel ranks off the "
-                         f"single card (grad cos {cos}, loss gap {gap}, "
-                         f"gradient scales {scales}), the planted gather "
-                         f"not caught ({fault}), or off the kernel path's "
-                         f"launches")
-
-
-def _grad_scales(got: dict, want: dict) -> dict:
-    """The norm of ``got``'s gradient over ``want``'s, for the vision tower
-    (``visual.*``), the text tower (the rest) and ``logit_scale``: a check
-    that the cosine cannot make, since it ignores scale."""
-    def group(name):
-        return (name if name == "logit_scale"
-                else "visual" if name.startswith("visual.") else "text")
-
-    sums = {}
-    for name, g in want.items():
-        a, b = sums.setdefault(group(name), [0.0, 0.0])
-        sums[group(name)] = [a + float(got[name].double().square().sum()),
-                             b + float(g.double().square().sum())]
-    return {k: math.sqrt(a / b) for k, (a, b) in sums.items()}
+                         f"single card (grads {got}, loss gap {gap}), the "
+                         f"planted gather not caught ({fault}), or off the "
+                         f"kernel path's launches")
 
 
 #: the padded-head phase (ViT-H/14's vision tower with the padded-head block
@@ -5800,6 +5774,726 @@ def _encode_rates(torch, extractor, frames, reps: int = 5):
     return fps, ms
 
 
+# ---------------------------------------------------------------------------
+# tensor and pipeline parallelism: [mp] and [pp]
+# ---------------------------------------------------------------------------
+
+#: [mp]: the train CLI at --mp MP_RANKS, DP_STEPS steps at DP_LR, on each
+#: (model, global batch); on one card the ranks share it (gloo)
+MP_RANKS = 2
+MP_LEGS = ((XLMR_MODEL, 32), ("ViT-B-32", 256))
+#: [pp]: the train CLI at --pp PP_STAGES --microbatches PP_MICRO
+PP_STAGES, PP_MICRO, PP_MODEL, PP_BATCH = 2, 4, "ViT-B-32", 256
+#: both held to the single card's run from the same masters and batches:
+#: the whole tree's first-step gradient cosine, the losses step by step,
+#: each tower's gradient norm and logit_scale's (PAR_SCALE_BAR). The single
+#: card parts from itself by this much when nothing but the order of its
+#: f32 sums changes (--phase mp_witness: its blocks' out-projection and fc2
+#: summed as two halves, LN(x)'s cotangent formed in f32): on the default
+#: backbone at batch 32 cosine 0.999404 and logit_scale's norm 1.007021; on
+#: ViT-B/32 at 256 cosine 0.999946, logit_scale 1.003300 and the third loss
+#: 2.316e-3 apart (NVIDIA H100 80GB HBM3, 700 W). The scale and loss bars sit
+#: at about twice those; the planted missing all_reduce moves the cosine to
+#: 0.977 (default backbone) or 0.700 (ViT-B/32)
+PAR_COS_BAR, PAR_SCALE_BAR, PAR_LOSS_BAR = 0.999, 1.5e-2, 5e-3
+#: what a recorded CLI run reads (_recording): JSON, set by its caller
+RECORD_ENV = "WISE_SMOKE_RECORD"
+#: the head-split kernel rows: rank 0's slices at the shapes [mp] launches
+#: (ViT-H/14's vision tower at the default backbone's batch 32, ViT-B/32's
+#: two towers at 256; the XLM-R tower is not split)
+MP_SHAPES = {
+    "vit_h": dict(b=32, sp=257, d=1280, heads=16, f32=True, causal=False,
+                  act="gelu", seeds=(81, 82, 83)),
+    "vit_b32": dict(b=256, sp=50, d=768, heads=12, f32=True, causal=False,
+                    act="gelu", seeds=(84, 85, 86)),
+    "vit_b32_text": dict(b=256, sp=77, d=512, heads=8, f32=False,
+                         causal=True, act="gelu", seeds=(87, 88, 89)),
+}
+
+
+def _mp_rows(torch, results, tag, s):
+    """The head-split entries at one shape on rank 0's slices of whole
+    weights (parallel/train.py ``_shard_leaf``), each held to its plain form
+    on the same slices, both closed over one rank (``mp_close`` with no
+    group: the rank's partial plus the bias on x): the attention chain, the
+    MLP's fc half and its proj half, the pooled chain (the static row 0, or
+    seeded per-example rows on the causal tower). The bound is the whole
+    block's over MP_RANKS; the library SDPA on the rank's heads and
+    torch.addmm on each product slice. Planted: q zeroed, the block
+    skipped, h not activated, the keys past each row kept."""
+    from wise_tpu_torch.ops import block as K
+    from wise_tpu_torch.parallel import distributed as TD
+    from wise_tpu_torch.parallel import train as TT
+
+    tp, one = TD.TensorParallel(MP_RANKS, 0), TD.NO_SPLIT
+    b, sp, d, h, causal = s["b"], s["sp"], s["d"], s["heads"], s["causal"]
+    hl, e, f = h // MP_RANKS, d // MP_RANKS, 4 * d
+    dtype = torch.float32 if s["f32"] else torch.bfloat16
+    xb = 4 if s["f32"] else 2
+
+    def per_rank(work):
+        return work[0] / MP_RANKS, work[1] / MP_RANKS
+
+    def split_attn(w):
+        return (TT._shard_leaf("attn.in_proj.kernel", w[0], tp),
+                w[1][tp.qkv_columns(d, w[1].device)].contiguous(),
+                TT._shard_leaf("attn.out_proj.kernel", w[2], tp))
+
+    x, ln, w = _block_inputs(torch, b, sp, d, dtype, s["seeds"][0])
+    wm, bo = split_attn(w), w[3]
+    keys = (sp + 1) / 2 if causal else sp
+
+    def attn(wm=wm, partial=K.fused_attn_partial):
+        return K.mp_close(x, partial(x, *ln, *wm, hl, sp, causal)[0], bo, one)
+
+    _check_row(torch, results, "fused_attn_block_mp", tag,
+               ("fused_attn_block_mp", sp, d), x, attn,
+               lambda: attn(partial=K.plain_attn_partial), x,
+               {"faulted_kernel": lambda: attn(_zero_q(wm, e)),
+                "block_skipped": lambda: x},
+               per_rank(_attn_work(b, sp, d, xb, keys)),
+               library=_sdpa_of_block(torch, x, ln, wm, hl, causal))
+
+    x, ln, w = _block_inputs(torch, b, sp, d, dtype, s["seeds"][1], mlp=True)
+    act = s["act"]
+    wfc = TT._shard_leaf("mlp_fc.kernel", w[0], tp)
+    bfc = w[1][tp.columns(f)].contiguous()
+    wproj, bproj = TT._shard_leaf("mlp_proj.kernel", w[2], tp), w[3]
+    with torch.inference_mode():
+        y = K.layer_norm_f32(x, *ln).to(torch.bfloat16)
+        hid = K.plain_mlp_fc(x, *ln, wfc, bfc, act=act)
+        raw = K.plain_mlp_fc(x, *ln, wfc, bfc, act="none")
+    _check_row(torch, results, "fused_mlp_fc_mp", tag,
+               ("fused_mlp_fc_mp", sp, d), x,
+               lambda: K.fused_mlp_fc_mp(x, *ln, wfc, bfc, act, False)[0],
+               lambda: K.plain_mlp_fc(x, *ln, wfc, bfc, act=act),
+               torch.zeros((), device="cuda"),
+               {"h_not_activated": lambda: K.fused_mlp_fc_mp(
+                   x, *ln, wfc, bfc, "none", False)[0]},
+               per_rank(_mlp_work(b * sp, d, f, xb, "fc")),
+               library=_addmm(torch, y, wfc, bfc))
+
+    def proj(hh=hid, kernel=True):
+        part = (K.fused_mlp_proj_partial(hh, wproj, x) if kernel
+                else (hh @ wproj).float())
+        return K.mp_close(x, part, bproj, one)
+
+    _check_row(torch, results, "fused_mlp_proj_mp", tag,
+               ("fused_mlp_proj_mp", sp, d), x, proj,
+               lambda: proj(kernel=False), x,
+               {"h_not_activated": lambda: proj(raw),
+                "block_skipped": lambda: x},
+               per_rank(_mlp_work(b * sp, d, f, xb, "proj")),
+               library=_addmm(torch, hid, wproj))
+    del y, hid, raw
+
+    x, ln, w = _block_inputs(torch, b, sp, d, dtype, s["seeds"][2])
+    wm, bo = split_attn(w), w[3]
+    if causal:
+        g = torch.Generator(device="cuda").manual_seed(s["seeds"][2])
+        rows = torch.randint(0, sp, (b,), generator=g, device="cuda",
+                             dtype=torch.int32)
+        name, keys = ("fused_attn_block_pooled_dyn_mp",
+                      float(rows.float().mean()) + 1)
+        library = _sdpa_of_block(torch, x, ln, wm, hl, causal, rows=rows)
+    else:
+        rows, name, keys = None, "fused_attn_block_pooled_mp", sp
+        library = _sdpa_of_block(torch, x, ln, wm, hl, causal, 0)
+    base = K.pooled_rows(x, rows, 0)
+
+    def pooled(wm=wm, causal=causal, partial=K.fused_attn_pooled_partial):
+        return K.mp_close(base, partial(x, rows, *ln, *wm, hl, sp, 0,
+                                        causal), bo, one)
+
+    faults = {"faulted_kernel": lambda: pooled(_zero_q(wm, e)),
+              "block_skipped": lambda: base}
+    if causal:
+        faults["causal_keys_past_row_kept"] = lambda: pooled(causal=False)
+    _check_row(torch, results, name, tag, (name, sp, d), x, pooled,
+               lambda: pooled(partial=K.plain_attn_pooled_partial), base,
+               faults, per_rank(_attn_work(b, sp, d, xb, keys, pooled=True)),
+               library=library)
+
+
+def _gather_without_reduce():
+    """``gather_rows`` whose backward takes the rank's rows of the gradient
+    without summing it over the ranks first (DDP's average then leaves the
+    towers 1/W of their gradient and ``logit_scale`` all of it)."""
+    import torch
+
+    from wise_tpu_torch.parallel import train as TT
+
+    class GatherWithoutReduce(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return TT._GatherRows.forward(ctx, x)
+
+        @staticmethod
+        def backward(ctx, grad):
+            lo, hi = ctx.rows
+            return grad[lo:hi].to(ctx.dtype)
+
+    return GatherWithoutReduce.apply
+
+
+def _planted(name: str):
+    """A planted fault, in place until the returned function undoes it:
+    "gather", the data-parallel loss's gather without the sum over the
+    ranks in its backward (_gather_without_reduce); "ln_cotangent", the
+    head-split blocks without the all_reduce of LN(x)'s cotangent over the
+    'mp' ranks (``TensorParallel.reduce_cotangent`` the identity);
+    "stage_hop", the pipeline's activations detached as they cross to the
+    next stage (``PipelinedStack._hop``), so that no gradient reaches the
+    stages before the last."""
+    from wise_tpu_torch.parallel import distributed as TD
+    from wise_tpu_torch.parallel import pipeline as PL
+    from wise_tpu_torch.parallel import train as TT
+
+    cls, attr, fake = {
+        "ln_cotangent": (TD.TensorParallel, "reduce_cotangent",
+                         lambda self, g: g),
+        "stage_hop": (PL.PipelinedStack, "_hop",
+                      lambda self, y, device: y.detach().to(device)),
+        "gather": (TT, "gather_rows", _gather_without_reduce()),
+    }[name]
+    real = getattr(cls, attr)
+    setattr(cls, attr, fake)
+    return lambda: setattr(cls, attr, real)
+
+
+def _whole_grads(trainer):
+    """The first step's gradients by CLIP state_dict key, whole, on the
+    host (a collective of the 'mp' ranks; None on the others)."""
+    if hasattr(trainer, "pp_tree"):
+        from wise_tpu_torch.parallel.pp_train import restore_clip_params
+
+        return restore_clip_params(trainer.pp_tree(grads=True))
+    return trainer.whole(trainer.grads())
+
+
+def _grad_check(got: dict, want: dict) -> dict:
+    """A leg's first-step gradients (``got``) against the single card's:
+    the whole tree's cosine, the norm over the single card's of each tower's
+    (``visual.*``, the rest is "text") and of ``logit_scale``'s (a check
+    that the cosine cannot make, since it ignores scale), the worst single
+    leaf's; in f64 on the card a leaf at a time (the host's passes over a
+    1.2 B tree take ~20 s)."""
+    import torch
+
+    sums, worst = {}, 0.0   # group -> [got.want, got.got, want.want]
+    for name, w in want.items():
+        group = (name if name == "logit_scale"
+                 else "visual" if name.startswith("visual.") else "text")
+        a = got[name].flatten().cuda().double()
+        w = w.flatten().cuda().double()
+        dots = [float(torch.dot(a, w)), float(torch.dot(a, a)),
+                float(torch.dot(w, w))]
+        acc = sums.setdefault(group, [0.0, 0.0, 0.0])
+        for i, v in enumerate(dots):
+            acc[i] += v
+        if dots[2] > 0:
+            worst = max(worst, abs(math.sqrt(dots[1] / dots[2]) - 1))
+    num, gg, ww = (sum(v[i] for v in sums.values()) for i in range(3))
+    return {"cos": num / math.sqrt(gg * ww),
+            "cos_by": {k: v[0] / math.sqrt(v[1] * v[2]) if v[1] * v[2] > 0
+                       else 1.0 for k, v in sums.items()},
+            "scales": {k: math.sqrt(v[1] / v[2]) for k, v in sums.items()},
+            "worst_leaf": worst,
+            "logit_scale": [float(got["logit_scale"]),
+                            float(want["logit_scale"])],
+            "tree_norm": math.sqrt(ww)}
+
+
+def _grad_ok(check: dict) -> bool:
+    """The cosine and the scales (the towers' and logit_scale's) within
+    their bars."""
+    return check["cos"] >= PAR_COS_BAR and all(
+        abs(v - 1) <= PAR_SCALE_BAR for v in check["scales"].values())
+
+
+@contextlib.contextmanager
+def _recording(torch, spec: dict):
+    """Every CLIPTrainer and PipelinedCLIPTrainer ``train_step`` in this
+    process recorded while the block runs: its loss, CUDA-event ms and
+    launches (by wrapper, exact against ``spec["want"]``, and by (wrapper,
+    SP, D)). At the first step: with ``spec["plant"]`` ("ln_cotangent"),
+    the first gradients with the planted fault before it (clipped as the
+    optimizer clips them, then cleared), and after it the real ones, each
+    whole; rank 0 saves them to ``spec["save"]`` or holds them to
+    ``spec["ref"]`` (_grad_check). The record goes to ``spec["out"]`` as
+    ``rank<r>.json`` when the block ends (where a step ran)."""
+    from wise_tpu_torch.parallel.pp_train import PipelinedCLIPTrainer
+    from wise_tpu_torch.parallel.train import CLIPTrainer
+
+    rec = {"losses": [], "step_ms": [], "launches": {}, "by_shape": {},
+           "launches_exact": True}
+    ref = []
+
+    def want_ref():
+        if not ref:
+            ref.append(torch.load(spec["ref"], map_location="cpu",
+                                  mmap=True, weights_only=True))
+        return ref[0]
+
+    def held(grads, key):
+        if grads is None:
+            return
+        if spec.get("save"):
+            torch.save(grads, spec["save"])
+        if spec.get("ref"):
+            rec[key] = _grad_check(grads, want_ref())
+
+    def wrap(step):
+        def recorded(trainer, images, tokens):
+            first = not rec["losses"]
+            if first and spec.get("plant"):
+                undo = _planted(spec["plant"])
+                try:
+                    trainer.optimizer.zero_grad()
+                    trainer.loss(
+                        torch.as_tensor(images).to(trainer.device,
+                                                   torch.float32),
+                        torch.as_tensor(tokens).to(trainer.device,
+                                                   torch.int64)).backward()
+                finally:
+                    undo()
+                with torch.no_grad():
+                    if trainer.optimizer.grad_clip > 0:
+                        trainer.optimizer._clip()
+                held(_whole_grads(trainer), "fault")
+                trainer.optimizer.zero_grad()
+            names, shapes = _launches_by_name(), dict(_block_launches())
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            loss = step(trainer, images, tokens)
+            ev[1].record()
+            torch.cuda.synchronize()
+            rec["losses"].append(float(loss))
+            rec["step_ms"].append(ev[0].elapsed_time(ev[1]))
+            # the step's launches: the counters' growth, which leaves them
+            # running for the caller
+            launched = {k: n - names.get(k, 0)
+                        for k, n in _launches_by_name().items()
+                        if n > names.get(k, 0)}
+            rec["launches_exact"] &= launched == spec["want"]
+            _add_counts(rec["launches"], launched)
+            for key, n in _block_launches().items():
+                if n > shapes.get(key, 0):
+                    flat = "|".join(map(str, key))
+                    rec["by_shape"][flat] = (rec["by_shape"].get(flat, 0)
+                                             + n - shapes.get(key, 0))
+            if first:
+                held(_whole_grads(trainer), "grads")
+            return loss
+        return recorded
+
+    saved = [(cls, cls.train_step) for cls in (CLIPTrainer,
+                                                PipelinedCLIPTrainer)]
+    for cls, step in saved:
+        cls.train_step = wrap(step)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        yield rec
+    finally:
+        for cls, step in saved:
+            cls.train_step = step
+    if not rec["losses"]:
+        return   # the steps ran in ranks of their own, which record them
+    import torch.distributed as dist
+
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    rec.update(device=f"cuda:{torch.cuda.current_device()}",
+               peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
+               backend=dist.get_backend() if dist.is_initialized()
+               else "none")
+    (Path(spec["out"]) / f"rank{rank}.json").write_text(json.dumps(rec))
+
+
+def _recorded_cli_rank(argv) -> None:
+    """A rank the train CLI spawned (--mp, or --pp over several cards) in a
+    process of its own: the stand-ins installed, the CLI's own rank entry
+    under ``_recording`` with $WISE_SMOKE_RECORD's spec."""
+    import torch
+
+    from wise_tpu_torch.cli import train as cli
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = argv[argv.index("--model") + 1]
+    batch = int(argv[argv.index("--batch-size") + 1])
+    cut = (_default_backbone_cut() if os.environ.get(TRAIN_DEPTH_ENV)
+           else contextlib.nullcontext())
+    with cut, _stand_ins(model, batch), _recording(
+            torch, json.loads(os.environ[RECORD_ENV])):
+        cli._rank_main(argv)
+
+
+def _recorded_cli(torch, model: str, batch: int, more=(), spec=None,
+                  env=None):
+    """The train CLI (``main``) on ``model`` at global ``batch`` for
+    DP_STEPS steps at DP_LR with ``more`` arguments, the stand-ins for its
+    captions and frames, and every step recorded (_recording with
+    ``spec``; in its ranks when it spawns them): (its return code, the
+    records by rank, the checkpoint directory, seconds, the temporary
+    directory to clean up)."""
+    from wise_tpu_torch.cli import train as cli
+
+    tmp = tempfile.TemporaryDirectory(prefix="wise_smoke_par_")
+    root = Path(tmp.name)
+    (root / "proj").mkdir()
+    ckpt = root / "ckpt" / model / "finetuned"
+    spec = dict(spec or {}, out=str(root))
+    argv = ["--project-dir", str(root / "proj"), "--metadata-id",
+            "S/smoke/train", "--caption-column", "caption", "--model", model,
+            "--steps", str(DP_STEPS), "--batch-size", str(batch),
+            "--learning-rate", str(DP_LR), "--checkpoint-dir", str(ckpt),
+            *more]
+    real = cli._rank_main
+    cli._rank_main = _recorded_cli_rank
+    t0 = time.time()
+    try:
+        # in this process, or in the ranks the CLI spawns (each records
+        # itself, _recorded_cli_rank)
+        with _env(**{RECORD_ENV: json.dumps(spec)}, **(env or {})), \
+                _stand_ins(model, batch), _recording(torch, spec):
+            rc = cli.main(argv)
+    finally:
+        cli._rank_main = real
+    took = time.time() - t0
+    recs = [json.loads(p.read_text()) for p in sorted(root.glob("rank*"))]
+    return rc, recs, ckpt, took, tmp
+
+
+_REFS: dict = {}
+
+
+def _single_ref(torch, card, model: str, batch: int, plain: bool = False):
+    """The single card's run that a leg is held to: the train CLI at --dp 1
+    on ``model`` (its kernel path, or with ``plain`` the pp config's plain
+    path: WISE_FUSED_BLOCK / _ATTN / WISE_POOL_LAST 0), recorded, its
+    first-step gradients saved; cached for the run. Returns (record, path
+    of the gradients)."""
+    from wise_tpu_torch.cli.train import training_clip_config
+
+    key = (model, batch, plain)
+    if key not in _REFS:
+        off = (dict(WISE_FUSED_BLOCK="0", WISE_FUSED_ATTN="0",
+                    WISE_POOL_LAST="0") if plain else {})
+        with _env(**off):
+            want = _step_launches(training_clip_config(model))
+        tmp = tempfile.TemporaryDirectory(prefix="wise_smoke_ref_")
+        grads = Path(tmp.name) / "grads.pt"
+        rc, recs, _, took, run = _recorded_cli(
+            torch, model, batch, ["--dp", "1"], dict(want=want, save=str(
+                grads)), env=off)
+        run.cleanup()
+        if rc != 0 or len(recs) != 1 or not recs[0]["launches_exact"]:
+            raise PhaseError(f"the single card's {model} CLI run returned "
+                             f"{rc}, launches {recs and recs[0]['launches']}"
+                             f", expected {want} a step")
+        say("par", card=repr(card), leg="single_card", model=model,
+            batch=batch, plain=plain, cli_s=f"{took:.1f}",
+            losses=",".join(f"{v:.5f}" for v in recs[0]["losses"]),
+            step_ms=",".join(f"{v:.3f}" for v in recs[0]["step_ms"]),
+            peak_device_gb=f"{recs[0]['peak_device_gb']:.3f}")
+        _REFS[key] = (recs[0], grads, tmp)
+    return _REFS[key][:2]
+
+
+def _serves(torch, card, phase, ckpt: Path, model: str, params: dict):
+    """The port's extractor on ``ckpt`` (a ``<model>/finetuned`` directory):
+    every tensor the checkpoint's ``params`` cast to the serving dtype,
+    finite unit embeddings of QUERIES and of 8 frames."""
+    import gc
+
+    import numpy as np
+
+    from wise_tpu_torch.models.clip.extractor import OpenClipExtractor
+
+    with _env(WISE_CHECKPOINT_DIR=str(ckpt.parents[1])):
+        served = OpenClipExtractor(f"mlfoundations/open_clip/{model}/"
+                                   f"{ckpt.name}")
+    state = served.model.state_dict()
+    differ = [k for k, v in params.items()
+              if not torch.equal(state[k].cpu(), v.to(state[k].dtype))]
+    text = served.extract_text_features(QUERIES)
+    images = served.extract_image_features(
+        _frames(9, 8, served.model.config.image_size))
+    del served, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    emb = np.concatenate([text, images])
+    norm_err = float(np.abs(np.linalg.norm(emb, axis=1) - 1).max())
+    say(phase, card=repr(card), check="extractor_serves_checkpoint",
+        model=model, tensors=len(params), tensors_differing=len(differ),
+        max_unit_norm_err=f"{norm_err:.2e}", norm_bar=1e-3)
+    if differ or not np.isfinite(emb).all() or norm_err > 1e-3:
+        raise PhaseError(f"{phase}: the extractor's {model} differs from "
+                         f"the checkpoint in {differ[:5]} or its embeddings "
+                         f"are off (norm error {norm_err})")
+
+
+def _check_leg(card, phase, leg, model, batch, recs, ref, planted=True):
+    """A parallel leg's records against the single card's ``ref``: every
+    rank's launches exact and its losses the same; rank 0's first-step
+    gradients within the bars (_grad_ok) and, where a fault was planted,
+    its gradients outside them; the losses within PAR_LOSS_BAR step by
+    step. Prints a line a rank and the check's."""
+    for r, rec in enumerate(recs):
+        say(phase, card=repr(card), leg=leg, model=model, rank=r,
+            device=rec["device"], backend=rec["backend"],
+            global_batch=batch,
+            step_ms=",".join(f"{v:.3f}" for v in rec["step_ms"]),
+            single_step_ms=",".join(f"{v:.3f}" for v in ref["step_ms"]),
+            peak_device_gb=f"{rec['peak_device_gb']:.3f}",
+            single_peak_device_gb=f"{ref['peak_device_gb']:.3f}",
+            launches_per_step_exact=rec["launches_exact"])
+    got, fault = recs[0].get("grads"), recs[0].get("fault")
+    gap = max(abs(a - b) for rec in recs
+              for a, b in zip(rec["losses"], ref["losses"]))
+    caught = not planted or (fault is not None and not _grad_ok(fault))
+    say(phase, card=repr(card), leg=leg, check="vs_single_card",
+        model=model, ranks=len(recs),
+        whole_tree_grad_cos=f"{got['cos']:.6f}", cos_bar=PAR_COS_BAR,
+        grad_cos=",".join(f"{k}:{v:.6f}" for k, v in got["cos_by"].items()),
+        grad_scale=",".join(f"{k}:{v:.6f}"
+                            for k, v in got["scales"].items()),
+        scale_bar=PAR_SCALE_BAR,
+        logit_scale_grad=",".join(f"{v:.6g}" for v in got["logit_scale"]),
+        tree_grad_norm=f"{got['tree_norm']:.6g}",
+        losses=",".join(f"{v:.5f}" for v in recs[0]["losses"]),
+        single_losses=",".join(f"{v:.5f}" for v in ref["losses"]),
+        max_loss_gap=f"{gap:.6f}", loss_bar=PAR_LOSS_BAR,
+        planted_grad_cos=("none" if fault is None
+                          else f"{fault['cos']:.6f}"),
+        planted_grad_scale=("none" if fault is None else ",".join(
+            f"{k}:{v:.6f}" for k, v in fault["scales"].items())),
+        planted="none" if not planted else
+        "FAIL(expected)" if caught else "PASSED(wrong)")
+    same = all(rec["losses"] == recs[0]["losses"] for rec in recs)
+    if not (_grad_ok(got) and gap <= PAR_LOSS_BAR and caught and same
+            and all(rec["launches_exact"] for rec in recs)):
+        raise PhaseError(f"{phase}: the {model} {leg} leg is off the single "
+                         f"card (grads {got}, loss gap {gap}, ranks' losses "
+                         f"the same {same}), the planted fault not caught "
+                         f"({fault}), or off its launches")
+
+
+def _halves_in_one_process(torch):
+    """The single card's vision and text blocks with only their two row
+    split sums reordered as --mp 2 orders them: the out-projection and fc2
+    run as the head-split kernels' two f32 partials (ranks 0 and 1 of
+    ``TensorParallel(2, m)``, in this process) added in f32, then the bias
+    and the residual as ``mp_close`` adds them; the backward is the whole
+    block's own rule on the whole weights, LN(x)'s cotangent formed in f32
+    and rounded once as the head-split rule forms it (``tp`` NO_SPLIT).
+    Patches ``fused_attn_block_train``
+    and ``fused_mlp_split_train`` / ``fused_mlp_block_train`` of
+    ops/block.py until the returned function undoes them."""
+    from wise_tpu_torch.ops import block as K
+    from wise_tpu_torch.parallel import distributed as TD
+
+    halves = [TD.TensorParallel(2, m) for m in range(2)]
+
+    class Attn(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads, n_valid,
+                    causal):
+            d, parts, qkvs = x.shape[-1], [], []
+            for tp in halves:
+                cols = tp.qkv_columns(d, x.device)
+                part, qkv = K.fused_attn_partial(
+                    x, ln_s, ln_b, wqkv[:, cols].contiguous(),
+                    bqkv[cols].contiguous(),
+                    wo[tp.columns(d)].contiguous(), heads // 2, n_valid,
+                    causal)
+                parts.append(part)
+                qkvs.append(qkv.chunk(3, -1))
+            qkv = torch.cat([torch.cat([q[i] for q in qkvs], -1)
+                             for i in range(3)], -1)
+            ctx.save_for_backward(x, qkv, ln_s, ln_b, wqkv, wo)
+            ctx.static, ctx.tp = (heads, n_valid, causal), TD.NO_SPLIT
+            return x + ((parts[0] + parts[1]) + bo.float()).to(x.dtype)
+
+        @staticmethod
+        def backward(ctx, g):
+            return K._AttnBlockTrain.backward(ctx, g)[:10]
+
+    class Mlp(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, ln_s, ln_b, wfc, bfc, wproj, bproj, act):
+            f, parts, pres = wfc.shape[1], [], []
+            for tp in halves:
+                c = tp.columns(f)
+                part, pre = K.fused_mlp_partial(
+                    x, ln_s, ln_b, wfc[:, c].contiguous(),
+                    bfc[c].contiguous(), wproj[c].contiguous(), act)
+                parts.append(part)
+                pres.append(pre)
+            ctx.save_for_backward(x, torch.cat(pres, -1), ln_s, ln_b, wfc,
+                                  wproj)
+            ctx.act, ctx.tp = act, TD.NO_SPLIT
+            return x + ((parts[0] + parts[1]) + bproj.float()).to(x.dtype)
+
+        @staticmethod
+        def backward(ctx, g):
+            return K._MlpBlockTrain.backward(ctx, g)[:8]
+
+    def attn(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads, n_valid, causal=False):
+        return Attn.apply(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads, n_valid,
+                          causal)
+
+    def mlp(x, ln_s, ln_b, wfc, bfc, wproj, bproj, act="gelu"):
+        return Mlp.apply(x, ln_s, ln_b, wfc, bfc, wproj, bproj, act)
+
+    saved = {name: getattr(K, name) for name in (
+        "fused_attn_block_train", "fused_mlp_split_train",
+        "fused_mlp_block_train")}
+    K.fused_attn_block_train = attn
+    K.fused_mlp_split_train = K.fused_mlp_block_train = mlp
+    return lambda: [setattr(K, k, v) for k, v in saved.items()]
+
+
+def phase_mp_witness(torch, card):
+    """How far a reorder of f32 sums alone moves the single card's first
+    gradients, for each MP_LEGS leg: the single card's CLI run against the
+    same run with its blocks' out-projection and fc2 summed as two f32
+    halves (_halves_in_one_process), nothing else changed; printed with the
+    bars [mp] holds --mp 2 to, and checked against nothing. The default
+    backbone at its whole depth: the floor is widest there."""
+    for model, batch in MP_LEGS:
+        ref, ref_grads = _single_ref(torch, card, model, batch)
+        undo = _halves_in_one_process(torch)
+        try:
+            rc, recs, _, took, tmp = _recorded_cli(
+                torch, model, batch, ["--dp", "1"],
+                dict(want={}, ref=str(ref_grads)))
+        finally:
+            undo()
+        tmp.cleanup()
+        if rc != 0 or len(recs) != 1:
+            raise PhaseError(f"mp_witness: the {model} CLI returned {rc}")
+        got = recs[0]["grads"]
+        gap = max(abs(a - b) for a, b in zip(recs[0]["losses"],
+                                              ref["losses"]))
+        say("mp_witness", card=repr(card), model=model, batch=batch,
+            cli_s=f"{took:.1f}", whole_tree_grad_cos=f"{got['cos']:.6f}",
+            grad_cos=",".join(f"{k}:{v:.6f}"
+                              for k, v in got["cos_by"].items()),
+            grad_scale=",".join(f"{k}:{v:.6f}"
+                                for k, v in got["scales"].items()),
+            worst_leaf=f"{got['worst_leaf']:.6f}",
+            losses=",".join(f"{v:.5f}" for v in recs[0]["losses"]),
+            single_losses=",".join(f"{v:.5f}" for v in ref["losses"]),
+            max_loss_gap=f"{gap:.6f}", cos_bar=PAR_COS_BAR,
+            scale_bar=PAR_SCALE_BAR, loss_bar=PAR_LOSS_BAR)
+
+
+def phase_mp(torch, card):
+    """Tensor parallelism (see the module docstring): the head-split kernel
+    rows, then each MP_LEGS leg through the train CLI at --mp MP_RANKS
+    against the single card's run of the same CLI from the same masters and
+    batches (_single_ref; [train]'s default-backbone CLI run where it ran);
+    ViT-B/32's checkpoint served. Returns (the legs' launches by (wrapper,
+    SP, D), summed over the ranks; the rows). The default backbone runs at
+    XLMR_TRAIN_DEPTH, as [train]'s run it is held to."""
+    rows = []
+    for tag, s in MP_SHAPES.items():
+        _mp_rows(torch, rows, tag, s)
+    _require_rows(rows)
+    with _default_backbone_cut():
+        return _mp_legs(torch, card), rows
+
+
+def _mp_legs(torch, card):
+    """phase_mp's MP_LEGS legs; their launches by (wrapper, SP, D)."""
+    from wise_tpu_torch.cli.train import training_clip_config
+    from wise_tpu_torch.models.clip.config import get_clip_config
+    from wise_tpu_torch.models.clip.model import CLIP
+    from wise_tpu_torch.parallel.train import STATE_FILE
+
+    launches = {}
+    for model, batch in MP_LEGS:
+        ref, ref_grads = _single_ref(torch, card, model, batch)
+        want = _step_launches(training_clip_config(model), MP_RANKS)
+        rc, recs, ckpt, took, tmp = _recorded_cli(
+            torch, model, batch, ["--mp", str(MP_RANKS)],
+            dict(want=want, plant="ln_cotangent", ref=str(ref_grads)))
+        # --dp -1: a 'dp' rank for every MP_RANKS cards, at least one
+        ranks = max(1, torch.cuda.device_count() // MP_RANKS) * MP_RANKS
+        try:
+            if rc != 0 or len(recs) != ranks:
+                raise PhaseError(f"mp: the {model} CLI at --mp {MP_RANKS} "
+                                 f"returned {rc} with {len(recs)} records, "
+                                 f"{ranks} expected")
+            say("mp", card=repr(card), leg="train_cli", model=model,
+                mp=MP_RANKS, batch=batch, cli_s=f"{took:.1f}",
+                launches_per_step=json.dumps(want, separators=(",", ":")))
+            _check_leg(card, "mp", "mp_train", model, batch, recs, ref)
+            for rec in recs:
+                for flat, n in rec["by_shape"].items():
+                    name, sp, d = flat.split("|")
+                    key = (name, int(sp), int(d))
+                    launches[key] = launches.get(key, 0) + n
+            # the checkpoint: the whole tree in the one-process format
+            state = ckpt / f"step_{DP_STEPS:08d}" / STATE_FILE
+            params = torch.load(state, map_location="cpu", mmap=True,
+                                weights_only=True)["params"]
+            with torch.device("meta"):
+                whole = CLIP(get_clip_config(model),
+                             param_dtype=torch.float32).state_dict()
+            off = [k for k, v in whole.items()
+                   if k not in params or params[k].shape != v.shape]
+            say("mp", card=repr(card), check="checkpoint", model=model,
+                tensors=len(params), shapes_off_the_whole_tree=len(off),
+                checkpoint_gb=f"{state.stat().st_size / 1e9:.3f}")
+            if off or len(params) != len(whole):
+                raise PhaseError(f"mp: the --mp checkpoint is not the whole "
+                                 f"tree: {off[:5]}")
+            if model == "ViT-B-32":
+                _serves(torch, card, "mp", ckpt, model, params)
+            del params
+        finally:
+            tmp.cleanup()
+    return launches
+
+
+def phase_pp(torch, card):
+    """Pipeline parallelism (see the module docstring): the train CLI at
+    --pp PP_STAGES --microbatches PP_MICRO on PP_MODEL (its kernels off, as
+    the reference keeps them) against the single card's plain run of the
+    CLI from the same masters and batches; the pipeline checkpoint, through
+    restore_clip_params, served."""
+    from wise_tpu_torch.parallel.pp_train import restore_clip_params
+    from wise_tpu_torch.parallel.train import (STATE_FILE,
+                                               save_train_checkpoint)
+
+    ref, ref_grads = _single_ref(torch, card, PP_MODEL, PP_BATCH, plain=True)
+    rc, recs, ckpt, took, tmp = _recorded_cli(
+        torch, PP_MODEL, PP_BATCH,
+        ["--pp", str(PP_STAGES), "--microbatches", str(PP_MICRO)],
+        dict(want={}, plant="stage_hop", ref=str(ref_grads)))
+    # --dp -1: a 'dp' rank (a process) for every PP_STAGES cards
+    ranks = max(1, torch.cuda.device_count() // PP_STAGES)
+    try:
+        if rc != 0 or len(recs) != ranks:
+            raise PhaseError(f"pp: the {PP_MODEL} CLI at --pp {PP_STAGES} "
+                             f"returned {rc} with {len(recs)} records, "
+                             f"{ranks} expected")
+        say("pp", card=repr(card), leg="train_cli", model=PP_MODEL,
+            pp=PP_STAGES, microbatches=PP_MICRO, batch=PP_BATCH,
+            cli_s=f"{took:.1f}")
+        _check_leg(card, "pp", "pp_train", PP_MODEL, PP_BATCH, recs, ref)
+        pp_tree = torch.load(ckpt / f"step_{DP_STEPS:08d}" / STATE_FILE,
+                             map_location="cpu", weights_only=True)["params"]
+        params = restore_clip_params(pp_tree)
+        served = Path(tmp.name) / "served" / PP_MODEL / "finetuned"
+        save_train_checkpoint(served, DP_STEPS, params, {})
+        _serves(torch, card, "pp", served, PP_MODEL, params)
+    finally:
+        tmp.cleanup()
+
+
 def _index_then_multi(torch, card) -> dict:
     """The index phase on the first card (its server too, on a machine of
     several), then the multi-device phase on its project; the top-k
@@ -5822,7 +6516,8 @@ def main(argv=None) -> int:
                                         "xlmr", "hybrid", "index", "train",
                                         "padded", "embed_fold", "clap2022",
                                         "shots", "profile", "pooled",
-                                        "multi"],
+                                        "multi", "mp", "pp",
+                                        "mp_witness"],
                     default="all")
     ap.add_argument("--parent", action="store_true",
                     help="this script run from the parent commit's "
@@ -5905,6 +6600,15 @@ def main(argv=None) -> int:
         if args.phase == "train":
             _timed("train", phase_train, torch, card)
             return 0
+        if args.phase == "mp":
+            _timed("mp", phase_mp, torch, card)
+            return 0
+        if args.phase == "pp":
+            _timed("pp", phase_pp, torch, card)
+            return 0
+        if args.phase == "mp_witness":
+            _timed("mp_witness", phase_mp_witness, torch, card)
+            return 0
         if args.phase == "padded":
             _timed("padded", phase_padded, torch, card)
             return 0
@@ -5942,6 +6646,13 @@ def main(argv=None) -> int:
         # both reach (the pooled kernels at ViT-B/32) keeps its serve count
         for key, n in _timed("train", phase_train, torch, card).items():
             launches.setdefault(key, n)
+        # tensor and pipeline parallelism: the head-split rows join the
+        # kernels phase's, counted on the [mp] path
+        counts, rows = _timed("mp", phase_mp, torch, card)
+        for key, n in counts.items():
+            launches.setdefault(key, n)
+        kernels += rows
+        _timed("pp", phase_pp, torch, card)
         # the padded-head block and the embed fold, each on its own path;
         # their rows join the kernels phase's
         for phase, fn in (("padded", phase_padded),

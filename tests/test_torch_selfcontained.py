@@ -47,9 +47,11 @@ SHOTS_AND_CLAP_2022 = ["pipeline/shots.py", "cli/shots.py",
 #: SOURCES must reach as well
 DOCTOR_AND_TRACE = ["cli/doctor.py", "utils/profiling.py"]
 #: the multi-device modules (the mesh, the sharded search, the process
-#: group), which the walk over SOURCES must reach as well
+#: group, the pipeline and its trainer), which the walk over SOURCES must
+#: reach as well
 MULTI_DEVICE = ["parallel/mesh.py", "parallel/distributed.py",
-                "parallel/sharded_search.py"]
+                "parallel/sharded_search.py", "parallel/pipeline.py",
+                "parallel/pp_train.py"]
 #: the host modules the port copied from the JAX package, path for path, and
 #: the ports that keep their origin's names (pipeline.shots, parallel)
 COPIED = """config data_models utils project db db.repository store
@@ -62,7 +64,8 @@ pipeline.extract api.models api.coalesce api.engine api.server
 cli.extract_features cli.create_index cli.search cli.serve cli.metadata
 pipeline.train_data ops.pq eval eval.retrieval eval.index_recall
 cli.merge_projects io.__main__ cli.shots pipeline.shots cli.doctor parallel
-parallel.distributed parallel.sharded_search""".split()
+parallel.distributed parallel.sharded_search parallel.mesh parallel.train
+parallel.pipeline parallel.pp_train""".split()
 
 
 def _rel(path):

@@ -281,14 +281,6 @@ def test_exact_preprocessing_raises_until_it_is_ported(env, monkeypatch,
     np.testing.assert_array_equal(exact, port.extract_image_features(floats))
 
 
-@pytest.mark.parametrize("flags", [("--mp", "2"), ("--pp", "2")])
-def test_multi_device_options_raise(env, flags):
-    from wise_tpu_torch.cli.train import main as t_train
-
-    with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        t_train(_train_args(env, "T/torch/train", env / "unused", 3, *flags))
-
-
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("off", [(), ("WISE_FUSED_BLOCK",),
                                  ("WISE_POOL_LAST",)])

@@ -2,7 +2,8 @@
 (wise_tpu/cli/train.py).
 
 Takes optimizer steps on one card (``WISE_TORCH_DEVICE=cpu`` for the CPU),
-or data-parallel on several (``--dp``), with f32 master weights under AdamW,
+data-parallel (``--dp``), tensor-parallel (``--mp``) or pipeline-parallel
+(``--pp`` with ``--microbatches``), with f32 master weights under AdamW,
 checkpoints as ``step_%08d`` directories and can resume. bf16 runs go
 through the saved-activation block kernels and the pooled last layer, the
 XLM-R text tower of the default backbone through the post-LN kernels, and
@@ -28,9 +29,23 @@ rank a device, so one card runs the single-card trainer. Each rank decodes
 and takes only its ``batch_size / dp`` rows of the global batch
 (``caption_batches`` with its rank), whose loss every rank computes
 (parallel/train.py), and rank 0 writes the checkpoints. Under
-torchrun, the ranks are torchrun's. ``--mp`` and ``--pp`` with
-``--microbatches`` are parsed and refused: they are what is left of ROADMAP
-Queue A item 12.
+torchrun, the ranks are torchrun's.
+
+``--mp M`` splits the CLIP towers' heads and MLP columns over M ranks
+(parallel/train.py; the XLM-R tower stays whole); ``--dp N --mp M`` starts
+N x M ranks, rank d * M + m, and ``--dp -1`` with ``--mp M`` means one 'dp'
+rank for every M devices (at least one: on one card, ``--mp 2`` runs two
+ranks that share it, under gloo). The 'mp' ranks of a 'dp' rank take the
+same rows. The checkpoint is the whole tree, as one process writes it.
+
+``--pp P --microbatches K`` runs both towers as P pipeline stages of K
+microbatches (parallel/pp_train.py: the CLS-pooled causal CLIP family, the
+kernels off, as in the reference); each 'dp' rank is one process that
+drives its P stages, stage s on device s * dp + d of the mesh's devices
+(repeated round and round when there are fewer: on one card the stages are
+the card P times). Its checkpoint holds the pipeline tree;
+``parallel.pp_train.restore_clip_params`` turns it into the tree the
+extractor serves. ``--pp`` with ``--mp`` is refused, as in the reference.
 """
 
 from __future__ import annotations
@@ -60,9 +75,13 @@ def build_parser():
     p.add_argument("--resume", action="store_true")
     p.add_argument("--dp", type=int, default=-1,
                    help="data-parallel ranks (-1: one a device)")
-    p.add_argument("--mp", type=int, default=1)
+    p.add_argument("--mp", type=int, default=1,
+                   help="tensor-parallel ranks that split the towers' heads "
+                        "and MLP columns")
     p.add_argument("--pp", type=int, default=1,
-                   help="pipeline-parallel stages (multi-device: refused)")
+                   help="pipeline-parallel stages (GPipe over a 'pp' mesh "
+                        "axis; excludes --mp, needs layer counts divisible "
+                        "by it)")
     p.add_argument("--microbatches", type=int, default=2,
                    help="GPipe microbatches per step (only with --pp > 1)")
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
@@ -129,33 +148,35 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO)
     log = logging.getLogger("train")
 
-    if args.mp > 1 or args.pp > 1:
-        raise NotImplementedError(
-            "--mp / --pp: tensor and pipeline parallelism are not ported; "
-            "ROADMAP Queue A item 12 holds what is left: --mp with "
-            "split-head forms of the block kernels, then pipeline.py / "
-            "pp_train.py with --pp and --microbatches")
+    if args.pp > 1 and args.mp != 1:
+        log.error("--pp and --mp are mutually exclusive")
+        return 1
+    if args.mp < 1 or args.pp < 1:
+        log.error(f"--mp {args.mp} / --pp {args.pp} must be at least 1")
+        return 1
 
-    from ..parallel.distributed import (maybe_initialize_distributed, spawn,
-                                        world_env)
-    from ..utils.device import default_devices
+    from ..parallel.distributed import maybe_initialize_distributed, spawn
 
-    world = world_env()[0]
-    dp = args.dp if args.dp != -1 else (
-        world if world > 1 else len(default_devices()))
-    if dp < 1 or (world > 1 and dp != world):
-        log.error(f"--dp {args.dp} with {world} rank(s) in the environment")
+    world, split, dp = _layout(args)
+    ranks = dp * split
+    if dp < 1 or (world > 1 and ranks != world):
+        log.error(f"--dp {args.dp} --mp {args.mp} with {world} rank(s) in "
+                  "the environment")
+        return 1
+    if args.pp > 1 and args.batch_size % (dp * args.microbatches):
+        log.error(f"--batch-size {args.batch_size} must divide by "
+                  f"dp*microbatches = {dp}*{args.microbatches}")
         return 1
     if args.batch_size % dp:
         log.error(f"--batch-size {args.batch_size} must divide by --dp {dp}")
         return 1
     if world > 1:
         maybe_initialize_distributed()
-    elif dp > 1:
+    elif ranks > 1:
         from torch.multiprocessing import ProcessExitedException
 
         try:
-            spawn(_rank_main, dp, argv)
+            spawn(_rank_main, ranks, argv)
         except ProcessExitedException as e:
             log.error(f"a rank failed: {e}")
             return e.exit_code or 1
@@ -163,13 +184,49 @@ def main(argv=None) -> int:
     return _train(args, log)
 
 
+def _layout(args):
+    """(ranks in the environment, processes a 'dp' rank, 'dp' ranks): a
+    process a rank, 'dp' x 'mp' of them; under ``--pp`` a process a 'dp'
+    rank, which drives its stages. ``--dp -1`` takes the environment's
+    ranks, else one 'dp' rank for every mp x pp devices (at least one)."""
+    from ..parallel.distributed import world_env
+    from ..utils.device import default_devices
+
+    world = world_env()[0]
+    split = args.mp if args.pp == 1 else 1
+    if args.dp != -1:
+        return world, split, args.dp
+    if world > 1:
+        return world, split, world // split
+    return world, split, max(1, len(default_devices()) // (args.mp * args.pp))
+
+
 def _rank_main(argv) -> None:
-    """One rank of ``--dp N``, in a process of its own (parallel/distributed.py
-    ``spawn``); a failed run ends the process with its code."""
+    """One rank of ``--dp N`` / ``--mp M``, in a process of its own
+    (parallel/distributed.py ``spawn``); a failed run ends the process with
+    its code."""
     logging.basicConfig(level=logging.INFO)
     rc = _train(build_parser().parse_args(argv), logging.getLogger("train"))
     if rc:
         raise SystemExit(rc)
+
+
+def _pp_trainer(args, config, dp: int):
+    """The pipeline-parallel trainer of this process: the ('pp', 'dp') mesh
+    over the devices (repeated round and round to pp x dp), this rank's
+    'dp' column."""
+    from ..parallel.mesh import get_pp_mesh
+    from ..parallel.pp_train import PipelinedCLIPTrainer
+    from ..utils.device import default_devices
+
+    devices = default_devices()
+    mesh = get_pp_mesh(args.pp, dp, [devices[i % len(devices)]
+                                     for i in range(args.pp * dp)])
+    return PipelinedCLIPTrainer(
+        config, mesh, n_microbatches=args.microbatches,
+        learning_rate=args.learning_rate, warmup_steps=args.warmup_steps,
+        total_steps=args.steps, grad_clip=args.grad_clip, remat=args.remat,
+    ).init(seed=0)
 
 
 def _train(args, log) -> int:
@@ -187,17 +244,25 @@ def _train(args, log) -> int:
 
     config = training_clip_config(args.model, args.dtype, args.pp,
                                   remat=args.remat)
-    trainer = CLIPTrainer(
-        config, learning_rate=args.learning_rate,
-        warmup_steps=args.warmup_steps, total_steps=args.steps,
-        grad_clip=args.grad_clip,
-    ).init(seed=0)
+    if args.pp > 1:
+        trainer = _pp_trainer(args, config, _layout(args)[2])
+    else:
+        trainer = CLIPTrainer(
+            config, learning_rate=args.learning_rate,
+            warmup_steps=args.warmup_steps, total_steps=args.steps,
+            grad_clip=args.grad_clip, mp=args.mp,
+        ).init(seed=0)
     lead = trainer.rank == 0
     if lead:
         log.info(f"{len(segments)} caption segments")
-        if trainer.world > 1:
-            log.info(f"{trainer.world} data-parallel ranks, "
-                     f"{args.batch_size // trainer.world} rows each")
+        if trainer.dp > 1:
+            log.info(f"{trainer.dp} data-parallel ranks, "
+                     f"{args.batch_size // trainer.dp} rows each")
+        if args.mp > 1:
+            log.info(f"{args.mp} tensor-parallel ranks a data-parallel one")
+        if args.pp > 1:
+            log.info(f"{args.pp} pipeline stages of {args.microbatches} "
+                     "microbatches")
     start_step = 0
     ckpt_dir = args.checkpoint_dir or str(
         project.project_dir / "checkpoints" / args.model
@@ -212,7 +277,7 @@ def _train(args, log) -> int:
 
     batches = caption_batches(
         segments, tokenizer, args.batch_size, config.image_size,
-        epochs=10_000, rank=trainer.rank, world=trainer.world,
+        epochs=10_000, rank=trainer.dp_rank, world=trainer.dp,
     )
     t0 = time.time()
     step = start_step

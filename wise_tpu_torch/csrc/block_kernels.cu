@@ -18,6 +18,11 @@
 // each head's q/k/v slot zero-padded to 128 lanes in the weights):
 //   wt_ln_matmul          <- fused_ln_matmul             (_fc_kernel)
 //   wt_residual_matmul    <- fused_residual_matmul       (_proj_kernel)
+// the head-split forms of tensor parallelism (a rank's H/mp heads and F/mp
+// MLP columns; the same kernels, an f32 partial out, no new device code):
+//   wt_attn_block_partial, wt_attn_block_pooled_partial, wt_mlp_proj_partial
+//                         <- the blocks above under the reference's 'mp'
+//                            sharding (wise_tpu/parallel/train.py:31-46)
 // and of wise_tpu/ops/attention.py:
 //   wt_short_attention    <- fused_short_attention       (_kernel)
 // and of wise_tpu/ops/embed_block.py:
@@ -105,6 +110,15 @@
 // bf16 the same way), so every operand buffer between the launches is bf16;
 // qkv, the fc output and the attention output round once, after the bias or
 // the f32 accumulation; residual adds happen in x's dtype (f32 or bf16).
+//
+// The head-split entries take a rank's weights: wqkv (D, 3E) = [q | k | v]
+// of its H/mp heads (E = D / mp), wo (E, D) its rows of the out-projection,
+// wproj (F/mp, D) its rows of fc2. They run the block's chain with the inner
+// width E apart from D (the qkv GEMM D -> 3E, the attention over H/mp heads
+// at stride E) and end in the out-proj (or fc2) GEMM E -> D into an f32
+// partial with no bias and no residual (gemm<float, kBiasAct> with no bias
+// and kNone, the instantiation ln_matmul<float> already makes). The caller
+// sums the partials over the ranks and adds the bias and the residual once.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() after each launch.
@@ -519,6 +533,14 @@ int attn_block(const void* x, int x_f32, const float* ln_s, const float* ln_b,
   return 0;
 }
 
+// out = A W (M, N) f32, no bias, no residual: the head-split entries'
+// partials
+cudaError_t gemm_partial(const bf16* A, int lda, const bf16* W, int ldw,
+                         float* out, int M, int N, int K, cudaStream_t st) {
+  return gemm<float, kBiasAct>(A, lda, W, ldw, nullptr, out, N, nullptr, 0,
+                               kNoMap, M, N, K, kNone, st);
+}
+
 }  // namespace
 
 
@@ -743,6 +765,78 @@ int wt_attn_block_pooled(const void* x, int x_f32, const float* ln_s,
   WT_CHECK(gemm_residual(att, D, wo, D, bo, out, D, x, D, pooled, x_f32, B, D,
                          D, st));
   return 0;
+}
+
+// The head-split attention chain: x (B, SP, D) f32 or bf16, wqkv (D, 3E)
+// bf16, bqkv (3E,) bf16, wo (E, D) bf16 -> partial (B*SP, D) f32 = MHA over
+// the H heads of width E (E / H in 64, 80, 88, 104) times wo, no bias or
+// residual. qkv (B*SP, 3E) bf16 holds the post-bias in-projection when it
+// returns (the training backward's residual). Scratch (bf16): y (B*SP, D),
+// att (B*SP, E).
+int wt_attn_block_partial(const void* x, int x_f32, const float* ln_s,
+                          const float* ln_b, const bf16* wqkv,
+                          const bf16* bqkv, const bf16* wo, float* partial,
+                          bf16* y, bf16* qkv, bf16* att, int B, int SP, int D,
+                          int E, int H, int n_valid, int causal,
+                          void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int M = B * SP;
+  const int hd = head_dim(SP, E, H);
+  if (!hd || E % 8 != 0) return (int)cudaErrorInvalidValue;
+  WT_CHECK(layernorm(x, x_f32, ln_s, ln_b, y, M, D, st));
+  WT_CHECK((gemm<bf16, kBias>(y, D, wqkv, 3 * E, bqkv, qkv, 3 * E, nullptr, 0,
+                              kNoMap, M, 3 * E, D, kNone, st)));
+  WT_CHECK(attention_packed(hd, qkv, nullptr, att, E, B, SP, H, n_valid,
+                            causal, st));
+  WT_CHECK(gemm_partial(att, E, wo, D, partial, M, D, E, st));
+  return 0;
+}
+
+// The head-split pooled chain at one row per example: rows[b] when rows is
+// given (device int32, clamped), else pool_row. The weights stand as
+// wt_attn_block_partial's; partial (B, D) f32, no bias or residual. Scratch
+// (bf16): y (B*SP, D), yrows (B, D) (the gathered rows of y), kv (B*SP, 2E),
+// q (B, E), att (B, E).
+int wt_attn_block_pooled_partial(const void* x, int x_f32, const float* ln_s,
+                                 const float* ln_b, const bf16* wqkv,
+                                 const bf16* bqkv, const bf16* wo,
+                                 const int* rows, int pool_row,
+                                 float* partial, bf16* y, bf16* yrows,
+                                 bf16* kv, bf16* q, bf16* att, int B, int SP,
+                                 int D, int E, int H, int n_valid, int causal,
+                                 void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int M = B * SP;
+  if (!head_dim(SP, E, H) || E % 8 != 0 ||
+      (!rows && (pool_row < 0 || pool_row >= SP)))
+    return (int)cudaErrorInvalidValue;
+  WT_CHECK(layernorm(x, x_f32, ln_s, ln_b, y, M, D, st));
+  WT_CHECK((gemm<bf16, kBias>(y, D, wqkv + E, 3 * E, bqkv + E, kv, 2 * E,
+                              nullptr, 0, kNoMap, M, 2 * E, D, kNone, st)));
+  if (rows) {
+    const RowMap pooled = {rows, pool_row, SP, kGatherPooled};
+    WT_CHECK(gather_rows(y, pooled, yrows, B, D, st));
+    WT_CHECK((gemm<bf16, kBias>(yrows, D, wqkv, 3 * E, bqkv, q, E, nullptr, 0,
+                                kNoMap, B, E, D, kNone, st)));
+  } else {
+    WT_CHECK((gemm<bf16, kBias>(y + (size_t)pool_row * D, SP * D, wqkv,
+                                3 * E, bqkv, q, E, nullptr, 0, kNoMap, B, E,
+                                D, kNone, st)));
+  }
+  WT_CHECK((cudaError_t)wt_attention_pooled(q, kv, E, rows, pool_row, att, B,
+                                            SP, H, n_valid, causal, 0,
+                                            stream));
+  WT_CHECK(gemm_partial(att, E, wo, D, partial, B, D, E, st));
+  return 0;
+}
+
+// The head-split MLP's second half: partial (M, D) f32 = h (M, F) bf16 times
+// wproj (F, D) bf16, F the rank's columns; no bias or residual. The first
+// half is wt_mlp_fc or wt_mlp_fc_res at F. No scratch.
+int wt_mlp_proj_partial(const bf16* h, const bf16* wproj, float* partial,
+                        int M, int D, int F, void* stream) {
+  return (int)gemm_partial(h, F, wproj, D, partial, M, D, F,
+                           static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

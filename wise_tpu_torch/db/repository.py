@@ -212,22 +212,11 @@ class VectorRepo(_Repo):
         projects never collide."""
         if not objs:
             return []
-        cur = conn.execute("SELECT COALESCE(MAX(id), 0) FROM vectors")
-        base = max(cur.fetchone()[0], id_base)
-        rows = [
-            (
-                base + i + 1,
-                _enum_to_db(ModalityType(o.modality)),
-                o.media_id,
-                o.timestamp,
-                o.end_timestamp,
-            )
-            for i, o in enumerate(objs)
-        ]
-        conn.executemany(
-            "INSERT INTO vectors (id, modality, media_id, timestamp, end_timestamp)"
-            " VALUES (?,?,?,?,?)",
-            rows,
+        base = self.insert_rows(
+            conn,
+            [(o.modality, o.media_id, o.timestamp, o.end_timestamp)
+             for o in objs],
+            id_base,
         )
         out = []
         for i, o in enumerate(objs):
@@ -235,6 +224,22 @@ class VectorRepo(_Repo):
             n.id = base + i + 1
             out.append(n)
         return out
+
+    def insert_rows(self, conn, rows, id_base: int = 0) -> int:
+        """``create_batch`` without a model object a row: ``rows`` of
+        (modality, media_id, timestamp, end_timestamp) written by one
+        executemany under contiguous ids, the first ``base + 1``. Returns
+        ``base``: the largest id before, floored at ``id_base``."""
+        cur = conn.execute("SELECT COALESCE(MAX(id), 0) FROM vectors")
+        base = max(cur.fetchone()[0], id_base)
+        names = {m: _enum_to_db(ModalityType(m)) for m in {r[0] for r in rows}}
+        conn.executemany(
+            "INSERT INTO vectors (id, modality, media_id, timestamp, end_timestamp)"
+            " VALUES (?,?,?,?,?)",
+            [(base + i + 1, names[m], media, t, end)
+             for i, (m, media, t, end) in enumerate(rows)],
+        )
+        return base
 
 
 class ThumbnailRepo(_Repo):

@@ -53,6 +53,18 @@ and the XLM-R tower's layers through ops/postln_block.py's ``*_train``
 entries: the same kernels forward, and a backward that differentiates the
 plain version at the saved inputs. ``config.remat`` recomputes each block in
 the backward (``torch.utils.checkpoint``).
+
+Under tensor parallelism (``tp``, a parallel/distributed.py TensorParallel
+of more than one rank) a CLIP tower's blocks hold the rank's H/mp heads and
+F/mp MLP columns, as parallel/train.py ``shard_clip_params`` lays them out:
+``attn.in_proj.kernel`` (D, 3E), ``attn.out_proj.kernel`` (E, D),
+``mlp_fc.kernel`` (D, F/mp), ``mlp_proj.kernel`` (F/mp, D); every other leaf,
+the column-split layers' biases included, is whole, as the reference
+replicates it. The blocks run the head-split forms of ops/block.py (the
+kernel chains with ``fused_block``, the attention middle over H/mp heads with
+``fused_attention``, the plain forms otherwise), the pooled layer's MLP and
+SigLIP's ``MAPHead`` column / row parallel. The XLM-R tower stays whole. With
+one rank the path is the unsplit one.
 """
 
 from __future__ import annotations
@@ -103,17 +115,57 @@ class Dense(nn.Module):
         return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
+def _split_dense(din: int, dout: int, part: int, dtype, param_dtype):
+    """A Dense whose kernel holds ``part`` of its ``dout`` columns and whose
+    bias is whole (the reference shards only 2-D leaves)."""
+    layer = Dense(din, part, dtype, bias=False, param_dtype=param_dtype)
+    layer.bias = nn.Parameter(torch.zeros(dout, dtype=param_dtype or dtype))
+    return layer
+
+
 class Attention(nn.Module):
-    def __init__(self, width: int, dtype: torch.dtype, param_dtype=None):
+    """in_proj (D, 3D) and out_proj (D, D); with ``tp`` split, in_proj's
+    kernel (D, 3E) and out_proj's (E, D), E = D / mp."""
+
+    def __init__(self, width: int, dtype: torch.dtype, param_dtype=None,
+                 tp=None):
         super().__init__()
-        self.in_proj = Dense(width, 3 * width, dtype, param_dtype=param_dtype)
-        self.out_proj = Dense(width, width, dtype, param_dtype=param_dtype)
+        split = tp is not None and tp.size > 1
+        e = width // tp.size if split else width
+        self.in_proj = (_split_dense(width, 3 * width, 3 * e, dtype,
+                                     param_dtype) if split
+                        else Dense(width, 3 * width, dtype,
+                                   param_dtype=param_dtype))
+        self.out_proj = Dense(e, width, dtype, param_dtype=param_dtype)
+
+
+def _check_split(width: int, heads: int, hidden: int, tp) -> bool:
+    """Whether ``tp`` splits a block of this shape; raises with the shapes
+    where the heads or the MLP's columns do not divide."""
+    if tp is None or tp.size == 1:
+        return False
+    if heads % tp.size or hidden % tp.size:
+        raise ValueError(f"a block of {heads} heads (width {width}) and MLP "
+                         f"width {hidden} does not split over mp = "
+                         f"{tp.size}: both must divide")
+    return True
+
+
+def _mlp_split(x0, ln, fc, proj, cols, act: str, dtype, tp):
+    """x0 + proj(act(fc(ln(x0)))) on (B, D) rows with fc split by column and
+    proj by row over ``tp``'s ranks (``cols`` the rank's fc columns): the
+    pooled layer's MLP and MAPHead's, plain ops as in the reference."""
+    y = K.mp_in(ln(x0).to(dtype), tp)
+    h = K.activation((K.col_matmul(y, fc.kernel.to(dtype))
+                      + tp.take(fc.bias, cols).to(dtype)).float(), act)
+    return x0 + K.mp_dense(K.split_out(h.to(dtype), proj.kernel.to(dtype)),
+                           proj.bias, tp, dtype)
 
 
 class ResidualAttentionBlock(nn.Module):
     def __init__(self, width: int, heads: int, act: str, dtype: torch.dtype,
                  fused_block: bool, fused_attention: bool = False,
-                 param_dtype=None):
+                 param_dtype=None, tp=None):
         super().__init__()
         self.width, self.heads, self.act, self.dtype = width, heads, act, dtype
         self.fused_block = fused_block and dtype == torch.bfloat16
@@ -121,12 +173,25 @@ class ResidualAttentionBlock(nn.Module):
         #: are off
         self.fused_attention = (fused_attention and dtype == torch.bfloat16
                                 and not self.fused_block)
+        hidden = 4 * width
+        #: the 'mp' group whose ranks split the block, None unsplit
+        self.tp = tp if _check_split(width, heads, hidden, tp) else None
+        f = hidden // tp.size if self.tp else hidden
         self.ln_1 = LayerNorm(width)
-        self.attn = Attention(width, dtype, param_dtype)
+        self.attn = Attention(width, dtype, param_dtype, self.tp)
         self.ln_2 = LayerNorm(width)
-        self.mlp_fc = Dense(width, 4 * width, dtype, param_dtype=param_dtype)
-        self.mlp_proj = Dense(4 * width, width, dtype,
-                              param_dtype=param_dtype)
+        self.mlp_fc = (_split_dense(width, hidden, f, dtype, param_dtype)
+                       if self.tp else Dense(width, hidden, dtype,
+                                             param_dtype=param_dtype))
+        self.mlp_proj = Dense(f, width, dtype, param_dtype=param_dtype)
+        if self.tp:
+            # the rank's columns of in_proj's and mlp_fc's whole biases
+            self.register_buffer("qkv_cols", self.tp.qkv_columns(width),
+                                 persistent=False)
+            cols = self.tp.columns(hidden)
+            self.register_buffer("fc_cols", torch.arange(cols.start,
+                                                         cols.stop),
+                                 persistent=False)
 
     def _attn_params(self):
         a = self.attn
@@ -136,6 +201,46 @@ class ResidualAttentionBlock(nn.Module):
     def _mlp_params(self):
         return (self.ln_2.scale, self.ln_2.bias, *self.mlp_fc.weights(),
                 *self.mlp_proj.weights())
+
+    def _split_attn_params(self):
+        """The rank's attention weights: (ln_s, ln_b, wqkv (D, 3E), bqkv
+        (3E,), wo (E, D), bo (D,)), in the compute dtype."""
+        a, dt = self.attn, self.dtype
+        return (self.ln_1.scale, self.ln_1.bias, a.in_proj.kernel.to(dt),
+                self.tp.take(a.in_proj.bias, self.qkv_cols).to(dt),
+                *a.out_proj.weights())
+
+    def _split_mlp_params(self):
+        dt = self.dtype
+        return (self.ln_2.scale, self.ln_2.bias, self.mlp_fc.kernel.to(dt),
+                self.tp.take(self.mlp_fc.bias, self.fc_cols).to(dt),
+                *self.mlp_proj.weights())
+
+    def _split_forward(self, x, n_valid: int, causal: bool):
+        """The block on the rank's heads and columns, closed over the
+        ranks."""
+        tp, heads = self.tp, self.heads // self.tp.size
+        attn = self._split_attn_params()
+        if self.fused_attention:
+            _, _, wqkv, bqkv, wo, bo = attn
+            y = K.mp_in(self.ln_1(x).to(self.dtype), tp)
+            q, k, v = (K.col_matmul(y, wqkv) + bqkv).split(wo.shape[0],
+                                                           dim=-1)
+            att = A.fused_attention_trainable(q, k, v, heads, n_valid, causal)
+            x = x + K.mp_dense(K.split_out(att, wo), bo, tp,
+                               self.dtype).to(x.dtype)
+            return K.plain_mlp_block_mp(x, *self._split_mlp_params(),
+                                        act=self.act, tp=tp)
+        if self.fused_block:
+            x = K.fused_attn_block_mp_train(x, *attn, heads=heads,
+                                            n_valid=n_valid, causal=causal,
+                                            tp=tp)
+            return K.fused_mlp_mp_train(x, *self._split_mlp_params(),
+                                        act=self.act, tp=tp)
+        x = K.plain_attn_block_mp(x, *attn, heads=heads, n_valid=n_valid,
+                                  causal=causal, tp=tp)
+        return K.plain_mlp_block_mp(x, *self._split_mlp_params(),
+                                    act=self.act, tp=tp)
 
     def _attention_middle(self, x, n_valid: int, causal: bool):
         """x + out_proj(fused_short_attention(in_proj(LN(x)))) through its
@@ -160,6 +265,8 @@ class ResidualAttentionBlock(nn.Module):
         return K.fused_attn_block_train
 
     def forward(self, x, n_valid: int, causal: bool = False):
+        if self.tp:
+            return self._split_forward(x, n_valid, causal)
         fused = self.fused_block
         if self.fused_attention:
             x = self._attention_middle(x, n_valid, causal)
@@ -180,6 +287,15 @@ class ResidualAttentionBlock(nn.Module):
         """The last layer at one row per example, (B, D): ``rows`` (B,)
         int32 per example (text EOT), else the static ``pool_row``."""
         fused = self.fused_block
+        if self.tp:
+            fn = (K.fused_attn_block_pooled_mp_train if fused
+                  else K.plain_attn_block_pooled_mp)
+            x0 = fn(x, rows, *self._split_attn_params(),
+                    heads=self.heads // self.tp.size, n_valid=n_valid,
+                    pool_row=0 if pool_row is None else pool_row,
+                    causal=causal, tp=self.tp)
+            return _mlp_split(x0, self.ln_2, self.mlp_fc, self.mlp_proj,
+                              self.fc_cols, self.act, self.dtype, self.tp)
         if rows is not None:
             fn = (K.fused_attn_block_pooled_dyn_train if fused
                   else K.plain_attn_block_pooled_dyn)
@@ -198,14 +314,14 @@ class Transformer(nn.Module):
     def __init__(self, width: int, layers: int, heads: int, act: str,
                  dtype: torch.dtype, fused_block: bool,
                  fused_attention: bool = False, remat: bool = False,
-                 param_dtype=None):
+                 param_dtype=None, tp=None):
         super().__init__()
         #: recompute each block in the backward instead of keeping its
         #: activations (the reference's nn.remat around a block)
         self.remat = remat
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads, act, dtype, fused_block,
-                                   fused_attention, param_dtype)
+                                   fused_attention, param_dtype, tp)
             for _ in range(layers)
         )
 
@@ -261,18 +377,31 @@ class MAPHead(nn.Module):
     LayerNorm. The probe's query is one row, (1, D), shared by the batch."""
 
     def __init__(self, width: int, heads: int, act: str, dtype: torch.dtype,
-                 param_dtype=None):
+                 param_dtype=None, tp=None):
         super().__init__()
         self.width, self.heads, self.act, self.dtype = width, heads, act, dtype
+        hidden = 4 * width
+        # under ``tp`` out_proj splits by row, mlp_fc by column and
+        # mlp_proj by row (the reference's rule); q_proj and kv_proj match
+        # none of its patterns and stay whole
+        self.tp = tp if _check_split(width, heads, hidden, tp) else None
+        e, f = ((width // tp.size, hidden // tp.size) if self.tp
+                else (width, hidden))
         self.probe = nn.Parameter(
             torch.zeros(1, width, dtype=param_dtype or dtype))
         self.q_proj = Dense(width, width, dtype, param_dtype=param_dtype)
         self.kv_proj = Dense(width, 2 * width, dtype, param_dtype=param_dtype)
-        self.out_proj = Dense(width, width, dtype, param_dtype=param_dtype)
+        self.out_proj = Dense(e, width, dtype, param_dtype=param_dtype)
         self.norm = LayerNorm(width)
-        self.mlp_fc = Dense(width, 4 * width, dtype, param_dtype=param_dtype)
-        self.mlp_proj = Dense(4 * width, width, dtype,
-                              param_dtype=param_dtype)
+        self.mlp_fc = (_split_dense(width, hidden, f, dtype, param_dtype)
+                       if self.tp else Dense(width, hidden, dtype,
+                                             param_dtype=param_dtype))
+        self.mlp_proj = Dense(f, width, dtype, param_dtype=param_dtype)
+        if self.tp:
+            cols = self.tp.columns(hidden)
+            self.register_buffer("fc_cols", torch.arange(cols.start,
+                                                         cols.stop),
+                                 persistent=False)
 
     def forward(self, tokens):
         """tokens (B, S, D) -> (B, D) in the compute dtype."""
@@ -285,6 +414,13 @@ class MAPHead(nn.Module):
         p = torch.softmax(logits.float() / math.sqrt(hd), dim=-1)
         out = torch.einsum("bhk,bkhd->bhd", p.to(self.dtype),
                            v.reshape(b, s, self.heads, hd)).reshape(b, d)
+        if self.tp:
+            tp, dt = self.tp, self.dtype
+            part = K.split_out(tp.copy(out)[:, tp.columns(d)],
+                               self.out_proj.kernel.to(dt))
+            out = K.mp_dense(part, self.out_proj.bias, tp, dt)
+            return _mlp_split(out, self.norm, self.mlp_fc, self.mlp_proj,
+                              self.fc_cols, self.act, dt, tp)
         out = self.out_proj(out)
         h = K.activation(self.mlp_fc(self.norm(out)).float(), self.act)
         return out + self.mlp_proj(h.to(self.dtype))
@@ -296,7 +432,7 @@ class VisionTransformer(nn.Module):
     class token or ``ln_pre``, every layer whole, ``ln_post`` over every
     token, then ``attn_pool``)."""
 
-    def __init__(self, c: CLIPConfig, param_dtype=None):
+    def __init__(self, c: CLIPConfig, param_dtype=None, tp=None):
         super().__init__()
         if c.vision_pool not in ("cls", "map"):
             raise ValueError(f"unknown vision_pool {c.vision_pool!r}")
@@ -316,34 +452,42 @@ class VisionTransformer(nn.Module):
         self.transformer = Transformer(w, c.vision_layers, c.vision_heads,
                                        c.act_name, dt, c.fused_block,
                                        c.fused_attention, c.remat,
-                                       param_dtype)
+                                       param_dtype, tp)
         self.ln_post = LayerNorm(w)
         if not cls:
             self.attn_pool = MAPHead(w, c.vision_heads, c.act_name, dt,
-                                     param_dtype)
+                                     param_dtype, tp)
         self.proj = nn.Parameter(torch.zeros(w, c.embed_dim, dtype=pdt))
 
-    def forward(self, images):
-        """images (B, H, W, 3) float, normalised -> (B, embed_dim) f32."""
+    def embed(self, images):
+        """images (B, H, W, 3) float, normalised -> the residual stream the
+        transformer takes, (B, S, D)."""
         c = self.config
         dt = c.torch_dtype
         x = self.conv1(images)
         if c.vision_pool == "map":
-            x = self.transformer(x + self.positional_embedding.to(dt),
-                                 x.shape[1])
-            x = self.attn_pool(self.ln_post(x).to(dt))
-            return (x @ self.proj.to(dt)).float()
+            return x + self.positional_embedding.to(dt)
         cls = self.class_embedding.to(dt).expand(x.shape[0], 1, -1)
         x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(dt)
         x = self.ln_pre(x)
-        if c.bf16_stream:
-            x = x.to(c.torch_dtype)
-        if c.pool_last_block:
-            x = self.transformer(x, x.shape[1], pool_row=0)
-        else:
-            x = self.transformer(x, x.shape[1])[:, 0]
-        x = self.ln_post(x)
+        return x.to(c.torch_dtype) if c.bf16_stream else x
+
+    def head(self, x):
+        """The transformer's output, (B, S, D) or the class row (B, D) ->
+        (B, embed_dim) f32."""
+        dt = self.config.torch_dtype
+        if self.config.vision_pool == "map":
+            x = self.attn_pool(self.ln_post(x).to(dt))
+            return (x @ self.proj.to(dt)).float()
+        x = self.ln_post(x[:, 0] if x.dim() == 3 else x)
         return (x.to(dt) @ self.proj.to(dt)).float()
+
+    def forward(self, images):
+        """images (B, H, W, 3) float, normalised -> (B, embed_dim) f32."""
+        x = self.embed(images)
+        if self.config.vision_pool == "cls" and self.config.pool_last_block:
+            return self.head(self.transformer(x, x.shape[1], pool_row=0))
+        return self.head(self.transformer(x, x.shape[1]))
 
 
 class TextTransformer(nn.Module):
@@ -352,7 +496,7 @@ class TextTransformer(nn.Module):
     bidirectional with ``text_causal=False``, a biased head with
     ``text_proj_bias``)."""
 
-    def __init__(self, c: CLIPConfig, param_dtype=None):
+    def __init__(self, c: CLIPConfig, param_dtype=None, tp=None):
         super().__init__()
         if c.text_tower != "clip" or c.text_pool not in ("argmax", "last"):
             raise ValueError(f"not a CLIP text tower: text_tower "
@@ -367,7 +511,7 @@ class TextTransformer(nn.Module):
         self.transformer = Transformer(w, c.text_layers, c.text_heads,
                                        c.act_name, dt, c.fused_block,
                                        c.fused_attention, c.remat,
-                                       param_dtype)
+                                       param_dtype, tp)
         self.ln_final = LayerNorm(w)
         self.text_projection = nn.Parameter(
             torch.zeros(w, c.embed_dim, dtype=pdt))
@@ -375,11 +519,12 @@ class TextTransformer(nn.Module):
             self.text_projection_bias = nn.Parameter(
                 torch.zeros(c.embed_dim, dtype=pdt))
 
-    def forward(self, tokens):
-        """tokens (B, context_length) int -> (B, embed_dim) f32, pooled at
-        the argmax token (EOT has the highest id, as in open_clip) or at the
-        last. Ids outside the vocabulary raise: the reference's gather clamps
-        them without a word, and an index error from the card names
+    def embed(self, tokens):
+        """tokens (B, context_length) int -> (the residual stream the
+        transformer takes, (B, S, D); the pooled row of each example, the
+        argmax token (EOT has the highest id, as in open_clip), or None for
+        the last). Ids outside the vocabulary raise: the reference's gather
+        clamps them without a word, and an index error from the card names
         nothing."""
         c = self.config
         dt = c.torch_dtype
@@ -390,21 +535,33 @@ class TextTransformer(nn.Module):
                 f"[0, {c.vocab_size})")
         x = (self.token_embedding[tokens].to(dt)
              + self.positional_embedding.to(dt))
-        n = x.shape[1]
-        eot = None if c.text_pool == "last" else tokens.argmax(dim=-1)
-        if c.pool_last_block:
-            pooled = self.ln_final(self.transformer(
-                x, n, causal=c.text_causal,
-                pool_row=n - 1 if eot is None else None,
-                pool_rows=None if eot is None else eot.to(torch.int32)))
-        else:
-            x = self.ln_final(self.transformer(x, n, causal=c.text_causal))
-            pooled = (x[:, -1] if eot is None
-                      else x[torch.arange(x.shape[0], device=x.device), eot])
-        out = pooled.to(dt) @ self.text_projection.to(dt)
-        if c.text_proj_bias:
+        return x, None if c.text_pool == "last" else tokens.argmax(dim=-1)
+
+    def head(self, x, eot):
+        """The transformer's output, (B, S, D) or the pooled rows (B, D),
+        and ``embed``'s rows -> (B, embed_dim) f32."""
+        dt = self.config.torch_dtype
+        x = self.ln_final(x)
+        if x.dim() == 3:
+            x = (x[:, -1] if eot is None
+                 else x[torch.arange(x.shape[0], device=x.device), eot])
+        out = x.to(dt) @ self.text_projection.to(dt)
+        if self.config.text_proj_bias:
             out = out + self.text_projection_bias.to(dt)
         return out.float()
+
+    def forward(self, tokens):
+        """tokens (B, context_length) int -> (B, embed_dim) f32, pooled at
+        the argmax token or at the last."""
+        c = self.config
+        x, eot = self.embed(tokens)
+        n = x.shape[1]
+        if c.pool_last_block:
+            return self.head(self.transformer(
+                x, n, causal=c.text_causal,
+                pool_row=n - 1 if eot is None else None,
+                pool_rows=None if eot is None else eot.to(torch.int32)), eot)
+        return self.head(self.transformer(x, n, causal=c.text_causal), eot)
 
 
 def _l2_normalize(x):
@@ -414,20 +571,22 @@ def _l2_normalize(x):
 class CLIP(nn.Module):
     """``param_dtype`` stores the matrices, biases and embeddings in another
     dtype than the compute dtype: float32 for training (the module
-    docstring says why); None, the compute dtype, for serving."""
+    docstring says why); None, the compute dtype, for serving. ``tp``: the
+    'mp' group whose ranks split the CLIP towers' blocks (the XLM-R tower
+    stays whole)."""
 
     def __init__(self, config: CLIPConfig,
-                 param_dtype: torch.dtype | None = None):
+                 param_dtype: torch.dtype | None = None, tp=None):
         super().__init__()
         self.config = config
-        self.visual = VisionTransformer(config, param_dtype)
+        self.visual = VisionTransformer(config, param_dtype, tp)
         if config.text_tower == "hf_xlm_roberta":
             from .hf_text import XLMRobertaTextTower, hf_text_config
 
             self.text = XLMRobertaTextTower(hf_text_config(config),
                                             param_dtype)
         else:
-            self.text = TextTransformer(config, param_dtype)
+            self.text = TextTransformer(config, param_dtype, tp)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
 
     def encode_image(self, images, normalize: bool = True):

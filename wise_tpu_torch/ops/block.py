@@ -21,6 +21,12 @@ version; on a CUDA tensor it launches its kernel chain
 | fused_ln_matmul               | fused_ln_matmul (block.py:1303)             |
 | fused_residual_matmul         | fused_residual_matmul (block.py:1340)       |
 
+The head-split forms (tensor parallelism, ``--mp``) run the same kernels
+at a rank's H/mp heads and F/mp columns and end in an f32 partial that
+``mp_close`` sums over the ranks: ``fused_attn_partial``,
+``fused_attn_pooled_partial`` and ``fused_mlp_partial`` (the fc / proj pair),
+with their ``*_mp_train`` rules and ``plain_*_mp`` twins (the section below).
+
 ``fused_attn_block_padded`` (block.py:1420) chains the last two with the
 attention middle (ops/attention.py) at head_dim 128: the padded-head block
 for head dims that are not a multiple of 64, with its training rule
@@ -65,7 +71,10 @@ _launches = LaunchCounter("fused_attn_block", "fused_mlp_block",
                           "fused_mlp_proj", "fused_attn_block_res",
                           "fused_mlp_block_res", "fused_mlp_fc_res",
                           "fused_ln_matmul", "fused_residual_matmul",
-                          "pooled_attention")
+                          "pooled_attention", "fused_attn_block_mp",
+                          "fused_mlp_fc_mp", "fused_mlp_proj_mp",
+                          "fused_attn_block_pooled_mp",
+                          "fused_attn_block_pooled_dyn_mp")
 #: kernel launches per wrapper since the last reset_launches()
 LAUNCHES = _launches.counts
 #: the same launches keyed by (wrapper, SP, D) of x: one tower's count
@@ -842,6 +851,272 @@ def fused_attn_block_padded(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
 
 
 # ---------------------------------------------------------------------------
+# head-split forms (tensor parallelism over 'mp', parallel/distributed.py).
+# The reference shards the block's weights over 'mp' and lets GSPMD insert
+# the collectives (wise_tpu/parallel/train.py:31-46); here a rank holds H/mp
+# whole heads: wqkv (D, 3E) = [q | k | v] of its heads, E = H hd / mp, bqkv
+# (3E,), wo (E, D) its rows of the out-projection; of the MLP wfc (D, F/mp),
+# bfc (F/mp,), wproj (F/mp, D). A rank's chain ends in an f32 partial of the
+# out-projection (or fc2) with no bias and no residual; ``mp_close`` sums the
+# partials over the ranks (one all_reduce, in f32) and adds the bias and the
+# residual once, on every rank. The LayerNorm in front runs whole on every
+# rank. The kernels are the block chain's own (layernorm_kernel, gemm_kernel,
+# attention_kernel<HD> and attention_pooled_kernel<HD> at H/mp heads), behind
+# new C entries that take the inner width E apart from D
+# (csrc/block_kernels.cu wt_attn_block_partial, wt_attn_block_pooled_partial,
+# wt_mlp_proj_partial; the fc half is wt_mlp_fc(_res) at F/mp).
+#
+# ``tp`` is the rank's parallel/distributed.py TensorParallel: its ``copy``
+# sums LN(x)'s cotangent over the ranks in a plain form's backward, its
+# ``reduce`` the partials forward. A plain form with ``tp`` None has no
+# collective: the rank's partial alone, which a test sums by hand.
+#
+# Every part that is summed over the ranks is formed in f32 and rounded once,
+# after the sum, as the whole layer's GEMM rounds its f32 accumulator once:
+# the out-projection's (or fc2's) partial forward (``split_out``, the
+# kernels' f32 partial), and LN(x)'s cotangent backward (``mp_in`` with
+# ``col_matmul`` in the plain forms, ``_dense_bwd`` in the training rules).
+# ---------------------------------------------------------------------------
+
+
+def mp_close(x, partial, bias, tp):
+    """x + (the ranks' partials summed + bias), in x's dtype: the sum in f32,
+    rounded once into x's dtype (as the whole block's epilogue rounds its
+    f32 accumulator), then added."""
+    return x + (tp.reduce(partial) + bias.float()).to(x.dtype)
+
+
+def mp_dense(partial, bias, tp, dtype):
+    """A row-split plain Dense closed over the ranks: the partials summed
+    in f32 and rounded once into ``dtype``, then the bias added in
+    ``dtype``, the rounding points of the whole layer's ``x @ w + b``
+    (models/clip/model.py ``Dense``; the kernels' epilogue is mp_close's)."""
+    return tp.reduce(partial).to(dtype) + bias.to(dtype)
+
+
+def mp_in(y, tp=None):
+    """LN(x), already in its compute dtype, as the rank's column-split
+    layers read it: its values in f32, so that their products (col_matmul)
+    hand back an f32 cotangent. Under ``tp`` that cotangent, the ranks'
+    parts summed in f32 (``tp.copy``), is rounded once into y's dtype where
+    it leaves (the pullback of ``.float()``), as the whole layer's g @ w.T
+    is rounded once."""
+    y32 = y.float()
+    return y32 if tp is None else tp.copy(y32)
+
+
+def col_matmul(y32, w):
+    """mp_in's y times the rank's columns of ``w``: the products of the
+    compute dtype's values accumulated in f32 and rounded once into w's
+    dtype, as the whole layer's GEMM."""
+    return (y32 @ w.float()).to(w.dtype)
+
+
+def split_out(a, w):
+    """a @ w for a layer split by input row (the out-projection, fc2): the
+    rank's f32 partial, products of a's and w's values accumulated in f32
+    and not rounded; mp_close sums the partials and rounds once."""
+    return a.float() @ w.float()
+
+
+def _pool_index(x, rows, pool_row):
+    """Each example's pooled row, clamped into [0, SP) (int64 (B,))."""
+    b, sp = x.shape[:2]
+    if rows is None:
+        return torch.full((b,), pool_row, dtype=torch.long, device=x.device)
+    return rows.long().clamp(0, sp - 1)
+
+
+def pooled_rows(x, rows, pool_row: int = 0):
+    """x at each example's pooled row, (B, D): the pooled block's residual."""
+    return x[torch.arange(x.shape[0], device=x.device),
+             _pool_index(x, rows, pool_row)]
+
+
+def plain_attn_partial(x, ln_s, ln_b, wqkv, bqkv, wo, heads: int,
+                       n_valid: int, causal: bool = False, tp=None):
+    """The rank's part of the attention block: (MHA over its ``heads`` of
+    LN(x) @ wo, (B, SP, D) f32 without bias; its post-bias qkv (B, SP, 3E)
+    in the weight dtype)."""
+    y = mp_in(layer_norm_f32(x, ln_s, ln_b).to(wqkv.dtype), tp)
+    qkv = col_matmul(y, wqkv) + bqkv
+    att = attention_of_qkv(qkv, heads, n_valid, causal)
+    return split_out(att, wo), qkv
+
+
+def plain_mlp_partial(x, ln_s, ln_b, wfc, bfc, wproj, act: str = "gelu",
+                      tp=None):
+    """The rank's part of the MLP block: (proj(act(fc(LN(x)))) over its F/mp
+    columns, (B, SP, D) f32 without bias; its pre-activation fc output)."""
+    y = mp_in(layer_norm_f32(x, ln_s, ln_b).to(wfc.dtype), tp)
+    h_pre = col_matmul(y, wfc) + bfc
+    h = activation(h_pre.float(), act).to(h_pre.dtype)
+    return split_out(h, wproj), h_pre
+
+
+def plain_attn_pooled_partial(x, rows, ln_s, ln_b, wqkv, bqkv, wo, heads: int,
+                              n_valid: int, pool_row: int = 0,
+                              causal: bool = False, tp=None):
+    """The rank's part of the pooled attention block at each example's row
+    (``rows`` (B,), else ``pool_row``): (B, D) f32 without bias."""
+    e = wqkv.shape[1] // 3
+    y = mp_in(layer_norm_f32(x, ln_s, ln_b).to(wqkv.dtype), tp)
+    kv = col_matmul(y, wqkv[:, e:]) + bqkv[e:]
+    idx = _pool_index(x, rows, pool_row)
+    q = col_matmul(y[torch.arange(x.shape[0], device=x.device), idx],
+                   wqkv[:, :e]) + bqkv[:e]
+    att = plain_pooled_attention(q, kv, heads, n_valid, idx, causal=causal)
+    return split_out(att, wo)
+
+
+def _check_split_attn(x, ln_s, ln_b, wqkv, bqkv, wo, heads, n_valid, name):
+    b, sp, d = _check_x(x, name)
+    e = wqkv.shape[-1] // 3
+    _require(heads >= 1 and e % heads == 0 and e // heads in HEAD_DIMS
+             and e % 32 == 0,
+             f"{name}: {heads} heads over width {e}: head_dim not in "
+             f"{HEAD_DIMS}")
+    _require(1 <= n_valid <= sp, f"{name}: n_valid {n_valid} not in [1, {sp}]")
+    dev, bf = x.device, torch.bfloat16
+    _check_param(ln_s, (d,), torch.float32, dev, f"{name} ln_scale")
+    _check_param(ln_b, (d,), torch.float32, dev, f"{name} ln_bias")
+    _check_param(wqkv, (d, 3 * e), bf, dev, f"{name} wqkv")
+    _check_param(bqkv, (3 * e,), bf, dev, f"{name} bqkv")
+    _check_param(wo, (e, d), bf, dev, f"{name} wo")
+    return b, sp, d, e
+
+
+def fused_attn_partial(x, ln_s, ln_b, wqkv, bqkv, wo, heads: int,
+                       n_valid: int, causal: bool = False):
+    """The head-split attention chain (wt_attn_block_partial): LayerNorm,
+    the qkv GEMM D -> 3E, the attention over the rank's ``heads`` with
+    stride E, the out-proj GEMM E -> D into an f32 partial; as
+    plain_attn_partial, (partial, qkv)."""
+    if not x.is_cuda:
+        return plain_attn_partial(x, ln_s, ln_b, wqkv, bqkv, wo, heads,
+                                  n_valid, causal)
+    name = "fused_attn_block_mp"
+    _refuse_grad(name, "fused_attn_block_mp_train", x, ln_s, ln_b, wqkv,
+                 bqkv, wo)
+    b, sp, d, e = _check_split_attn(x, ln_s, ln_b, wqkv, bqkv, wo, heads,
+                                    n_valid, name)
+    m = b * sp
+    bf = dict(dtype=torch.bfloat16, device=x.device)
+    y = torch.empty((m, d), **bf)
+    qkv = torch.empty((b, sp, 3 * e), **bf)
+    att = torch.empty((m, e), **bf)
+    partial = torch.empty((b, sp, d), dtype=torch.float32, device=x.device)
+    check(load_library().wt_attn_block_partial(
+        *_ptrs(x), _is_f32(x), *_ptrs(ln_s, ln_b, wqkv, bqkv, wo, partial, y,
+                                     qkv, att),
+        b, sp, d, e, heads, int(n_valid), int(causal), _stream(x)), name)
+    _launches.add(name, sp, d)
+    return partial, qkv
+
+
+def fused_mlp_fc_mp(x, ln_s, ln_b, wfc, bfc, act: str = "gelu",
+                    res: bool = True):
+    """The head-split MLP's first half: fused_mlp_fc(_res)'s chain
+    (wt_mlp_fc(_res)) at the rank's F/mp columns: (h, h_pre), h_pre None
+    without ``res``."""
+    if not x.is_cuda:
+        return plain_mlp_fc_res(x, ln_s, ln_b, wfc, bfc, act)
+    name = "fused_mlp_fc_mp"
+    _refuse_grad(name, "fused_mlp_mp_train", x, ln_s, ln_b, wfc, bfc)
+    return _mlp_fc_launch(name, x, ln_s, ln_b, wfc, bfc, act, res)
+
+
+def fused_mlp_proj_partial(h, wproj, x):
+    """The head-split MLP's second half (wt_mlp_proj_partial): h (B, SP,
+    F/mp) bf16 times the rank's rows of wproj, an f32 partial (B, SP, D)
+    with no bias or residual; ``x`` gives the shape and the device."""
+    if not h.is_cuda:
+        return split_out(h, wproj)
+    name = "fused_mlp_proj_mp"
+    _refuse_grad(name, "fused_mlp_mp_train", h, wproj)
+    b, sp, d = _check_x(x, name)
+    f = wproj.shape[0]
+    _check_param(h, (b, sp, f), torch.bfloat16, x.device, f"{name} h")
+    _check_param(wproj, (f, d), torch.bfloat16, x.device, f"{name} wproj")
+    partial = torch.empty((b, sp, d), dtype=torch.float32, device=x.device)
+    check(load_library().wt_mlp_proj_partial(
+        *_ptrs(h, wproj, partial), b * sp, d, f, _stream(x)), name)
+    _launches.add(name, sp, d)
+    return partial
+
+
+def fused_mlp_partial(x, ln_s, ln_b, wfc, bfc, wproj, act: str = "gelu",
+                      res: bool = True):
+    """The head-split MLP pair, fused_mlp_fc_mp then fused_mlp_proj_partial;
+    as plain_mlp_partial, (partial, h_pre), h_pre None without ``res``."""
+    if not x.is_cuda:
+        return plain_mlp_partial(x, ln_s, ln_b, wfc, bfc, wproj, act)
+    h, h_pre = fused_mlp_fc_mp(x, ln_s, ln_b, wfc, bfc, act, res)
+    return fused_mlp_proj_partial(h, wproj, x), h_pre
+
+
+def fused_attn_pooled_partial(x, rows, ln_s, ln_b, wqkv, bqkv, wo,
+                              heads: int, n_valid: int, pool_row: int = 0,
+                              causal: bool = False):
+    """The head-split pooled chain (wt_attn_block_pooled_partial): k/v of
+    the rank's heads for every row, q, the pooled attention and the
+    out-proj partial at each example's row; as plain_attn_pooled_partial."""
+    if not x.is_cuda:
+        return plain_attn_pooled_partial(x, rows, ln_s, ln_b, wqkv, bqkv, wo,
+                                         heads, n_valid, pool_row, causal)
+    name = ("fused_attn_block_pooled_mp" if rows is None
+            else "fused_attn_block_pooled_dyn_mp")
+    _refuse_grad(name, name + "_train", x, ln_s, ln_b, wqkv, bqkv, wo)
+    b, sp, d, e = _check_split_attn(x, ln_s, ln_b, wqkv, bqkv, wo, heads,
+                                    n_valid, name)
+    if rows is not None:
+        _check_param(rows, (b,), torch.int32, x.device, f"{name} rows")
+    else:
+        _require(0 <= pool_row < sp, f"{name}: pool_row {pool_row} out of "
+                 "range")
+    bf = dict(dtype=torch.bfloat16, device=x.device)
+    y = torch.empty((b * sp, d), **bf)
+    yrows = torch.empty((b, d), **bf)
+    kv = torch.empty((b * sp, 2 * e), **bf)
+    q = torch.empty((b, e), **bf)
+    att = torch.empty((b, e), **bf)
+    partial = torch.empty((b, d), dtype=torch.float32, device=x.device)
+    check(load_library().wt_attn_block_pooled_partial(
+        *_ptrs(x), _is_f32(x), *_ptrs(ln_s, ln_b, wqkv, bqkv, wo),
+        None if rows is None else rows.data_ptr(), int(pool_row),
+        *_ptrs(partial, y, yrows, kv, q, att), b, sp, d, e, heads,
+        int(n_valid), int(causal), _stream(x)), name)
+    _launches.add(name, sp, d)
+    return partial
+
+
+def plain_attn_block_mp(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads: int,
+                        n_valid: int, causal: bool = False, tp=None):
+    """The attention block on the rank's heads, closed over the ranks:
+    plain PyTorch, differentiable (``tp.copy`` and ``tp.reduce``)."""
+    partial, _ = plain_attn_partial(x, ln_s, ln_b, wqkv, bqkv, wo, heads,
+                                    n_valid, causal, tp)
+    return mp_close(x, partial, bo, tp)
+
+
+def plain_mlp_block_mp(x, ln_s, ln_b, wfc, bfc, wproj, bproj,
+                       act: str = "gelu", tp=None):
+    """The MLP block on the rank's F/mp columns, closed over the ranks."""
+    partial, _ = plain_mlp_partial(x, ln_s, ln_b, wfc, bfc, wproj, act, tp)
+    return mp_close(x, partial, bproj, tp)
+
+
+def plain_attn_block_pooled_mp(x, rows, ln_s, ln_b, wqkv, bqkv, wo, bo,
+                               heads: int, n_valid: int, pool_row: int = 0,
+                               causal: bool = False, tp=None):
+    """The pooled attention block on the rank's heads, closed over the
+    ranks at each example's row: (B, D)."""
+    partial = plain_attn_pooled_partial(x, rows, ln_s, ln_b, wqkv, bqkv, wo,
+                                        heads, n_valid, pool_row, causal, tp)
+    return mp_close(pooled_rows(x, rows, pool_row), partial, bo, tp)
+
+
+# ---------------------------------------------------------------------------
 # autograd rules (wise_tpu/ops/block.py:1849-2045). The reference's backward
 # rules are jax.vjp over plain stage functions, not kernels; so are these:
 # plain PyTorch from the saved residual, or a recompute of the plain block.
@@ -861,36 +1136,55 @@ def _leaves(*tensors):
     return [t.detach().requires_grad_() for t in tensors]
 
 
-def _dense_bwd(a, w, g):
+def _dense_bwd(a, w, g, tp=None):
     """Pull ``g``, the cotangent of ``a @ w + b``, back to (a, w, b): what
     autograd derives for the expression, written out so that the product
-    itself is not computed again."""
+    itself is not computed again. Under a head split (``tp``) ``w`` holds
+    the rank's columns of a layer that reads the replicated ``a``: a's
+    cotangent is the rank's part formed in f32, summed over the 'mp' ranks
+    and rounded once into a's dtype, as the whole layer's g @ w.T is."""
     a2, g2 = a.flatten(0, -2), g.flatten(0, -2)
-    return g @ w.T, a2.T @ g2, g2.sum(0)
+    g_a = (g @ w.T if tp is None
+           else tp.reduce_cotangent(g.float() @ w.float().T).to(a.dtype))
+    return g_a, a2.T @ g2, g2.sum(0)
 
 
-def _stage_a_bwd(x, ln_s, ln_b, w, g):
+def _stage_a_bwd(x, ln_s, ln_b, w, g, tp=None):
     """Pull ``g``, the cotangent of LN(x).to(w.dtype) @ w + b, back to (x,
     ln_s, ln_b, w, b). The GEMM's own output is not needed for that, so it
     is not computed again: its three pullbacks are written out (what
     autograd derives for ``y @ w + b``), and autograd differentiates only
-    the LayerNorm."""
+    the LayerNorm. Under a head split (``tp``) ``w`` holds the rank's
+    columns, and LN(x)'s cotangent is summed over the 'mp' ranks before the
+    LayerNorm's pullback: after it x, ln_s and ln_b have their whole
+    gradient on every rank."""
     x, ln_s, ln_b = _leaves(x, ln_s, ln_b)
     with torch.enable_grad():
         y = layer_norm_f32(x, ln_s, ln_b).to(w.dtype)
-    g_y, g_w, g_b = _dense_bwd(y.detach(), w, g.to(w.dtype))
+    g_y, g_w, g_b = _dense_bwd(y.detach(), w, g.to(w.dtype), tp)
     gx, g_ls, g_lb = torch.autograd.grad(y, (x, ln_s, ln_b), g_y)
     return gx, g_ls, g_lb, g_w, g_b
 
 
 class _AttnBlockTrain(torch.autograd.Function):
+    """fused_attn_block_train and, with an 'mp' group ``tp``, its head-split
+    form (fused_attn_block_mp_train): the forward is the head-split chain
+    and the close over the ranks, the backward the same rule on the rank's
+    slices (wqkv (D, 3E), wo (E, D), ``heads`` of the rank), whose one
+    collective sums LN(x)'s cotangent (_stage_a_bwd)."""
+
     @staticmethod
     def forward(ctx, x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads, n_valid,
-                causal):
-        out, qkv = fused_attn_block_res(x, ln_s, ln_b, wqkv, bqkv, wo, bo,
-                                        heads, n_valid, causal)
+                causal, tp=None):
+        if tp is None:
+            out, qkv = fused_attn_block_res(x, ln_s, ln_b, wqkv, bqkv, wo,
+                                            bo, heads, n_valid, causal)
+        else:
+            partial, qkv = fused_attn_partial(x, ln_s, ln_b, wqkv, bqkv, wo,
+                                              heads, n_valid, causal)
+            out = mp_close(x, partial, bo, tp)
         ctx.save_for_backward(x, qkv, ln_s, ln_b, wqkv, wo)
-        ctx.static = (heads, n_valid, causal)
+        ctx.static, ctx.tp = (heads, n_valid, causal), tp
         return out
 
     @staticmethod
@@ -914,22 +1208,30 @@ class _AttnBlockTrain(torch.autograd.Function):
         g_att, g_wo, g_bo = _dense_bwd(att.detach(), wo, g.to(wo.dtype))
         g_qkv, = torch.autograd.grad(att, qkv_, g_att)
         gx2, g_ls, g_lb, g_wqkv, g_bqkv = _stage_a_bwd(x, ln_s, ln_b, wqkv,
-                                                       g_qkv)
+                                                       g_qkv, ctx.tp)
         return (g + gx2, g_ls, g_lb, g_wqkv, g_bqkv, g_wo, g_bo, None, None,
-                None)
+                None, None)
 
 
 class _MlpBlockTrain(torch.autograd.Function):
     """fused_mlp_block_train and fused_mlp_split_train: ``split`` picks the
     forward, the backward is one rule (the split is a detail of the
-    forward, not another function)."""
+    forward, not another function). With an 'mp' group ``tp``
+    (fused_mlp_mp_train) the forward is the fc / proj pair at the rank's
+    F/mp columns and the close over the ranks."""
 
     @staticmethod
-    def forward(ctx, x, ln_s, ln_b, wfc, bfc, wproj, bproj, act, split):
-        res = fused_mlp_split_res if split else fused_mlp_block_res
-        out, h_pre = res(x, ln_s, ln_b, wfc, bfc, wproj, bproj, act)
+    def forward(ctx, x, ln_s, ln_b, wfc, bfc, wproj, bproj, act, split,
+                tp=None):
+        if tp is None:
+            res = fused_mlp_split_res if split else fused_mlp_block_res
+            out, h_pre = res(x, ln_s, ln_b, wfc, bfc, wproj, bproj, act)
+        else:
+            partial, h_pre = fused_mlp_partial(x, ln_s, ln_b, wfc, bfc,
+                                               wproj, act)
+            out = mp_close(x, partial, bproj, tp)
         ctx.save_for_backward(x, h_pre, ln_s, ln_b, wfc, wproj)
-        ctx.act = act
+        ctx.act, ctx.tp = act, tp
         return out
 
     @staticmethod
@@ -944,22 +1246,31 @@ class _MlpBlockTrain(torch.autograd.Function):
         g_act, g_wproj, g_bproj = _dense_bwd(h.detach(), wproj,
                                              g.to(wproj.dtype))
         g_h, = torch.autograd.grad(h, h_, g_act)
-        gx2, g_ls, g_lb, g_wfc, g_bfc = _stage_a_bwd(x, ln_s, ln_b, wfc, g_h)
+        gx2, g_ls, g_lb, g_wfc, g_bfc = _stage_a_bwd(x, ln_s, ln_b, wfc, g_h,
+                                                     ctx.tp)
         return (g + gx2, g_ls, g_lb, g_wfc, g_bfc, g_wproj, g_bproj, None,
-                None)
+                None, None)
 
 
 class _PooledTrain(torch.autograd.Function):
     """fused_attn_block_pooled_train (``rows`` None, the static ``pool_row``)
     and fused_attn_block_pooled_dyn_train: the serve kernel forward, and a
     backward that differentiates the plain pooled block at the saved
-    inputs. ``rows`` gets no gradient."""
+    inputs. ``rows`` gets no gradient. With an 'mp' group ``tp``
+    (fused_attn_block_pooled_mp_train and _dyn_mp_train) the forward is the
+    head-split pooled chain and the close over the ranks; the backward
+    differentiates the rank's plain partial, whose LN(x) cotangent is summed
+    over the ranks (``tp.copy``), and adds the close's pullbacks."""
 
     @staticmethod
     def forward(ctx, x, rows, ln_s, ln_b, wqkv, bqkv, wo, bo, heads, n_valid,
-                pool_row, causal):
+                pool_row, causal, tp=None):
         params = (ln_s, ln_b, wqkv, bqkv, wo, bo)
-        if rows is None:
+        if tp is not None:
+            partial = fused_attn_pooled_partial(x, rows, *params[:5], heads,
+                                                n_valid, pool_row, causal)
+            out = mp_close(pooled_rows(x, rows, pool_row), partial, bo, tp)
+        elif rows is None:
             out = fused_attn_block_pooled(x, *params, heads, n_valid,
                                           pool_row, causal)
         else:
@@ -967,12 +1278,25 @@ class _PooledTrain(torch.autograd.Function):
                                               n_valid, causal)
         ctx.save_for_backward(x, *params)
         ctx.rows, ctx.static = rows, (heads, n_valid, pool_row, causal)
+        ctx.tp = tp
         return out
 
     @staticmethod
     def backward(ctx, g):
         heads, n_valid, pool_row, causal = ctx.static
         x, *params = _leaves(*ctx.saved_tensors)
+        if ctx.tp is not None:
+            with torch.enable_grad():
+                partial = plain_attn_pooled_partial(
+                    x, ctx.rows, *params[:5], heads, n_valid, pool_row,
+                    causal, ctx.tp)
+            gx, *gp = torch.autograd.grad(partial, (x, *params[:5]),
+                                          g.float())
+            idx = _pool_index(x, ctx.rows, pool_row)
+            gx = gx.index_put((torch.arange(x.shape[0], device=x.device),
+                               idx), g.to(gx.dtype), accumulate=True)
+            g_bo = g.sum(0).to(params[5].dtype)
+            return (gx, None, *gp, g_bo, None, None, None, None, None)
         with torch.enable_grad():
             if ctx.rows is None:
                 out = plain_attn_block_pooled(x, *params, heads, n_valid,
@@ -981,7 +1305,7 @@ class _PooledTrain(torch.autograd.Function):
                 out = plain_attn_block_pooled_dyn(x, ctx.rows, *params, heads,
                                                   n_valid, causal)
         gx, *gp = torch.autograd.grad(out, (x, *params), g)
-        return (gx, None, *gp, None, None, None, None)
+        return (gx, None, *gp, None, None, None, None, None)
 
 
 class _PaddedTrain(torch.autograd.Function):
@@ -1078,3 +1402,40 @@ def fused_attn_block_padded_train(x, ln_s, ln_b, wqkv, bqkv, wo, bo,
     if not _needs_grad(*args):
         return fused_attn_block_padded(*args, heads, n_valid, causal)
     return _PaddedTrain.apply(*args, heads, n_valid, causal)
+
+
+def fused_attn_block_mp_train(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads: int,
+                              n_valid: int, causal: bool = False, tp=None):
+    """The head-split attention block for the towers: fused_attn_partial
+    and mp_close; under a gradient _AttnBlockTrain with ``tp``."""
+    args = (x, ln_s, ln_b, wqkv, bqkv, wo, bo)
+    if not _needs_grad(*args):
+        partial, _ = fused_attn_partial(*args[:6], heads, n_valid, causal)
+        return mp_close(x, partial, bo, tp)
+    return _AttnBlockTrain.apply(*args, heads, n_valid, causal, tp)
+
+
+def fused_mlp_mp_train(x, ln_s, ln_b, wfc, bfc, wproj, bproj,
+                       act: str = "gelu", tp=None):
+    """The head-split MLP block for the towers (every width: the fc / proj
+    pair at F/mp); under a gradient _MlpBlockTrain with ``tp``."""
+    args = (x, ln_s, ln_b, wfc, bfc, wproj, bproj)
+    if not _needs_grad(*args):
+        partial, _ = fused_mlp_partial(*args[:6], act, res=False)
+        return mp_close(x, partial, bproj, tp)
+    return _MlpBlockTrain.apply(*args, act, True, tp)
+
+
+def fused_attn_block_pooled_mp_train(x, rows, ln_s, ln_b, wqkv, bqkv, wo, bo,
+                                     heads: int, n_valid: int,
+                                     pool_row: int = 0, causal: bool = False,
+                                     tp=None):
+    """The head-split pooled block for the towers (``rows`` per example, or
+    the static ``pool_row``); under a gradient _PooledTrain with ``tp``."""
+    args = (x, ln_s, ln_b, wqkv, bqkv, wo, bo)
+    if not _needs_grad(*args):
+        partial = fused_attn_pooled_partial(x, rows, *args[1:6], heads,
+                                            n_valid, pool_row, causal)
+        return mp_close(pooled_rows(x, rows, pool_row), partial, bo, tp)
+    return _PooledTrain.apply(x, rows, *args[1:], heads, n_valid, pool_row,
+                              causal, tp)

@@ -51,6 +51,10 @@ SIGNATURES = {
                             _P],
     "wt_short_attention": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I,
                            _F, _P],
+    "wt_attn_block_partial": [_P, _I] + [_P] * 9 + [_I] * 7 + [_P],
+    "wt_attn_block_pooled_partial": [_P, _I] + [_P] * 6 + [_I] + [_P] * 6
+                                    + [_I] * 7 + [_P],
+    "wt_mlp_proj_partial": [_P, _P, _P, _I, _I, _I, _P],
     "wt_ln_matmul": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "wt_residual_matmul": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _P],
     "wt_embed_attn_block": [_P] * 12 + [_I] + [_P] * 5 + [_I] * 6 + [_P],

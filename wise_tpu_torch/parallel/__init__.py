@@ -1,7 +1,7 @@
 """Multi-device work (wise_tpu/parallel/__init__.py): the mesh, the sharded
-search over it, process-group set-up and the CLIP trainer, on one device or
-data-parallel. Tensor parallelism and the pipeline-parallel trainer
-(``pipeline.py``, ``pp_train.py``) wait for ROADMAP Queue A item 12."""
+search over it, process-group set-up, the CLIP trainer on one device,
+data-parallel and tensor-parallel (``train.py``), and the pipeline-parallel
+trainer (``pipeline.py``, ``pp_train.py``)."""
 
 from .distributed import maybe_initialize_distributed
 from .mesh import get_mesh, shard_rows

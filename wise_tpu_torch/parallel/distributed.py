@@ -1,4 +1,4 @@
-"""Process-group set-up for data parallelism
+"""Process-group set-up for data and tensor parallelism
 (wise_tpu/parallel/distributed.py).
 
 The reference initialises ``jax.distributed`` from its coordinator's
@@ -19,6 +19,16 @@ round (``utils/device.py`` ``default_devices``: every visible card, or
 
 The choice is printed, and an NCCL failure raises: nothing drops to gloo
 on its own.
+
+Under tensor parallelism (``--mp M``) the world is dp x mp ranks, rank
+``d * mp + m``: mp innermost, as the reference's ``reshape(dp, mp)`` lays its
+mesh out. :func:`parallel_groups` gives a rank its 'dp' group (the ranks
+that hold the same shard and split the batch) and its 'mp' group as a
+:class:`TensorParallel`, which carries the two Megatron functions the
+head-split blocks use (ops/block.py, models/clip/model.py): ``copy``,
+identity forward and ``all_reduce`` of the cotangent backward, and
+``reduce``, ``all_reduce`` forward and identity backward. Both reduce in
+f32.
 
 Usage (one call at program start in every rank):
 
@@ -93,6 +103,145 @@ def maybe_initialize_distributed() -> bool:
     logger.info(f"torch.distributed initialised: rank {rank}/{world}, "
                 f"{backend} on {device}")
     return True
+
+
+class _Copy(torch.autograd.Function):
+    """Identity forward; the cotangent summed over the 'mp' ranks backward
+    (each rank's heads add their part of the input's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.reduce_cotangent(g), None
+
+
+class _Reduce(torch.autograd.Function):
+    """The 'mp' ranks' partials summed in f32 forward; identity backward
+    (every rank's partial gets the whole output's cotangent)."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        return tp.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Take(torch.autograd.Function):
+    """``x[..., index]`` of a replicated leaf (a column-split layer's bias)
+    forward; backward the rank's columns scattered into zeros and summed
+    over the 'mp' ranks, so that the leaf's gradient is whole and the same
+    on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, index, tp):
+        ctx.save_for_backward(index)
+        ctx.shape, ctx.tp = x.shape, tp
+        return x.index_select(-1, index)
+
+    @staticmethod
+    def backward(ctx, g):
+        index, = ctx.saved_tensors
+        full = g.new_zeros(ctx.shape).index_add_(-1, index, g)
+        return ctx.tp.all_reduce(full).to(g.dtype), None, None
+
+
+class TensorParallel:
+    """A rank's 'mp' group: ``size`` ranks, this one the ``rank``-th, over
+    ``group`` (a ``torch.distributed`` group; None with one rank, where every
+    collective is the identity).
+
+    The head-split layout: a layer split by output column gives rank m the
+    m-th of ``size`` equal column ranges (``columns``); the attention's
+    in-projection (D, 3D) = [q | k | v] gives it heads [m H/mp, (m+1) H/mp)
+    of each of q, k and v, packed as its own (D, 3E), E = D / mp
+    (``qkv_columns``); a layer split by input row, the m-th row range.
+    parallel/train.py's shard and gather functions apply it to a state
+    dict; the blocks take their biases' columns through ``take``."""
+
+    def __init__(self, size: int = 1, rank: int = 0, group=None):
+        self.size, self.rank, self.group = int(size), int(rank), group
+
+    def columns(self, n: int) -> slice:
+        """The rank's range of ``n`` columns (or rows)."""
+        if n % self.size:
+            raise ValueError(f"{n} columns do not split over mp = "
+                             f"{self.size}")
+        e = n // self.size
+        return slice(self.rank * e, (self.rank + 1) * e)
+
+    def qkv_columns(self, width: int, device=None) -> torch.Tensor:
+        """The in-projection's columns of the rank's heads, (3E,) int64:
+        its q, then its k, then its v columns."""
+        cols = self.columns(width)
+        return torch.cat([torch.arange(cols.start, cols.stop, device=device)
+                          + part * width for part in range(3)])
+
+    def all_reduce(self, x) -> torch.Tensor:
+        """The sum of ``x`` over the ranks, in f32 (a new tensor)."""
+        out = x.to(torch.float32, copy=True).contiguous()
+        if self.size > 1:
+            import torch.distributed as dist
+
+            dist.all_reduce(out, group=self.group)
+        return out
+
+    def reduce_cotangent(self, g) -> torch.Tensor:
+        """The cotangent of a replicated activation that the ranks' heads
+        read: the ranks' parts ``g`` (each formed in f32 by its caller)
+        summed over the ranks in f32 and cast back to g's dtype, which the
+        caller rounds once into the activation's. The one collective of a
+        head-split block's backward."""
+        if self.size == 1:
+            return g
+        return self.all_reduce(g).to(g.dtype)
+
+    def copy(self, x):
+        """Identity forward, :meth:`reduce_cotangent` backward."""
+        return x if self.size == 1 else _Copy.apply(x, self)
+
+    def reduce(self, x):
+        """The sum of the ranks' partials (f32) forward, identity
+        backward."""
+        return x.float() if self.size == 1 else _Reduce.apply(x, self)
+
+    def take(self, x, index):
+        """``x[..., index]`` with a gradient summed over the ranks."""
+        if self.size == 1:
+            return x.index_select(-1, index)
+        return _Take.apply(x, index, self)
+
+
+#: one process, no split
+NO_SPLIT = TensorParallel()
+
+
+def parallel_groups(mp: int):
+    """(the 'dp' group, the 'mp' group as a :class:`TensorParallel`) of this
+    rank in a world of dp x mp ranks, rank ``d * mp + m``. Every rank makes
+    every group, in one order, as ``new_group`` asks."""
+    import torch.distributed as dist
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if mp < 1 or world % mp:
+        raise ValueError(f"{world} ranks do not split into mp = {mp}")
+    dp = world // mp
+    d, m = divmod(rank, mp)
+    mine = {}
+    for i in range(dp):
+        g = dist.new_group([i * mp + j for j in range(mp)])
+        if i == d:
+            mine["mp"] = g
+    for j in range(mp):
+        g = dist.new_group([i * mp + j for i in range(dp)])
+        if j == m:
+            mine["dp"] = g
+    return mine["dp"], TensorParallel(mp, m, mine["mp"])
 
 
 def free_port() -> int:

@@ -1,5 +1,5 @@
 """CLIP contrastive training (wise_tpu/parallel/train.py): on one device,
-or data-parallel over ranks of ``torch.distributed``.
+data-parallel over ranks of ``torch.distributed``, and tensor-parallel.
 
 The reference's ``CLIPTrainer`` takes a mesh and lets GSPMD shard the batch
 over 'dp' and the weights over 'mp'. Here the trainer takes a device, and
@@ -10,12 +10,32 @@ default process group has more than one rank, the model runs under
 slice). The loss is the global batch's, as the reference's (``clip_loss``
 over replicated features): every rank's features are gathered with their
 gradient (:func:`gather_rows`) and every rank computes the same loss.
-Tensor parallelism (``_spec_for_path``, ``clip_param_shardings``) and the
-pipeline-parallel trainer wait for ROADMAP Queue A item 12. What is kept,
-name for name: ``build_optimizer`` (AdamW, warm-up + cosine schedule,
-global-norm clip), ``clip_loss``, ``CLIPTrainer`` and the ``step_%08d``
-checkpoints, here on ``torch.save`` / ``torch.load`` where the reference
-uses orbax; rank 0 writes them.
+What is kept, name for name: ``_spec_for_path`` and
+``clip_param_shardings`` (the 'mp' sharding rule), ``build_optimizer``
+(AdamW, warm-up + cosine schedule, global-norm clip), ``clip_loss``,
+``CLIPTrainer`` and the ``step_%08d`` checkpoints, here on ``torch.save`` /
+``torch.load`` where the reference uses orbax; rank 0 writes them. The
+pipeline-parallel trainer is parallel/pp_train.py.
+
+**Tensor parallelism** (``CLIPTrainer(..., mp=M)`` in a world of dp x M
+ranks, parallel/distributed.py ``parallel_groups``). The reference's rule
+(``_spec_for_path``): a 2-D leaf of ``in_proj`` or ``mlp_fc`` splits by
+output column, of ``out_proj`` or ``mlp_proj`` by input row, every other leaf
+is replicated; the XLM-R tower's names match none of the patterns. Where the
+reference's ``P(None, 'mp')`` cuts in_proj's (D, 3D) columns in contiguous
+thirds of the whole, which is not head-aligned, the port gives rank m whole
+heads, [m H/mp, (m+1) H/mp) of q, of k and of v packed as its (D, 3E): the
+same function in another layout, known only to ``shard_clip_params`` /
+``gather_clip_params`` (and the blocks' bias columns, models/clip/model.py).
+The model is built from the whole f32 master tree, each rank taking its
+shards, so every rank starts from the tree one process would. The batch
+splits over 'dp' only (the 'mp' ranks of a 'dp' group see the same rows);
+DDP and ``gather_rows`` run over the 'dp' group. The global-norm clip sums
+the squares of the sharded leaves over 'mp' and counts each replicated leaf
+once; AdamW is elementwise, so it runs on the shards as they are. The
+checkpoint is the whole f32 tree and its AdamW moments in the one-process
+format, gathered by the 'mp' ranks of 'dp' rank 0: a ``--mp 2`` checkpoint
+restores at ``--mp 1`` and serves through the extractor.
 
 **f32 master weights.** The trainer builds the towers with
 ``param_dtype=torch.float32`` (models/clip/model.py): every parameter is an
@@ -49,10 +69,67 @@ import torch
 from ..models.clip.config import CLIPConfig
 from ..models.clip.model import CLIP, init_random_
 from ..utils.device import default_device
-from .distributed import rank_device, world_env
+from .distributed import parallel_groups, rank_device, world_env
 
 #: the file inside a ``step_%08d`` directory
 STATE_FILE = "train_state.pt"
+
+
+def _spec_for_path(path: str, leaf) -> tuple:
+    """The reference's 'mp' rule on a state_dict key (the flax path joined
+    by dots): a 2-D ``in_proj`` or ``mlp_fc`` leaf splits by output column,
+    ``(None, 'mp')``; an ``out_proj`` or ``mlp_proj`` one by input row,
+    ``('mp', None)``; anything else is replicated, ``()``."""
+    if len(leaf.shape) == 2:
+        if "in_proj" in path or "mlp_fc" in path:
+            return (None, "mp")
+        if "out_proj" in path or "mlp_proj" in path:
+            return ("mp", None)
+    return ()
+
+
+def clip_param_shardings(params) -> dict:
+    """{key: spec} of a state_dict (``_spec_for_path``); a spec names the
+    axis alone, the mesh being the trainer's."""
+    return {k: _spec_for_path(k, v) for k, v in params.items()}
+
+
+def _shard_leaf(key: str, t, tp):
+    """Rank ``tp.rank``'s piece of leaf ``key`` (a copy; the leaf itself
+    when it is replicated)."""
+    spec = _spec_for_path(key, t)
+    if spec == (None, "mp"):
+        cols = (tp.qkv_columns(t.shape[1] // 3) if "in_proj" in key
+                else tp.columns(t.shape[1]))
+        return t[:, cols].contiguous()
+    if spec == ("mp", None):
+        return t[tp.columns(t.shape[0])].contiguous()
+    return t
+
+
+def _gather_leaf(key: str, pieces: list):
+    """The whole leaf from its ranks' ``pieces``, rank order."""
+    spec = _spec_for_path(key, pieces[0])
+    if spec == ("mp", None):
+        return torch.cat(pieces, dim=0)
+    if spec != (None, "mp"):
+        return pieces[0]
+    if "in_proj" not in key:
+        return torch.cat(pieces, dim=1)
+    thirds = [p.chunk(3, dim=1) for p in pieces]
+    return torch.cat([third[i] for i in range(3) for third in thirds], dim=1)
+
+
+def shard_clip_params(params: dict, tp) -> dict:
+    """A whole state_dict -> rank ``tp.rank``'s of ``tp.size``: the head-split
+    layout (module docstring). Raises where a split leaf does not divide."""
+    return {k: _shard_leaf(k, v, tp) for k, v in params.items()}
+
+
+def gather_clip_params(shards: list) -> dict:
+    """The inverse of ``shard_clip_params``: the ranks' state_dicts, rank
+    order -> the whole one (bit-equal to what was sharded)."""
+    return {k: _gather_leaf(k, [s[k] for s in shards]) for k in shards[0]}
 
 
 def warmup_cosine_schedule(learning_rate: float, warmup_steps: int,
@@ -87,19 +164,45 @@ class Optimizer:
         self.adamw = torch.optim.AdamW(
             self.params, lr=schedule(0), betas=(0.9, 0.999), eps=1e-8,
             weight_decay=weight_decay)
+        #: under tensor parallelism, the 'mp' group and the parameters that
+        #: are shards (:meth:`split_over`)
+        self.tp, self.sharded = None, frozenset()
+
+    def split_over(self, tp, sharded) -> None:
+        """Count the parameters in ``sharded`` as shards over ``tp``'s ranks
+        in the global norm: their squares are summed over the ranks, every
+        other parameter's counted once."""
+        self.tp, self.sharded = tp, frozenset(id(p) for p in sharded)
 
     def zero_grad(self) -> None:
         self.adamw.zero_grad(set_to_none=True)
 
+    def _norm(self, params):
+        """The global norm of the parameters' gradients (on the first one's
+        device: a pipeline's stages lie on several)."""
+        norms = [torch.linalg.vector_norm(p.grad.float()) for p in params]
+        dev = norms[0].device
+        if self.tp is None:
+            return torch.linalg.vector_norm(
+                torch.stack([n.to(dev) for n in norms]))
+        sq = {True: torch.zeros((), device=dev),
+              False: torch.zeros((), device=dev)}
+        for p, n in zip(params, norms):
+            sq[id(p) in self.sharded] += n.to(dev).square()
+        return torch.sqrt(sq[False] + self.tp.all_reduce(sq[True]))
+
     def _clip(self) -> None:
-        grads = [p.grad for p in self.params if p.grad is not None]
-        norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+        params = [p for p in self.params if p.grad is not None]
+        norm = self._norm(params)
         # g * (max_norm / norm) where the norm exceeds the bound, g otherwise;
         # a tensor factor keeps the host from waiting for the norm
         scale = torch.where(norm < self.grad_clip, torch.ones_like(norm),
                             self.grad_clip / norm)
-        torch._foreach_mul_(grads, scale)
+        by_device = {}
+        for p in params:
+            by_device.setdefault(p.grad.device, []).append(p.grad)
+        for dev, grads in by_device.items():
+            torch._foreach_mul_(grads, scale.to(dev))
 
     @torch.no_grad()
     def step(self) -> None:
@@ -166,13 +269,13 @@ def restore_train_checkpoint(ckpt_dir, step: int = -1, map_location="cpu"):
     return step, state["params"], state["opt_state"]
 
 
-def _process_group():
-    """(world size, rank) of the default process group, (1, 0) without
-    one."""
+def _process_group(group=None):
+    """(world size, rank) of ``group`` (the default process group when
+    None), (1, 0) without one."""
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size(), dist.get_rank()
+        return dist.get_world_size(group), dist.get_rank(group)
     return 1, 0
 
 
@@ -185,19 +288,21 @@ class _GatherRows(torch.autograd.Function):
     the backward sums the buffer's gradient over the ranks before it takes
     its own rows: without that sum, DDP's average would give the towers 1/W
     of their gradient and ``logit_scale``, which every rank differentiates
-    whole, all of its."""
+    whole, all of its. ``group``: the ranks whose rows are gathered (the
+    'dp' group; the default group when None)."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group=None):
         import torch.distributed as dist
 
-        world, rank = _process_group()
+        world, rank = _process_group(group)
         b = x.shape[0]
         buf = torch.zeros((world * b, *x.shape[1:]), dtype=torch.float32,
                           device=x.device)
         buf[rank * b:(rank + 1) * b] = x
-        dist.all_reduce(buf)
+        dist.all_reduce(buf, group=group)
         ctx.rows, ctx.dtype = (rank * b, (rank + 1) * b), x.dtype
+        ctx.group = group
         return buf.to(x.dtype)
 
     @staticmethod
@@ -205,15 +310,15 @@ class _GatherRows(torch.autograd.Function):
         import torch.distributed as dist
 
         grad = grad.to(torch.float32, copy=True).contiguous()
-        dist.all_reduce(grad)
+        dist.all_reduce(grad, group=ctx.group)
         lo, hi = ctx.rows
-        return grad[lo:hi].to(ctx.dtype)
+        return grad[lo:hi].to(ctx.dtype), None
 
 
-def gather_rows(x):
-    """The global batch's rows of ``x`` on every rank, with the gradient
-    (:class:`_GatherRows`)."""
-    return _GatherRows.apply(x)
+def gather_rows(x, group=None):
+    """The global batch's rows of ``x`` on every rank of ``group``, with the
+    gradient (:class:`_GatherRows`)."""
+    return _GatherRows.apply(x, group)
 
 
 def clip_loss(img_feats, txt_feats, logit_scale):
@@ -229,17 +334,29 @@ class CLIPTrainer:
     unless ``WISE_TORCH_DEVICE`` says otherwise; on a rank of a process
     group, the rank's device). With ``config.fused_block``
     the forward runs the saved-activation block kernels (ops/block.py
-    ``*_train``) and, for an XLM-R text tower, the post-LN kernels
-    (ops/postln_block.py ``*_train``); with ``fused_attention`` alone the
-    attention middle's (ops/attention.py ``fused_attention_trainable``). The
-    backward is plain PyTorch throughout."""
+    ``*_train``; their head-split forms under ``mp``) and, for an XLM-R text
+    tower, the post-LN kernels (ops/postln_block.py ``*_train``); with
+    ``fused_attention`` alone the attention middle's (ops/attention.py
+    ``fused_attention_trainable``). The backward is plain PyTorch
+    throughout. ``mp``: the ranks of the default process group that split
+    the towers (module docstring); the rest of the world is 'dp'."""
 
     def __init__(self, config: CLIPConfig, device=None,
                  learning_rate: float = 1e-4, weight_decay: float = 0.01,
                  warmup_steps: int = 0, total_steps: int = 0,
-                 grad_clip: float = 0.0):
+                 grad_clip: float = 0.0, mp: int = 1):
         self.config = config
         self.world, self.rank = _process_group()
+        if mp < 1 or self.world % mp:
+            raise ValueError(f"--mp {mp} does not divide {self.world} "
+                             "rank(s)")
+        self.mp, self.dp = mp, self.world // mp
+        #: this rank's 'dp' index, and its 'dp' group (None: the default
+        #: group, which is the 'dp' group without a split) and 'mp' group
+        #: (None without a split)
+        self.dp_rank = self.rank // mp
+        self.dp_group, self.tp = (parallel_groups(mp) if mp > 1
+                                  else (None, None))
         if device:
             self.device = torch.device(device)
         elif self.world > 1:
@@ -254,38 +371,93 @@ class CLIPTrainer:
     def init(self, seed: int = 0, params=None) -> "CLIPTrainer":
         """Build the f32 master model and its optimizer: seeded random
         weights (models/clip/model.py ``init_random_``), or ``params``, a
-        state_dict such as ``convert.from_flax_params`` gives."""
+        state_dict such as ``convert.from_flax_params`` gives. Under ``mp``
+        the whole tree is made (or taken) first and each rank keeps its
+        shards."""
         model = CLIP(self.config, param_dtype=torch.float32)
         if params is None:
             init_random_(model, seed)
         else:
             model.load_state_dict(params)
+        if self.tp is not None:
+            whole = model.state_dict()
+            model = CLIP(self.config, param_dtype=torch.float32, tp=self.tp)
+            model.load_state_dict(shard_clip_params(whole, self.tp))
+            del whole
         self.model = self._forward = model.to(self.device).train()
-        if self.world > 1:
+        if self.dp > 1:
             from torch.nn.parallel import DistributedDataParallel
 
-            self._forward = DistributedDataParallel(self.model)
+            self._forward = DistributedDataParallel(
+                self.model, process_group=self.dp_group,
+                broadcast_buffers=False)
         self.optimizer = build_optimizer(self.model.parameters(),
                                          *self._opt_args)
+        if self.tp is not None:
+            self.optimizer.split_over(self.tp, [
+                p for name, p in self.model.named_parameters()
+                if _spec_for_path(name, p)])
         return self
 
     @property
     def params(self) -> dict:
-        """The f32 master weights, by state_dict key."""
+        """The f32 master weights, by state_dict key (under ``mp`` the
+        rank's shards; ``whole`` gathers them)."""
         return self.model.state_dict()
 
+    def _gather_pieces(self, t):
+        """The ``mp`` pieces of ``t`` on 'mp' rank 0 (host tensors, rank
+        order), None on the others; every 'mp' rank calls it."""
+        import torch.distributed as dist
+
+        nccl = dist.get_backend(self.tp.group) == "nccl"
+        t = (t.detach() if nccl else t.detach().cpu()).contiguous()
+        lead = self.rank - self.tp.rank
+        pieces = ([torch.empty_like(t) for _ in range(self.mp)]
+                  if self.tp.rank == 0 else None)
+        dist.gather(t, pieces, dst=lead, group=self.tp.group)
+        return None if pieces is None else [p.cpu() for p in pieces]
+
+    def whole(self, tensors: dict):
+        """``tensors`` by state_dict key (the rank's parameters, or their
+        gradients) -> the whole tree on the host, on 'mp' rank 0 of each
+        'dp' group (None on the other 'mp' ranks); a collective of the
+        'mp' group. Without ``mp``, a host copy."""
+        if self.tp is None:
+            return {k: v.detach().cpu() for k, v in tensors.items()}
+        out, lead = {}, self.tp.rank == 0
+        for key, t in tensors.items():
+            if _spec_for_path(key, t):
+                pieces = self._gather_pieces(t)
+                if lead:
+                    out[key] = _gather_leaf(key, pieces)
+            elif lead:
+                out[key] = t.detach().cpu()
+        return out if lead else None
+
+    def grads(self) -> dict:
+        """The parameters' gradients by state_dict key (the rank's)."""
+        return {n: p.grad for n, p in self.model.named_parameters()
+                if p.grad is not None}
+
+    def _gather_rows(self, x):
+        if self.dp_group is None:
+            return gather_rows(x)
+        return gather_rows(x, self.dp_group)
+
     def loss(self, images, tokens):
-        """The loss of the global batch: on a rank, of every rank's rows."""
+        """The loss of the global batch: on a rank, of every 'dp' rank's
+        rows."""
         img, txt, scale = self._forward(images, tokens)
-        if self.world > 1:
-            img, txt = gather_rows(img), gather_rows(txt)
+        if self.dp > 1:
+            img, txt = self._gather_rows(img), self._gather_rows(txt)
         return clip_loss(img, txt, scale)
 
     def train_step(self, images, tokens):
         """One optimizer step on a batch: images (B, S, S, 3) float, tokens
-        (B, ctx) int; on a rank, its own B rows of the global batch. Returns
-        the global batch's loss before the step, a 0-d tensor on the device
-        (reading it waits for the step)."""
+        (B, ctx) int; on a rank, its 'dp' rank's B rows of the global batch.
+        Returns the global batch's loss before the step, a 0-d tensor on the
+        device (reading it waits for the step)."""
         images = torch.as_tensor(images).to(self.device, torch.float32)
         tokens = torch.as_tensor(tokens).to(self.device, torch.int64)
         self.optimizer.zero_grad()
@@ -294,12 +466,32 @@ class CLIPTrainer:
         self.optimizer.step()
         return loss.detach()
 
+    def _opt_whole(self) -> dict:
+        """The optimizer's state with the sharded parameters' AdamW moments
+        whole (on 'mp' rank 0; a collective of the 'mp' group)."""
+        state = self.optimizer.state_dict()
+        if self.tp is None:
+            return state
+        names = [n for n, _ in self.model.named_parameters()]
+        adamw = state["adamw"]
+        # new dicts: the packed state holds the optimizer's own per-parameter
+        # dicts, which must keep their shards
+        adamw["state"] = {i: dict(st) for i, st in adamw["state"].items()}
+        for i, st in sorted(adamw["state"].items()):
+            for k, v in st.items():
+                if torch.is_tensor(v) and _spec_for_path(names[i], v):
+                    pieces = self._gather_pieces(v)
+                    st[k] = pieces and _gather_leaf(names[i], pieces)
+        return state
+
     def save_checkpoint(self, ckpt_dir, step: int) -> Path:
-        """Rank 0 writes the step; the other ranks wait for it."""
+        """Rank 0 writes the step (the whole tree, gathered by the 'mp'
+        ranks of 'dp' rank 0); the other ranks wait for it."""
         path = Path(ckpt_dir).absolute() / f"step_{step:08d}"
-        if self.rank == 0:
-            save_train_checkpoint(ckpt_dir, step, self.params,
-                                  self.optimizer.state_dict())
+        if self.dp_rank == 0:
+            params, opt_state = self.whole(self.params), self._opt_whole()
+            if self.rank == 0:
+                save_train_checkpoint(ckpt_dir, step, params, opt_state)
         if self.world > 1:
             import torch.distributed as dist
 
@@ -307,10 +499,18 @@ class CLIPTrainer:
         return path
 
     def restore_checkpoint(self, ckpt_dir, step: int = -1) -> int:
-        """Load the latest (or the given) step into this trainer; returns
-        the step."""
+        """Load the latest (or the given) step into this trainer (under
+        ``mp``, each rank its shards of the whole tree); returns the
+        step."""
         step, params, opt_state = restore_train_checkpoint(
-            ckpt_dir, step, map_location=self.device)
+            ckpt_dir, step, map_location="cpu" if self.tp else self.device)
+        if self.tp is not None:
+            params = shard_clip_params(params, self.tp)
+            names = [n for n, _ in self.model.named_parameters()]
+            for i, st in opt_state["adamw"]["state"].items():
+                for k, v in st.items():
+                    if torch.is_tensor(v):
+                        st[k] = _shard_leaf(names[i], v, self.tp)
         self.model.load_state_dict(params)
         self.optimizer.load_state_dict(opt_state)
         return step

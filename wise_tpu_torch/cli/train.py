@@ -21,6 +21,13 @@ backward is plain PyTorch.
 Point ``WISE_CHECKPOINT_DIR`` at a directory that holds the result as
 ``<model>/<pretrained>/step_*`` and the extractor serves it.
 
+The steps run as one recording of the port's spans (utils/profiling.py):
+at the end the lead rank logs a step's split into forward, backward and
+optimizer, in device ms from CUDA events on a card (in host ms on the CPU;
+none under ``--pp``, whose trainer has no such spans). With
+``WISE_TRACE_DIR`` set each rank also writes a profiler trace of its steps
+under ``$WISE_TRACE_DIR/train/``.
+
 ``--dp N`` (N > 1) starts N ranks itself, one process each, rank r on the
 r-th of the mesh's devices in turn (every visible card, or the list that
 ``WISE_TORCH_DEVICE`` names; parallel/distributed.py picks NCCL when each
@@ -56,6 +63,9 @@ import logging
 import os
 import sys
 import time
+
+#: a training step's spans (parallel/train.py ``CLIPTrainer.train_step``)
+PHASES = ("forward", "backward", "optimizer")
 
 
 def build_parser():
@@ -229,10 +239,28 @@ def _pp_trainer(args, config, dp: int):
     ).init(seed=0)
 
 
+def step_split(timer) -> str:
+    """A step's forward / backward / optimizer split from ``timer``'s spans:
+    device ms from their CUDA events where the steps ran on a card (the
+    newest it keeps), host ms otherwise."""
+    names = {p: f"wise.train.{p}" for p in PHASES}
+    dev = {p: timer.device_seconds(n) for p, n in names.items()}
+    if all(dev.values()):
+        unit, steps = "device", len(dev["forward"])
+        ms = {p: 1e3 * sum(d) / len(d) for p, d in dev.items()}
+    else:
+        unit, steps = "host", timer.count(names["forward"])
+        ms = {p: 1e3 * timer.host_seconds(n) / max(1, steps)
+              for p, n in names.items()}
+    split = " / ".join(f"{p} {ms[p]:.2f}" for p in PHASES)
+    return f"{split} {unit} ms a step, over {steps} steps"
+
+
 def _train(args, log) -> int:
     from ..parallel.train import CLIPTrainer
     from ..pipeline.train_data import caption_batches, load_caption_segments
     from ..project import WiseProject
+    from ..utils.profiling import recording, trace
 
     project = WiseProject(args.project_dir)
     segments = load_caption_segments(
@@ -281,18 +309,21 @@ def _train(args, log) -> int:
     )
     t0 = time.time()
     step = start_step
-    for images, tokens in batches:
-        if step >= args.steps:
-            break
-        loss = trainer.train_step(images, tokens)
-        step += 1
-        if lead and (step % 10 == 0 or step == args.steps):
-            log.info(
-                f"step {step}/{args.steps} loss={float(loss):.4f} "
-                f"({step - start_step}/{time.time()-t0:.0f}s)"
-            )
-        if args.checkpoint_every and step % args.checkpoint_every == 0:
-            trainer.save_checkpoint(ckpt_dir, step)
+    with trace("train"), recording() as timer:
+        for images, tokens in batches:
+            if step >= args.steps:
+                break
+            loss = trainer.train_step(images, tokens)
+            step += 1
+            if lead and (step % 10 == 0 or step == args.steps):
+                log.info(
+                    f"step {step}/{args.steps} loss={float(loss):.4f} "
+                    f"({step - start_step}/{time.time()-t0:.0f}s)"
+                )
+            if args.checkpoint_every and step % args.checkpoint_every == 0:
+                trainer.save_checkpoint(ckpt_dir, step)
+    if lead and timer.count("wise.train.forward"):
+        log.info(step_split(timer))
     if step == start_step:
         log.error(
             "no training steps ran — not enough decodable caption "

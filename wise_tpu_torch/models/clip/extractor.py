@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ...utils.device import default_device
+from ...utils.profiling import span
 from ..feature_extractor import BucketPolicy, DeviceArray, FeatureExtractor
 from ...parallel.train import checkpoint_steps, restore_train_checkpoint
 from .config import production_clip_config
@@ -177,7 +178,11 @@ class OpenClipExtractor(FeatureExtractor):
         x = torch.from_numpy(np.ascontiguousarray(batch)).to(self.device)
         if x.dtype == torch.uint8:
             x = self.preprocess_frames(x, s)
-        return DeviceArray(self.model.encode_image(x.float())[:n])
+        x = x.float()
+        # the vision tower alone: its device time is the tower's own
+        with span("wise.extract.tower", self.device):
+            feats = self.model.encode_image(x)
+        return DeviceArray(feats[:n])
 
     def extract_image_features(self, images) -> np.ndarray:
         return np.asarray(self.extract_image_features_dispatch(images),

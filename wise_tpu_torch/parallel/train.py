@@ -69,6 +69,7 @@ import torch
 from ..models.clip.config import CLIPConfig
 from ..models.clip.model import CLIP, init_random_
 from ..utils.device import default_device
+from ..utils.profiling import span
 from .distributed import parallel_groups, rank_device, world_env
 
 #: the file inside a ``step_%08d`` directory
@@ -457,13 +458,18 @@ class CLIPTrainer:
         """One optimizer step on a batch: images (B, S, S, 3) float, tokens
         (B, ctx) int; on a rank, its 'dp' rank's B rows of the global batch.
         Returns the global batch's loss before the step, a 0-d tensor on the
-        device (reading it waits for the step)."""
+        device (reading it waits for the step). Its three spans
+        (utils/profiling.py) time the loss, the backward, and the clip and
+        AdamW update, each on the host and on the device."""
         images = torch.as_tensor(images).to(self.device, torch.float32)
         tokens = torch.as_tensor(tokens).to(self.device, torch.int64)
         self.optimizer.zero_grad()
-        loss = self.loss(images, tokens)
-        loss.backward()
-        self.optimizer.step()
+        with span("wise.train.forward", self.device):
+            loss = self.loss(images, tokens)
+        with span("wise.train.backward", self.device):
+            loss.backward()
+        with span("wise.train.optimizer", self.device):
+            self.optimizer.step()
         return loss.detach()
 
     def _opt_whole(self) -> dict:

@@ -50,6 +50,7 @@ from ..models.factory import FeatureExtractorFactory
 from ..project import WiseProject
 from ..store.factory import FeatureStoreFactory
 from ..utils import get_files_from_directory_with_extensions
+from ..utils.profiling import recording, span, timer, trace
 
 logger = logging.getLogger(__name__)
 
@@ -73,7 +74,6 @@ class ExtractionStats:
     elapsed_sec: float = 0.0
     frames_embedded: int = 0
     audio_segments_embedded: int = 0
-    stage_timings: dict = dataclasses.field(default_factory=dict)
 
     @property
     def frames_per_sec(self) -> float:
@@ -119,7 +119,8 @@ class _BatchedEmbedder:
         self.vector_repo = VectorRepo()
         self._warmup_thread = None
 
-    id_base = 0  # floor of this worker's vector-id range (set like .timer)
+    #: floor of this worker's vector-id range (set by extract_features)
+    id_base = 0
 
     def start_warmup(self, sample_shape):
         """Pre-compile the encoder's main batch bucket on a background thread
@@ -158,46 +159,47 @@ class _BatchedEmbedder:
         while len(self._items) >= self.batch_size:
             self._flush(self.batch_size)
 
-    timer = None  # shared StageTimer, set by extract_features
-
     def _flush(self, count: Optional[int] = None):
+        """Embed, record and store one batch: its spans (utils/profiling.py)
+        split the batch's host time into canonicalisation, the encoder's
+        call, the DB rows and the store's writes."""
         if not self._items:
             return
         take = self._items if count is None else self._items[:count]
         self._items = [] if count is None else self._items[count:]
-
-        import contextlib
-
-        encode_cm = (
-            self.timer.stage("encode") if self.timer else contextlib.nullcontext()
-        )
-        with encode_cm:
+        with span("wise.ingest.flush"):
+            with span("wise.ingest.canonicalise"):
+                if self.modality == ModalityType.AUDIO:
+                    batch = self.extractor.preprocess_audio(
+                        np.stack([x[3] for x in take]))
+                else:
+                    # each frame canonicalised before the stack, so that one
+                    # batch may mix resolutions (the reference stacks raw
+                    # frames)
+                    batch = np.concatenate(
+                        [self.extractor.preprocess_image(x[3][None])
+                         for x in take])
             if self.modality == ModalityType.AUDIO:
-                batch = np.stack([x[3] for x in take])
-                feats = self.extractor.extract_audio_features(
-                    self.extractor.preprocess_audio(batch)
-                )
+                feats = self.extractor.extract_audio_features(batch)
             else:
-                # each frame canonicalised before the stack, so that one
-                # batch may mix resolutions (the reference stacks raw frames)
-                batch = np.concatenate(
-                    [self.extractor.preprocess_image(x[3][None]) for x in take]
-                )
                 feats = self.extractor.extract_image_features(batch)
-        vectors = [
-            VectorMetadata(
-                modality=self.modality,
-                media_id=mid,
-                timestamp=t0,
-                end_timestamp=t1,
-            )
-            for (mid, t0, t1, _) in take
-        ]
-        created = self.vector_repo.create_batch(
-            self.conn, vectors, id_base=self.id_base
-        )
-        for v, feat in zip(created, feats):
-            self.store.add(v.id, feat[None, :].astype(np.float32))
+            with span("wise.ingest.db"):
+                vectors = [
+                    VectorMetadata(
+                        modality=self.modality,
+                        media_id=mid,
+                        timestamp=t0,
+                        end_timestamp=t1,
+                    )
+                    for (mid, t0, t1, _) in take
+                ]
+                created = self.vector_repo.create_batch(
+                    self.conn, vectors, id_base=self.id_base
+                )
+            # one span a batch, whatever the store does a vector
+            with span("wise.ingest.store"):
+                for v, feat in zip(created, feats):
+                    self.store.add(v.id, feat[None, :].astype(np.float32))
         setattr(
             self.stats, self.stat_field,
             getattr(self.stats, self.stat_field) + len(created),
@@ -211,11 +213,12 @@ class _BatchedEmbedder:
         self._flush(None)
 
 
-def _timed_iter(iterator, timer, name: str):
-    """Accounts iterator-blocking time (decode wait) to a timer stage."""
+def _timed_iter(iterator):
+    """The iterator, each wait for its next item (the decode wait) a
+    ``wise.ingest.decode`` span."""
     it = iter(iterator)
     while True:
-        with timer.stage(name):
+        with span("wise.ingest.decode"):
             try:
                 item = next(it)
             except StopIteration:
@@ -241,6 +244,8 @@ def _ordered_prefetch(dataset_factory, files, num_workers):
             yield from fut.result()
 
 
+@trace("extract")
+@recording()
 def extract_features(
     media_dir_list: Sequence,
     project_dir,
@@ -264,7 +269,12 @@ def extract_features(
     range per worker — so N hosts can ingest N-way in parallel into separate
     project dirs and ``merge-projects.py`` concatenates them without id
     remapping. (The reference is strictly single-process,
-    extract-features.py; this is TPU-pod-scale ingest.)"""
+    extract-features.py; this is TPU-pod-scale ingest.)
+
+    The run is one recording of the port's spans (utils/profiling.py),
+    whose totals it logs at the end: batches, and their canonicalisation,
+    DB, store and encoder time; with WISE_TRACE_DIR set it also writes a
+    profiler trace under ``$WISE_TRACE_DIR/extract/``."""
     t0 = time.time()
     if not (0 <= ingest_worker < ingest_workers):
         raise ValueError(
@@ -280,10 +290,6 @@ def extract_features(
     thumbs_conn = wdb.init_thumbs(project.thumbs_db_path)
 
     stats = ExtractionStats()
-    from ..utils.profiling import StageTimer
-
-    timer = StageTimer()
-    _BatchedEmbedder.timer = timer
     _BatchedEmbedder.id_base = ingest_worker * INGEST_ID_STRIDE
     media_repo = MediaRepo()
     sc_repo = SourceCollectionRepo()
@@ -413,7 +419,6 @@ def extract_features(
 
         for path, chunk in _timed_iter(
             _ordered_prefetch(factory, [p for p, _ in entries], num_workers),
-            timer, "decode",
         ):
             mid = id_by_path[str(path)]
             img = chunk["image"]
@@ -473,7 +478,7 @@ def extract_features(
             if num_workers > 0
             else per_file_factory([p for p, _ in av_entries])
         )
-        for path, chunk in _timed_iter(iterator, timer, "decode"):
+        for path, chunk in _timed_iter(iterator):
             mid = id_by_path[str(path)]
             if "video" in chunk:
                 v = chunk["video"]
@@ -517,7 +522,6 @@ def extract_features(
 
         for path, chunk in _timed_iter(
             _ordered_prefetch(factory, [p for p, _ in entries], num_workers),
-            timer, "decode",
         ):
             mid = id_by_path[str(path)]
             a = chunk["audio"]
@@ -538,9 +542,7 @@ def extract_features(
     conn.close()
     thumbs_conn.close()
     stats.elapsed_sec = time.time() - t0
-    timer.add("total", stats.elapsed_sec)
-    stats.stage_timings = timer.report()
-    logger.info(f"stage timings: {timer.summary()}")
+    logger.info(f"spans: {timer().summary()}")
     logger.info(
         f"extraction done in {stats.elapsed_sec:.1f}s: "
         f"{stats.num_video_vectors} video / {stats.num_audio_vectors} audio / "
